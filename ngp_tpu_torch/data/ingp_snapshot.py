@@ -1,0 +1,143 @@
+"""Reference ``.ingp`` snapshot reading, the port's copy of the read half of
+``ngp_tpu/data/ingp_snapshot.py``.
+
+A snapshot is msgpack of the network config with a ``"snapshot"`` key,
+zlib-wrapped for ``.ingp``. Inside it:
+
+- ``params_binary``: tcnn's flat parameter buffer (``params_type``
+  ``"__half"`` or float), in the order density MLP, rgb MLP, position grid
+  encoding. Each MLP stores its matrices layer by layer, row-major
+  ``[n_out, n_in]``, the last output width padded to 16; grid levels are
+  consecutive ``(rows_in_level, F)`` blocks.
+- ``density_grid_binary``: a float16 occupancy grid of ``G³`` cells per
+  cascade, Morton-ordered within each cascade.
+"""
+
+from __future__ import annotations
+
+import zlib
+
+import numpy as np
+
+from ngp_tpu_torch.data import msgpack_lite
+
+_ALIGN = 16  # FullyFusedMLP output alignment
+
+
+def _next_multiple(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def load_ingp(path: str) -> dict:
+    """Decode a reference snapshot file (zlib-, gzip- or un-wrapped
+    msgpack) into a plain dict; msgpack bin fields come back as bytes."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    if blob[:2] == b"\x1f\x8b":  # gzip-wrapped zlib stream
+        blob = zlib.decompress(blob, wbits=47)
+    else:
+        try:
+            blob = zlib.decompress(blob)
+        except zlib.error:
+            pass  # raw msgpack (.msgpack)
+    return msgpack_lite.unpackb(blob)
+
+
+def _mlp_padded_layout(mlp) -> list[tuple[int, int]]:
+    """tcnn layer shapes ``[(out, in), ...]`` with the padded output width."""
+    out_pad = _next_multiple(mlp.n_output_dims, _ALIGN)
+    if mlp.n_hidden_layers == 0:
+        return [(out_pad, mlp.n_input_dims)]
+    dims = [(mlp.n_neurons, mlp.n_input_dims)]
+    dims += [(mlp.n_neurons, mlp.n_neurons)] * (mlp.n_hidden_layers - 1)
+    dims += [(out_pad, mlp.n_neurons)]
+    return dims
+
+
+def _mlp_from_flat(flat: np.ndarray, off: int, mlp) -> tuple[dict, int]:
+    layout = _mlp_padded_layout(mlp)
+    ws = []
+    for i, (rows, cols) in enumerate(layout):
+        m = flat[off:off + rows * cols].reshape(rows, cols)
+        off += rows * cols
+        w = m.T  # (in, out)
+        if i == len(layout) - 1:
+            w = w[:, : mlp.n_output_dims]
+        ws.append(np.ascontiguousarray(w, np.float32))
+    return {"weights": ws}, off
+
+
+def _grid_from_flat(flat: np.ndarray, off: int, enc) -> tuple[dict, int]:
+    _, _, sizes, _ = enc.level_geometry()
+    F = enc.n_features_per_level
+    table = np.zeros((enc.n_levels, enc.max_table_rows, F), np.float32)
+    for l, size in enumerate(sizes):
+        n = int(size) * F
+        table[l, : int(size)] = flat[off:off + n].reshape(int(size), F)
+        off += n
+    return {"table": table}, off
+
+
+def reference_n_params(network) -> int:
+    """tcnn parameter count of a ``NerfNetwork``, padding included."""
+    total = sum(
+        r * c
+        for mlp in (network.density_mlp, network.rgb_mlp)
+        for r, c in _mlp_padded_layout(mlp)
+    )
+    return total + network.pos_encoding.n_params
+
+
+def params_from_reference(snapshot: dict, network) -> dict:
+    """``snapshot["params_binary"]`` → a JAX-layout parameter tree of numpy
+    arrays for ``network`` (load it with ``interop.load_jax_params``)."""
+    ptype = snapshot.get("params_type", "__half")
+    dtype = np.float16 if ptype == "__half" else np.float32
+    flat = np.frombuffer(snapshot["params_binary"], dtype=dtype).astype(np.float32)
+    expect = reference_n_params(network)
+    if flat.size < expect:
+        raise ValueError(
+            f"snapshot has {flat.size} params; network needs {expect} "
+            "(config mismatch?)"
+        )
+    off = 0
+    density, off = _mlp_from_flat(flat, off, network.density_mlp)
+    rgb, off = _mlp_from_flat(flat, off, network.rgb_mlp)
+    pos, off = _grid_from_flat(flat, off, network.pos_encoding)
+    return {"pos_encoding": pos, "density_mlp": density, "rgb_mlp": rgb}
+
+
+def morton_codes(G: int) -> np.ndarray:
+    """Morton code of every cell in row-major (x, y, z) order, tcnn's
+    ``morton3D`` (x in the least significant interleaved bits)."""
+
+    def expand(v: np.ndarray) -> np.ndarray:
+        v = v.astype(np.uint64)
+        v = (v | (v << np.uint64(32))) & np.uint64(0x1F00000000FFFF)
+        v = (v | (v << np.uint64(16))) & np.uint64(0x1F0000FF0000FF)
+        v = (v | (v << np.uint64(8))) & np.uint64(0x100F00F00F00F00F)
+        v = (v | (v << np.uint64(4))) & np.uint64(0x10C30C30C30C30C3)
+        v = (v | (v << np.uint64(2))) & np.uint64(0x1249249249249249)
+        return v
+
+    r = np.arange(G, dtype=np.uint64)
+    x, y, z = np.meshgrid(r, r, r, indexing="ij")
+    return (expand(x) | (expand(y) << np.uint64(1))
+            | (expand(z) << np.uint64(2))).reshape(-1).astype(np.int64)
+
+
+def density_grid_from_reference(blob: bytes, n_cascades: int,
+                                grid_size: int = 128) -> np.ndarray:
+    """float16 Morton-ordered grid bytes → row-major ``(C, G, G, G)``
+    float32."""
+    g = np.frombuffer(blob, dtype=np.float16).astype(np.float32)
+    n_cells = grid_size ** 3
+    if g.size != n_cascades * n_cells:
+        raise ValueError(
+            f"density grid has {g.size} cells, expected {n_cascades}x{n_cells}"
+        )
+    codes = morton_codes(grid_size)
+    out = np.empty((n_cascades, n_cells), np.float32)
+    for c in range(n_cascades):
+        out[c] = g[c * n_cells:][codes]
+    return out.reshape(n_cascades, grid_size, grid_size, grid_size)

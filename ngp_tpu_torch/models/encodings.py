@@ -1,0 +1,242 @@
+"""Input encodings as ``nn.Module``s: the main-path subset of
+``ngp_tpu/models/encodings.py``.
+
+``GridEncoding`` (Hash and Dense grids, Linear interpolation, XOR or
+additive hash) runs through :func:`ngp_tpu_torch.ops.hashgrid.hashgrid_encode`:
+the CUDA kernel on the card, its plain twin on the CPU. Spherical
+harmonics (degree ≤ 4), Identity and Composite are plain tensor code.
+Tiled grids and Simplex interpolation are not yet ported and raise.
+
+Every module maps ``(N, n_input_dims)`` float32 in the encoding's domain
+([0, 1] for grids and SH) to ``(N, n_output_dims)`` float32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ngp_tpu_torch.device import resolve_device
+from ngp_tpu_torch.ops.hashgrid import hashgrid_encode
+
+
+def _next_multiple(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class GridEncoding(nn.Module):
+    """Multiresolution hash or dense grid (tcnn convention, as the JAX
+    package): ``scale_l = 2^(l·log2(b))·N_min − 1``, ``res_l = ceil(scale_l)
+    + 1``; a level stores ``min(next_multiple(res^D, 8), 2^log2_hashmap_size)``
+    rows and hashes when ``res^D`` does not fit. Parameters: one ``(L, T, F)``
+    float32 ``table``.
+
+    Table reads follow the JAX package's dtypes: with the additive hash the
+    JAX package reads ``dup_gather_dtype`` rows, by default bf16-rounded
+    ("packed_bf16", F even); with the XOR hash it reads ``gather_dtype``
+    rows, float32 by default. The blend itself is float32 either way."""
+
+    def __init__(self, n_input_dims: int = 3, n_levels: int = 16,
+                 n_features_per_level: int = 2, log2_hashmap_size: int = 19,
+                 base_resolution: int = 16, per_level_scale: float = 2.0,
+                 grid_type: str = "Hash", interpolation: str = "Linear",
+                 gather_dtype: str = "float32", hash_variant: str = "tcnn",
+                 dup_gather_dtype: str = "packed_bf16", device="cuda"):
+        super().__init__()
+        if n_input_dims not in (2, 3):
+            raise ValueError(f"grid encoding supports 2D/3D, got {n_input_dims}")
+        if grid_type not in ("Hash", "Dense"):
+            raise ValueError(f"grid_type {grid_type!r} is not yet ported "
+                             "(Hash | Dense)")
+        if interpolation != "Linear":
+            raise ValueError(f"interpolation {interpolation!r} is not yet "
+                             "ported (Linear)")
+        if hash_variant not in ("tcnn", "additive"):
+            raise ValueError(f"unsupported hash_variant {hash_variant!r} "
+                             "(tcnn | additive)")
+        if gather_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unsupported gather_dtype {gather_dtype!r}")
+        if dup_gather_dtype not in ("packed_bf16", "float32"):
+            raise ValueError(f"unsupported dup_gather_dtype {dup_gather_dtype!r}")
+        self.n_input_dims = n_input_dims
+        self.n_levels = n_levels
+        self.n_features_per_level = n_features_per_level
+        self.log2_hashmap_size = log2_hashmap_size
+        self.base_resolution = base_resolution
+        self.per_level_scale = per_level_scale
+        self.grid_type = grid_type
+        self.interpolation = interpolation
+        self.gather_dtype = gather_dtype
+        self.hash_variant = hash_variant
+        self.dup_gather_dtype = dup_gather_dtype
+        dev = resolve_device(device)
+        scales, res, sizes, hashed = self.level_geometry()
+        self.register_buffer("level_scale", torch.as_tensor(scales, device=dev))
+        self.register_buffer("level_res", torch.as_tensor(res, device=dev))
+        self.register_buffer("level_size", torch.as_tensor(sizes, device=dev))
+        self.register_buffer(
+            "level_hashed", torch.as_tensor(hashed.astype(np.int32), device=dev)
+        )
+        self.table = nn.Parameter(torch.zeros(
+            (n_levels, int(sizes.max()), n_features_per_level),
+            dtype=torch.float32, device=dev,
+        ))
+
+    @property
+    def table_size(self) -> int:
+        return 1 << self.log2_hashmap_size
+
+    def level_geometry(self):
+        """Per-level (scale f32, resolution i32, rows i32, hashed bool)."""
+        ls = math.log2(self.per_level_scale)
+        scales, res, sizes, hashed = [], [], [], []
+        for l in range(self.n_levels):
+            s = 2.0 ** (l * ls) * self.base_resolution - 1.0
+            r = int(math.ceil(s)) + 1
+            dense = r ** self.n_input_dims
+            if self.grid_type == "Dense":
+                size, h = dense, False
+            else:
+                size = min(_next_multiple(dense, 8), self.table_size)
+                h = dense > size
+            scales.append(s)
+            res.append(r)
+            sizes.append(size)
+            hashed.append(h)
+        return (
+            np.asarray(scales, np.float32),
+            np.asarray(res, np.int32),
+            np.asarray(sizes, np.int32),
+            np.asarray(hashed, np.bool_),
+        )
+
+    @property
+    def n_output_dims(self) -> int:
+        return self.n_levels * self.n_features_per_level
+
+    @property
+    def n_params(self) -> int:
+        return int(self.level_geometry()[2].sum()) * self.n_features_per_level
+
+    @property
+    def max_table_rows(self) -> int:
+        return int(self.level_geometry()[2].max())
+
+    @property
+    def bf16_reads(self) -> bool:
+        """Whether table rows are read rounded to bf16 (see class doc)."""
+        if self.hash_variant == "additive":
+            return (self.dup_gather_dtype == "packed_bf16"
+                    and self.n_features_per_level % 2 == 0)
+        return self.gather_dtype == "bfloat16"
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """tcnn's init: features ~ U(-1e-4, 1e-4), drawn on the CPU from
+        ``generator`` so that every device gets the same table."""
+        t = torch.rand(self.table.shape, generator=generator) * 2e-4 - 1e-4
+        self.table.copy_(t)
+
+    def forward(self, x: torch.Tensor, max_level: int | None = None):
+        """(N, D) positions in [0, 1] → (N, L·F); levels above ``max_level``
+        are zero (the reference's coarse-to-fine ``set_max_level``)."""
+        table = self.table.to(torch.bfloat16) if self.bf16_reads else self.table
+        return hashgrid_encode(
+            x.contiguous(), table.contiguous(), self.level_scale,
+            self.level_res, self.level_size, self.level_hashed,
+            self.hash_variant, max_level,
+        )
+
+
+def sh_basis_deg4(d: torch.Tensor) -> torch.Tensor:
+    """Real spherical-harmonics basis, degrees 0..3 (16 coefficients), on
+    unit directions ``d`` (N, 3), tcnn's hard-coded polynomial form."""
+    x, y, z = d[:, 0], d[:, 1], d[:, 2]
+    xy, xz, yz = x * y, x * z, y * z
+    x2, y2, z2 = x * x, y * y, z * z
+    cols = [
+        torch.full_like(x, 0.28209479177387814),
+        -0.48860251190291987 * y,
+        0.48860251190291987 * z,
+        -0.48860251190291987 * x,
+        1.0925484305920792 * xy,
+        -1.0925484305920792 * yz,
+        0.94617469575755997 * z2 - 0.31539156525251999,
+        -1.0925484305920792 * xz,
+        0.54627421529603959 * (x2 - y2),
+        0.59004358992664352 * y * (-3.0 * x2 + y2),
+        2.8906114426405538 * xy * z,
+        0.45704579946446572 * y * (1.0 - 5.0 * z2),
+        0.3731763325901154 * z * (5.0 * z2 - 3.0),
+        0.45704579946446572 * x * (1.0 - 5.0 * z2),
+        1.4453057213202769 * z * (x2 - y2),
+        0.59004358992664352 * x * (-x2 + 3.0 * y2),
+    ]
+    return torch.stack(cols, dim=-1)
+
+
+class SphericalHarmonicsEncoding(nn.Module):
+    """SH encoding of directions given in the reference's warped [0, 1]³
+    form, mapped to [-1, 1] before the basis, like tcnn."""
+
+    def __init__(self, n_input_dims: int = 3, degree: int = 4):
+        super().__init__()
+        if n_input_dims != 3 or not 1 <= degree <= 4:
+            raise ValueError(
+                f"SphericalHarmonics supports 3 input dims and degree 1..4, "
+                f"got {n_input_dims} dims, degree {degree}"
+            )
+        self.n_input_dims = n_input_dims
+        self.degree = degree
+
+    @property
+    def n_output_dims(self) -> int:
+        return self.degree * self.degree
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return sh_basis_deg4(x * 2.0 - 1.0)[:, : self.n_output_dims]
+
+
+class IdentityEncoding(nn.Module):
+    def __init__(self, n_input_dims: int = 3, scale: float = 1.0,
+                 offset: float = 0.0):
+        super().__init__()
+        self.n_input_dims = n_input_dims
+        self.scale = scale
+        self.offset = offset
+
+    @property
+    def n_output_dims(self) -> int:
+        return self.n_input_dims
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale + self.offset
+
+
+class CompositeEncoding(nn.Module):
+    """Concatenation of nested encodings over consecutive input slices
+    (tcnn's Composite; the reference's dir encoding is SH on the first 3
+    dims plus Identity on the latent extras)."""
+
+    def __init__(self, nested: list[tuple[nn.Module, int]]):
+        super().__init__()
+        self.nested = nn.ModuleList(enc for enc, _ in nested)
+        self.dims = [n for _, n in nested]
+
+    @property
+    def n_input_dims(self) -> int:
+        return sum(self.dims)
+
+    @property
+    def n_output_dims(self) -> int:
+        return sum(e.n_output_dims for e in self.nested)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs, off = [], 0
+        for enc, n in zip(self.nested, self.dims):
+            outs.append(enc(x[:, off : off + n]))
+            off += n
+        return torch.cat(outs, dim=-1)
