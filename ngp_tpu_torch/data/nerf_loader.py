@@ -25,6 +25,9 @@ class NerfDataset:
     aabb_scale: int = 1
     is_hdr: bool = False
     n_extra_learnable_dims: int = 0
+    # error-map importance sampling of training rays (the JAX package's
+    # default; nerf_loader.py there)
+    wants_importance_sampling: bool = True
 
     @property
     def n_images(self) -> int:

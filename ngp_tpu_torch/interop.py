@@ -1,5 +1,6 @@
-"""Weights across packages: the JAX package's ``NerfNetwork`` parameter
-pytree, as numpy arrays, to and from the port's modules.
+"""Weights and training state across packages: the JAX package's
+``NerfNetwork`` parameter pytree and ``TrainState``, as numpy arrays, to
+and from the port's modules.
 
 The tree layout is the JAX package's::
 
@@ -10,15 +11,31 @@ The tree layout is the JAX package's::
 
 ``data/ingp_snapshot.params_from_reference`` produces the same layout from
 a reference ``.ingp`` snapshot.
+
+A training state is the tree::
+
+    {"step": int,
+     "params": <model tree>,
+     "opt": {"dense": {"count": int, "mu": <tree>, "nu": <tree>},
+             "grid": {"count": int, "mu": <tree>, "nu": <tree>}},
+     "ema": <model tree> or None}
+
+where a group's ``mu``/``nu`` trees hold that group's leaves only (the
+tables for ``"grid"``, the MLP weights for ``"dense"``), laid out as in
+the model tree: the JAX package's optax states restricted to the model.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
 
 from ngp_tpu_torch.models.encodings import CompositeEncoding, GridEncoding
 from ngp_tpu_torch.models.mlp import MLP
+from ngp_tpu_torch.optim import GROUPS, AdamState, param_groups
+from ngp_tpu_torch.train import TrainState
 
 
 def _copy(param: torch.Tensor, value, name: str):
@@ -80,4 +97,78 @@ def export_jax_params(network) -> dict:
         "rgb_mlp": {"weights": [
             w.detach().cpu().numpy().copy() for w in network.rgb_mlp.weights
         ]},
+    }
+
+
+def _path(name: str):
+    """A parameter name (``density_mlp.weights.0``) as tree keys."""
+    return [int(k) if k.isdigit() else k for k in name.split(".")]
+
+
+def _tree_get(tree, name: str):
+    for k in _path(name):
+        tree = tree[k]
+    return tree
+
+
+def _tree_set(tree: dict, name: str, value):
+    keys = _path(name)
+    for k, nxt in zip(keys[:-1], keys[1:]):
+        if isinstance(tree, list):
+            while len(tree) <= k:
+                tree.append(None)
+        elif k not in tree:
+            tree[k] = [] if isinstance(nxt, int) else {}
+        tree = tree[k]
+    if isinstance(tree, list):
+        while len(tree) <= keys[-1]:
+            tree.append(None)
+    tree[keys[-1]] = value
+
+
+def _tensor_like(param: torch.Tensor, value, name: str) -> torch.Tensor:
+    t = torch.empty_like(param)
+    _copy(t, value, name)
+    return t
+
+
+def load_jax_train_state(network, tree: dict) -> TrainState:
+    """A ``TrainState`` of ``network`` (the port's ``NerfNetwork``, filled
+    in place) from a training-state tree (module docstring)."""
+    load_jax_params(network, tree["params"])
+    groups = param_groups(network)
+    opt = {}
+    for g in GROUPS:
+        st = tree["opt"][g]
+        opt[g] = AdamState(
+            int(st["count"]),
+            [_tensor_like(p, _tree_get(st["mu"], n), f"opt.{g}.mu.{n}")
+             for n, p in groups[g]],
+            [_tensor_like(p, _tree_get(st["nu"], n), f"opt.{g}.nu.{n}")
+             for n, p in groups[g]],
+        )
+    ema = None
+    if tree.get("ema") is not None:
+        ema = load_jax_params(copy.deepcopy(network), tree["ema"]).requires_grad_(False)
+    return TrainState(int(tree["step"]), network, opt, ema)
+
+
+def export_jax_train_state(state: TrainState) -> dict:
+    """The training-state tree (module docstring) of a port ``TrainState``;
+    an EMA not yet started is the model itself, as the JAX package's
+    ``ema_init`` makes it."""
+    groups = param_groups(state.model)
+    opt = {}
+    for g in GROUPS:
+        st = state.opt_state[g]
+        mu, nu = {}, {}
+        for (name, _), m, v in zip(groups[g], st.mu, st.nu):
+            _tree_set(mu, name, m.detach().cpu().numpy().copy())
+            _tree_set(nu, name, v.detach().cpu().numpy().copy())
+        opt[g] = {"count": st.count, "mu": mu, "nu": nu}
+    return {
+        "step": state.step,
+        "params": export_jax_params(state.model),
+        "opt": opt,
+        "ema": export_jax_params(state.inference_model()),
     }

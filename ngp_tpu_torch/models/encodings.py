@@ -2,10 +2,13 @@
 ``ngp_tpu/models/encodings.py``.
 
 ``GridEncoding`` (Hash and Dense grids, Linear interpolation, XOR or
-additive hash) runs through :func:`ngp_tpu_torch.ops.hashgrid.hashgrid_encode`:
-the CUDA kernel on the card, its plain twin on the CPU. Spherical
-harmonics (degree ≤ 4), Identity and Composite are plain tensor code.
-Tiled grids and Simplex interpolation are not yet ported and raise.
+additive hash) runs through :func:`ngp_tpu_torch.ops.hashgrid.hashgrid_encode`
+forward and, for d(table), :func:`~ngp_tpu_torch.ops.hashgrid.hashgrid_backward_addends`
+then :func:`~ngp_tpu_torch.ops.segsum.batched_segment_sum`: CUDA kernels on
+the card, their plain twins on the CPU. Spherical harmonics (degree ≤ 4),
+Identity and Composite are plain tensor code. Tiled grids, Simplex
+interpolation and gradients with respect to positions are not yet ported
+and raise.
 
 Every module maps ``(N, n_input_dims)`` float32 in the encoding's domain
 ([0, 1] for grids and SH) to ``(N, n_output_dims)`` float32.
@@ -20,11 +23,41 @@ import torch
 from torch import nn
 
 from ngp_tpu_torch.device import resolve_device
-from ngp_tpu_torch.ops.hashgrid import hashgrid_encode
+from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends, hashgrid_encode
+from ngp_tpu_torch.ops.segsum import batched_segment_sum
 
 
 def _next_multiple(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+class _GridEncode(torch.autograd.Function):
+    """Grid forward (kernel B1) whose backward is B1's backward half then
+    the segment-sum kernel: d(table) float32 for the float32 master table,
+    addends rounded to bf16 (the JAX package's default
+    ``batched_segment_sum`` payload). Positions get no gradient, as in the
+    JAX package's training path."""
+
+    @staticmethod
+    def forward(ctx, table, x, enc, max_level):
+        read = table.to(torch.bfloat16) if enc.bf16_reads else table
+        ctx.save_for_backward(x)
+        ctx.enc, ctx.max_level, ctx.table_shape = enc, max_level, table.shape
+        return hashgrid_encode(
+            x, read.contiguous(), enc.level_scale, enc.level_res,
+            enc.level_size, enc.level_hashed, enc.hash_variant, max_level,
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        enc = ctx.enc
+        keys, vals = hashgrid_backward_addends(
+            x, g.contiguous(), enc.level_scale, enc.level_res, enc.level_size,
+            enc.level_hashed, enc.hash_variant, ctx.max_level,
+        )
+        dtable = batched_segment_sum(keys, vals, ctx.table_shape[1])
+        return dtable, None, None, None
 
 
 class GridEncoding(nn.Module):
@@ -37,7 +70,9 @@ class GridEncoding(nn.Module):
     Table reads follow the JAX package's dtypes: with the additive hash the
     JAX package reads ``dup_gather_dtype`` rows, by default bf16-rounded
     ("packed_bf16", F even); with the XOR hash it reads ``gather_dtype``
-    rows, float32 by default. The blend itself is float32 either way."""
+    rows, float32 by default. The blend itself is float32 either way.
+
+    d(table) sums per-corner addends rounded to bf16 in float32."""
 
     def __init__(self, n_input_dims: int = 3, n_levels: int = 16,
                  n_features_per_level: int = 2, log2_hashmap_size: int = 19,
@@ -140,15 +175,17 @@ class GridEncoding(nn.Module):
         t = torch.rand(self.table.shape, generator=generator) * 2e-4 - 1e-4
         self.table.copy_(t)
 
-    def forward(self, x: torch.Tensor, max_level: int | None = None):
+    def forward(self, x: torch.Tensor, max_level: int | None = None,
+                differentiable_inputs: bool = False):
         """(N, D) positions in [0, 1] → (N, L·F); levels above ``max_level``
-        are zero (the reference's coarse-to-fine ``set_max_level``)."""
-        table = self.table.to(torch.bfloat16) if self.bf16_reads else self.table
-        return hashgrid_encode(
-            x.contiguous(), table.contiguous(), self.level_scale,
-            self.level_res, self.level_size, self.level_hashed,
-            self.hash_variant, max_level,
-        )
+        are zero, gradients included (the reference's coarse-to-fine
+        ``set_max_level``). Gradients reach ``table`` only."""
+        if differentiable_inputs:
+            raise NotImplementedError(
+                "grid encoding gradients with respect to positions "
+                "(differentiable_inputs=True) are not yet ported")
+        return _GridEncode.apply(self.table, x.detach().contiguous(), self,
+                                 max_level)
 
 
 def sh_basis_deg4(d: torch.Tensor) -> torch.Tensor:

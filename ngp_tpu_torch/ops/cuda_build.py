@@ -44,12 +44,14 @@ def nvcc_path() -> str:
 
 class CudaKernel:
     """One CUDA source, its C functions' ctypes signatures, and a count of
-    kernel launches that its Python wrapper keeps."""
+    launches per kernel entry point (``launches[name]``) that the Python
+    wrappers keep: each adds one where it launches its kernel, nowhere
+    else."""
 
-    def __init__(self, source: str, signatures: dict):
+    def __init__(self, source: str, signatures: dict, entries: tuple):
         self.source = CSRC / source
         self.signatures = signatures  # name -> (restype, [argtypes])
-        self.launches = 0
+        self.launches = dict.fromkeys(entries, 0)
         self._lib = None
         KERNELS.append(self)
 
@@ -103,14 +105,31 @@ class CudaKernel:
         return self._lib
 
 
-KERNEL_MODULES = ("ngp_tpu_torch.ops.hashgrid",)
+KERNEL_MODULES = ("ngp_tpu_torch.ops.hashgrid", "ngp_tpu_torch.ops.segsum")
+
+
+def _register_all():
+    for mod in KERNEL_MODULES:
+        importlib.import_module(mod)  # registers its CudaKernel
+
+
+def reset_launches():
+    """Set every kernel entry point's launch count to 0."""
+    _register_all()
+    for k in KERNELS:
+        k.launches = dict.fromkeys(k.launches, 0)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of every kernel entry point since the last reset."""
+    _register_all()
+    return {name: n for k in KERNELS for name, n in k.launches.items()}
 
 
 def build_all() -> dict[str, str]:
     """Compile every kernel source at once (one ``nvcc`` each, all started
     together) and load them; returns each compiler log."""
-    for mod in KERNEL_MODULES:
-        importlib.import_module(mod)  # registers its CudaKernel
+    _register_all()
     started = [(k, *k.start_build()) for k in KERNELS]
     logs = {k.name: CudaKernel.finish_build(p, out) for k, p, out in started}
     for k in KERNELS:

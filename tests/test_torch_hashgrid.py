@@ -139,11 +139,11 @@ def test_wrapper_uses_twin_only_for_cpu_tensors():
     the CUDA wrapper refuses CPU tensors rather than falling back."""
     _, penc = _encodings(3, 2, "tcnn")
     x = torch.from_numpy(_positions(64, 3, 0))
-    before = HASHGRID_ENCODE.launches
+    before = HASHGRID_ENCODE.launches["hashgrid_encode"]
     out = hashgrid_encode(x, penc.table.detach(), penc.level_scale,
                           penc.level_res, penc.level_size, penc.level_hashed,
                           "tcnn")
-    assert out.shape == (64, 8) and HASHGRID_ENCODE.launches == before
+    assert out.shape == (64, 8) and HASHGRID_ENCODE.launches["hashgrid_encode"] == before
     with pytest.raises(ValueError, match="CUDA tensor"):
         hashgrid_encode_cuda(x, penc.table.detach(), penc.level_scale,
                              penc.level_res, penc.level_size,

@@ -48,14 +48,14 @@ def test_golden_render_matches_frozen_jax_render():
     (``test_golden_parity.py``): rtol = atol = 2e-4."""
     eng = port_golden_engine()
     state, grid = eng.load_reference_snapshot(GOLDEN_INGP)
-    launches = HASHGRID_ENCODE.launches
+    launches = HASHGRID_ENCODE.launches["hashgrid_encode"]
     img = eng.render_image(state, grid, 0, stride=4).numpy()
     gold = np.load(os.path.join(GOLDEN, "golden.npz"))["render"]
     assert img.shape == gold.shape == (12, 12, 3)
     np.testing.assert_allclose(img, gold, rtol=2e-4, atol=2e-4)
     assert gold.std() > 0.05  # the view shows the object, not background
     assert eng.last_render_samples > 0
-    assert HASHGRID_ENCODE.launches == launches  # the CPU runs the twin
+    assert HASHGRID_ENCODE.launches["hashgrid_encode"] == launches  # the CPU runs the twin
 
 
 def test_render_modes_and_uncompacted_render_agree():
