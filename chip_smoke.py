@@ -13,36 +13,46 @@ Phases, each printing one JSON line:
 3. kernel: ``hashgrid_encode_cuda`` against its plain PyTorch twin on the
    card, at N = 2^20 samples, "tpu" tier (L=8, F=2, T=2^18, additive) and
    "upstream" tier (L=16, F=2, T=2^19, XOR), float32 and bf16 tables:
-   error, kernel time (CUDA events), twin time, a one-call PyTorch
-   yardstick and the bound.
-4. golden: the reference snapshot ``tests/golden/golden.ingp`` rendered by
+   error, times, a one-call PyTorch yardstick and the bound.
+4. kernel_sort: ``bitonic_sort_pos_cuda`` (B5) against its twin, exactly,
+   at (B, n) = (4, 2^20) with dense ties; ``torch.sort`` as yardstick.
+5. golden: the reference snapshot ``tests/golden/golden.ingp`` rendered by
    the port (view 0, stride 4) against the JAX package's frozen render
    ``tests/golden/golden.npz``.
-5. serve: three 960×540 views of the full-width "tpu" tier with seeded
+6. serve: three 960×540 views of the full-width "tpu" tier with seeded
    weights over an analytic occupancy grid, through ``render_image``; per
    frame its time, the samples evaluated and the kernel launches, then one
    more frame under ``torch.profiler``: device time per stage, the busiest
    kernels, and the device's busy share of the frame.
-6. kernel_main_path: the kernel case again at the serve path's shape
+7. kernel_main_path: the kernel case again at the serve path's shape
    (its mean samples per launch).
-7. train: the bench's fallback configuration (``bench.py``: the synthetic
+8. train: the bench's fallback configuration (``bench.py``: the synthetic
    sphere, 12 views at 128², full-width "tpu" tier, 2^18 sample slots per
    step, grid 128), 400 steps through ``NerfEngine.train``: ms per step,
    network samples per second, final loss, batch geometry, kernel launches
    per step, and the PSNR of view 0, which must reach ``TRAIN_PSNR_MIN``.
-8. kernel_train: the training kernels against their twins at the training
-   step's shapes ("tpu" tier, L=8 levels of M = 8·N corner addends, F=2,
-   T=2^18, for N the path's mean network samples per step and for N the
-   full budget of 163,840): the grid backward's addends (B1's backward
-   half), the segment sum (B2), the key histogram (B3) and the one-level
-   entry points (B4); error, kernel time, twin time, a one-call PyTorch
-   yardstick and the bound of each.
-9. train_profile: two windows of 16 more steps (one occupancy-update
+9. kernel_train and segsum_levels: the training kernels against their
+   twins at the training step's shapes ("tpu" tier, L=8 levels of M = 8·N
+   corner addends, F=2, T=2^18, for N the path's mean network samples per
+   step and for N the full budget of 163,840): the grid backward's addends
+   (B1's backward half), the segment sum (B2, also level by level and
+   without ``level_sizes``), the key histogram (B3) and the one-level entry
+   points (B4); error, times, a one-call PyTorch yardstick and the bound
+   of each.
+10. train_profile: two windows of 16 more steps (one occupancy-update
    cycle) under ``torch.profiler``: one run as phase train runs them, for
    the device's busy share of a step; one with the backward on the calling
    thread, for the device time per stage (march, network forward, loss,
-   backward, grid backward, optimizer, grid update). Then the ``kernels`` line, the card's ``name, power.limit``, and
-   last the ``{"ok": true, ...}`` line.
+   backward, grid backward, optimizer, grid update). Then the ``kernels``
+   line, the card's ``name, power.limit``, and last the ``{"ok": true,
+   ...}`` line.
+
+Each kernel has two times: ``ms``, the device time of one call (the
+kernels and the zero-fill of its output that the call puts on the card,
+from ``torch.profiler`` over 20 calls), and ``call_ms``, what a caller pays
+per call (CUDA events around 20 back-to-back calls of the Python wrapper,
+which host issue may bound). The library yardstick's ``library_ms`` is
+timed as ``ms`` is, its zeroed output made inside the timed call.
 
 Any failure raises and ends the run with a non-zero exit; so does a host
 without CUDA. The script imports torch, numpy and ``ngp_tpu_torch`` only.
@@ -87,8 +97,33 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Mean device milliseconds per call of ``fn``: the summed durations of
+    the kernels and copies that ``iters`` calls put on the card, read from
+    ``torch.profiler`` after warm-up. The host's time between them (Python,
+    checks, launch issue) is not in it; :func:`cuda_ms` measures that."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    if not us > 0:
+        raise AssertionError("the profiler saw no device work")
+    return us / 1e3 / iters
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call of ``fn`` by CUDA events, after warm-up."""
+    """Mean milliseconds per call of ``fn`` by CUDA events, after warm-up:
+    what a caller pays per call, host issue included when the card waits
+    for it."""
     import torch
 
     for _ in range(warmup):
@@ -176,7 +211,8 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL):
     if not err <= KERNEL_REL_TOL * scale:
         raise AssertionError(f"{tier} {table_dtype}: max abs err {err} > "
                              f"{KERNEL_REL_TOL} x {scale}")
-    ms = cuda_ms(lambda: hashgrid_encode_cuda(x, table, *geo), iters=50)
+    ms = device_ms(lambda: hashgrid_encode_cuda(x, table, *geo))
+    call_ms = cuda_ms(lambda: hashgrid_encode_cuda(x, table, *geo), iters=20)
     plain_ms = cuda_ms(lambda: hashgrid_encode_reference(x, table, *geo),
                        iters=3, warmup=1)
 
@@ -209,7 +245,7 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL):
     lib_err = float((lib.reshape(n, L * F) - ref).abs().max())
     if not lib_err <= 1e-4 * scale:
         raise AssertionError(f"yardstick disagrees with the twin: {lib_err}")
-    library_ms = cuda_ms(lambda: tnf.embedding_bag(
+    library_ms = device_ms(lambda: tnf.embedding_bag(
         bags, flat, per_sample_weights=bag_w, mode="sum"), iters=10)
     del idx, wts, bags, bag_w, lib
 
@@ -220,8 +256,8 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL):
     return {
         "tier": tier, "table": str(table_dtype).replace("torch.", ""),
         "N": n, "L": L, "T": T, "F": F, "hash": enc.hash_variant,
-        "max_abs_err": err, "max_abs_ref": scale, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms,
+        "max_abs_err": err, "max_abs_ref": scale, "ms": ms, "call_ms": call_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
         **_bound(n * D * 4 + n * L * F * 4 + sum(sizes) * F * item,
                  n * L * (3 * D + C * (D - 1) + 2 * C * F)),
         "table_bf16_reads_on_main_path": enc.bf16_reads,
@@ -446,19 +482,14 @@ def phase_serve():
     return frames, launches
 
 
-def phase_kernel_train(n_samples: int, shape: str) -> dict:
-    """Each training kernel against its twin at a step's shapes: the grid
-    backward of ``n_samples`` network samples of the "tpu" tier at
-    aabb_scale 1, whose keys and addends then feed the segment sum, the
-    histogram and the one-level entry points. Returns the kernels' rows of
-    the ``kernels`` line (without launches)."""
+def train_addends(n_samples: int):
+    """The grid backward's inputs and outputs at a training step's shape:
+    ``n_samples`` uniform positions and small cotangents for the "tpu" tier
+    at aabb_scale 1, and the keys and addends that B1's backward half
+    writes for them. Returns (x, g, geometry, keys, vals, T, level sizes)."""
     import torch
 
-    from ngp_tpu_torch.ops import segsum
-    from ngp_tpu_torch.ops.hashgrid import (
-        hashgrid_backward_addends_cuda,
-        hashgrid_backward_addends_reference,
-    )
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_cuda
 
     enc = _encoding("tpu", aabb_scale=1)
     L, T, F = enc.table.shape
@@ -467,11 +498,68 @@ def phase_kernel_train(n_samples: int, shape: str) -> dict:
     gen = torch.Generator().manual_seed(2)
     x = torch.rand((n_samples, 3), generator=gen).cuda()
     g = (torch.randn((n_samples, L * F), generator=gen) * 1e-3).cuda()
+    keys, vals = hashgrid_backward_addends_cuda(x, g, *geo)
+    torch.cuda.synchronize()
+    return x, g, geo, keys, vals, T, enc.level_geometry()[2].tolist()
+
+
+def segsum_times(keys, vals, T: int, sizes: list) -> dict:
+    """Device ms of ``batched_segment_sum`` (zero-fill and kernel) as the
+    training step calls it (with the encoding's ``level_sizes``) and
+    without ``level_sizes``, over all levels and for each level alone,
+    beside the ``index_add_`` yardstick timed alike: a zeroed output made
+    inside the timed call, then one ``index_add_`` of addends rounded to
+    bf16 and keys offset per level beforehand (outside the timing, which
+    favours the library)."""
+    import torch
+
+    from ngp_tpu_torch.ops.segsum import batched_segment_sum
+
+    L, M, F = vals.shape
+
+    def index_add(k, v, rows):
+        return lambda: torch.zeros((rows, F), device="cuda").index_add_(0, k, v)
+
+    def times(k, v, s, lib):
+        return {"ms": device_ms(lambda: batched_segment_sum(k, v, T, level_sizes=s)),
+                "ms_without_level_sizes": device_ms(lambda: batched_segment_sum(k, v, T)),
+                "library_ms": device_ms(lib)}
+
+    rounded = vals.to(torch.bfloat16).float()
+    flat_keys = (keys.long() + torch.arange(L, device="cuda")[:, None] * T).reshape(-1)
+    out = {"all_levels": times(keys, vals, sizes,
+                               index_add(flat_keys, rounded.reshape(-1, F), L * T))}
+    out["levels"] = [
+        {"level": l, "rows": sizes[l],
+         **times(keys[l:l + 1], vals[l:l + 1], sizes[l:l + 1],
+                 index_add(keys[l].long(), rounded[l], T))}
+        for l in range(L)]
+    return out
+
+
+def phase_kernel_train(n_samples: int, shape: str) -> dict:
+    """Each training kernel against its twin at a step's shapes: the grid
+    backward of ``n_samples`` network samples of the "tpu" tier at
+    aabb_scale 1, whose keys and addends then feed the segment sum, the
+    histogram and the one-level entry points. Per kernel: ``ms``, the
+    device time of a call (its output's zero-fill included) from the
+    profiler; ``call_ms``, CUDA events around 20 calls of the wrapper;
+    the twin's time, the library yardstick's device time (timed alike) and
+    the bound. The segment sum also per level (phase ``segsum_levels``).
+    Returns the kernels' rows of the ``kernels`` line (without launches)."""
+    import torch
+
+    from ngp_tpu_torch.ops import segsum
+    from ngp_tpu_torch.ops.hashgrid import (
+        hashgrid_backward_addends_cuda,
+        hashgrid_backward_addends_reference,
+    )
+
+    x, g, geo, keys, vals, T, sizes = train_addends(n_samples)
+    L, M, F = vals.shape
     rows = {}
 
     # B1 backward: corner keys and addends w_c·g
-    keys, vals = hashgrid_backward_addends_cuda(x, g, *geo)
-    torch.cuda.synchronize()
     wkeys, wvals = hashgrid_backward_addends_reference(x, g, *geo)
     if not torch.equal(keys, wkeys):
         raise AssertionError("hashgrid_backward_addends: keys differ from the twin")
@@ -479,10 +567,9 @@ def phase_kernel_train(n_samples: int, shape: str) -> dict:
     if not err <= KERNEL_REL_TOL * float(wvals.abs().max()):
         raise AssertionError(f"hashgrid_backward_addends: max abs err {err}")
     del wkeys, wvals
-    M = keys.shape[1]
+    bwd = lambda: hashgrid_backward_addends_cuda(x, g, *geo)  # noqa: E731
     rows["hashgrid_backward_addends"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: hashgrid_backward_addends_cuda(x, g, *geo), iters=20),
+        "max_abs_err": err, "ms": device_ms(bwd), "call_ms": cuda_ms(bwd, iters=20),
         "plain_ms": cuda_ms(lambda: hashgrid_backward_addends_reference(x, g, *geo),
                             iters=3, warmup=1),
         "library_ms": None,
@@ -492,30 +579,40 @@ def phase_kernel_train(n_samples: int, shape: str) -> dict:
                  n_samples * L * (9 + 16 + 8 * F)),
     }
 
-    # B2: the segment sum of those addends (bf16 payloads)
+    # B2: the segment sum of those addends (bf16 payloads), as the grid
+    # backward calls it: with the encoding's level sizes
     def sum_error(got, want, k, v):
         n = segsum.segment_count_reference(k, T)[..., None].float()
         mass = segsum.segment_sum_reference(k, v.abs(), T)
         excess = (got - want).abs() - 2.0 * n * 2.0 ** -24 * mass
         if float(excess.max()) > 0:
             raise AssertionError("segment_sum: beyond the float32 order bound")
+        if bool(torch.signbit(got[mass == 0]).any()) or bool((got[mass == 0] != 0).any()):
+            raise AssertionError("segment_sum: an untouched row is not +0.0")
         return float((got - want).abs().max())
 
-    got = segsum.segment_sum_cuda(keys, vals, T)
-    torch.cuda.synchronize()
-    err = sum_error(got, segsum.segment_sum_reference(keys, vals, T), keys, vals)
-    flat_keys = (keys.long() + torch.arange(L, device="cuda")[:, None] * T).reshape(-1)
-    flat_vals = vals.to(torch.bfloat16).float().reshape(-1, F)
-    lib_out = torch.zeros((L * T, F), device="cuda")
+    want = segsum.segment_sum_reference(keys, vals, T)
+    err = 0.0
+    for s in (sizes, None):
+        got = segsum.batched_segment_sum(keys, vals, T, level_sizes=s)
+        torch.cuda.synchronize()
+        err = max(err, sum_error(got, want, keys, vals))
+    del got, want
+    times = segsum_times(keys, vals, T, sizes)
+    blocks, strided = segsum.segment_sum_plan(M, L, T, F, sizes)
+    for lv in times["levels"]:
+        lv["shared_memory_blocks"] = blocks[lv["level"]]
+    emit({"phase": "segsum_levels", "shape": shape, "N": n_samples, "M": M,
+          "strided_blocks": strided, **times})
+    b2 = lambda: segsum.batched_segment_sum(keys, vals, T, level_sizes=sizes)  # noqa: E731
     rows["segment_sum"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: segsum.segment_sum_cuda(keys, vals, T), iters=20),
+        "max_abs_err": err, "ms": times["all_levels"]["ms"],
+        "call_ms": cuda_ms(b2, iters=20),
         "plain_ms": cuda_ms(lambda: segsum.segment_sum_reference(keys, vals, T),
                             iters=3, warmup=1),
-        # yardstick: one index_add_ of the pre-rounded addends into a
-        # flattened table (keys offset per level beforehand, excluded)
-        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, flat_keys, flat_vals),
-                              iters=20),
+        # yardstick: one index_add_ into a zeroed flattened table
+        # (segsum_times)
+        "library_ms": times["all_levels"]["library_ms"],
         # keys and addends read once, the dense table written once
         **_bound(L * M * (4 + 4 * F) + L * T * F * 4, L * M * F),
     }
@@ -525,13 +622,14 @@ def phase_kernel_train(n_samples: int, shape: str) -> dict:
     torch.cuda.synchronize()
     if not torch.equal(got, segsum.segment_count_reference(keys, T)):
         raise AssertionError("segment_count differs from the twin")
+    flat_keys = (keys.long() + torch.arange(L, device="cuda")[:, None] * T).reshape(-1)
+    b3 = lambda: segsum.segment_count_cuda(keys, T)  # noqa: E731
     rows["segment_count"] = {
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: segsum.segment_count_cuda(keys, T), iters=20),
+        "max_abs_err": 0.0, "ms": device_ms(b3), "call_ms": cuda_ms(b3, iters=20),
         "plain_ms": cuda_ms(lambda: segsum.segment_count_reference(keys, T),
                             iters=3, warmup=1),
-        "library_ms": cuda_ms(lambda: torch.bincount(flat_keys, minlength=L * T),
-                              iters=20),
+        # bincount makes its zeroed output itself
+        "library_ms": device_ms(lambda: torch.bincount(flat_keys, minlength=L * T)),
         **_bound(L * M * 4 + L * T * 4, L * M),
     }
 
@@ -542,31 +640,74 @@ def phase_kernel_train(n_samples: int, shape: str) -> dict:
     err = sum_error(got[None], segsum.segment_sum_reference(k1[None], v1[None], T),
                     k1[None], v1[None])
     k1l, v1b = k1.long(), v1.to(torch.bfloat16).float()
-    lib1 = torch.zeros((T, F), device="cuda")
+    b4 = lambda: segsum.segment_sum_onehot(k1, v1, T)  # noqa: E731
     rows["segment_sum_onehot"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: segsum.segment_sum_onehot(k1, v1, T), iters=20),
+        "max_abs_err": err, "ms": device_ms(b4), "call_ms": cuda_ms(b4, iters=20),
         "plain_ms": cuda_ms(lambda: segsum.segment_sum_reference(k1[None], v1[None], T),
                             iters=3, warmup=1),
-        "library_ms": cuda_ms(lambda: lib1.index_add_(0, k1l, v1b), iters=20),
+        "library_ms": device_ms(
+            lambda: torch.zeros((T, F), device="cuda").index_add_(0, k1l, v1b)),
         **_bound(M * (4 + 4 * F) + T * F * 4, M * F),
     }
     got = segsum.segment_count_onehot(k1, T)
     torch.cuda.synchronize()
     if not torch.equal(got, segsum.segment_count_reference(k1[None], T)[0]):
         raise AssertionError("segment_count_onehot differs from the twin")
+    b4c = lambda: segsum.segment_count_onehot(k1, T)  # noqa: E731
     rows["segment_count_onehot"] = {
-        "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: segsum.segment_count_onehot(k1, T), iters=20),
+        "max_abs_err": 0.0, "ms": device_ms(b4c), "call_ms": cuda_ms(b4c, iters=20),
         "plain_ms": cuda_ms(lambda: segsum.segment_count_reference(k1[None], T),
                             iters=3, warmup=1),
-        "library_ms": cuda_ms(lambda: torch.bincount(k1l, minlength=T), iters=20),
+        "library_ms": device_ms(lambda: torch.bincount(k1l, minlength=T)),
         **_bound(M * 4 + T * 4, M),
     }
     for name, row in rows.items():
         emit({"phase": "kernel_train", "shape": shape, "kernel": name,
               "N": n_samples, "L": L, "M": M, "T": T, "F": F, **row})
     return rows
+
+
+def phase_kernel_sort() -> dict:
+    """B5 against its twin at the size the JAX kernel was written for
+    (``ngp_tpu/ops/pallas/sort.py``: 2^20 keys a row): (B, n) = (4, 2^20),
+    keys uniform in [0, 2^18) (the "tpu" tier's T, so ties are dense), the
+    last 3 of each row INT32_MAX. Keys and perm must equal the twin's
+    exactly. Yardstick: ``torch.sort`` along the rows (it writes int64
+    indices, 4 bytes an element more than the kernel)."""
+    import torch
+
+    from ngp_tpu_torch.ops.sort import (
+        INT32_MAX,
+        bitonic_sort_pos_cuda,
+        bitonic_sort_pos_reference,
+    )
+
+    B, n = 4, 1 << 20
+    keys = torch.randint(0, 1 << 18, (B, n), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(5))
+    keys[:, -3:] = INT32_MAX
+    keys = keys.cuda()
+    got_k, got_p = bitonic_sort_pos_cuda(keys)
+    torch.cuda.synchronize()
+    want_k, want_p = bitonic_sort_pos_reference(keys)
+    if not (torch.equal(got_k, want_k) and torch.equal(got_p, want_p)):
+        raise AssertionError("bitonic_sort_pos differs from the twin")
+    lib_k = torch.sort(keys, dim=1).values
+    if not (torch.equal(got_k, lib_k) and torch.equal(keys.gather(1, got_p.long()), got_k)):
+        raise AssertionError("bitonic_sort_pos: keys not sorted or perm not theirs")
+    del want_k, want_p, lib_k
+    stages = int(math.log2(n)) * (int(math.log2(n)) + 1) // 2
+    b5 = lambda: bitonic_sort_pos_cuda(keys)  # noqa: E731
+    row = {
+        "max_abs_err": 0.0, "ms": device_ms(b5), "call_ms": cuda_ms(b5, iters=20),
+        "plain_ms": cuda_ms(lambda: bitonic_sort_pos_reference(keys), iters=3, warmup=1),
+        "library_ms": device_ms(lambda: torch.sort(keys, dim=1)),
+        # keys read once, sorted keys and perm written once; one comparison
+        # per pair per stage
+        **_bound(B * n * 12, B * n // 2 * stages),
+    }
+    emit({"phase": "kernel_sort", "B": B, "n": n, "stages": stages, **row})
+    return row
 
 
 def phase_train():
@@ -695,6 +836,7 @@ def main():
 
     phase_build()
     phase_kernel()
+    sort_row = phase_kernel_sort()
     phase_golden()
     frames, launches = phase_serve()
 
@@ -712,7 +854,8 @@ def main():
     phase_kernel_train(eng.samples_per_step, "full_budget")
     phase_train_profile(eng, state, grid, train["median_ms_per_step"])
 
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [{
         "name": "hashgrid_encode_cuda", "route": "cuda",
         "source": "ngp_tpu_torch/csrc/hashgrid_encode.cu",
@@ -739,6 +882,14 @@ def main():
                         "source": f"ngp_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": launched,
                         **{k: train_rows[name][k] for k in keys}})
+    # B5 is on no path of either package (ngp_tpu/ops/pallas/sort.py:24-31):
+    # its launches on the serve and train paths are counted all the same
+    kernels.append({"name": "bitonic_sort_pos", "route": "cuda",
+                    "source": "ngp_tpu_torch/csrc/bitonic_sort.cu",
+                    "replaces": "ngp_tpu/ops/pallas/sort.py:77",
+                    "launches": launches["bitonic_sort_pos"]
+                    + train_launches["bitonic_sort_pos"],
+                    **{k: sort_row[k] for k in keys}})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ngp_tpu_torch"
 NVCC_FLAGS = (
@@ -105,7 +107,19 @@ class CudaKernel:
         return self._lib
 
 
-KERNEL_MODULES = ("ngp_tpu_torch.ops.hashgrid", "ngp_tpu_torch.ops.segsum")
+def launch_on(dev: torch.device, launch):
+    """``launch(stream)`` with the raw handle of ``dev``'s current stream,
+    ``dev`` made the current device for the call only where it is not
+    already (the ``with torch.cuda.device`` and the ``Stream`` object cost
+    a wrapper more host time than its kernel takes on the card)."""
+    if dev.index == torch.cuda.current_device():
+        return launch(torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return launch(torch._C._cuda_getCurrentRawStream(dev.index))
+
+
+KERNEL_MODULES = ("ngp_tpu_torch.ops.hashgrid", "ngp_tpu_torch.ops.segsum",
+                  "ngp_tpu_torch.ops.sort")
 
 
 def _register_all():

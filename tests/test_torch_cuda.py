@@ -30,7 +30,15 @@ from ngp_tpu_torch.ops.segsum import (
     segment_count_reference,
     segment_sum_cuda,
     segment_sum_onehot,
+    segment_sum_plan,
     segment_sum_reference,
+)
+from ngp_tpu_torch.ops.sort import (
+    BITONIC_SORT,
+    INT32_MAX,
+    bitonic_sort_pos,
+    bitonic_sort_pos_cuda,
+    bitonic_sort_pos_reference,
 )
 
 # The kernel rounds every product and sum as the twin does, in the same
@@ -204,3 +212,96 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             segment_sum_cuda(*args, 128)
     with pytest.raises(ValueError):
         segment_sum_cuda(keys, vals, 128, "float16")
+
+
+def _level_case(F, seed, M=1 << 16, T=1 << 14, sizes=(64, 4096, 1 << 14)):
+    """Three levels of live sizes ``sizes`` (the first two small enough to
+    sum in shared memory for some F), 1% of each level's keys at or above
+    its size. Addends are multiples of 1/4 in [-2, 2], one in five zero
+    (some -0.0): bf16 holds them exactly and every float32 sum of them is
+    exact, so any order of summation gives the same bits."""
+    rng = np.random.default_rng(seed)
+    keys = np.stack([rng.integers(0, s, M) for s in sizes])
+    for l, s in enumerate(sizes):
+        if s < T:
+            keys[l, : M // 100] = rng.integers(s, T, M // 100)
+    vals = rng.integers(-8, 9, (len(sizes), M, F)).astype(np.float32) / 4
+    vals[:, ::5] = 0.0
+    vals[:, ::10] = -0.0
+    return (torch.from_numpy(keys.astype(np.int32)).cuda(),
+            torch.from_numpy(vals).cuda(), T, list(sizes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+def test_segment_sum_level_sizes_exact(cuda, f):
+    """Shared-memory levels, levels too large for them, keys beyond a
+    level's size, all in one call: with exact sums the kernel must give
+    the twin's bits, with and without ``level_sizes``; rows that no nonzero
+    addend touches are +0.0."""
+    keys, vals, T, sizes = _level_case(f, 20 + f)
+    M = keys.shape[1]
+    blocks, strided = segment_sum_plan(M, 3, T, f, sizes)
+    expect = [s * f * 4 <= 32 * 1024 and M >= 4 * s for s in sizes]
+    assert [b > 0 for b in blocks] == expect and expect[0] and not expect[2]
+    assert strided > 0
+    want = segment_sum_reference(keys, vals, T)
+    for level_sizes in (sizes, None):
+        before = SEGMENT_SUM.launches["segment_sum"]
+        got = batched_segment_sum(keys, vals, T, level_sizes=level_sizes)
+        assert SEGMENT_SUM.launches["segment_sum"] == before + 1
+        assert torch.equal(got, want)
+        untouched = segment_sum_reference(keys, vals.abs(), T) == 0
+        assert untouched.any()
+        assert not torch.signbit(got[untouched]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+def test_segment_sum_level_sizes_within_order_bound(cuda, f):
+    """Normal addends: the kernel with ``level_sizes`` against the twin
+    within the float32 order bound of ``test_segment_sum_matches_twin``."""
+    keys, _, T, sizes = _level_case(f, 40 + f)
+    vals = torch.randn(tuple(keys.shape) + (f,),
+                       generator=torch.Generator().manual_seed(f)).cuda()
+    got = batched_segment_sum(keys, vals, T, level_sizes=sizes)
+    want = segment_sum_reference(keys, vals, T)
+    mass = segment_sum_reference(keys, vals.abs(), T)
+    n = segment_count_reference(keys, T)[..., None].float()
+    assert ((got - want).abs() <= 2.0 * n * 2.0 ** -24 * mass).all()
+    assert torch.equal(got[mass == 0], torch.zeros_like(got[mass == 0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(1, 128), (3, 1 << 12), (2, 1 << 13), (4, 1 << 20)])
+def test_bitonic_sort_matches_twin(cuda, b, n):
+    """The kernel runs the twin's network: keys and perm equal exactly,
+    dense ties and an INT32_MAX tail included; (2, 2^13) is the first
+    shape with a pass over device memory."""
+    rng = np.random.default_rng(n + b)
+    keys = rng.integers(0, min(n // 2, 1 << 18), (b, n)).astype(np.int32)
+    keys[:, -3:] = INT32_MAX
+    keys = torch.from_numpy(keys).cuda()
+    copy = keys.clone()
+    before = BITONIC_SORT.launches["bitonic_sort_pos"]
+    got_k, got_p = bitonic_sort_pos(keys)
+    assert BITONIC_SORT.launches["bitonic_sort_pos"] == before + 1
+    want_k, want_p = bitonic_sort_pos_reference(keys)
+    assert torch.equal(got_k, want_k) and torch.equal(got_p, want_p)
+    assert torch.equal(got_k, torch.sort(keys, dim=1).values)
+    assert torch.equal(keys.gather(1, got_p.long()), got_k)
+    assert torch.equal(keys, copy)
+
+
+@pytest.mark.cuda
+def test_sort_and_segment_sum_wrappers_refuse_bad_inputs(cuda):
+    keys = torch.zeros((2, 256), dtype=torch.int32, device="cuda")
+    for bad in (keys.cpu(), keys.long(), keys[:, :200].contiguous(),
+                keys[:, :64].contiguous(), keys[0], keys.t().contiguous().t()):
+        with pytest.raises(ValueError):
+            bitonic_sort_pos_cuda(bad)
+    k, v = _keys_and_vals("uniform", 2, 64, 128, 2, 0)
+    with pytest.raises(ValueError):
+        segment_sum_cuda(k, v, 128, level_sizes=[64])
+    with pytest.raises(ValueError):
+        batched_segment_sum(k, v, 128, level_sizes=[64, 64, 64])

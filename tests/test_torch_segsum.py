@@ -7,7 +7,8 @@ against the JAX package's Pallas kernels in interpret mode: B2
 ``segment_count_onehot``.
 
 Cases: uniform keys, one hot row, mostly empty rows (which must be exactly
-zero), unsorted keys (the port takes any order).
+zero), unsorted keys (the port takes any order), and per-level live sizes
+(``level_sizes``) with keys at or above them.
 """
 
 import numpy as np
@@ -127,6 +128,33 @@ def test_matches_jax_batched_segment_sum():
     with pytest.raises(ValueError):
         batched_segment_sum(torch.from_numpy(keys), torch.from_numpy(vals), T,
                             level_sizes=sizes[:2])
+
+
+def test_level_sizes_change_no_result():
+    """``level_sizes`` steers only where the kernel sums (shared memory for
+    small levels); a key at or above its level's size is summed all the
+    same. With and without it the port gives the same array, and both
+    match the JAX package's ``batched_segment_sum`` given the same sizes
+    (bound as above)."""
+    L, M, T, F = 3, 3000, 1024, 2
+    rng = np.random.default_rng(5)
+    sizes = [64, 512, 1024]
+    keys = np.stack([rng.integers(0, s, M) for s in sizes])
+    keys[0, :40] = rng.integers(64, T, 40)  # beyond level 0's size
+    keys[1, :40] = rng.integers(512, T, 40)
+    keys = keys.astype(np.int32)
+    vals = rng.normal(size=(L, M, F)).astype(np.float32)
+    want = np.asarray(jax_batched_segment_sum(
+        jnp.asarray(keys), jnp.asarray(vals), T, level_sizes=sizes))
+    tk, tv = torch.from_numpy(keys), torch.from_numpy(vals)
+    got = batched_segment_sum(tk, tv, T, level_sizes=sizes).numpy()
+    np.testing.assert_array_equal(got, batched_segment_sum(tk, tv, T).numpy())
+    total = np.abs(_bf16(vals)).sum(axis=(1, 2))[:, None, None]
+    assert np.all(np.abs(got - want) <= 2.0 ** -20 * total)
+    # the rows beyond each size that keys reached hold their sums
+    for l, s in enumerate(sizes[:2]):
+        hit = np.unique(keys[l][keys[l] >= s])
+        assert np.all(np.abs(got[l, hit]).sum(axis=-1) > 0)
 
 
 @pytest.mark.parametrize("kind", KINDS)
