@@ -11,11 +11,11 @@ turn runs in a process of its own that imports that root's
 ``ngp_tpu_torch`` (and so builds that root's kernels), in the order BEFORE,
 AFTER, AFTER, BEFORE. For each number of network samples a turn prints one
 JSON line: ``segsum_times`` of this script's ``chip_smoke.py`` (device ms of
-``batched_segment_sum`` over all levels and for each level alone, with and
-without the encoding's level sizes, beside ``index_add_`` timed alike) on
+``batched_segment_sum`` over all levels and for each level alone, beside
+``index_add_`` timed alike) on
 the grid backward's keys and addends for that many uniform positions
-(``chip_smoke.train_addends``). The lines also go to
-``chiprun_out/segsum_ab.jsonl``; then the card's ``name, power.limit``.
+(``chip_smoke.train_addends``), as each turn ends; then the card's
+``name, power.limit``.
 """
 
 from __future__ import annotations
@@ -61,21 +61,17 @@ def main():
     if args.turn:
         turn(getattr(args, args.turn), args.turn, args.samples)
         return
-    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    lines = []
     for label in ("before", "after", "after", "before"):
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), args.before, args.after,
              "--turn", label, "--samples", *map(str, args.samples)],
             capture_output=True, text=True, check=False)
-        sys.stderr.write(out.stderr)
+        for ln in out.stdout.splitlines():
+            if ln.startswith("{"):
+                print(ln, flush=True)
         if out.returncode != 0:
+            sys.stderr.write(out.stderr)
             sys.exit(f"chip_segsum_ab: the {label} turn failed ({out.returncode})")
-        lines += [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
-    with open(os.path.join(HERE, "chiprun_out", "segsum_ab.jsonl"), "w") as f:
-        f.write("\n".join(lines) + "\n")
-    for ln in lines:
-        print(ln)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())

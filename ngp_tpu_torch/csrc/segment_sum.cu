@@ -21,28 +21,40 @@
 //
 // The TPU needed the sort, the windows and the one-hot matmuls because XLA's
 // scatter serializes there. Hopper adds floats atomically in L2, so there
-// is no sort and no window: each addend goes to its row with an atomic.
+// is no sort and no window: each addend goes to its row with an atomic
+// reduction (RED), and what costs is the number of them.
 //
 // Bound on the H100: the kernel must read M * (4 + 4F) bytes per level and
 // write the dense table once, 4 * L * T * F bytes (77 MB, 0.023 ms at
-// 3.35 TB/s for the training step's 8 levels of 630,616 addends, F = 2,
-// T = 2^18). What costs beyond that is the atomics' traffic in L2, and the
-// design cuts it three ways:
-//   - vector atomics: sm_90 adds a float2 or a float4 in one operation, so
-//     a row of F = 2 or 4 is one atomic and F = 8 two, where one per
-//     feature was issued before. A vector whose components are all zero
-//     is skipped, so a row that no nonzero addend touches stays +0.0;
-//   - privatisation: a level whose live rows (level_rows, the encoding's
-//     level sizes) fit in 32 KB of shared memory, and that has at least 4
-//     addends per row for each block that takes it, is summed by a few
-//     blocks in shared memory, each then adding its nonzero rows to device
-//     memory once. A key at or above the level's live rows still goes to
-//     device memory, so level_rows changes the speed, never the result;
-//   - one launch for all levels, sized to fill the card once (SMs times
-//     the blocks an SM holds), each block striding over its share.
-// The float32 sums then run in another order than one atomic per addend;
-// a float32 sum of n addends in any order is within (n - 1) * 2^-24 *
-// sum |addend| of the exact one.
+// 3.35 TB/s for the training step's 8 levels of 644,280 addends, F = 2,
+// T = 2^18). The design cuts the atomics two ways:
+//   - vector atomics: sm_90 adds a float2 or a float4 in one operation
+//     (RED.E.ADD.F32x2 / F32x4), so a row of F = 2 or 4 is one atomic and
+//     F = 8 two, where one per feature was issued before;
+//   - neighbouring pairs: the grid backward writes a sample's corners x and
+//     x + 1 as neighbouring addends, and with the additive hash, the XOR
+//     hash at even x, or a dense level, their rows are 2r and 2r + 1 half
+//     the time (or the same row, where a dense level clamps). For F <= 2,
+//     lanes 2w and 2w + 1 of a warp hold neighbouring addends; where their
+//     rows are one such pair (or the same row), the even lane adds both
+//     with one vector atomic and the odd lane adds nothing. Any keys are
+//     summed right; this only saves atomics where the pairs occur. A level
+//     pairs only where its rows start on a vector boundary (l * T even):
+//     with T odd, every odd level's row 2r lies off the float2 / float4
+//     alignment that the vector atomic needs, and is added row by row.
+// A vector whose components are all zero is skipped, so a row that no
+// nonzero addend touches stays +0.0. One launch covers every level, sized
+// to fill the card once (SMs times the blocks an SM holds), each thread
+// striding over each level with kUnroll loads in flight.
+//
+// Summing levels with few rows in shared memory first (privatisation) was
+// measured and dropped: Hopper has no shared-memory float add (it becomes
+// a compare-and-swap loop), and on the training step's level 0 (4,096
+// rows) it was 6.8x slower than these atomics in L2 (PERF.md).
+//
+// The float32 sums run in another order than the twin's; a float32 sum of n
+// addends in any order is within (n - 1) * 2^-24 * sum |addend| of the
+// exact one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,26 +64,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;  // addends a thread loads before it adds them
-constexpr int kMaxLevels = 64;
-constexpr int kPrivateBytes = 32 * 1024;
-constexpr int kAddendsPerRowPerBlock = 4;
 
 template <int F>
 struct alignas(4 * F) Row {
   float v[F];
-};
-
-// Which blocks do what: blocks [first_block[p], first_block[p + 1]) sum
-// private level level[p] (p < n_private, live rows rows[p]) in shared
-// memory; the blocks from private_blocks on stride over the n_global other
-// levels, level[n_private + c] (c when n_private is 0).
-struct Plan {
-  int n_private;
-  int n_global;
-  int private_blocks;
-  int level[kMaxLevels];
-  int rows[kMaxLevels];
-  int first_block[kMaxLevels + 1];
 };
 
 template <int F, bool kBf16>
@@ -106,78 +102,68 @@ __device__ __forceinline__ void add_to_device(float* dst, const Row<F>& a) {
   }
 }
 
-// fn(key, addend) for the elements begin, begin + step, ... < end of one
-// level whose key lies in [0, n_segments); kUnroll loads in flight.
-template <int F, bool kBf16, typename Fn>
-__device__ __forceinline__ void for_each_addend(
-    const int32_t* __restrict__ keys, const float* __restrict__ vals,
-    int64_t begin, int64_t end, int64_t step, int64_t n_segments, Fn fn) {
-  for (int64_t i = begin; i < end; i += kUnroll * step) {
-    int32_t key[kUnroll];
-    Row<F> a[kUnroll];
+// Adds addend a to row key of out (key < 0: nothing), pairing it with the
+// neighbouring lane's (lane ^ 1) as the header says where `pair` (the same
+// for the whole warp) allows it. Every lane of the warp must call it
+// together.
+template <int F>
+__device__ __forceinline__ void add_pairwise(float* out, int32_t key,
+                                             Row<F> a, bool pair) {
+  if constexpr (F <= 2) {
+    if (pair) {
+      const int32_t pk = __shfl_xor_sync(0xffffffffu, key, 1);
+      Row<F> pa;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t iu = i + u * step;
-      key[u] = iu < end ? keys[iu] : -1;
-      a[u] = iu < end ? load_addend<F, kBf16>(vals, iu) : Row<F>{};
+      for (int f = 0; f < F; ++f) pa.v[f] = __shfl_xor_sync(0xffffffffu, a.v[f], 1);
+      if (key < 0) return;
+      const bool odd = threadIdx.x & 1;
+      if (pk == key) {  // the same row: one atomic of the two addends' sum
+        if (odd) return;
+#pragma unroll
+        for (int f = 0; f < F; ++f) a.v[f] += pa.v[f];
+      } else if (pk >= 0 && (key ^ pk) == 1) {  // rows 2r and 2r + 1
+        if (odd) return;
+        Row<2 * F> w;
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          w.v[f] = key < pk ? a.v[f] : pa.v[f];
+          w.v[F + f] = key < pk ? pa.v[f] : a.v[f];
+        }
+        add_to_device<2 * F>(out + static_cast<int64_t>(key & ~1) * F, w);
+        return;
+      }
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (key[u] >= 0 && key[u] < n_segments) fn(key[u], a[u]);
   }
+  if (key >= 0) add_to_device<F>(out + static_cast<int64_t>(key) * F, a);
 }
 
 template <int F, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 segment_sum_kernel(const int32_t* __restrict__ keys,
                    const float* __restrict__ vals, float* __restrict__ out,
-                   int64_t m, int64_t n_segments, Plan plan) {
-  const int b = static_cast<int>(blockIdx.x);
-  if (b < plan.private_blocks) {
-    extern __shared__ float acc[];
-    int p = 0;
-    while (b >= plan.first_block[p + 1]) ++p;
-    const int64_t l = plan.level[p];
-    const int rows = plan.rows[p];
-    const int n_blocks = plan.first_block[p + 1] - plan.first_block[p];
-    const int64_t chunk = (m + n_blocks - 1) / n_blocks;
-    const int64_t lo = (b - plan.first_block[p]) * chunk;
-    const int64_t hi = lo + chunk < m ? lo + chunk : m;
-    for (int r = threadIdx.x; r < rows * F; r += kThreads) acc[r] = 0.0f;
-    __syncthreads();
+                   int64_t m, int n_levels, int64_t n_segments) {
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  // the warp's first element: it keeps the loop the same for every lane
+  const int64_t warp_first = first - (threadIdx.x & 31);
+  for (int l = 0; l < n_levels; ++l) {
+    const int32_t* k = keys + l * m;
+    const float* v = vals + l * m * F;
     float* o = out + l * n_segments * F;
-    for_each_addend<F, kBf16>(
-        keys + l * m, vals + l * m * F, lo + threadIdx.x, hi, kThreads,
-        n_segments, [&](int32_t key, const Row<F>& a) {
-          if (key < rows) {
+    const bool pair = (l * n_segments) % 2 == 0;  // o on a vector boundary
+    for (int64_t i = 0; warp_first + i < m; i += kUnroll * step) {
+      int32_t key[kUnroll];
+      Row<F> a[kUnroll];
 #pragma unroll
-            for (int f = 0; f < F; ++f)
-              if (a.v[f] != 0.0f) atomicAdd(acc + key * F + f, a.v[f]);
-          } else {
-            add_to_device<F>(o + static_cast<int64_t>(key) * F, a);
-          }
-        });
-    __syncthreads();
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      Row<F> a;
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t iu = first + i + u * step;
+        key[u] = iu < m ? k[iu] : -1;
+        if (key[u] >= n_segments) key[u] = -1;
+        a[u] = iu < m ? load_addend<F, kBf16>(v, iu) : Row<F>{};
+      }
 #pragma unroll
-      for (int f = 0; f < F; ++f) a.v[f] = acc[r * F + f];
-      add_to_device<F>(o + static_cast<int64_t>(r) * F, a);
+      for (int u = 0; u < kUnroll; ++u) add_pairwise<F>(o, key[u], a[u], pair);
     }
-    return;
-  }
-  const int64_t step =
-      static_cast<int64_t>(gridDim.x - plan.private_blocks) * kThreads;
-  const int64_t start =
-      static_cast<int64_t>(b - plan.private_blocks) * kThreads + threadIdx.x;
-  for (int c = 0; c < plan.n_global; ++c) {
-    const int64_t l = plan.n_private ? plan.level[plan.n_private + c] : c;
-    float* o = out + l * n_segments * F;
-    for_each_addend<F, kBf16>(
-        keys + l * m, vals + l * m * F, start, m, step, n_segments,
-        [&](int32_t key, const Row<F>& a) {
-          add_to_device<F>(o + static_cast<int64_t>(key) * F, a);
-        });
   }
 }
 
@@ -193,140 +179,70 @@ segment_count_kernel(const int32_t* __restrict__ keys, int32_t* __restrict__ out
 
 int64_t n_blocks(int64_t n) { return (n + kThreads - 1) / kThreads; }
 
-// The plan of one call: which levels are private, how many blocks each
-// takes, how many stride over the rest, and the shared memory a block
-// needs. level_rows (n_levels host ints, or null for n_segments each) are
-// the live rows of each level.
+// The blocks of segment_sum_kernel<F, kBf16> that fill the current device
+// once (SMs times the blocks an SM holds), asked of the runtime on each
+// device's first launch only.
 template <int F, bool kBf16>
-int make_plan(int64_t m, int n_levels, int64_t n_segments,
-              const int* level_rows, Plan* plan, int* smem_bytes,
-              unsigned* blocks) {
-  *plan = Plan{};
-  int max_rows = 0;
-  if (n_levels <= kMaxLevels) {
-    bool is_private[kMaxLevels] = {};
-    for (int l = 0; l < n_levels; ++l) {
-      const int64_t rows = level_rows == nullptr ? n_segments
-                           : level_rows[l] < n_segments ? level_rows[l]
-                                                        : n_segments;
-      if (rows > 0 && rows * F * 4 <= kPrivateBytes &&
-          m >= kAddendsPerRowPerBlock * rows) {
-        is_private[l] = true;
-        plan->level[plan->n_private] = l;
-        plan->rows[plan->n_private++] = static_cast<int>(rows);
-        if (rows > max_rows) max_rows = static_cast<int>(rows);
-      }
-    }
-    int g = plan->n_private;
-    for (int l = 0; l < n_levels; ++l)
-      if (!is_private[l]) plan->level[g++] = l;
-  }
-  plan->n_global = n_levels - plan->n_private;
-  *smem_bytes = max_rows * F * 4;
-
-  int dev = 0, sms = 0, per_sm = 0;
+cudaError_t card_blocks(int64_t* blocks) {
+  constexpr int kDevices = 64;
+  static int known[kDevices] = {};
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && known[dev] > 0) {
+    *blocks = known[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, segment_sum_kernel<F, kBf16>, kThreads, *smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t card = sms * per_sm > 0 ? sms * per_sm : 1;
-
-  int64_t b = 0;
-  for (int p = 0; p < plan->n_private; ++p) {
-    plan->first_block[p] = static_cast<int>(b);
-    const int64_t most = m / (kAddendsPerRowPerBlock * plan->rows[p]);
-    const int64_t share = card / n_levels;
-    b += share < 1 ? 1 : share < most ? share : most;
-  }
-  plan->first_block[plan->n_private] = static_cast<int>(b);
-  plan->private_blocks = static_cast<int>(b);
-  int64_t g = 0;
-  if (plan->n_global > 0) {
-    g = card - b < n_blocks(m) ? card - b : n_blocks(m);
-    if (g < 1) g = 1;
-  }
-  *blocks = static_cast<unsigned>(b + g);
-  return 0;
+        &per_sm, segment_sum_kernel<F, kBf16>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  *blocks = sms * per_sm > 0 ? sms * per_sm : 1;
+  if (dev < kDevices) known[dev] = static_cast<int>(*blocks);
+  return cudaSuccess;
 }
 
 template <int F, bool kBf16>
 int launch_sum(const int32_t* keys, const float* vals, float* out, int64_t m,
-               int n_levels, int64_t n_segments, const int* level_rows,
-               cudaStream_t s) {
-  Plan plan;
-  int smem = 0;
-  unsigned blocks = 0;
-  const int err = make_plan<F, kBf16>(m, n_levels, n_segments, level_rows,
-                                      &plan, &smem, &blocks);
-  if (err != 0) return err;
-  segment_sum_kernel<F, kBf16><<<blocks, kThreads, smem, s>>>(
-      keys, vals, out, m, n_segments, plan);
+               int n_levels, int64_t n_segments, cudaStream_t s) {
+  int64_t card = 0;
+  const cudaError_t err = card_blocks<F, kBf16>(&card);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks = card < n_blocks(m) ? card : n_blocks(m);
+  segment_sum_kernel<F, kBf16><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      keys, vals, out, m, n_levels, n_segments);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int F>
 int launch_sum(const int32_t* keys, const float* vals, float* out, int64_t m,
-               int n_levels, int64_t n_segments, int bf16,
-               const int* level_rows, cudaStream_t s) {
-  return bf16 ? launch_sum<F, true>(keys, vals, out, m, n_levels, n_segments,
-                                    level_rows, s)
-              : launch_sum<F, false>(keys, vals, out, m, n_levels, n_segments,
-                                     level_rows, s);
+               int n_levels, int64_t n_segments, int bf16, cudaStream_t s) {
+  return bf16 ? launch_sum<F, true>(keys, vals, out, m, n_levels, n_segments, s)
+              : launch_sum<F, false>(keys, vals, out, m, n_levels, n_segments, s);
 }
 
 }  // namespace
 
 // C interface, bound with ctypes by ngp_tpu_torch/ops/segsum.py. Pointers are
-// device pointers of contiguous tensors, except level_rows: n_levels host
-// ints, or null. Each function returns cudaGetLastError() after its launch
-// (0 on success).
+// device pointers of contiguous tensors; each function returns
+// cudaGetLastError() after its launch (0 on success).
 extern "C" int segment_sum(const void* keys, const void* vals, void* out,
                            long long m, int n_levels, long long n_segments,
-                           int n_features, int bf16_payload,
-                           const int* level_rows, void* stream) {
+                           int n_features, int bf16_payload, void* stream) {
   if (m <= 0 || n_levels <= 0) return 0;
   const auto* k = static_cast<const int32_t*>(keys);
   const auto* v = static_cast<const float*>(vals);
   auto* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_features) {
-    case 1: return launch_sum<1>(k, v, o, m, n_levels, n_segments, bf16_payload, level_rows, s);
-    case 2: return launch_sum<2>(k, v, o, m, n_levels, n_segments, bf16_payload, level_rows, s);
-    case 4: return launch_sum<4>(k, v, o, m, n_levels, n_segments, bf16_payload, level_rows, s);
-    case 8: return launch_sum<8>(k, v, o, m, n_levels, n_segments, bf16_payload, level_rows, s);
+    case 1: return launch_sum<1>(k, v, o, m, n_levels, n_segments, bf16_payload, s);
+    case 2: return launch_sum<2>(k, v, o, m, n_levels, n_segments, bf16_payload, s);
+    case 4: return launch_sum<4>(k, v, o, m, n_levels, n_segments, bf16_payload, s);
+    case 8: return launch_sum<8>(k, v, o, m, n_levels, n_segments, bf16_payload, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// The blocks segment_sum would give each level (0 for a level summed in
-// device memory) into blocks_out[0 .. n_levels - 1], and the blocks that
-// stride over the other levels into blocks_out[n_levels]. No launch.
-extern "C" int segment_sum_plan(long long m, int n_levels, long long n_segments,
-                                int n_features, int bf16_payload,
-                                const int* level_rows, int* blocks_out) {
-  Plan plan;
-  int smem = 0, err = 0;
-  unsigned blocks = 0;
-  switch (n_features * 2 + (bf16_payload ? 1 : 0)) {
-#define NGP_PLAN(F, B)                                                       \
-  case F * 2 + B:                                                            \
-    err = make_plan<F, (B != 0)>(m, n_levels, n_segments, level_rows, &plan, &smem, \
-                          &blocks);                                          \
-    break;
-    NGP_PLAN(1, 0) NGP_PLAN(1, 1) NGP_PLAN(2, 0) NGP_PLAN(2, 1)
-    NGP_PLAN(4, 0) NGP_PLAN(4, 1) NGP_PLAN(8, 0) NGP_PLAN(8, 1)
-#undef NGP_PLAN
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (err != 0) return err;
-  for (int l = 0; l < n_levels; ++l) blocks_out[l] = 0;
-  for (int p = 0; p < plan.n_private; ++p)
-    blocks_out[plan.level[p]] = plan.first_block[p + 1] - plan.first_block[p];
-  blocks_out[n_levels] = static_cast<int>(blocks) - plan.private_blocks;
-  return 0;
 }
 
 extern "C" int segment_count(const void* keys, void* out, long long m,

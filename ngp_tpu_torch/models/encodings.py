@@ -56,8 +56,7 @@ class _GridEncode(torch.autograd.Function):
             x, g.contiguous(), enc.level_scale, enc.level_res, enc.level_size,
             enc.level_hashed, enc.hash_variant, ctx.max_level,
         )
-        dtable = batched_segment_sum(keys, vals, ctx.table_shape[1],
-                                     level_sizes=enc.level_sizes)
+        dtable = batched_segment_sum(keys, vals, ctx.table_shape[1])
         return dtable, None, None, None
 
 
@@ -73,8 +72,7 @@ class GridEncoding(nn.Module):
     ("packed_bf16", F even); with the XOR hash it reads ``gather_dtype``
     rows, float32 by default. The blend itself is float32 either way.
 
-    d(table) sums per-corner addends rounded to bf16 in float32, given each
-    level's row count (``level_sizes``, a host list)."""
+    d(table) sums per-corner addends rounded to bf16 in float32."""
 
     def __init__(self, n_input_dims: int = 3, n_levels: int = 16,
                  n_features_per_level: int = 2, log2_hashmap_size: int = 19,
@@ -111,10 +109,6 @@ class GridEncoding(nn.Module):
         self.dup_gather_dtype = dup_gather_dtype
         dev = resolve_device(device)
         scales, res, sizes, hashed = self.level_geometry()
-        # the rows of each level on the host too: the backward hands them to
-        # the segment sum every step, and reading the buffer back would
-        # synchronise with the card
-        self.level_sizes = sizes.tolist()
         self.register_buffer("level_scale", torch.as_tensor(scales, device=dev))
         self.register_buffer("level_res", torch.as_tensor(res, device=dev))
         self.register_buffer("level_size", torch.as_tensor(sizes, device=dev))

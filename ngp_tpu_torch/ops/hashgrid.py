@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from ngp_tpu_torch.ops.cuda_build import CudaKernel
+from ngp_tpu_torch.ops.cuda_build import CudaKernel, launch_on
 
 HASH_PRIMES = (1, 2654435761, 805459861)
 HASH_VARIANTS = {"tcnn": 0, "additive": 1}  # XOR | addition of the prime terms
@@ -211,15 +211,12 @@ def hashgrid_encode_cuda(x, table, scale, res, size, hashed,
     if N == 0:
         return out
     lib = HASHGRID_ENCODE.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.hashgrid_encode(
-            x.data_ptr(), table.data_ptr(), scale.data_ptr(), res.data_ptr(),
-            size.data_ptr(), hashed.data_ptr(), out.data_ptr(), N, L, T, F,
-            x.shape[1], int(table.dtype == torch.bfloat16),
-            HASH_VARIANTS[hash_variant], L - 1 if max_level is None else max_level,
-            stream,
-        )
+    rc = launch_on(dev, lambda stream: lib.hashgrid_encode(
+        x.data_ptr(), table.data_ptr(), scale.data_ptr(), res.data_ptr(),
+        size.data_ptr(), hashed.data_ptr(), out.data_ptr(), N, L, T, F,
+        x.shape[1], int(table.dtype == torch.bfloat16),
+        HASH_VARIANTS[hash_variant], L - 1 if max_level is None else max_level,
+        stream))
     if rc != 0:
         msg = lib.hashgrid_encode_error_string(rc).decode()
         raise RuntimeError(f"hashgrid_encode launch failed: {msg} ({rc})")
@@ -249,14 +246,11 @@ def hashgrid_backward_addends_cuda(x, g, scale, res, size, hashed,
     if N == 0:
         return keys, vals
     lib = HASHGRID_ENCODE.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.hashgrid_backward_addends(
-            x.data_ptr(), g.data_ptr(), scale.data_ptr(), res.data_ptr(),
-            size.data_ptr(), hashed.data_ptr(), keys.data_ptr(),
-            vals.data_ptr(), N, L, F, D, HASH_VARIANTS[hash_variant],
-            L - 1 if max_level is None else max_level, stream,
-        )
+    rc = launch_on(dev, lambda stream: lib.hashgrid_backward_addends(
+        x.data_ptr(), g.data_ptr(), scale.data_ptr(), res.data_ptr(),
+        size.data_ptr(), hashed.data_ptr(), keys.data_ptr(),
+        vals.data_ptr(), N, L, F, D, HASH_VARIANTS[hash_variant],
+        L - 1 if max_level is None else max_level, stream))
     if rc != 0:
         msg = lib.hashgrid_encode_error_string(rc).decode()
         raise RuntimeError(f"hashgrid_backward_addends launch failed: {msg} ({rc})")

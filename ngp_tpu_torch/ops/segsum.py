@@ -13,10 +13,10 @@ the entry points the JAX package names:
 
 The sorts, block windows, bf16 pair packing and sentinel rows that the JAX
 package needs on the TPU are not ported: the kernels add addends atomically
-(``csrc/segment_sum.cu``: vector atomics, levels with few live rows summed
-in shared memory first, one launch for all levels). Each dispatcher picks by
-the device of ``keys``: the twin for CPU tensors, the kernel for CUDA
-tensors, which launches or raises.
+(``csrc/segment_sum.cu``: vector atomics, neighbouring rows paired into one,
+one launch for all levels). Each dispatcher picks by the device of
+``keys``: the twin for CPU tensors, the kernel for CUDA tensors, which
+launches or raises.
 """
 
 from __future__ import annotations
@@ -33,8 +33,7 @@ _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SEGMENT_SUM = CudaKernel(
     "segment_sum.cu",
     {
-        "segment_sum": (_i, [_vp] * 3 + [_ll, _i, _ll, _i, _i, _vp, _vp]),
-        "segment_sum_plan": (_i, [_ll, _i, _ll, _i, _i, _vp, _vp]),
+        "segment_sum": (_i, [_vp] * 3 + [_ll, _i, _ll, _i, _i, _vp]),
         "segment_count": (_i, [_vp] * 2 + [_ll, _i, _ll, _vp]),
         "segment_sum_error_string": (ctypes.c_char_p, [_i]),
     },
@@ -60,18 +59,18 @@ def batched_segment_sum(keys, vals, n_segments: int,
     (L, M) int32 in [0, n_segments), any order; vals (L, M, F) float32 →
     (L, n_segments, F) float32, each addend rounded to ``payload_dtype``
     first (bf16 by default; ``"float32"`` keeps exact addends, as
-    ``NGP_TPU_SEGSUM_PAYLOAD=float32`` does there). ``level_sizes`` (host
-    ints, the live rows of each level: its keys are below
-    ``level_sizes[l]``) lets the kernel sum a level with few rows in shared
-    memory first; it changes the speed, never the result: a key at or
-    above its level's size is summed all the same."""
+    ``NGP_TPU_SEGSUM_PAYLOAD=float32`` does there). ``level_sizes`` (level
+    l's keys are below ``level_sizes[l]``) sizes the TPU's one-hot work;
+    the atomic sum does not need it, so it is only checked against the
+    number of levels. (Summing a level with few rows in shared memory
+    first, the use it could have had here, was measured slower on the
+    H100; see ``csrc/segment_sum.cu``.)"""
     if level_sizes is not None and len(level_sizes) != keys.shape[0]:
         raise ValueError(f"level_sizes has {len(level_sizes)} entries for "
                          f"{keys.shape[0]} levels")
     if keys.device.type == "cpu":
         return segment_sum_reference(keys, vals, n_segments, payload_dtype)
-    return segment_sum_cuda(keys, vals, n_segments, payload_dtype,
-                            level_sizes=level_sizes)
+    return segment_sum_cuda(keys, vals, n_segments, payload_dtype)
 
 
 def segment_count(keys, n_segments: int) -> torch.Tensor:
@@ -131,19 +130,16 @@ def segment_count_reference(keys, n_segments: int) -> torch.Tensor:
 # -- kernel wrappers
 
 
-def _check(cond: bool, fn: str, msg):
-    """Raise ``ValueError`` when ``cond`` fails; ``msg`` is a string or a
-    callable that makes it (formatted only on failure: the wrappers run
-    every training step)."""
+def _check(cond: bool, fn: str, msg: str):
     if not cond:
-        raise ValueError(f"{fn}: {msg() if callable(msg) else msg}")
+        raise ValueError(f"{fn}: {msg}")
 
 
 def _check_keys(fn: str, keys):
     _check(keys.device.type == "cuda", fn,
-           lambda: f"keys must be a CUDA tensor, got {keys.device}")
+           f"keys must be a CUDA tensor, got {keys.device}")
     _check(keys.dtype == torch.int32 and keys.dim() == 2, fn,
-           lambda: f"keys must be (L, M) int32, got {tuple(keys.shape)} {keys.dtype}")
+           f"keys must be (L, M) int32, got {tuple(keys.shape)} {keys.dtype}")
     _check(keys.is_contiguous(), fn, "keys must be contiguous")
 
 
@@ -153,63 +149,35 @@ def _raise_on(rc: int, lib, name: str):
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
 
 
-def _level_rows(level_sizes, L: int):
-    """``level_sizes`` as the kernel's host array (or None)."""
-    if level_sizes is None:
-        return None
-    _check(len(level_sizes) == L, "segment_sum_cuda",
-           lambda: f"level_sizes has {len(level_sizes)} entries for {L} levels")
-    return (ctypes.c_int * L)(*(max(0, min(int(s), 2**31 - 1)) for s in level_sizes))
-
-
 def segment_sum_cuda(keys, vals, n_segments: int,
                      payload_dtype: str = "bfloat16",
-                     entry: str = "segment_sum",
-                     level_sizes=None) -> torch.Tensor:
+                     entry: str = "segment_sum") -> torch.Tensor:
     """Launch ``segment_sum`` of ``csrc/segment_sum.cu`` on the current
-    stream, counted under ``entry`` (the entry point that asked).
-    ``level_sizes`` as for :func:`batched_segment_sum`. Raises on any input
-    the kernel does not take and on a refused launch."""
+    stream, counted under ``entry`` (the entry point that asked). Raises on
+    any input the kernel does not take and on a refused launch."""
     fn = "segment_sum_cuda"
     _check_keys(fn, keys)
     L, M = keys.shape
     _check(vals.dtype == torch.float32 and vals.dim() == 3
            and tuple(vals.shape[:2]) == (L, M), fn,
-           lambda: f"vals must be ({L}, {M}, F) float32, got "
-                   f"{tuple(vals.shape)} {vals.dtype}")
+           f"vals must be ({L}, {M}, F) float32, got {tuple(vals.shape)} {vals.dtype}")
     F = vals.shape[2]
-    _check(F in (1, 2, 4, 8), fn, lambda: f"F must be 1, 2, 4 or 8, got {F}")
+    _check(F in (1, 2, 4, 8), fn, f"F must be 1, 2, 4 or 8, got {F}")
     _check(vals.device == keys.device, fn,
-           lambda: f"vals is on {vals.device}, keys on {keys.device}")
+           f"vals is on {vals.device}, keys on {keys.device}")
     _check(vals.is_contiguous(), fn, "vals must be contiguous")
     _check(payload_dtype in PAYLOAD_DTYPES, fn,
-           lambda: f"payload_dtype must be one of {PAYLOAD_DTYPES}")
-    rows = _level_rows(level_sizes, L)
+           f"payload_dtype must be one of {PAYLOAD_DTYPES}")
     out = torch.zeros((L, n_segments, F), dtype=torch.float32, device=keys.device)
     if L * M == 0:
         return out
     lib = SEGMENT_SUM.library()
     rc = launch_on(keys.device, lambda stream: lib.segment_sum(
         keys.data_ptr(), vals.data_ptr(), out.data_ptr(), M, L, n_segments, F,
-        int(payload_dtype == "bfloat16"), rows, stream))
+        int(payload_dtype == "bfloat16"), stream))
     _raise_on(rc, lib, "segment_sum")
     SEGMENT_SUM.launches[entry] += 1
     return out
-
-
-def segment_sum_plan(M: int, n_levels: int, n_segments: int, F: int,
-                     level_sizes=None, payload_dtype: str = "bfloat16"):
-    """How ``segment_sum_cuda`` would split a call over the current card,
-    without launching: the blocks that sum each level in shared memory (0
-    for a level summed in device memory), and the blocks that stride over
-    the levels in device memory."""
-    rows = _level_rows(level_sizes, n_levels)
-    blocks = (ctypes.c_int * (n_levels + 1))()
-    lib = SEGMENT_SUM.library()
-    _raise_on(lib.segment_sum_plan(M, n_levels, n_segments, F,
-                                   int(payload_dtype == "bfloat16"), rows, blocks),
-              lib, "segment_sum_plan")
-    return list(blocks[:n_levels]), blocks[n_levels]
 
 
 def segment_count_cuda(keys, n_segments: int,

@@ -30,7 +30,6 @@ from ngp_tpu_torch.ops.segsum import (
     segment_count_reference,
     segment_sum_cuda,
     segment_sum_onehot,
-    segment_sum_plan,
     segment_sum_reference,
 )
 from ngp_tpu_torch.ops.sort import (
@@ -214,62 +213,57 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         segment_sum_cuda(keys, vals, 128, "float16")
 
 
-def _level_case(F, seed, M=1 << 16, T=1 << 14, sizes=(64, 4096, 1 << 14)):
-    """Three levels of live sizes ``sizes`` (the first two small enough to
-    sum in shared memory for some F), 1% of each level's keys at or above
-    its size. Addends are multiples of 1/4 in [-2, 2], one in five zero
-    (some -0.0): bf16 holds them exactly and every float32 sum of them is
-    exact, so any order of summation gives the same bits."""
-    rng = np.random.default_rng(seed)
-    keys = np.stack([rng.integers(0, s, M) for s in sizes])
-    for l, s in enumerate(sizes):
-        if s < T:
-            keys[l, : M // 100] = rng.integers(s, T, M // 100)
-    vals = rng.integers(-8, 9, (len(sizes), M, F)).astype(np.float32) / 4
+def _exact_vals(rng, shape):
+    """Multiples of 1/4 in [-2, 2], one in five zero (some -0.0): bf16
+    holds them exactly and every float32 sum of them here is exact, so any
+    order of summation gives the same bits."""
+    vals = rng.integers(-8, 9, shape).astype(np.float32) / 4
     vals[:, ::5] = 0.0
     vals[:, ::10] = -0.0
+    return vals
+
+
+def _pair_case(F, seed, M=1 << 16, T=1 << 14):
+    """Keys whose neighbours (elements 2i, 2i + 1) are rows 2r and 2r + 1 in
+    either order, the same row, rows 2r + 1 and 2r + 2 (not one vector),
+    unrelated, or one of them out of [0, T): every case the kernel's pairing
+    tells apart. Level 0 and 1 mix them; level 2 draws from only 64 rows."""
+    rng = np.random.default_rng(seed)
+    keys = np.empty((3, M), np.int64)
+    for l in range(2):
+        base = rng.integers(0, T - 2, M // 2)
+        kind = rng.integers(0, 6, M // 2)
+        even = np.where(kind == 3, base | 1, base & ~1)
+        odd = np.select(
+            [kind == 0, kind == 1, kind == 2, kind == 3, kind == 4],
+            [even + 1, even, even, even + 1, rng.integers(0, T, M // 2)], T)
+        keys[l, 0::2], keys[l, 1::2] = even, odd
+        swap = kind == 1  # rows 2r + 1, 2r
+        keys[l, 0::2][swap], keys[l, 1::2][swap] = even[swap] + 1, even[swap]
+    keys[2] = rng.integers(0, 64, M)
+    vals = _exact_vals(rng, (3, M, F))
     return (torch.from_numpy(keys.astype(np.int32)).cuda(),
-            torch.from_numpy(vals).cuda(), T, list(sizes))
+            torch.from_numpy(vals).cuda(), T)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("f", [1, 2, 4, 8])
-def test_segment_sum_level_sizes_exact(cuda, f):
-    """Shared-memory levels, levels too large for them, keys beyond a
-    level's size, all in one call: with exact sums the kernel must give
-    the twin's bits, with and without ``level_sizes``; rows that no nonzero
-    addend touches are +0.0."""
-    keys, vals, T, sizes = _level_case(f, 20 + f)
-    M = keys.shape[1]
-    blocks, strided = segment_sum_plan(M, 3, T, f, sizes)
-    expect = [s * f * 4 <= 32 * 1024 and M >= 4 * s for s in sizes]
-    assert [b > 0 for b in blocks] == expect and expect[0] and not expect[2]
-    assert strided > 0
+@pytest.mark.parametrize("f,t", [(1, 1 << 14), (2, 1 << 14), (4, 1 << 14),
+                                 (8, 1 << 14), (1, 4097), (2, 4097)])
+def test_segment_sum_pairs_exact(cuda, f, t):
+    """With exact sums the kernel must give the twin's bits whichever way
+    it pairs neighbouring addends, with and without ``level_sizes`` (half
+    of each level's keys at or above it); rows that no nonzero addend
+    touches are +0.0; a key at or beyond T is skipped. With T odd, level 1's
+    rows start off the vector atomics' alignment."""
+    keys, vals, T = _pair_case(f, 20 + f, T=t)
     want = segment_sum_reference(keys, vals, T)
-    for level_sizes in (sizes, None):
-        before = SEGMENT_SUM.launches["segment_sum"]
-        got = batched_segment_sum(keys, vals, T, level_sizes=level_sizes)
-        assert SEGMENT_SUM.launches["segment_sum"] == before + 1
+    untouched = segment_sum_reference(keys, vals.abs(), T) == 0
+    assert untouched.any()
+    for payload, sizes in [("bfloat16", None), ("bfloat16", [T // 2] * 3),
+                           ("float32", None)]:
+        got = batched_segment_sum(keys, vals, T, payload, level_sizes=sizes)
         assert torch.equal(got, want)
-        untouched = segment_sum_reference(keys, vals.abs(), T) == 0
-        assert untouched.any()
         assert not torch.signbit(got[untouched]).any()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("f", [1, 2, 4, 8])
-def test_segment_sum_level_sizes_within_order_bound(cuda, f):
-    """Normal addends: the kernel with ``level_sizes`` against the twin
-    within the float32 order bound of ``test_segment_sum_matches_twin``."""
-    keys, _, T, sizes = _level_case(f, 40 + f)
-    vals = torch.randn(tuple(keys.shape) + (f,),
-                       generator=torch.Generator().manual_seed(f)).cuda()
-    got = batched_segment_sum(keys, vals, T, level_sizes=sizes)
-    want = segment_sum_reference(keys, vals, T)
-    mass = segment_sum_reference(keys, vals.abs(), T)
-    n = segment_count_reference(keys, T)[..., None].float()
-    assert ((got - want).abs() <= 2.0 * n * 2.0 ** -24 * mass).all()
-    assert torch.equal(got[mass == 0], torch.zeros_like(got[mass == 0]))
 
 
 @pytest.mark.cuda
@@ -301,7 +295,5 @@ def test_sort_and_segment_sum_wrappers_refuse_bad_inputs(cuda):
         with pytest.raises(ValueError):
             bitonic_sort_pos_cuda(bad)
     k, v = _keys_and_vals("uniform", 2, 64, 128, 2, 0)
-    with pytest.raises(ValueError):
-        segment_sum_cuda(k, v, 128, level_sizes=[64])
     with pytest.raises(ValueError):
         batched_segment_sum(k, v, 128, level_sizes=[64, 64, 64])
