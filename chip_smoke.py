@@ -11,11 +11,12 @@ Phases, each printing one JSON line:
 2. build: compiles every CUDA source of ``ngp_tpu_torch/csrc`` (one nvcc
    each, in parallel) into ``build/ngp_tpu_torch/``.
 3. kernel: ``hashgrid_encode_cuda`` against its plain PyTorch twin on the
-   card, at N = 2^20 samples, "tpu" tier (L=8, F=2, T=2^18, additive) and
-   "upstream" tier (L=16, F=2, T=2^19, XOR), float32 and bf16 tables:
-   error, times, a one-call PyTorch yardstick and the bound.
+   card, bit for bit, at N = 2^20 samples, "tpu" tier (L=8, F=2, T=2^18,
+   additive) and "upstream" tier (L=16, F=2, T=2^19, XOR), float32 and
+   bf16 tables: error, times, a one-call PyTorch yardstick and the bound.
 4. kernel_sort: ``bitonic_sort_pos_cuda`` (B5) against its twin, exactly,
-   at (B, n) = (4, 2^20) with dense ties; ``torch.sort`` as yardstick.
+   at (B, n) = (4, 2^20) with dense ties; ``torch.sort`` as yardstick;
+   the kernel launches one call makes.
 5. golden: the reference snapshot ``tests/golden/golden.ingp`` rendered by
    the port (view 0, stride 4) against the JAX package's frozen render
    ``tests/golden/golden.npz``.
@@ -24,8 +25,11 @@ Phases, each printing one JSON line:
    frame its time, the samples evaluated and the kernel launches, then one
    more frame under ``torch.profiler``: device time per stage, the busiest
    kernels, and the device's busy share of the frame.
-7. kernel_main_path: the kernel case again at the serve path's shape
-   (its mean samples per launch).
+7. kernel_main_path and kernel_serve_positions: the kernel case again
+   at the serve path's shape (its mean samples per launch, uniform
+   positions), then on the positions of the profiled frame's largest
+   launch; with bf16 reads each also times the float32 table read rounded
+   in the kernel (the encoding's route) beside the cast it saves.
 8. train: the bench's fallback configuration (``bench.py``: the synthetic
    sphere, 12 views at 128², full-width "tpu" tier, 2^18 sample slots per
    step, grid 128), 400 steps through ``NerfEngine.train``: ms per step,
@@ -34,7 +38,8 @@ Phases, each printing one JSON line:
 9. kernel_train and segsum_levels: the training kernels against their
    twins at the training step's shapes ("tpu" tier, L=8 levels of M = 8·N
    corner addends, F=2, T=2^18, for N the path's mean network samples per
-   step and for N the full budget of 163,840): the grid backward's addends
+   step and for N the full budget of 163,840): B1's forward on the same
+   positions, the grid backward's addends
    (B1's backward half), the segment sum (B2, also level by level), the
    key histogram (B3) and the one-level entry
    points (B4); error, times, a one-call PyTorch yardstick and the bound
@@ -76,7 +81,7 @@ N_KERNEL = 1 << 20
 # (2^-8 of one activation). Composited over a ray that stays well below
 # 1e-3, five times the CPU bound of 2e-4.
 GOLDEN_TOL = 1e-3
-KERNEL_REL_TOL = 1e-5
+KERNEL_REL_TOL = 1e-5  # B1's backward addends against their twin
 TRAIN_STEPS = 400
 TRAIN_PROFILE_STEPS = 16  # one cycle of the stride-residue occupancy updates
 # host sleep between a profiler window's edges and the calls it times
@@ -212,7 +217,13 @@ def _bound(n_bytes: float, n_ops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL):
+def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL, x=None,
+                 aabb_scale: int = 4):
+    """B1 against its twin, exactly, on ``n`` uniform positions (or the
+    positions ``x``) with a random table of ``table_dtype``. With a bf16
+    table it also times the route the encoding takes: the float32 master
+    table read rounded to bf16 in the kernel ("fused_ms", bits equal to the
+    bf16 table's), beside the cast that route saves ("cast_ms")."""
     import torch
     import torch.nn.functional as tnf
 
@@ -222,11 +233,14 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL):
         hashgrid_encode_reference,
     )
 
-    enc = _encoding(tier)
+    enc = _encoding(tier, aabb_scale)
     L, T, F = enc.table.shape
     D, C = 3, 8
-    table = (torch.rand((L, T, F), generator=gen) * 2 - 1).cuda().to(table_dtype)
-    x = torch.rand((n, D), generator=gen).cuda()
+    master = (torch.rand((L, T, F), generator=gen) * 2 - 1).cuda()
+    table = master.to(table_dtype)
+    if x is None:
+        x = torch.rand((n, D), generator=gen).cuda()
+    n = x.shape[0]
     geo = (enc.level_scale, enc.level_res, enc.level_size, enc.level_hashed,
            enc.hash_variant)
     out = hashgrid_encode_cuda(x, table, *geo)
@@ -234,13 +248,20 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL):
     ref = hashgrid_encode_reference(x, table, *geo)
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
-    if not err <= KERNEL_REL_TOL * scale:
-        raise AssertionError(f"{tier} {table_dtype}: max abs err {err} > "
-                             f"{KERNEL_REL_TOL} x {scale}")
+    if not torch.equal(out, ref):
+        raise AssertionError(f"{tier} {table_dtype}: differs from the twin, "
+                             f"max abs err {err}")
     ms = device_ms(lambda: hashgrid_encode_cuda(x, table, *geo))
     call_ms = cuda_ms(lambda: hashgrid_encode_cuda(x, table, *geo), iters=20)
     plain_ms = cuda_ms(lambda: hashgrid_encode_reference(x, table, *geo),
                        iters=3, warmup=1)
+    fused = {}
+    if table_dtype == torch.bfloat16:
+        if not torch.equal(hashgrid_encode_cuda(x, master, *geo, round_bf16=True), out):
+            raise AssertionError(f"{tier}: round_bf16 differs from the bf16 table")
+        fused = {"fused_ms": device_ms(
+                     lambda: hashgrid_encode_cuda(x, master, *geo, round_bf16=True)),
+                 "cast_ms": device_ms(lambda: master.to(torch.bfloat16))}
 
     # Yardstick: the gather and weighted sum as one library call
     # (embedding_bag, mode "sum", per-corner weights), given corner rows and
@@ -283,7 +304,7 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL):
         "tier": tier, "table": str(table_dtype).replace("torch.", ""),
         "N": n, "L": L, "T": T, "F": F, "hash": enc.hash_variant,
         "max_abs_err": err, "max_abs_ref": scale, "ms": ms, "call_ms": call_ms,
-        "plain_ms": plain_ms, "library_ms": library_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, **fused,
         **_bound(n * D * 4 + n * L * F * 4 + sum(sizes) * F * item,
                  n * L * (3 * D + C * (D - 1) + 2 * C * F)),
         "table_bf16_reads_on_main_path": enc.bf16_reads,
@@ -495,17 +516,33 @@ def phase_serve():
     # heaviest kernels, and the share of the frame the device was busy.
     from torch.profiler import ProfilerActivity, profile
 
+    # The same render also keeps the positions of its largest B1 launch (a
+    # reference, no copy), on which phase kernel_serve_positions times B1.
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+
+    encode = hashgrid_ops.hashgrid_encode_cuda
+    largest = []
+
+    def keep_largest(x, *args, **kwargs):
+        if not largest or x.shape[0] > largest[0].shape[0]:
+            largest[:] = [x]
+        return encode(x, *args, **kwargs)
+
     eng._render_chunk = _ranged("chunk", eng._render_chunk)
     eng._eval_marched = _ranged("shade", eng._eval_marched)
     eng._finish_shade = _ranged("composite", eng._finish_shade)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.render_image(state, grid, 0)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    hashgrid_ops.hashgrid_encode_cuda = keep_largest
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.render_image(state, grid, 0)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        hashgrid_ops.hashgrid_encode_cuda = encode
     emit({"phase": "serve_profile", "view": 0, "wall_ms": wall_ms,
           **_profile_summary(prof, ("shade", "composite"), "chunk", "march")})
-    return frames, launches
+    return frames, launches, largest[0]
 
 
 def train_addends(n_samples: int):
@@ -581,6 +618,11 @@ def phase_kernel_train(n_samples: int, shape: str) -> dict:
     x, g, geo, keys, vals, T, sizes = train_addends(n_samples)
     L, M, F = vals.shape
     rows = {}
+
+    # B1 forward at the step's shape: the same positions, bf16 reads
+    emit({"phase": "kernel_train", "shape": shape, "kernel": "hashgrid_encode",
+          **_kernel_case("tpu", torch.bfloat16, torch.Generator().manual_seed(3),
+                         x=x, aabb_scale=1)})
 
     # B1 backward: corner keys and addends w_c·g
     wkeys, wvals = hashgrid_backward_addends_reference(x, g, *geo)
@@ -693,6 +735,7 @@ def phase_kernel_sort() -> dict:
 
     from ngp_tpu_torch.ops.sort import (
         INT32_MAX,
+        bitonic_sort_launches,
         bitonic_sort_pos_cuda,
         bitonic_sort_pos_reference,
     )
@@ -721,7 +764,8 @@ def phase_kernel_sort() -> dict:
         # per pair per stage
         **_bound(B * n * 12, B * n // 2 * stages),
     }
-    emit({"phase": "kernel_sort", "B": B, "n": n, "stages": stages, **row})
+    emit({"phase": "kernel_sort", "B": B, "n": n, "stages": stages,
+          "launches_per_call": bitonic_sort_launches(n), **row})
     return row
 
 
@@ -853,14 +897,19 @@ def main():
     phase_kernel()
     sort_row = phase_kernel_sort()
     phase_golden()
-    frames, launches = phase_serve()
+    frames, launches, x_serve = phase_serve()
 
     # B1 at the serve path's shape: "tpu" tier, bf16 table reads, as many
-    # samples as the path's launches averaged
+    # uniform samples as the path's launches averaged; then on the positions
+    # of the frame's largest launch, whose neighbours lie near in space
     n_main = sum(f["samples"] for f in frames) // launches["hashgrid_encode"]
     main_case = _kernel_case("tpu", torch.bfloat16, torch.Generator().manual_seed(1),
                              n_main)
     emit({"phase": "kernel_main_path", **main_case})
+    emit({"phase": "kernel_serve_positions",
+          **_kernel_case("tpu", torch.bfloat16, torch.Generator().manual_seed(1),
+                         x=x_serve)})
+    del x_serve
 
     eng, state, grid, train_launches, train = phase_train()
     # the kernels at the path's mean network samples per step (the kernels

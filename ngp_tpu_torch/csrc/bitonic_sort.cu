@@ -14,109 +14,231 @@
 // the row) is 0; the two exchange only where they are strictly out of order,
 // so equal keys never swap.
 //
-// A block's shared memory holds 2^12 keys and positions (32 KB), not a
-// row of 2^20, so the network is cut at strides of 2^12:
-//   1. one launch sorts every tile of 2^12 elements in shared memory: all
-//      stages with k <= 12;
-//   2. for each k > 12: one pass over device memory per stride j >= 2^12,
-//      one thread per pair, then one shared-memory launch that runs the
-//      strides j < 2^12 of that k.
-// At n = 2^20 that is 1 + sum_{k=13..20} (k - 11) = 45 launches, all from
-// bitonic_sort_pos on the caller's stream.
-//
 // Bound on the H100: the keys read once and the keys and perm written once,
-// 12 bytes an element (50.3 MB at (4, 2^20), 0.015 ms at 3.35 TB/s). This
-// design moves the keys and positions through device memory once per
-// global pass and once per shared-memory launch (45 times at n = 2^20), so
-// it runs far above that bound; keeping more of a row on chip (a cluster's
-// distributed shared memory, or fewer, wider global passes) is the lever.
+// 12 bytes an element (50.3 MB at (4, 2^20), 0.015 ms at 3.35 TB/s). The
+// network's comparisons, log2 n (log2 n + 1) / 4 per element (210 stages of
+// 2^21 pairs at (4, 2^20)), cost some 8 integer instructions each, about
+// 0.1 ms of the card's integer issue: that, and the passes over device
+// memory, are what a bitonic network pays above the byte bound.
+//
+// Design. A key and its position travel as one 64-bit word (key in the high
+// half); only the key half is compared, so ties keep the network's order.
+//   1. Tiles of 2^14 elements (132 KB of dynamic shared memory, padded one
+//      word in 32 against bank conflicts) run every stage with k <= 14 in
+//      one launch. Each of the tile's 512 threads holds 32 elements in
+//      registers. Which 5 bits of the tile index are a thread's register
+//      bits is the "layout": a stride whose bit is a register bit runs in
+//      registers with no barrier; the tile changes layout through shared
+//      memory (one barrier) only when the next stride is not one. Strides
+//      1..16 run in layout 0, strides 32..512 in layout 5, larger ones in
+//      the layout whose top register bit is the stride's, so a stage k
+//      costs at most three trips through shared memory.
+//   2. For each k > 14, the strides j >= 2^14 run as passes over device
+//      memory that fuse up to 5 strides each: a thread loads the 2^r
+//      elements that those r strides pair among themselves, runs the r
+//      strides in registers and stores them back (neighbouring threads on
+//      neighbouring addresses). Then one tile launch runs the strides
+//      j < 2^14 of that k.
+// At n = 2^20 that is 1 + 7 fused passes + 6 tile launches = 14 launches
+// (bitonic_sort_launches), all from bitonic_sort_pos on the caller's
+// stream; the earlier design (tiles of 2^12, one pass per stride) took 45.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTileLog = 12;
-constexpr int kTile = 1 << kTileLog;  // elements a block sorts in shared memory
-constexpr int kTileThreads = 1024;
-constexpr int kPassThreads = 256;
+constexpr int kRegLog = 5;  // a thread holds 2^5 elements in registers
+constexpr int kReg = 1 << kRegLog;
+constexpr int kTileLog = 14;  // elements a block sorts in shared memory
+constexpr int kTileThreads = (1 << kTileLog) / kReg;
+constexpr int kMaxGroup = kRegLog;  // strides a pass over device memory fuses
+constexpr int kPassThreads = 128;
 constexpr int kMaxLogN = 30;
 
-// Lower element of pair q at stride j: q with a 0 bit inserted at log2(j).
-__device__ __forceinline__ int64_t pair_low(int64_t q, int64_t j) {
-  return ((q & ~(j - 1)) << 1) | (q & (j - 1));
+// Shared-memory slot of tile element i: one padding word per 32, so that
+// the 32 lanes of layout 0 (element 32t + e) fall on distinct banks.
+__host__ __device__ constexpr int padded(int i) { return i + (i >> 5); }
+
+__device__ __forceinline__ uint64_t pack(int32_t key, int32_t pos) {
+  return (static_cast<uint64_t>(static_cast<uint32_t>(key)) << 32) |
+         static_cast<uint32_t>(pos);
+}
+__device__ __forceinline__ int32_t key_of(uint64_t v) {
+  return static_cast<int32_t>(v >> 32);
+}
+__device__ __forceinline__ int32_t pos_of(uint64_t v) {
+  return static_cast<int32_t>(static_cast<uint32_t>(v));
 }
 
-// Whether (a at the lower index, b at the upper) must exchange.
-__device__ __forceinline__ bool exchange(int32_t a, int32_t b, bool ascending) {
-  return ascending ? b < a : b > a;
+// The network's exchange: a at the lower index, b at the upper; they swap
+// only where strictly out of order for the pair's direction.
+__device__ __forceinline__ void exchange(uint64_t& a, uint64_t& b, bool descending) {
+  const int32_t ka = key_of(a);
+  const int32_t kb = key_of(b);
+  const bool swap = descending ? kb > ka : kb < ka;
+  const uint64_t lo = swap ? b : a;
+  b = swap ? a : b;
+  a = lo;
 }
 
-// Stages k = k_lo .. k_hi, each from stride min(2^(k-1), tile/2) down to 1,
-// on one tile of `tile` elements of a row. Stages k <= log2(tile) are the
-// whole of that k; for larger k the strides >= tile ran before in device
-// memory. row_base is the tile's first index within its row: the direction
-// bit is bit k of the index within the row.
-__global__ void __launch_bounds__(kTileThreads)
+// Layout r0: register e of thread t holds tile element
+//   ((t >> r0) << (r0 + 5)) | (e << r0) | (t & (2^r0 - 1)),
+// i.e. tile bits r0 .. r0 + 4 are the register bits. The layout for stride
+// bit b: 0 for b < 5, else the one whose register bits end at b (never
+// starting below bit 5, never reaching past the tile).
+__device__ __forceinline__ int layout_for(int b, int tile_log) {
+  if (b < kRegLog) return 0;
+  return min(max(kRegLog, b - (kRegLog - 1)), tile_log - kRegLog);
+}
+
+__device__ __forceinline__ int layout_base(int t, int r0) {
+  return ((t >> r0) << (r0 + kRegLog)) | (t & ((1 << r0) - 1));
+}
+
+// One stride (register bit RB of the layout) of stage k on a thread's
+// registers; ibase is the row index of the thread's register 0.
+template <int RB>
+__device__ __forceinline__ void stride_in_registers(uint64_t (&v)[kReg], int ibase,
+                                                    int r0, int k) {
+#pragma unroll
+  for (int e = 0; e < kReg; ++e) {
+    if (e & (1 << RB)) continue;
+    const bool descending = (((ibase | (e << r0)) >> k) & 1) != 0;
+    exchange(v[e], v[e | (1 << RB)], descending);
+  }
+}
+
+// Stages k = k_lo .. k_hi on one tile of 2^tile_log elements of a row, each
+// from stride min(2^(k-1), tile/2) down to 1: stages k <= tile_log whole,
+// larger k after their strides >= the tile ran in device memory. src_perm
+// null means positions are the row indices (the first launch).
+__global__ void __launch_bounds__(kTileThreads, 1)
 sort_tiles_kernel(const int32_t* src_keys, const int32_t* src_perm,
-                  int32_t* keys, int32_t* perm, int n, int tile, int k_lo,
+                  int32_t* keys, int32_t* perm, int n, int tile_log, int k_lo,
                   int k_hi) {
-  __shared__ int32_t sk[kTile];
-  __shared__ int32_t sp[kTile];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
+  extern __shared__ uint64_t sm[];
+  const int tile = 1 << tile_log;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) << tile_log;
   const int row_base = static_cast<int>(base & (n - 1));
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    sk[i] = src_keys[base + i];
-    sp[i] = src_perm != nullptr ? src_perm[base + i] : row_base + i;
+  const int t = threadIdx.x;
+  for (int i = t; i < tile; i += blockDim.x) {
+    const int32_t p = src_perm != nullptr ? src_perm[base + i] : row_base + i;
+    sm[padded(i)] = pack(src_keys[base + i], p);
   }
   __syncthreads();
+
+  uint64_t v[kReg];
+  int r0 = -1;  // the registers' layout; -1: the tile is in shared memory
+  int ibase = 0;
   for (int k = k_lo; k <= k_hi; ++k) {
-    const int j_top = min(1 << (k - 1), tile >> 1);
-    for (int j = j_top; j >= 1; j >>= 1) {
-      for (int q = threadIdx.x; q < (tile >> 1); q += blockDim.x) {
-        const int lo = static_cast<int>(pair_low(q, j));
-        const int hi = lo + j;
-        const bool ascending = (((row_base + lo) >> k) & 1) == 0;
-        const int32_t a = sk[lo];
-        const int32_t b = sk[hi];
-        if (exchange(a, b, ascending)) {
-          sk[lo] = b;
-          sk[hi] = a;
-          const int32_t t = sp[lo];
-          sp[lo] = sp[hi];
-          sp[hi] = t;
+    for (int b = min(k, tile_log) - 1; b >= 0; --b) {
+      if (r0 < 0 || b < r0 || b >= r0 + kRegLog) {
+        const int next = layout_for(b, tile_log);
+        if (r0 >= 0) {
+          // each thread writes back the slots it read, so one barrier
+          // before the next layout's reads is enough
+#pragma unroll
+          for (int e = 0; e < kReg; ++e) sm[padded((ibase & (tile - 1)) | (e << r0))] = v[e];
+          __syncthreads();
         }
+        r0 = next;
+        ibase = row_base | layout_base(t, r0);
+#pragma unroll
+        for (int e = 0; e < kReg; ++e) v[e] = sm[padded((ibase & (tile - 1)) | (e << r0))];
       }
-      __syncthreads();
+      switch (b - r0) {
+        case 0: stride_in_registers<0>(v, ibase, r0, k); break;
+        case 1: stride_in_registers<1>(v, ibase, r0, k); break;
+        case 2: stride_in_registers<2>(v, ibase, r0, k); break;
+        case 3: stride_in_registers<3>(v, ibase, r0, k); break;
+        default: stride_in_registers<4>(v, ibase, r0, k); break;
+      }
     }
   }
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    keys[base + i] = sk[i];
-    perm[base + i] = sp[i];
+#pragma unroll
+  for (int e = 0; e < kReg; ++e) sm[padded((ibase & (tile - 1)) | (e << r0))] = v[e];
+  __syncthreads();
+  for (int i = t; i < tile; i += blockDim.x) {
+    const uint64_t w = sm[padded(i)];
+    keys[base + i] = key_of(w);
+    perm[base + i] = pos_of(w);
   }
 }
 
-// One stage (k, j) with j >= the tile, in place in device memory: one
-// thread per pair of the B * n / 2 pairs.
+// Strides b_lo + R - 1 .. b_lo of stage k (all >= the tile), in place in
+// device memory: thread q holds the 2^R elements i0 + m * 2^b_lo, i0 being
+// q with R zero bits inserted at b_lo. Bit k lies above them all, so the
+// direction is the thread's.
+template <int R>
 __global__ void __launch_bounds__(kPassThreads)
-merge_pass_kernel(int32_t* keys, int32_t* perm, int64_t n_pairs, int log_n,
-                  int k, int j) {
+merge_pass_kernel(int32_t* keys, int32_t* perm, int64_t n_threads, int n,
+                  int k, int b_lo) {
   const int64_t q = static_cast<int64_t>(blockIdx.x) * kPassThreads + threadIdx.x;
-  if (q >= n_pairs) return;
-  const int64_t row = q >> (log_n - 1);
-  const int64_t lo = pair_low(q & ((int64_t{1} << (log_n - 1)) - 1), j);
-  const bool ascending = ((lo >> k) & 1) == 0;
-  const int64_t a_i = (row << log_n) + lo;
-  const int64_t b_i = a_i + j;
-  const int32_t a = keys[a_i];
-  const int32_t b = keys[b_i];
-  if (exchange(a, b, ascending)) {
-    keys[a_i] = b;
-    keys[b_i] = a;
-    const int32_t t = perm[a_i];
-    perm[a_i] = perm[b_i];
-    perm[b_i] = t;
+  if (q >= n_threads) return;
+  const int64_t low = q & ((int64_t{1} << b_lo) - 1);
+  const int64_t i0 = ((q >> b_lo) << (b_lo + R)) | low;
+  const bool descending = (((i0 & (n - 1)) >> k) & 1) != 0;
+  uint64_t v[1 << R];
+#pragma unroll
+  for (int m = 0; m < (1 << R); ++m) {
+    const int64_t i = i0 + (static_cast<int64_t>(m) << b_lo);
+    v[m] = pack(keys[i], perm[i]);
   }
+#pragma unroll
+  for (int s = R - 1; s >= 0; --s) {
+#pragma unroll
+    for (int m = 0; m < (1 << R); ++m) {
+      if (!(m & (1 << s))) exchange(v[m], v[m | (1 << s)], descending);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < (1 << R); ++m) {
+    const int64_t i = i0 + (static_cast<int64_t>(m) << b_lo);
+    keys[i] = key_of(v[m]);
+    perm[i] = pos_of(v[m]);
+  }
+}
+
+template <int R>
+cudaError_t launch_pass(int32_t* keys, int32_t* perm, long long batch, int n,
+                        int k, int b_lo, cudaStream_t s) {
+  const int64_t n_threads = (batch * static_cast<int64_t>(n)) >> R;
+  const unsigned blocks =
+      static_cast<unsigned>((n_threads + kPassThreads - 1) / kPassThreads);
+  merge_pass_kernel<R><<<blocks, kPassThreads, 0, s>>>(keys, perm, n_threads, n, k, b_lo);
+  return cudaGetLastError();
+}
+
+int log2_exact(int n) {
+  int log_n = 0;
+  while ((1 << log_n) < n && log_n < kMaxLogN) ++log_n;
+  // a tile needs at least one thread's registers' worth of elements
+  return (n >= kReg && (1 << log_n) == n) ? log_n : -1;
+}
+
+// The launches of one sort: the first tile launch, then for each stage k
+// above the tile its passes over device memory (the k - tile_log strides
+// >= the tile cut into near-equal groups of at most kMaxGroup, highest
+// first) and one tile launch. `tile(k_lo, k_hi)` and `pass(r, k, b_lo)`
+// issue them; each returns a cudaError_t, and the first failure ends the
+// walk and is returned.
+template <typename Tile, typename Pass>
+cudaError_t for_each_launch(int log_n, Tile tile, Pass pass) {
+  const int tile_log = log_n < kTileLog ? log_n : kTileLog;
+  cudaError_t err = tile(1, tile_log);
+  for (int k = tile_log + 1; k <= log_n && err == cudaSuccess; ++k) {
+    const int strides = k - tile_log;
+    const int groups = (strides + kMaxGroup - 1) / kMaxGroup;
+    int b_hi = k - 1;
+    for (int g = 0; g < groups && err == cudaSuccess; ++g) {
+      const int r = strides / groups + (g < strides % groups ? 1 : 0);
+      err = pass(r, k, b_hi - r + 1);
+      b_hi -= r;
+    }
+    if (err == cudaSuccess) err = tile(k, k);
+  }
+  return err;
 }
 
 }  // namespace
@@ -128,38 +250,50 @@ merge_pass_kernel(int32_t* keys, int32_t* perm, int64_t n_pairs, int log_n,
 extern "C" int bitonic_sort_pos(const void* keys, void* sorted, void* perm,
                                 long long batch, int n, void* stream) {
   if (batch <= 0) return 0;
-  int log_n = 0;
-  while ((1 << log_n) < n && log_n < kMaxLogN) ++log_n;
-  if (n < 2 || (1 << log_n) != n) return static_cast<int>(cudaErrorInvalidValue);
+  const int log_n = log2_exact(n);
+  if (log_n < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* out_k = static_cast<int32_t*>(sorted);
   auto* out_p = static_cast<int32_t*>(perm);
-  const int tile = n < kTile ? n : kTile;
   const int tile_log = log_n < kTileLog ? log_n : kTileLog;
-  const int threads = tile / 2 < kTileThreads ? tile / 2 : kTileThreads;
-  const unsigned tiles = static_cast<unsigned>(batch * (n / tile));
-  const int64_t n_pairs = batch * static_cast<int64_t>(n) / 2;
-  const unsigned pass_blocks =
-      static_cast<unsigned>((n_pairs + kPassThreads - 1) / kPassThreads);
-
-  sort_tiles_kernel<<<tiles, threads, 0, s>>>(
-      static_cast<const int32_t*>(keys), nullptr, out_k, out_p, n, tile, 1,
-      tile_log);
-  cudaError_t err = cudaGetLastError();
+  const size_t smem = padded(1 << tile_log) * sizeof(uint64_t);
+  const unsigned tiles = static_cast<unsigned>((batch * n) >> tile_log);
+  const int threads = (1 << tile_log) / kReg;
+  cudaError_t err = cudaFuncSetAttribute(
+      sort_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(padded(1 << kTileLog) * sizeof(uint64_t)));
   if (err != cudaSuccess) return static_cast<int>(err);
-  for (int k = tile_log + 1; k <= log_n; ++k) {
-    for (int j = 1 << (k - 1); j >= tile; j >>= 1) {
-      merge_pass_kernel<<<pass_blocks, kPassThreads, 0, s>>>(
-          out_k, out_p, n_pairs, log_n, k, j);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    sort_tiles_kernel<<<tiles, threads, 0, s>>>(out_k, out_p, out_k, out_p, n,
-                                                tile, k, k);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  err = for_each_launch(
+      log_n,
+      [&](int k_lo, int k_hi) {
+        const bool first = k_lo == 1;
+        sort_tiles_kernel<<<tiles, threads, smem, s>>>(
+            first ? static_cast<const int32_t*>(keys) : out_k,
+            first ? nullptr : out_p, out_k, out_p, n, tile_log, k_lo, k_hi);
+        return cudaGetLastError();
+      },
+      [&](int r, int k, int b_lo) {
+        switch (r) {
+          case 1: return launch_pass<1>(out_k, out_p, batch, n, k, b_lo, s);
+          case 2: return launch_pass<2>(out_k, out_p, batch, n, k, b_lo, s);
+          case 3: return launch_pass<3>(out_k, out_p, batch, n, k, b_lo, s);
+          case 4: return launch_pass<4>(out_k, out_p, batch, n, k, b_lo, s);
+          default: return launch_pass<5>(out_k, out_p, batch, n, k, b_lo, s);
+        }
+      });
+  return static_cast<int>(err);
+}
+
+// Kernel launches one bitonic_sort_pos call makes for rows of n (a power
+// of two), or -1 for any other n.
+extern "C" int bitonic_sort_launches(int n) {
+  const int log_n = log2_exact(n);
+  if (log_n < 0) return -1;
+  int launches = 0;
+  for_each_launch(
+      log_n, [&](int, int) { ++launches; return cudaSuccess; },
+      [&](int, int, int) { ++launches; return cudaSuccess; });
+  return launches;
 }
 
 extern "C" const char* bitonic_sort_error_string(int code) {

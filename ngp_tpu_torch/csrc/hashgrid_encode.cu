@@ -17,35 +17,53 @@
 //   dense levels:  idx_c = sum_d clip(c_d, 0, res - 1) * res^d.
 // Levels above max_level are written as zeros. The output is (N, L, F)
 // float32, i.e. (N, L*F) level-major. The table is (L, T, F), float32 or
-// bf16; bf16 entries are widened to float32 before the blend.
+// bf16; bf16 entries are widened to float32 before the blend, and a float32
+// table may be read rounded to bf16 (round to nearest even, as
+// .to(torch.bfloat16)) so that the caller needs no cast of its own.
 //
 // Bound on the H100: per sample the kernel must read 4*D bytes of
-// positions and write 4*L*F bytes of features. The table is small: at the
-// "tpu" tier (L=8, F=2, T=2^18) it is 16 MB in float32 (8 MB in bf16) and
-// stays in the 50 MB L2, so the DRAM floor is about (12 + 64) B/sample /
-// 3.35 TB/s. What will more likely hold it back are the 2^D * L random
-// table reads per sample, served from L2 at one sector each.
+// positions and write 4*L*F bytes of features, and each table row once. At
+// the "tpu" tier (L=8, F=2, T=2^18) the table is 16 MB in float32 (8 MB in
+// bf16) and stays in the 50 MB L2, so the DRAM floor is about
+// (12 + 64) B/sample / 3.35 TB/s. What sets the pace are the 2^D * L random
+// table reads per sample, each a request to L2 for one 32-byte sector.
 //
-// Design (a first, simple one): one thread per (sample, level), threads
-// sample-major so that a warp's output stores are contiguous; the 2^D
-// corners are unrolled and each corner's F features are one vector load
-// (up to 16 bytes; F = 8 in float32 is two). Products and sums are rounded
-// one at a time (no FMA contraction) so that the plain PyTorch twin in
-// ngp_tpu_torch/ops/hashgrid.py reproduces the arithmetic. Nothing of the
-// TPU kernel's block layout (pack_table, 8192-row VMEM tiles, lane select)
-// is carried over.
+// Design, for that:
+//   - Corner pairs from one load. Corners c and c + 1 differ in x only. On
+//     dense levels and under the additive hash their rows are h and h + 1
+//     (mod size, or h twice where the dense grid clamps x), under the XOR
+//     hash with x even h and h ^ 1. Where a row is at most 8 bytes (F*size
+//     of the element), both rows are fetched with one aligned 16-byte load
+//     when they share a 16-byte chunk of the table, and with two loads
+//     otherwise. The test is on the rows actually computed, so every case
+//     (the wrap at size - 1, odd x under XOR, the clamped planes, a pair
+//     across a chunk) reads the same values as two row loads would. On the
+//     "tpu" tier (bf16, 4-byte rows) three pairs in four share a chunk.
+//   - Geometry off the memory path: the per-level scale, resolution, mask
+//     and hashed flag are a struct among the kernel's arguments.
+//   - Level-uniform warps: a block encodes 32 samples, one per lane, and
+//     each warp one level at a time, so the hashed/dense branch and the
+//     level's geometry are uniform in a warp, and no thread divides to find
+//     its (sample, level). The block's positions are staged in shared
+//     memory once; its (32, L, F) outputs are gathered in shared memory and
+//     written as contiguous 16-byte stores.
+// Products and sums are rounded one at a time (no FMA contraction) in the
+// corner order, so the plain PyTorch twin in ngp_tpu_torch/ops/hashgrid.py
+// reproduces the result bit for bit. Nothing of the TPU kernel's block
+// layout (pack_table, 8192-row VMEM tiles, lane select) is carried over.
 //
 // Backward (hashgrid_backward_addends), the counterpart of the JAX package's
 // _pge_bwd / _ggbe_bwd / _gdgb_bwd (ngp_tpu/models/encodings.py): the same
-// corner rows and weights, written out as segment keys and addends w_c * g
-// that csrc/segment_sum.cu sums into d(table). Depositing corner by corner
-// gives the JAX package's gradient on the dense top plane too: its additive
-// path shifts the cell base down and pushes the fraction to 1 there, the
-// per-corner clamp puts the same total weight on the same row. Bound: it
-// reads 4*D + 4*L*F bytes and writes L * 2^D * (4 + 4F) bytes per sample
-// (76 B in, 768 B out at the tpu tier), so it is bound by its stores;
-// fusing it with the accumulation removes the (L, N * 2^D, F) buffer and is
-// the obvious later step.
+// corner rows and weights (cell_corners, shared with the forward), written
+// out as segment keys and addends w_c * g that csrc/segment_sum.cu sums
+// into d(table). Depositing corner by corner gives the JAX package's
+// gradient on the dense top plane too: its additive path shifts the cell
+// base down and pushes the fraction to 1 there, the per-corner clamp puts
+// the same total weight on the same row. Bound: it reads 4*D + 4*L*F bytes
+// and writes L * 2^D * (4 + 4F) bytes per sample (76 B in, 768 B out at the
+// tpu tier), so it is bound by its stores; fusing it with the accumulation
+// removes the (L, N * 2^D, F) buffer and is the obvious later step. One
+// thread per (level, sample), level-major.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,7 +73,10 @@ namespace {
 
 constexpr uint32_t kPrime1 = 2654435761u;
 constexpr uint32_t kPrime2 = 805459861u;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;       // the backward's block
+constexpr int kMaxLevels = 32;      // levels the forward's geometry holds
+constexpr int kBlockSamples = 32;   // samples a forward block encodes
+constexpr int kMaxWarps = 16;       // warps a forward block has (one level each)
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -69,17 +90,25 @@ struct alignas(sizeof(T) * F) Row {
   T v[F];
 };
 
+// Per-level geometry, passed by value among the forward kernel's arguments
+// (mirrored by ctypes in ngp_tpu_torch/ops/hashgrid.py). The kernel takes it
+// as a __grid_constant__ parameter, so that indexing it by the warp's level
+// reads the parameter's constant bank instead of a local copy.
+struct Geometry {
+  float scale[kMaxLevels];
+  int32_t res[kMaxLevels];
+  uint32_t mask[kMaxLevels];  // size - 1; used on hashed levels
+  int32_t hashed[kMaxLevels];
+};
+
 struct Args {
   const float* x;
-  const void* table;
   const float* level_scale;
   const int32_t* level_res;
   const int32_t* level_size;
   const int32_t* level_hashed;
-  float* out;
   int64_t n;
   int n_levels;
-  int64_t table_rows;
   int additive;
   int max_level;
 };
@@ -135,42 +164,133 @@ __device__ __forceinline__ void cell_corners(
   }
 }
 
-template <int D, int F, typename T>
-__global__ void __launch_bounds__(kThreads)
-hashgrid_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
-                       const float* __restrict__ level_scale,
-                       const int32_t* __restrict__ level_res,
-                       const int32_t* __restrict__ level_size,
-                       const int32_t* __restrict__ level_hashed,
-                       float* __restrict__ out, int64_t n, int n_levels,
-                       int64_t table_rows, int additive, int max_level) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n * n_levels) return;
-  const int64_t s = i / n_levels;
-  const int l = static_cast<int>(i - s * n_levels);
+// Word w (0..3) of a 16-byte chunk, selected without local memory.
+__device__ __forceinline__ uint32_t word_of(const uint4& q, int w) {
+  return (w & 2) ? ((w & 1) ? q.w : q.z) : ((w & 1) ? q.y : q.x);
+}
 
-  Row<float, F> acc;
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc.v[f] = 0.0f;
+// Feature f of the row that starts at byte `off` of chunk q.
+template <typename T>
+__device__ __forceinline__ float chunk_feature(const uint4& q, int off, int f);
 
-  if (l <= max_level) {
-    uint32_t idx[1 << D];
-    float w[1 << D];
-    cell_corners<D>(x + s * D, level_scale[l], level_res[l],
-                    level_hashed[l] != 0,
-                    static_cast<uint32_t>(level_size[l]) - 1u, additive, idx, w);
-    const T* tl = table + static_cast<int64_t>(l) * table_rows * F;
+template <>
+__device__ __forceinline__ float chunk_feature<float>(const uint4& q, int off, int f) {
+  return __uint_as_float(word_of(q, (off >> 2) + f));
+}
+
+template <>
+__device__ __forceinline__ float chunk_feature<__nv_bfloat16>(const uint4& q, int off,
+                                                              int f) {
+  const int b = off + 2 * f;
+  const uint32_t w = word_of(q, b >> 2);
+  return __uint_as_float((b & 2) ? (w & 0xffff0000u) : (w << 16));
+}
+
+// A float32 table value as the blend takes it: itself, or rounded to bf16.
+template <bool kRound>
+__device__ __forceinline__ float read_value(float v) {
+  return kRound ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+// acc += sum over corners of w_c * row_c, corner by corner, the rows of
+// corners c and c + 1 from one 16-byte load where they share a chunk.
+// `level` is the level's first row in the whole table; `chunked` says the
+// table starts on a 16-byte boundary and ends on one, so that every chunk
+// of a row lies inside it.
+template <int D, int F, typename T, bool kRound>
+__device__ __forceinline__ void blend(const T* __restrict__ table, int64_t level,
+                                      bool chunked, const uint32_t (&idx)[1 << D],
+                                      const float (&w)[1 << D], float (&acc)[F]) {
+  constexpr int kRowBytes = F * static_cast<int>(sizeof(T));
+  const char* bytes = reinterpret_cast<const char*>(table);
 #pragma unroll
-    for (int c = 0; c < (1 << D); ++c) {
-      const Row<T, F> row =
-          *reinterpret_cast<const Row<T, F>*>(tl + static_cast<int64_t>(idx[c]) * F);
+  for (int c = 0; c < (1 << D); c += 2) {
+    float v[2][F];
+    if (kRowBytes <= 8 && chunked) {
+      const int64_t a0 = (level + idx[c]) * kRowBytes;
+      const int64_t a1 = (level + idx[c + 1]) * kRowBytes;
+      const uint4 q0 = __ldg(reinterpret_cast<const uint4*>(bytes + (a0 & ~int64_t{15})));
+      const uint4 q1 = (a0 >> 4) == (a1 >> 4)
+          ? q0 : __ldg(reinterpret_cast<const uint4*>(bytes + (a1 & ~int64_t{15})));
 #pragma unroll
       for (int f = 0; f < F; ++f) {
-        acc.v[f] = __fadd_rn(acc.v[f], __fmul_rn(w[c], to_float(row.v[f])));
+        v[0][f] = read_value<kRound>(chunk_feature<T>(q0, static_cast<int>(a0 & 15), f));
+        v[1][f] = read_value<kRound>(chunk_feature<T>(q1, static_cast<int>(a1 & 15), f));
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const Row<T, F> row =
+            *reinterpret_cast<const Row<T, F>*>(table + (level + idx[c + h]) * F);
+#pragma unroll
+        for (int f = 0; f < F; ++f) v[h][f] = read_value<kRound>(to_float(row.v[f]));
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        acc[f] = __fadd_rn(acc[f], __fmul_rn(w[c + h], v[h][f]));
       }
     }
   }
-  *reinterpret_cast<Row<float, F>*>(out + i * F) = acc;
+}
+
+// One block: samples s0 .. s0 + 31, every level; warp w encodes levels
+// w, w + warps, ... with lane i on sample s0 + i. Shared memory: the
+// block's positions (32, D), then its outputs level-major (L, 32 * F + 1),
+// the padding word keeping the store phase's reads off one bank.
+template <int D, int F, typename T, bool kRound>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+hashgrid_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
+                       const __grid_constant__ Geometry geo,
+                       float* __restrict__ out, int64_t n,
+                       int n_levels, int64_t table_rows, int additive,
+                       int max_level, int chunked) {
+  extern __shared__ float smem[];
+  constexpr int kLevelStride = kBlockSamples * F + 1;
+  float* xs = smem;
+  float* os = smem + kBlockSamples * D;
+  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * kBlockSamples;
+  const int here = static_cast<int>(n - s0 < kBlockSamples ? n - s0 : kBlockSamples);
+  for (int i = threadIdx.x; i < here * D; i += blockDim.x) xs[i] = x[s0 * D + i];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  for (int l = threadIdx.x >> 5; l < n_levels; l += blockDim.x >> 5) {
+    float acc[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+    if (l <= max_level && lane < here) {
+      uint32_t idx[1 << D];
+      float w[1 << D];
+      cell_corners<D>(xs + lane * D, geo.scale[l], geo.res[l], geo.hashed[l] != 0,
+                      geo.mask[l], additive, idx, w);
+      blend<D, F, T, kRound>(table, l * table_rows, chunked != 0, idx, w, acc);
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) os[l * kLevelStride + lane * F + f] = acc[f];
+  }
+  __syncthreads();
+
+  // the block's (here, L, F) outputs are one contiguous run of `out`
+  const int row = n_levels * F;
+  const int total = here * row;
+  float* dst = out + s0 * row;
+  auto at = [&](int i) {
+    const int s = i / row;
+    const int r = i - s * row;
+    const int l = r / F;
+    return os[l * kLevelStride + s * F + (r - l * F)];
+  };
+  if ((total & 3) == 0) {
+    for (int q = threadIdx.x; q < total / 4; q += blockDim.x) {
+      reinterpret_cast<float4*>(dst)[q] =
+          make_float4(at(4 * q), at(4 * q + 1), at(4 * q + 2), at(4 * q + 3));
+    }
+  } else {
+    for (int i = threadIdx.x; i < total; i += blockDim.x) dst[i] = at(i);
+  }
 }
 
 // Backward half: for each (level, sample) the 2^D corner rows as segment
@@ -219,33 +339,51 @@ hashgrid_backward_addends_kernel(const float* __restrict__ x,
   }
 }
 
-template <int D, int F, typename T>
-int launch(const Args& a, cudaStream_t stream) {
-  const int64_t total = a.n * a.n_levels;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  hashgrid_encode_kernel<D, F, T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      a.x, static_cast<const T*>(a.table), a.level_scale, a.level_res,
-      a.level_size, a.level_hashed, a.out, a.n, a.n_levels, a.table_rows,
-      a.additive, a.max_level);
+struct Forward {
+  const float* x;
+  const void* table;
+  const Geometry* geo;
+  float* out;
+  int64_t n;
+  int n_levels;
+  int64_t table_rows;
+  int additive;
+  int max_level;
+  int chunked;
+};
+
+template <int D, int F, typename T, bool kRound>
+int launch(const Forward& a, cudaStream_t stream) {
+  const int warps = a.n_levels < kMaxWarps ? a.n_levels : kMaxWarps;
+  const int64_t blocks = (a.n + kBlockSamples - 1) / kBlockSamples;
+  const size_t smem =
+      (kBlockSamples * D + a.n_levels * (kBlockSamples * F + 1)) * sizeof(float);
+  hashgrid_encode_kernel<D, F, T, kRound>
+      <<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
+          a.x, static_cast<const T*>(a.table), *a.geo, a.out, a.n, a.n_levels,
+          a.table_rows, a.additive, a.max_level, a.chunked);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, typename T>
-int dispatch_features(int n_features, const Args& a, cudaStream_t stream) {
-  switch (n_features) {
-    case 1: return launch<D, 1, T>(a, stream);
-    case 2: return launch<D, 2, T>(a, stream);
-    case 4: return launch<D, 4, T>(a, stream);
-    case 8: return launch<D, 8, T>(a, stream);
+// table_type: 0 float32, 1 bf16, 2 float32 read rounded to bf16
+template <int D, int F>
+int dispatch_table(int table_type, const Forward& a, cudaStream_t stream) {
+  switch (table_type) {
+    case 0: return launch<D, F, float, false>(a, stream);
+    case 1: return launch<D, F, __nv_bfloat16, false>(a, stream);
+    case 2: return launch<D, F, float, true>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T>
-int dispatch_dims(int n_dims, int n_features, const Args& a, cudaStream_t stream) {
-  switch (n_dims) {
-    case 2: return dispatch_features<2, T>(n_features, a, stream);
-    case 3: return dispatch_features<3, T>(n_features, a, stream);
+template <int D>
+int dispatch_features(int n_features, int table_type, const Forward& a,
+                      cudaStream_t stream) {
+  switch (n_features) {
+    case 1: return dispatch_table<D, 1>(table_type, a, stream);
+    case 2: return dispatch_table<D, 2>(table_type, a, stream);
+    case 4: return dispatch_table<D, 4>(table_type, a, stream);
+    case 8: return dispatch_table<D, 8>(table_type, a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -276,26 +414,33 @@ int dispatch_backward(int n_features, const Args& a, const float* g,
 }  // namespace
 
 // C interface, bound with ctypes by ngp_tpu_torch/ops/hashgrid.py. Pointers
-// are device pointers of contiguous tensors; returns cudaGetLastError()
-// after the launch (0 on success).
+// are device pointers of contiguous tensors, except `geometry`, a host
+// pointer to the per-level Geometry (copied into the launch's arguments);
+// table_type is 0 (float32), 1 (bf16) or 2 (float32 read rounded to bf16).
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int hashgrid_encode(const void* x, const void* table,
-                               const void* level_scale, const void* level_res,
-                               const void* level_size, const void* level_hashed,
-                               void* out, long long n, int n_levels,
-                               long long table_rows, int n_features, int n_dims,
-                               int table_bf16, int additive, int max_level,
-                               void* stream) {
+                               const void* geometry, void* out, long long n,
+                               int n_levels, long long table_rows,
+                               int n_features, int n_dims, int table_type,
+                               int additive, int max_level, void* stream) {
   if (n <= 0) return 0;
-  const Args a{static_cast<const float*>(x), table,
-               static_cast<const float*>(level_scale),
-               static_cast<const int32_t*>(level_res),
-               static_cast<const int32_t*>(level_size),
-               static_cast<const int32_t*>(level_hashed),
-               static_cast<float*>(out), static_cast<int64_t>(n), n_levels,
-               static_cast<int64_t>(table_rows), additive, max_level};
+  if (n_levels < 1 || n_levels > kMaxLevels) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long table_bytes = n_levels * table_rows * n_features *
+                                (table_type == 1 ? 2 : 4);
+  const int chunked = reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+                      table_bytes % 16 == 0;
+  const Forward a{static_cast<const float*>(x), table,
+                  static_cast<const Geometry*>(geometry), static_cast<float*>(out),
+                  static_cast<int64_t>(n), n_levels,
+                  static_cast<int64_t>(table_rows), additive, max_level, chunked};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return table_bf16 ? dispatch_dims<__nv_bfloat16>(n_dims, n_features, a, s)
-                    : dispatch_dims<float>(n_dims, n_features, a, s);
+  switch (n_dims) {
+    case 2: return dispatch_features<2>(n_features, table_type, a, s);
+    case 3: return dispatch_features<3>(n_features, table_type, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Keys (L, N * 2^D) int32 and addends (L, N * 2^D, F) float32 of the
@@ -307,12 +452,12 @@ extern "C" int hashgrid_backward_addends(
     void* keys, void* vals, long long n, int n_levels, int n_features,
     int n_dims, int additive, int max_level, void* stream) {
   if (n <= 0) return 0;
-  const Args a{static_cast<const float*>(x), nullptr,
+  const Args a{static_cast<const float*>(x),
                static_cast<const float*>(level_scale),
                static_cast<const int32_t*>(level_res),
                static_cast<const int32_t*>(level_size),
-               static_cast<const int32_t*>(level_hashed), nullptr,
-               static_cast<int64_t>(n), n_levels, 0, additive, max_level};
+               static_cast<const int32_t*>(level_hashed),
+               static_cast<int64_t>(n), n_levels, additive, max_level};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* gp = static_cast<const float*>(g);
   auto* kp = static_cast<int32_t*>(keys);

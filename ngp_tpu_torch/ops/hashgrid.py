@@ -28,6 +28,7 @@ import torch
 from ngp_tpu_torch.ops.cuda_build import CudaKernel, launch_on
 
 HASH_PRIMES = (1, 2654435761, 805459861)
+MAX_LEVELS = 32  # levels the forward kernel's geometry argument holds
 HASH_VARIANTS = {"tcnn": 0, "additive": 1}  # XOR | addition of the prime terms
 _U32 = 0xFFFFFFFF
 
@@ -37,7 +38,7 @@ HASHGRID_ENCODE = CudaKernel(
     {
         "hashgrid_encode": (
             _i,
-            [_vp] * 7 + [_ll, _i, _ll, _i, _i, _i, _i, _i, _vp],
+            [_vp] * 4 + [_ll, _i, _ll, _i, _i, _i, _i, _i, _vp],
         ),
         "hashgrid_backward_addends": (
             _i,
@@ -49,20 +50,54 @@ HASHGRID_ENCODE = CudaKernel(
 )
 
 
+class _Geometry(ctypes.Structure):
+    """The forward kernel's per-level geometry (``Geometry`` in
+    ``csrc/hashgrid_encode.cu``), passed by value in its arguments."""
+
+    _fields_ = [("scale", ctypes.c_float * MAX_LEVELS),
+                ("res", ctypes.c_int32 * MAX_LEVELS),
+                ("mask", ctypes.c_uint32 * MAX_LEVELS),
+                ("hashed", ctypes.c_int32 * MAX_LEVELS)]
+
+
+def _host_geometry(scale, res, size, hashed) -> _Geometry:
+    """The geometry tensors as the kernel's argument struct. Read from the
+    device once and kept on ``scale`` with the other three tensors and all
+    four versions, so that later calls with the same tensors cost no copy
+    and no synchronisation, and a changed or different tensor is read
+    anew."""
+    parts = (scale, res, size, hashed)
+    versions = tuple(t._version for t in parts)
+    kept = getattr(scale, "_kernel_geometry", None)
+    if (kept is not None and kept[1] == versions
+            and all(a is b for a, b in zip(kept[0], parts))):
+        return kept[2]
+    geo = _Geometry()
+    for l, (sc, r, sz, h) in enumerate(_levels(scale, res, size, hashed)):
+        geo.scale[l], geo.res[l], geo.hashed[l] = sc, r, int(h)
+        geo.mask[l] = (sz - 1) & _U32
+    scale._kernel_geometry = (parts, versions, geo)
+    return geo
+
+
 def hashgrid_encode(x, table, scale, res, size, hashed, hash_variant: str,
-                    max_level: int | None = None) -> torch.Tensor:
+                    max_level: int | None = None,
+                    round_bf16: bool = False) -> torch.Tensor:
     """Encode positions ``x`` (N, D) → (N, L·F) float32, level-major.
 
     ``table`` (L, T, F) float32 or bf16; ``scale`` (L,) float32 and ``res``,
     ``size``, ``hashed`` (L,) int32 per-level geometry (hashed levels have
     a power-of-two ``size``); ``hash_variant`` ``"tcnn"`` (XOR) or
-    ``"additive"``; levels above ``max_level`` are zero."""
+    ``"additive"``; levels above ``max_level`` are zero. ``round_bf16``
+    reads a float32 table's entries rounded to bf16, as if the caller had
+    passed ``table.to(torch.bfloat16)``."""
     if x.device.type == "cpu":
         return hashgrid_encode_reference(
-            x, table, scale, res, size, hashed, hash_variant, max_level
+            x, table, scale, res, size, hashed, hash_variant, max_level,
+            round_bf16,
         )
     return hashgrid_encode_cuda(
-        x, table, scale, res, size, hashed, hash_variant, max_level
+        x, table, scale, res, size, hashed, hash_variant, max_level, round_bf16
     )
 
 
@@ -110,10 +145,13 @@ def _levels(scale, res, size, hashed):
 
 def hashgrid_encode_reference(x, table, scale, res, size, hashed,
                               hash_variant: str,
-                              max_level: int | None = None) -> torch.Tensor:
+                              max_level: int | None = None,
+                              round_bf16: bool = False) -> torch.Tensor:
     """Plain PyTorch twin of the forward kernel, with the same arithmetic:
     products and sums in float32 in the kernel's corner order."""
     additive = HASH_VARIANTS[hash_variant] == 1
+    if round_bf16:
+        table = table.to(torch.bfloat16)
     N = x.shape[0]
     L, T, F = table.shape
     top = L - 1 if max_level is None else max_level
@@ -195,7 +233,8 @@ def _check_common(fn: str, x, L: int, F: int, scale, res, size, hashed,
 
 def hashgrid_encode_cuda(x, table, scale, res, size, hashed,
                          hash_variant: str,
-                         max_level: int | None = None) -> torch.Tensor:
+                         max_level: int | None = None,
+                         round_bf16: bool = False) -> torch.Tensor:
     """Launch the forward kernel of ``csrc/hashgrid_encode.cu`` on the
     current stream. Raises on any input the kernel does not take and on a
     refused launch."""
@@ -204,19 +243,22 @@ def hashgrid_encode_cuda(x, table, scale, res, size, hashed,
            f"table must be (L, T, F) float32|bf16, got "
            f"{tuple(table.shape)} {table.dtype}")
     L, T, F = table.shape
+    _check(L <= MAX_LEVELS, f"at most {MAX_LEVELS} levels, got {L}")
+    _check(not round_bf16 or table.dtype == torch.float32,
+           "round_bf16 takes a float32 table")
     _check_common("hashgrid_encode_cuda", x, L, F, scale, res, size, hashed,
                   hash_variant, {"table": table})
     N = x.shape[0]
     out = torch.empty((N, L * F), dtype=torch.float32, device=dev)
     if N == 0:
         return out
+    geo = _host_geometry(scale, res, size, hashed)
+    table_type = 2 if round_bf16 else int(table.dtype == torch.bfloat16)
     lib = HASHGRID_ENCODE.library()
     rc = launch_on(dev, lambda stream: lib.hashgrid_encode(
-        x.data_ptr(), table.data_ptr(), scale.data_ptr(), res.data_ptr(),
-        size.data_ptr(), hashed.data_ptr(), out.data_ptr(), N, L, T, F,
-        x.shape[1], int(table.dtype == torch.bfloat16),
-        HASH_VARIANTS[hash_variant], L - 1 if max_level is None else max_level,
-        stream))
+        x.data_ptr(), table.data_ptr(), ctypes.addressof(geo), out.data_ptr(),
+        N, L, T, F, x.shape[1], table_type, HASH_VARIANTS[hash_variant],
+        L - 1 if max_level is None else max_level, stream))
     if rc != 0:
         msg = lib.hashgrid_encode_error_string(rc).decode()
         raise RuntimeError(f"hashgrid_encode launch failed: {msg} ({rc})")

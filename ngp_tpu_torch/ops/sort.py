@@ -33,6 +33,7 @@ BITONIC_SORT = CudaKernel(
     "bitonic_sort.cu",
     {
         "bitonic_sort_pos": (_i, [_vp] * 3 + [_ll, _i, _vp]),
+        "bitonic_sort_launches": (_i, [_i]),
         "bitonic_sort_error_string": (ctypes.c_char_p, [_i]),
     },
     ("bitonic_sort_pos",),
@@ -47,6 +48,13 @@ def _check_keys(fn: str, keys):
     if n & (n - 1) or n < MIN_N or n > 1 << 30:
         raise ValueError(f"{fn}: n must be a power of two in "
                          f"[{MIN_N}, 2^30], got {n}")
+
+
+def bitonic_sort_launches(n: int) -> int:
+    """Kernel launches that one :func:`bitonic_sort_pos_cuda` call makes for
+    rows of ``n`` elements, as the C entry point plans them (builds the
+    library)."""
+    return BITONIC_SORT.library().bitonic_sort_launches(n)
 
 
 def bitonic_sort_pos(keys):

@@ -35,6 +35,7 @@ from ngp_tpu_torch.ops.segsum import (
 from ngp_tpu_torch.ops.sort import (
     BITONIC_SORT,
     INT32_MAX,
+    bitonic_sort_launches,
     bitonic_sort_pos,
     bitonic_sort_pos_cuda,
     bitonic_sort_pos_reference,
@@ -67,19 +68,75 @@ def _case(d, f, variant, seed, n=1 << 14):
     return torch.from_numpy(x).cuda(), table, geo
 
 
+HASH_P1, HASH_P2 = 2654435761, 805459861
+
+
+def _edge_case(d, f, variant, seed, n_random=4096):
+    """Geometry and positions that put corner pairs (c, c + 1 in x) on
+    every edge of the forward kernel's paired loads: levels 0 and 1 dense
+    (res 5 and 9), levels 2 and 3 hashed (64 and 256 rows); T odd, so that
+    each level starts at another offset within a 16-byte chunk and pairs
+    straddle chunks at other rows (with F = 1 in bf16 the table's length is
+    no multiple of 16 bytes and the kernel loads rows one by one). Targeted
+    cells: x = -1, 0, res - 2, res - 1, res on the dense levels (negative
+    coordinates and the clamped planes); on the hashed levels cells whose
+    corner 0, or whose corner 1, hashes to size - 1 under either hash (an
+    additive pair that wraps to row 0), and odd and even x (under XOR rows
+    h and h ^ 1, or unrelated). Each targeted coordinate's fraction is 0.3,
+    the other coordinates' cells drawn from [-1, res]."""
+    rng = np.random.default_rng(seed)
+    scale = np.asarray([4.0, 8.0, 15.0, 31.0], np.float32)
+    res = np.asarray([5, 9, 16, 32], np.int32)
+    size = np.asarray([5 ** d, 9 ** d, 64, 256], np.int32)
+    hashed = np.asarray([0, 0, 1, 1], np.int32)
+    T = (int(size.max()) + 2) | 1
+    xs = [rng.uniform(-0.2, 1.2, (n_random, d))]
+    for l in range(4):
+        r = int(res[l])
+        cells = rng.integers(-1, r + 1, (64, d))
+        if not hashed[l]:
+            cells[:, 0] = np.resize([-1, 0, r - 2, r - 1, r], 64)
+        else:
+            mask = int(size[l]) - 1
+            rest_add = cells[:, 1] * HASH_P1 + (cells[:, 2] * HASH_P2 if d == 3 else 0)
+            rest_xor = (cells[:, 1] * HASH_P1) ^ (cells[:, 2] * HASH_P2 if d == 3 else 0)
+            wrap_add = (mask - rest_add) & mask  # x whose additive hash is mask
+            wrap_xor = (mask ^ rest_xor) & mask
+            x0 = np.select([np.arange(64) % 4 == k for k in range(4)],
+                           [wrap_add, wrap_add - 1, wrap_xor, wrap_xor - 1])
+            reach = (x0 >= -1) & (x0 <= r)
+            cells[reach, 0] = x0[reach]
+            assert reach.sum() >= 4
+            cells[-16:-8, 0] |= 1
+            cells[-8:, 0] &= ~1
+        xs.append((cells + 0.3 - 0.5) / float(scale[l]))
+    x = np.concatenate(xs).astype(np.float32)
+    table = rng.uniform(-1, 1, (4, T, f)).astype(np.float32)
+    geo = tuple(torch.from_numpy(a).cuda() for a in (scale, res, size, hashed))
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(table).cuda(),
+            geo + (variant,))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("positions", ["uniform", "edges"])
 @pytest.mark.parametrize("d", [2, 3])
 @pytest.mark.parametrize("f", [1, 2, 4, 8])
 @pytest.mark.parametrize("variant", ["tcnn", "additive"])
-def test_kernel_matches_twin(cuda, variant, f, d):
-    x, table, geo = _case(d, f, variant, 10 * f + d)
-    for tab in (table, table.to(torch.bfloat16)):
+def test_kernel_matches_twin(cuda, variant, f, d, positions):
+    """The forward kernel gives the twin's bits: float32 and bf16 tables,
+    a float32 table read rounded to bf16, with and without max_level, on
+    uniform positions and on every edge of its paired loads."""
+    make = _case if positions == "uniform" else _edge_case
+    x, table, geo = make(d, f, variant, 10 * f + d)
+    for tab, rounded in ((table, False), (table.to(torch.bfloat16), False),
+                         (table, True)):
         for max_level in (None, 1):
             before = HASHGRID_ENCODE.launches["hashgrid_encode"]
-            got = hashgrid_encode(x, tab, *geo, max_level)
+            got = hashgrid_encode(x, tab, *geo, max_level, round_bf16=rounded)
             assert HASHGRID_ENCODE.launches["hashgrid_encode"] == before + 1
-            want = hashgrid_encode_reference(x, tab, *geo, max_level)
-            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            want = hashgrid_encode_reference(x, tab, *geo, max_level,
+                                             round_bf16=rounded)
+            assert torch.equal(got, want), float((got - want).abs().max())
 
 
 @pytest.mark.cuda
@@ -97,6 +154,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     for args in bad:
         with pytest.raises(ValueError):
             hashgrid_encode_cuda(args[0], args[1], *args[2])
+    with pytest.raises(ValueError):
+        hashgrid_encode_cuda(x, table.to(torch.bfloat16), *geo, round_bf16=True)
+    many = [t.repeat(9) for t in geo[:4]]  # 36 levels, above the kernel's 32
+    with pytest.raises(ValueError):
+        hashgrid_encode_cuda(x, table.repeat(9, 1, 1), *many, geo[4])
 
 
 @pytest.mark.cuda
@@ -266,14 +328,35 @@ def test_segment_sum_pairs_exact(cuda, f, t):
         assert not torch.signbit(got[untouched]).any()
 
 
+def _sort_launches(n, tile_log=14, group=5):
+    """Launches of one sort call as csrc/bitonic_sort.cu plans them: one
+    tile launch for the stages k <= the tile, then for each larger k its
+    strides >= the tile in passes of at most ``group``, and a tile launch."""
+    log_n = n.bit_length() - 1
+    t = min(log_n, tile_log)
+    return 1 + sum(-(-(k - t) // group) + 1 for k in range(t + 1, log_n + 1))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n", [(1, 128), (3, 1 << 12), (2, 1 << 13), (4, 1 << 20)])
-def test_bitonic_sort_matches_twin(cuda, b, n):
+@pytest.mark.parametrize("rows", ["random", "equal", "descending", "sorted"])
+@pytest.mark.parametrize("b,n", [(1, 128), (3, 1 << 12), (2, 1 << 13), (1, 1 << 13),
+                                 (3, 1 << 14), (2, 1 << 15), (1, 1 << 17),
+                                 (4, 1 << 20)])
+def test_bitonic_sort_matches_twin(cuda, b, n, rows):
     """The kernel runs the twin's network: keys and perm equal exactly,
-    dense ties and an INT32_MAX tail included; (2, 2^13) is the first
-    shape with a pass over device memory."""
+    dense ties and an INT32_MAX tail included. The shapes cross the tile
+    (2^14 elements) and the fused passes over device memory (up to 5
+    strides each; (2, 2^15) is the first shape with one, (4, 2^20) has
+    stages with two); all-equal rows never swap, descending and sorted
+    rows take every exchange or none."""
     rng = np.random.default_rng(n + b)
     keys = rng.integers(0, min(n // 2, 1 << 18), (b, n)).astype(np.int32)
+    if rows == "equal":
+        keys[:] = 7
+    elif rows == "descending":
+        keys = -np.sort(-keys, axis=1)
+    elif rows == "sorted":
+        keys = np.sort(keys, axis=1)
     keys[:, -3:] = INT32_MAX
     keys = torch.from_numpy(keys).cuda()
     copy = keys.clone()
@@ -285,6 +368,7 @@ def test_bitonic_sort_matches_twin(cuda, b, n):
     assert torch.equal(got_k, torch.sort(keys, dim=1).values)
     assert torch.equal(keys.gather(1, got_p.long()), got_k)
     assert torch.equal(keys, copy)
+    assert bitonic_sort_launches(n) == _sort_launches(n)
 
 
 @pytest.mark.cuda
