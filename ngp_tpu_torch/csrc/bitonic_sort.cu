@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kRegLog = 5;  // a thread holds 2^5 elements in registers
@@ -72,7 +74,8 @@ __device__ __forceinline__ int32_t pos_of(uint64_t v) {
 }
 
 // The network's exchange: a at the lower index, b at the upper; they swap
-// only where strictly out of order for the pair's direction.
+// only where strictly out of order for the pair's direction (a constant
+// wherever the caller can make it one: one comparison and four selects).
 __device__ __forceinline__ void exchange(uint64_t& a, uint64_t& b, bool descending) {
   const int32_t ka = key_of(a);
   const int32_t kb = key_of(b);
@@ -96,16 +99,35 @@ __device__ __forceinline__ int layout_base(int t, int r0) {
   return ((t >> r0) << (r0 + kRegLog)) | (t & ((1 << r0) - 1));
 }
 
-// One stride (register bit RB of the layout) of stage k on a thread's
-// registers; ibase is the row index of the thread's register 0.
-template <int RB>
-__device__ __forceinline__ void stride_in_registers(uint64_t (&v)[kReg], int ibase,
-                                                    int r0, int k) {
+// A stride's direction for a thread's registers: all ascending, all
+// descending, or (0 <= mode < 5) given by bit `mode` of the register index,
+// where bit k of the row index is one of the layout's register bits.
+constexpr int kAscending = -1;
+constexpr int kDescending = -2;
+
+// One stride (register bit RB of the layout) on a thread's registers, the
+// direction of every exchange a constant.
+template <int RB, int MODE>
+__device__ __forceinline__ void stride_in_registers(uint64_t (&v)[kReg]) {
 #pragma unroll
   for (int e = 0; e < kReg; ++e) {
     if (e & (1 << RB)) continue;
-    const bool descending = (((ibase | (e << r0)) >> k) & 1) != 0;
+    const bool descending =
+        MODE == kDescending || (MODE >= 0 && ((e >> (MODE & 31)) & 1));
     exchange(v[e], v[e | (1 << RB)], descending);
+  }
+}
+
+// Bit k lies above the stride's bit, so a register bit `mode` is > RB.
+template <int RB>
+__device__ __forceinline__ void stride_with_mode(uint64_t (&v)[kReg], int mode) {
+  switch (mode) {
+    case kDescending: stride_in_registers<RB, kDescending>(v); break;
+    case kAscending: stride_in_registers<RB, kAscending>(v); break;
+    case 1: if constexpr (RB < 1) stride_in_registers<RB, 1>(v); break;
+    case 2: if constexpr (RB < 2) stride_in_registers<RB, 2>(v); break;
+    case 3: if constexpr (RB < 3) stride_in_registers<RB, 3>(v); break;
+    default: if constexpr (RB < 4) stride_in_registers<RB, 4>(v); break;
   }
 }
 
@@ -147,12 +169,17 @@ sort_tiles_kernel(const int32_t* src_keys, const int32_t* src_perm,
 #pragma unroll
         for (int e = 0; e < kReg; ++e) v[e] = sm[padded((ibase & (tile - 1)) | (e << r0))];
       }
+      // ibase is 0 in the register bits: bit k is either one of them or
+      // the thread's own
+      const int kb = k - r0;
+      const int mode = (kb >= 0 && kb < kRegLog) ? kb
+                       : ((ibase >> k) & 1) ? kDescending : kAscending;
       switch (b - r0) {
-        case 0: stride_in_registers<0>(v, ibase, r0, k); break;
-        case 1: stride_in_registers<1>(v, ibase, r0, k); break;
-        case 2: stride_in_registers<2>(v, ibase, r0, k); break;
-        case 3: stride_in_registers<3>(v, ibase, r0, k); break;
-        default: stride_in_registers<4>(v, ibase, r0, k); break;
+        case 0: stride_with_mode<0>(v, mode); break;
+        case 1: stride_with_mode<1>(v, mode); break;
+        case 2: stride_with_mode<2>(v, mode); break;
+        case 3: stride_with_mode<3>(v, mode); break;
+        default: stride_with_mode<4>(v, mode); break;
       }
     }
   }
@@ -185,12 +212,19 @@ merge_pass_kernel(int32_t* keys, int32_t* perm, int64_t n_threads, int n,
     const int64_t i = i0 + (static_cast<int64_t>(m) << b_lo);
     v[m] = pack(keys[i], perm[i]);
   }
+  auto strides = [&](auto desc) {
 #pragma unroll
-  for (int s = R - 1; s >= 0; --s) {
+    for (int s = R - 1; s >= 0; --s) {
 #pragma unroll
-    for (int m = 0; m < (1 << R); ++m) {
-      if (!(m & (1 << s))) exchange(v[m], v[m | (1 << s)], descending);
+      for (int m = 0; m < (1 << R); ++m) {
+        if (!(m & (1 << s))) exchange(v[m], v[m | (1 << s)], desc.value);
+      }
     }
+  };
+  if (descending) {
+    strides(std::true_type{});
+  } else {
+    strides(std::false_type{});
   }
 #pragma unroll
   for (int m = 0; m < (1 << R); ++m) {

@@ -25,28 +25,30 @@
 // positions and write 4*L*F bytes of features, and each table row once. At
 // the "tpu" tier (L=8, F=2, T=2^18) the table is 16 MB in float32 (8 MB in
 // bf16) and stays in the 50 MB L2, so the DRAM floor is about
-// (12 + 64) B/sample / 3.35 TB/s. What sets the pace are the 2^D * L random
-// table reads per sample, each a request to L2 for one 32-byte sector.
+// (12 + 64) B/sample / 3.35 TB/s. What sets the pace are the 2^D * L table
+// reads per sample, each a request to L1 and, where it misses, to L2 for
+// one 32-byte sector. On uniform positions every lane of a load touches
+// its own sector; on the positions a rendered frame gives (k-major
+// compaction puts the k-th samples of neighbouring pixels side by side)
+// the lanes of a warp share lines, above all on the coarse levels.
 //
 // Design, for that:
-//   - Corner pairs from one load. Corners c and c + 1 differ in x only. On
-//     dense levels and under the additive hash their rows are h and h + 1
-//     (mod size, or h twice where the dense grid clamps x), under the XOR
-//     hash with x even h and h ^ 1. Where a row is at most 8 bytes (F*size
-//     of the element), both rows are fetched with one aligned 16-byte load
-//     when they share a 16-byte chunk of the table, and with two loads
-//     otherwise. The test is on the rows actually computed, so every case
-//     (the wrap at size - 1, odd x under XOR, the clamped planes, a pair
-//     across a chunk) reads the same values as two row loads would. On the
-//     "tpu" tier (bf16, 4-byte rows) three pairs in four share a chunk.
+//   - Level-uniform warps. A warp encodes 32 consecutive samples, one a
+//     lane, level after level, so each load instruction's lanes read one
+//     level: neighbouring samples share its lines, the hashed/dense branch
+//     is uniform, and no thread divides to find its (sample, level).
 //   - Geometry off the memory path: the per-level scale, resolution, mask
-//     and hashed flag are a struct among the kernel's arguments.
-//   - Level-uniform warps: a block encodes 32 samples, one per lane, and
-//     each warp one level at a time, so the hashed/dense branch and the
-//     level's geometry are uniform in a warp, and no thread divides to find
-//     its (sample, level). The block's positions are staged in shared
-//     memory once; its (32, L, F) outputs are gathered in shared memory and
-//     written as contiguous 16-byte stores.
+//     and hashed flag are a __grid_constant__ struct among the kernel's
+//     arguments, read at the warp's (uniform) level from the constant bank.
+//   - Outputs staged per warp: each warp gathers its (32, L, F) outputs in
+//     its own shared memory and writes them as one contiguous run of
+//     16-byte stores. Warps never wait for one another: a block-wide
+//     barrier made every warp wait for the block's slowest level.
+//   - One row per load. Fetching corners c and c + 1 (rows h and h + 1, or
+//     h ^ 1) with one 16-byte load was measured (PERF.md, PR 5): it cut the
+//     requests on uniform positions but cost more than it saved where lanes
+//     share lines, since a 16-byte load takes four L1 data cycles a warp
+//     where a 4-byte one takes one.
 // Products and sums are rounded one at a time (no FMA contraction) in the
 // corner order, so the plain PyTorch twin in ngp_tpu_torch/ops/hashgrid.py
 // reproduces the result bit for bit. Nothing of the TPU kernel's block
@@ -75,8 +77,9 @@ constexpr uint32_t kPrime1 = 2654435761u;
 constexpr uint32_t kPrime2 = 805459861u;
 constexpr int kThreads = 256;       // the backward's block
 constexpr int kMaxLevels = 32;      // levels the forward's geometry holds
-constexpr int kBlockSamples = 32;   // samples a forward block encodes
-constexpr int kMaxWarps = 16;       // warps a forward block has (one level each)
+constexpr int kWarpSamples = 32;    // samples a forward warp encodes, one a lane
+constexpr int kMaxBlockWarps = 8;   // warps a forward block has at most
+constexpr int kMaxBlockSmem = 48 * 1024;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -164,116 +167,76 @@ __device__ __forceinline__ void cell_corners(
   }
 }
 
-// Word w (0..3) of a 16-byte chunk, selected without local memory.
-__device__ __forceinline__ uint32_t word_of(const uint4& q, int w) {
-  return (w & 2) ? ((w & 1) ? q.w : q.z) : ((w & 1) ? q.y : q.x);
-}
-
-// Feature f of the row that starts at byte `off` of chunk q.
-template <typename T>
-__device__ __forceinline__ float chunk_feature(const uint4& q, int off, int f);
-
-template <>
-__device__ __forceinline__ float chunk_feature<float>(const uint4& q, int off, int f) {
-  return __uint_as_float(word_of(q, (off >> 2) + f));
-}
-
-template <>
-__device__ __forceinline__ float chunk_feature<__nv_bfloat16>(const uint4& q, int off,
-                                                              int f) {
-  const int b = off + 2 * f;
-  const uint32_t w = word_of(q, b >> 2);
-  return __uint_as_float((b & 2) ? (w & 0xffff0000u) : (w << 16));
-}
-
 // A float32 table value as the blend takes it: itself, or rounded to bf16.
 template <bool kRound>
 __device__ __forceinline__ float read_value(float v) {
   return kRound ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
-// acc += sum over corners of w_c * row_c, corner by corner, the rows of
-// corners c and c + 1 from one 16-byte load where they share a chunk.
-// `level` is the level's first row in the whole table; `chunked` says the
-// table starts on a 16-byte boundary and ends on one, so that every chunk
-// of a row lies inside it.
+// acc += sum over the 2^D corners of w_c * table[level + idx_c], corner by
+// corner, each row one vector load.
 template <int D, int F, typename T, bool kRound>
 __device__ __forceinline__ void blend(const T* __restrict__ table, int64_t level,
-                                      bool chunked, const uint32_t (&idx)[1 << D],
+                                      const uint32_t (&idx)[1 << D],
                                       const float (&w)[1 << D], float (&acc)[F]) {
-  constexpr int kRowBytes = F * static_cast<int>(sizeof(T));
-  const char* bytes = reinterpret_cast<const char*>(table);
 #pragma unroll
-  for (int c = 0; c < (1 << D); c += 2) {
-    float v[2][F];
-    if (kRowBytes <= 8 && chunked) {
-      const int64_t a0 = (level + idx[c]) * kRowBytes;
-      const int64_t a1 = (level + idx[c + 1]) * kRowBytes;
-      const uint4 q0 = __ldg(reinterpret_cast<const uint4*>(bytes + (a0 & ~int64_t{15})));
-      const uint4 q1 = (a0 >> 4) == (a1 >> 4)
-          ? q0 : __ldg(reinterpret_cast<const uint4*>(bytes + (a1 & ~int64_t{15})));
+  for (int c = 0; c < (1 << D); ++c) {
+    const Row<T, F> row =
+        *reinterpret_cast<const Row<T, F>*>(table + (level + idx[c]) * F);
 #pragma unroll
-      for (int f = 0; f < F; ++f) {
-        v[0][f] = read_value<kRound>(chunk_feature<T>(q0, static_cast<int>(a0 & 15), f));
-        v[1][f] = read_value<kRound>(chunk_feature<T>(q1, static_cast<int>(a1 & 15), f));
-      }
-    } else {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const Row<T, F> row =
-            *reinterpret_cast<const Row<T, F>*>(table + (level + idx[c + h]) * F);
-#pragma unroll
-        for (int f = 0; f < F; ++f) v[h][f] = read_value<kRound>(to_float(row.v[f]));
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        acc[f] = __fadd_rn(acc[f], __fmul_rn(w[c + h], v[h][f]));
-      }
+    for (int f = 0; f < F; ++f) {
+      acc[f] = __fadd_rn(acc[f], __fmul_rn(w[c], read_value<kRound>(to_float(row.v[f]))));
     }
   }
 }
 
-// One block: samples s0 .. s0 + 31, every level; warp w encodes levels
-// w, w + warps, ... with lane i on sample s0 + i. Shared memory: the
-// block's positions (32, D), then its outputs level-major (L, 32 * F + 1),
-// the padding word keeping the store phase's reads off one bank.
+// Shared memory a warp stages its outputs in: (L, 32 * F + 1) floats, the
+// padding word keeping the store phase's reads off one bank.
+template <int F>
+__host__ __device__ constexpr int warp_stage_floats(int n_levels) {
+  return n_levels * (kWarpSamples * F + 1);
+}
+
+// Each warp encodes 32 samples, one a lane, level after level; it stages
+// the (32, L, F) outputs in its own shared memory and writes them as one
+// contiguous run with 16-byte stores. Warps never wait for one another.
 template <int D, int F, typename T, bool kRound>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(kMaxBlockWarps * 32)
 hashgrid_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
                        const __grid_constant__ Geometry geo,
-                       float* __restrict__ out, int64_t n,
-                       int n_levels, int64_t table_rows, int additive,
-                       int max_level, int chunked) {
+                       float* __restrict__ out, int64_t n, int n_levels,
+                       int64_t table_rows, int additive, int max_level) {
   extern __shared__ float smem[];
-  constexpr int kLevelStride = kBlockSamples * F + 1;
-  float* xs = smem;
-  float* os = smem + kBlockSamples * D;
-  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * kBlockSamples;
-  const int here = static_cast<int>(n - s0 < kBlockSamples ? n - s0 : kBlockSamples);
-  for (int i = threadIdx.x; i < here * D; i += blockDim.x) xs[i] = x[s0 * D + i];
-  __syncthreads();
-
+  constexpr int kLevelStride = kWarpSamples * F + 1;
   const int lane = threadIdx.x & 31;
-  for (int l = threadIdx.x >> 5; l < n_levels; l += blockDim.x >> 5) {
+  const int warp = threadIdx.x >> 5;
+  const int64_t s0 =
+      (static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp) * kWarpSamples;
+  if (s0 >= n) return;
+  const int here = static_cast<int>(n - s0 < kWarpSamples ? n - s0 : kWarpSamples);
+  const bool live = lane < here;
+  float xs[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) xs[d] = live ? x[(s0 + lane) * D + d] : 0.0f;
+  float* os = smem + warp * warp_stage_floats<F>(n_levels);
+
+  for (int l = 0; l < n_levels; ++l) {
     float acc[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-    if (l <= max_level && lane < here) {
+    if (live && l <= max_level) {
       uint32_t idx[1 << D];
       float w[1 << D];
-      cell_corners<D>(xs + lane * D, geo.scale[l], geo.res[l], geo.hashed[l] != 0,
+      cell_corners<D>(xs, geo.scale[l], geo.res[l], geo.hashed[l] != 0,
                       geo.mask[l], additive, idx, w);
-      blend<D, F, T, kRound>(table, l * table_rows, chunked != 0, idx, w, acc);
+      blend<D, F, T, kRound>(table, l * table_rows, idx, w, acc);
     }
 #pragma unroll
     for (int f = 0; f < F; ++f) os[l * kLevelStride + lane * F + f] = acc[f];
   }
-  __syncthreads();
+  __syncwarp();
 
-  // the block's (here, L, F) outputs are one contiguous run of `out`
+  // the warp's (here, L, F) outputs are one contiguous run of `out`
   const int row = n_levels * F;
   const int total = here * row;
   float* dst = out + s0 * row;
@@ -284,12 +247,12 @@ hashgrid_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
     return os[l * kLevelStride + s * F + (r - l * F)];
   };
   if ((total & 3) == 0) {
-    for (int q = threadIdx.x; q < total / 4; q += blockDim.x) {
+    for (int q = lane; q < total / 4; q += 32) {
       reinterpret_cast<float4*>(dst)[q] =
           make_float4(at(4 * q), at(4 * q + 1), at(4 * q + 2), at(4 * q + 3));
     }
   } else {
-    for (int i = threadIdx.x; i < total; i += blockDim.x) dst[i] = at(i);
+    for (int i = lane; i < total; i += 32) dst[i] = at(i);
   }
 }
 
@@ -349,19 +312,21 @@ struct Forward {
   int64_t table_rows;
   int additive;
   int max_level;
-  int chunked;
 };
 
 template <int D, int F, typename T, bool kRound>
 int launch(const Forward& a, cudaStream_t stream) {
-  const int warps = a.n_levels < kMaxWarps ? a.n_levels : kMaxWarps;
-  const int64_t blocks = (a.n + kBlockSamples - 1) / kBlockSamples;
-  const size_t smem =
-      (kBlockSamples * D + a.n_levels * (kBlockSamples * F + 1)) * sizeof(float);
+  // as many warps a block as keep its staging within 48 KB
+  const int warp_bytes = warp_stage_floats<F>(a.n_levels) * static_cast<int>(sizeof(float));
+  int warps = kMaxBlockSmem / warp_bytes;
+  warps = warps < 1 ? 1 : (warps > kMaxBlockWarps ? kMaxBlockWarps : warps);
+  const int64_t per_block = static_cast<int64_t>(warps) * kWarpSamples;
+  const int64_t blocks = (a.n + per_block - 1) / per_block;
   hashgrid_encode_kernel<D, F, T, kRound>
-      <<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
+      <<<static_cast<unsigned>(blocks), warps * 32,
+         static_cast<size_t>(warps) * warp_bytes, stream>>>(
           a.x, static_cast<const T*>(a.table), *a.geo, a.out, a.n, a.n_levels,
-          a.table_rows, a.additive, a.max_level, a.chunked);
+          a.table_rows, a.additive, a.max_level);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -427,14 +392,10 @@ extern "C" int hashgrid_encode(const void* x, const void* table,
   if (n_levels < 1 || n_levels > kMaxLevels) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long table_bytes = n_levels * table_rows * n_features *
-                                (table_type == 1 ? 2 : 4);
-  const int chunked = reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
-                      table_bytes % 16 == 0;
   const Forward a{static_cast<const float*>(x), table,
                   static_cast<const Geometry*>(geometry), static_cast<float*>(out),
                   static_cast<int64_t>(n), n_levels,
-                  static_cast<int64_t>(table_rows), additive, max_level, chunked};
+                  static_cast<int64_t>(table_rows), additive, max_level};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_dims) {
     case 2: return dispatch_features<2>(n_features, table_type, a, s);

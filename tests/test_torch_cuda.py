@@ -72,18 +72,17 @@ HASH_P1, HASH_P2 = 2654435761, 805459861
 
 
 def _edge_case(d, f, variant, seed, n_random=4096):
-    """Geometry and positions that put corner pairs (c, c + 1 in x) on
-    every edge of the forward kernel's paired loads: levels 0 and 1 dense
-    (res 5 and 9), levels 2 and 3 hashed (64 and 256 rows); T odd, so that
-    each level starts at another offset within a 16-byte chunk and pairs
-    straddle chunks at other rows (with F = 1 in bf16 the table's length is
-    no multiple of 16 bytes and the kernel loads rows one by one). Targeted
-    cells: x = -1, 0, res - 2, res - 1, res on the dense levels (negative
-    coordinates and the clamped planes); on the hashed levels cells whose
-    corner 0, or whose corner 1, hashes to size - 1 under either hash (an
-    additive pair that wraps to row 0), and odd and even x (under XOR rows
-    h and h ^ 1, or unrelated). Each targeted coordinate's fraction is 0.3,
-    the other coordinates' cells drawn from [-1, res]."""
+    """Geometry and positions on every edge of the corner math, for each
+    pair of corners c, c + 1 (x and x + 1): levels 0 and 1 dense (res 5
+    and 9), levels 2 and 3 hashed (64 and 256 rows), T odd, so that every
+    level but the first starts at an odd row and a row's vector load sits
+    off a 16-byte boundary. Targeted cells: x = -1, 0, res - 2, res - 1,
+    res on the dense levels (negative coordinates and the clamped top
+    plane); on the hashed levels cells whose corner 0, or whose corner 1,
+    hashes to size - 1 under either hash (an additive pair then wraps to
+    row 0), and odd and even x (under XOR rows h and h ^ 1, or unrelated).
+    Each targeted coordinate's fraction is 0.3, the other coordinates'
+    cells drawn from [-1, res]."""
     rng = np.random.default_rng(seed)
     scale = np.asarray([4.0, 8.0, 15.0, 31.0], np.float32)
     res = np.asarray([5, 9, 16, 32], np.int32)
@@ -125,7 +124,7 @@ def _edge_case(d, f, variant, seed, n_random=4096):
 def test_kernel_matches_twin(cuda, variant, f, d, positions):
     """The forward kernel gives the twin's bits: float32 and bf16 tables,
     a float32 table read rounded to bf16, with and without max_level, on
-    uniform positions and on every edge of its paired loads."""
+    uniform positions and on every edge of the corner math."""
     make = _case if positions == "uniform" else _edge_case
     x, table, geo = make(d, f, variant, 10 * f + d)
     for tab, rounded in ((table, False), (table.to(torch.bfloat16), False),
