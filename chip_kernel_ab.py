@@ -14,13 +14,12 @@ then the card's ``name, power.limit``. Device ms are ``device_ms`` of this
 script's ``chip_smoke.py`` (the profiler's device time per call, output
 allocation included). Kernels:
 
-- ``b1``: ``hashgrid_encode_cuda`` of the "tpu" tier at aabb_scale 4 on a
-  bf16 table, on ``--b1-samples`` uniform positions and on the positions of
-  a rendered frame's largest launch (captured once, by a first process that
-  runs ``chip_smoke.phase_serve`` with AFTER's package, and shared by every
-  turn); where the root's wrapper takes ``round_bf16``, also the float32
-  table read rounded in the kernel, and the cast ``table.to(bfloat16)``
-  that it saves.
+- ``b1``: ``hashgrid_encode_cuda`` on a bf16 table: the "tpu" tier at
+  aabb_scale 4 on ``--b1-samples`` uniform positions and on the positions
+  of a rendered frame's largest launch (captured once, by a first process
+  that runs ``chip_smoke.phase_serve`` with AFTER's package, and shared by
+  every turn), and the "upstream" tier on 2^20 uniform positions; beside
+  each, the cast ``table.to(bfloat16)`` that the encoding makes first.
 - ``b5``: ``bitonic_sort_pos_cuda`` at (4, 2^20) on the keys of
   ``chip_smoke.phase_kernel_sort``, beside ``torch.sort``.
 - ``segsum``: ``segsum_times`` of ``chip_smoke.py`` (``batched_segment_sum``
@@ -32,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
-import inspect
 import os
 import subprocess
 import sys
@@ -61,25 +59,21 @@ def _helpers(root: str):
     return helpers
 
 
-def b1_times(helpers, x) -> dict:
+def b1_times(helpers, x, tier: str = "tpu") -> dict:
     import torch
 
     from ngp_tpu_torch.ops.hashgrid import hashgrid_encode_cuda
 
-    enc = helpers._encoding("tpu")
+    enc = helpers._encoding(tier)
     L, T, F = enc.table.shape
     master = (torch.rand((L, T, F), generator=torch.Generator().manual_seed(1))
               * 2 - 1).cuda()
     table = master.to(torch.bfloat16)
     geo = (enc.level_scale, enc.level_res, enc.level_size, enc.level_hashed,
            enc.hash_variant)
-    out = {"N": x.shape[0],
-           "ms": helpers.device_ms(lambda: hashgrid_encode_cuda(x, table, *geo)),
-           "cast_ms": helpers.device_ms(lambda: master.to(torch.bfloat16))}
-    if "round_bf16" in inspect.signature(hashgrid_encode_cuda).parameters:
-        out["fused_ms"] = helpers.device_ms(
-            lambda: hashgrid_encode_cuda(x, master, *geo, round_bf16=True))
-    return out
+    return {"tier": tier, "N": x.shape[0],
+            "ms": helpers.device_ms(lambda: hashgrid_encode_cuda(x, table, *geo)),
+            "cast_ms": helpers.device_ms(lambda: master.to(torch.bfloat16))}
 
 
 def b5_times(helpers) -> dict:
@@ -113,6 +107,9 @@ def turn(root: str, label: str, kernels: list[str], b1_samples: int,
         x = torch.load(POSITIONS).cuda()
         helpers.emit({**base, "kernel": "b1", "positions": "serve_frame",
                       **b1_times(helpers, x)})
+        x = torch.rand((1 << 20, 3), generator=torch.Generator().manual_seed(1)).cuda()
+        helpers.emit({**base, "kernel": "b1", "positions": "uniform",
+                      **b1_times(helpers, x, "upstream")})
     if "b5" in kernels:
         helpers.emit({**base, "kernel": "b5", **b5_times(helpers)})
     if "segsum" in kernels:

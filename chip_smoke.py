@@ -16,7 +16,7 @@ Phases, each printing one JSON line:
    bf16 tables: error, times, a one-call PyTorch yardstick and the bound.
 4. kernel_sort: ``bitonic_sort_pos_cuda`` (B5) against its twin, exactly,
    at (B, n) = (4, 2^20) with dense ties; ``torch.sort`` as yardstick;
-   the kernel launches one call makes.
+   the kernel launches one call makes, and each one's device time.
 5. golden: the reference snapshot ``tests/golden/golden.ingp`` rendered by
    the port (view 0, stride 4) against the JAX package's frozen render
    ``tests/golden/golden.npz``.
@@ -28,8 +28,8 @@ Phases, each printing one JSON line:
 7. kernel_main_path and kernel_serve_positions: the kernel case again
    at the serve path's shape (its mean samples per launch, uniform
    positions), then on the positions of the profiled frame's largest
-   launch; with bf16 reads each also times the float32 table read rounded
-   in the kernel (the encoding's route) beside the cast it saves.
+   launch; each also times the encoding's cast of its float32 table to
+   bf16 before the call.
 8. train: the bench's fallback configuration (``bench.py``: the synthetic
    sphere, 12 views at 128², full-width "tpu" tier, 2^18 sample slots per
    step, grid 128), 400 steps through ``NerfEngine.train``: ms per step,
@@ -68,6 +68,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -151,6 +152,40 @@ def device_ms(fn, iters: int = 20, warmup: int = 2, windows: int = 3) -> float:
                          f"no whole number of device records a call: {short or 'none'}")
 
 
+def _kernel_name(signature: str) -> str:
+    """A kernel's name without its namespace and arguments."""
+    found = re.search(r"(\w+(?:<\d+>)?)\(", signature)
+    return found.group(1) if found else signature[:40]
+
+
+def launch_sequence_ms(fn, launches: int, windows: int = 3) -> list:
+    """Device milliseconds of each kernel one call of ``fn`` launches, in
+    launch order, as ``[name, ms]`` pairs: one call under ``torch.profiler``
+    padded as in :func:`device_ms`, profiled again (up to ``windows`` times)
+    when the trace does not hold ``launches`` records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for window in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_PAD_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILER_PAD_S)
+        records = sorted(
+            (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+        if len(records) == launches:
+            return [[_kernel_name(name), (b - a) / 1e3] for a, b, name in records]
+        emit({"phase": "profiler_retry", "window": window, "calls": 1,
+              "records": len(records)})
+    raise AssertionError(f"in {windows} windows the profiler kept no {launches} "
+                         "device records of one call")
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean milliseconds per call of ``fn`` by CUDA events, after warm-up:
     what a caller pays per call, host issue included when the card waits
@@ -221,9 +256,8 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL, x=None,
                  aabb_scale: int = 4):
     """B1 against its twin, exactly, on ``n`` uniform positions (or the
     positions ``x``) with a random table of ``table_dtype``. With a bf16
-    table it also times the route the encoding takes: the float32 master
-    table read rounded to bf16 in the kernel ("fused_ms", bits equal to the
-    bf16 table's), beside the cast that route saves ("cast_ms")."""
+    table it also times the cast of the float32 table that the encoding
+    makes before each call ("cast_ms")."""
     import torch
     import torch.nn.functional as tnf
 
@@ -255,13 +289,8 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL, x=None,
     call_ms = cuda_ms(lambda: hashgrid_encode_cuda(x, table, *geo), iters=20)
     plain_ms = cuda_ms(lambda: hashgrid_encode_reference(x, table, *geo),
                        iters=3, warmup=1)
-    fused = {}
-    if table_dtype == torch.bfloat16:
-        if not torch.equal(hashgrid_encode_cuda(x, master, *geo, round_bf16=True), out):
-            raise AssertionError(f"{tier}: round_bf16 differs from the bf16 table")
-        fused = {"fused_ms": device_ms(
-                     lambda: hashgrid_encode_cuda(x, master, *geo, round_bf16=True)),
-                 "cast_ms": device_ms(lambda: master.to(torch.bfloat16))}
+    cast = ({"cast_ms": device_ms(lambda: master.to(torch.bfloat16))}
+            if table_dtype == torch.bfloat16 else {})
 
     # Yardstick: the gather and weighted sum as one library call
     # (embedding_bag, mode "sum", per-corner weights), given corner rows and
@@ -304,7 +333,7 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL, x=None,
         "tier": tier, "table": str(table_dtype).replace("torch.", ""),
         "N": n, "L": L, "T": T, "F": F, "hash": enc.hash_variant,
         "max_abs_err": err, "max_abs_ref": scale, "ms": ms, "call_ms": call_ms,
-        "plain_ms": plain_ms, "library_ms": library_ms, **fused,
+        "plain_ms": plain_ms, "library_ms": library_ms, **cast,
         **_bound(n * D * 4 + n * L * F * 4 + sum(sizes) * F * item,
                  n * L * (3 * D + C * (D - 1) + 2 * C * F)),
         "table_bf16_reads_on_main_path": enc.bf16_reads,
@@ -764,8 +793,10 @@ def phase_kernel_sort() -> dict:
         # per pair per stage
         **_bound(B * n * 12, B * n // 2 * stages),
     }
+    launches = bitonic_sort_launches(n)
     emit({"phase": "kernel_sort", "B": B, "n": n, "stages": stages,
-          "launches_per_call": bitonic_sort_launches(n), **row})
+          "launches_per_call": launches,
+          "launch_ms": launch_sequence_ms(b5, launches), **row})
     return row
 
 

@@ -15,11 +15,11 @@
 // so equal keys never swap.
 //
 // Bound on the H100: the keys read once and the keys and perm written once,
-// 12 bytes an element (50.3 MB at (4, 2^20), 0.015 ms at 3.35 TB/s). The
-// network's comparisons, log2 n (log2 n + 1) / 4 per element (210 stages of
-// 2^21 pairs at (4, 2^20)), cost some 8 integer instructions each, about
-// 0.1 ms of the card's integer issue: that, and the passes over device
-// memory, are what a bitonic network pays above the byte bound.
+// 12 bytes an element (50.3 MB at (4, 2^20), 0.015 ms at 3.35 TB/s). Above
+// that bound a bitonic network pays for its comparisons, log2 n (log2 n + 1)
+// / 4 per element (210 stages of 2^21 pairs at (4, 2^20)), and for every
+// launch after the first, each of which moves the keys and positions
+// through device memory again.
 //
 // Design. A key and its position travel as one 64-bit word (key in the high
 // half); only the key half is compared, so ties keep the network's order.
@@ -33,15 +33,22 @@
 //      1..16 run in layout 0, strides 32..512 in layout 5, larger ones in
 //      the layout whose top register bit is the stride's, so a stage k
 //      costs at most three trips through shared memory.
-//   2. For each k > 14, the strides j >= 2^14 run as passes over device
+//   2. Each exchange's direction is a compile-time constant (the stride and
+//      the direction bit's place are dispatched once a stride), so an
+//      exchange is one comparison and four selects.
+//   3. For each k > 14, the strides j >= 2^14 run as passes over device
 //      memory that fuse up to 5 strides each: a thread loads the 2^r
 //      elements that those r strides pair among themselves, runs the r
 //      strides in registers and stores them back (neighbouring threads on
 //      neighbouring addresses). Then one tile launch runs the strides
-//      j < 2^14 of that k.
+//      j < 2^14 of that k; it loads its tile straight into the registers of
+//      its first layout, which puts neighbouring elements in neighbouring
+//      lanes.
 // At n = 2^20 that is 1 + 7 fused passes + 6 tile launches = 14 launches
 // (bitonic_sort_launches), all from bitonic_sort_pos on the caller's
 // stream; the earlier design (tiles of 2^12, one pass per stride) took 45.
+// The first launch, with 105 of the 210 stages, takes the largest share
+// (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -135,36 +142,53 @@ __device__ __forceinline__ void stride_with_mode(uint64_t (&v)[kReg], int mode) 
 // from stride min(2^(k-1), tile/2) down to 1: stages k <= tile_log whole,
 // larger k after their strides >= the tile ran in device memory. src_perm
 // null means positions are the row indices (the first launch).
+//
+// The tile enters registers in the layout of its first stride: straight
+// from device memory where that layout puts neighbouring elements in
+// neighbouring lanes (layouts from bit 5 up: every launch after the first),
+// else through shared memory; it leaves from layout 0 (stride 1) through
+// shared memory. Each copy issues all of a thread's loads before it uses
+// one.
 __global__ void __launch_bounds__(kTileThreads, 1)
 sort_tiles_kernel(const int32_t* src_keys, const int32_t* src_perm,
                   int32_t* keys, int32_t* perm, int n, int tile_log, int k_lo,
                   int k_hi) {
   extern __shared__ uint64_t sm[];
   const int tile = 1 << tile_log;
+  const int threads = tile / kReg;
   const int64_t base = static_cast<int64_t>(blockIdx.x) << tile_log;
   const int row_base = static_cast<int>(base & (n - 1));
   const int t = threadIdx.x;
-  for (int i = t; i < tile; i += blockDim.x) {
-    const int32_t p = src_perm != nullptr ? src_perm[base + i] : row_base + i;
-    sm[padded(i)] = pack(src_keys[base + i], p);
-  }
-  __syncthreads();
+  auto load = [&](int i) {
+    return pack(src_keys[base + i],
+                src_perm != nullptr ? src_perm[base + i] : row_base + i);
+  };
 
   uint64_t v[kReg];
-  int r0 = -1;  // the registers' layout; -1: the tile is in shared memory
-  int ibase = 0;
+  int r0 = layout_for(min(k_lo, tile_log) - 1, tile_log);
+  int ibase = row_base | layout_base(t, r0);
+  if (r0 >= kRegLog) {
+#pragma unroll
+    for (int e = 0; e < kReg; ++e) v[e] = load((ibase & (tile - 1)) | (e << r0));
+  } else {
+#pragma unroll
+    for (int m = 0; m < kReg; ++m) v[m] = load(t + m * threads);
+#pragma unroll
+    for (int m = 0; m < kReg; ++m) sm[padded(t + m * threads)] = v[m];
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kReg; ++e) v[e] = sm[padded((ibase & (tile - 1)) | (e << r0))];
+  }
+
   for (int k = k_lo; k <= k_hi; ++k) {
     for (int b = min(k, tile_log) - 1; b >= 0; --b) {
-      if (r0 < 0 || b < r0 || b >= r0 + kRegLog) {
-        const int next = layout_for(b, tile_log);
-        if (r0 >= 0) {
-          // each thread writes back the slots it read, so one barrier
-          // before the next layout's reads is enough
+      if (b < r0 || b >= r0 + kRegLog) {
+        // each thread writes back the slots it read, so one barrier
+        // before the next layout's reads is enough
 #pragma unroll
-          for (int e = 0; e < kReg; ++e) sm[padded((ibase & (tile - 1)) | (e << r0))] = v[e];
-          __syncthreads();
-        }
-        r0 = next;
+        for (int e = 0; e < kReg; ++e) sm[padded((ibase & (tile - 1)) | (e << r0))] = v[e];
+        __syncthreads();
+        r0 = layout_for(b, tile_log);
         ibase = row_base | layout_base(t, r0);
 #pragma unroll
         for (int e = 0; e < kReg; ++e) v[e] = sm[padded((ibase & (tile - 1)) | (e << r0))];
@@ -183,13 +207,16 @@ sort_tiles_kernel(const int32_t* src_keys, const int32_t* src_perm,
       }
     }
   }
+  // the last stride is 1, in layout 0
 #pragma unroll
   for (int e = 0; e < kReg; ++e) sm[padded((ibase & (tile - 1)) | (e << r0))] = v[e];
   __syncthreads();
-  for (int i = t; i < tile; i += blockDim.x) {
-    const uint64_t w = sm[padded(i)];
-    keys[base + i] = key_of(w);
-    perm[base + i] = pos_of(w);
+#pragma unroll
+  for (int m = 0; m < kReg; ++m) v[m] = sm[padded(t + m * threads)];
+#pragma unroll
+  for (int m = 0; m < kReg; ++m) {
+    keys[base + t + m * threads] = key_of(v[m]);
+    perm[base + t + m * threads] = pos_of(v[m]);
   }
 }
 

@@ -17,9 +17,9 @@
 //   dense levels:  idx_c = sum_d clip(c_d, 0, res - 1) * res^d.
 // Levels above max_level are written as zeros. The output is (N, L, F)
 // float32, i.e. (N, L*F) level-major. The table is (L, T, F), float32 or
-// bf16; bf16 entries are widened to float32 before the blend, and a float32
-// table may be read rounded to bf16 (round to nearest even, as
-// .to(torch.bfloat16)) so that the caller needs no cast of its own.
+// bf16; bf16 entries are widened to float32 before the blend. (Rounding a
+// float32 table to bf16 inside the kernel, instead of the caller's cast,
+// was measured slower than cast and kernel together: PERF.md.)
 //
 // Bound on the H100: per sample the kernel must read 4*D bytes of
 // positions and write 4*L*F bytes of features, and each table row once. At
@@ -36,16 +36,19 @@
 //   - Level-uniform warps. A warp encodes 32 consecutive samples, one a
 //     lane, level after level, so each load instruction's lanes read one
 //     level: neighbouring samples share its lines, the hashed/dense branch
-//     is uniform, and no thread divides to find its (sample, level).
+//     is uniform, and no thread divides to find its (sample, level). A
+//     warp takes at most 8 levels: with 16 (the "upstream" tier) a warp
+//     walking all of them kept too few loads in flight (PERF.md).
 //   - Geometry off the memory path: the per-level scale, resolution, mask
 //     and hashed flag are a __grid_constant__ struct among the kernel's
 //     arguments, read at the warp's (uniform) level from the constant bank.
-//   - Outputs staged per warp: each warp gathers its (32, L, F) outputs in
-//     its own shared memory and writes them as one contiguous run of
-//     16-byte stores. Warps never wait for one another: a block-wide
-//     barrier made every warp wait for the block's slowest level.
+//   - Outputs staged per warp: each warp gathers its (32, levels, F)
+//     outputs in its own shared memory and writes each sample's run of
+//     them with 16-byte stores. Warps never wait for one another: a
+//     block-wide barrier made every warp wait for the block's slowest
+//     level.
 //   - One row per load. Fetching corners c and c + 1 (rows h and h + 1, or
-//     h ^ 1) with one 16-byte load was measured (PERF.md, PR 5): it cut the
+//     h ^ 1) with one 16-byte load was measured (PERF.md): it cut the
 //     requests on uniform positions but cost more than it saved where lanes
 //     share lines, since a 16-byte load takes four L1 data cycles a warp
 //     where a 4-byte one takes one.
@@ -78,6 +81,7 @@ constexpr uint32_t kPrime2 = 805459861u;
 constexpr int kThreads = 256;       // the backward's block
 constexpr int kMaxLevels = 32;      // levels the forward's geometry holds
 constexpr int kWarpSamples = 32;    // samples a forward warp encodes, one a lane
+constexpr int kWarpLevels = 8;      // levels a forward warp encodes, at most
 constexpr int kMaxBlockWarps = 8;   // warps a forward block has at most
 constexpr int kMaxBlockSmem = 48 * 1024;
 
@@ -167,15 +171,9 @@ __device__ __forceinline__ void cell_corners(
   }
 }
 
-// A float32 table value as the blend takes it: itself, or rounded to bf16.
-template <bool kRound>
-__device__ __forceinline__ float read_value(float v) {
-  return kRound ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
 // acc += sum over the 2^D corners of w_c * table[level + idx_c], corner by
 // corner, each row one vector load.
-template <int D, int F, typename T, bool kRound>
+template <int D, int F, typename T>
 __device__ __forceinline__ void blend(const T* __restrict__ table, int64_t level,
                                       const uint32_t (&idx)[1 << D],
                                       const float (&w)[1 << D], float (&acc)[F]) {
@@ -185,22 +183,24 @@ __device__ __forceinline__ void blend(const T* __restrict__ table, int64_t level
         *reinterpret_cast<const Row<T, F>*>(table + (level + idx[c]) * F);
 #pragma unroll
     for (int f = 0; f < F; ++f) {
-      acc[f] = __fadd_rn(acc[f], __fmul_rn(w[c], read_value<kRound>(to_float(row.v[f]))));
+      acc[f] = __fadd_rn(acc[f], __fmul_rn(w[c], to_float(row.v[f])));
     }
   }
 }
 
-// Shared memory a warp stages its outputs in: (L, 32 * F + 1) floats, the
-// padding word keeping the store phase's reads off one bank.
+// Shared memory a warp stages its outputs in: (levels, 32 * F + 1) floats,
+// the padding word keeping the store phase's reads off one bank.
 template <int F>
-__host__ __device__ constexpr int warp_stage_floats(int n_levels) {
-  return n_levels * (kWarpSamples * F + 1);
+__host__ __device__ constexpr int warp_stage_floats(int levels) {
+  return levels * (kWarpSamples * F + 1);
 }
 
-// Each warp encodes 32 samples, one a lane, level after level; it stages
-// the (32, L, F) outputs in its own shared memory and writes them as one
-// contiguous run with 16-byte stores. Warps never wait for one another.
-template <int D, int F, typename T, bool kRound>
+// Each warp encodes 32 samples, one a lane, over a run of at most
+// kWarpLevels levels (run blockIdx.y), level after level. A warp stages its
+// (32, levels, F) outputs in its own shared memory and writes each
+// sample's run of levels with 16-byte stores. Warps never wait for one
+// another.
+template <int D, int F, typename T>
 __global__ void __launch_bounds__(kMaxBlockWarps * 32)
 hashgrid_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
                        const __grid_constant__ Geometry geo,
@@ -213,14 +213,16 @@ hashgrid_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
   const int64_t s0 =
       (static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp) * kWarpSamples;
   if (s0 >= n) return;
+  const int l0 = static_cast<int>(blockIdx.y) * kWarpLevels;
+  const int l1 = min(l0 + kWarpLevels, n_levels);
   const int here = static_cast<int>(n - s0 < kWarpSamples ? n - s0 : kWarpSamples);
   const bool live = lane < here;
   float xs[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) xs[d] = live ? x[(s0 + lane) * D + d] : 0.0f;
-  float* os = smem + warp * warp_stage_floats<F>(n_levels);
+  float* os = smem + warp * warp_stage_floats<F>(min(n_levels, kWarpLevels));
 
-  for (int l = 0; l < n_levels; ++l) {
+  for (int l = l0; l < l1; ++l) {
     float acc[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[f] = 0.0f;
@@ -229,30 +231,35 @@ hashgrid_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
       float w[1 << D];
       cell_corners<D>(xs, geo.scale[l], geo.res[l], geo.hashed[l] != 0,
                       geo.mask[l], additive, idx, w);
-      blend<D, F, T, kRound>(table, l * table_rows, idx, w, acc);
+      blend<D, F, T>(table, l * table_rows, idx, w, acc);
     }
 #pragma unroll
-    for (int f = 0; f < F; ++f) os[l * kLevelStride + lane * F + f] = acc[f];
+    for (int f = 0; f < F; ++f) os[(l - l0) * kLevelStride + lane * F + f] = acc[f];
   }
   __syncwarp();
 
-  // the warp's (here, L, F) outputs are one contiguous run of `out`
+  // sample s's levels l0 .. l1 - 1 are the run out[s0 + s, l0 * F ...] of
+  // (l1 - l0) * F floats
   const int row = n_levels * F;
-  const int total = here * row;
-  float* dst = out + s0 * row;
-  auto at = [&](int i) {
-    const int s = i / row;
-    const int r = i - s * row;
+  const int run = (l1 - l0) * F;
+  float* dst = out + s0 * row + l0 * F;
+  auto at = [&](int s, int r) {
     const int l = r / F;
     return os[l * kLevelStride + s * F + (r - l * F)];
   };
-  if ((total & 3) == 0) {
-    for (int q = lane; q < total / 4; q += 32) {
-      reinterpret_cast<float4*>(dst)[q] =
-          make_float4(at(4 * q), at(4 * q + 1), at(4 * q + 2), at(4 * q + 3));
+  if ((run & 3) == 0 && (row & 3) == 0) {
+    for (int q = lane; q < here * run / 4; q += 32) {
+      const int s = 4 * q / run;
+      const int r = 4 * q - s * run;
+      *reinterpret_cast<float4*>(dst + s * row + r) =
+          make_float4(at(s, r), at(s, r + 1), at(s, r + 2), at(s, r + 3));
     }
   } else {
-    for (int i = lane; i < total; i += 32) dst[i] = at(i);
+    for (int i = lane; i < here * run; i += 32) {
+      const int s = i / run;
+      const int r = i - s * run;
+      dst[s * row + r] = at(s, r);
+    }
   }
 }
 
@@ -314,41 +321,39 @@ struct Forward {
   int max_level;
 };
 
-template <int D, int F, typename T, bool kRound>
+template <int D, int F, typename T>
 int launch(const Forward& a, cudaStream_t stream) {
   // as many warps a block as keep its staging within 48 KB
-  const int warp_bytes = warp_stage_floats<F>(a.n_levels) * static_cast<int>(sizeof(float));
+  const int warp_bytes =
+      warp_stage_floats<F>(a.n_levels < kWarpLevels ? a.n_levels : kWarpLevels) *
+      static_cast<int>(sizeof(float));
   int warps = kMaxBlockSmem / warp_bytes;
   warps = warps < 1 ? 1 : (warps > kMaxBlockWarps ? kMaxBlockWarps : warps);
-  const int64_t per_block = static_cast<int64_t>(warps) * kWarpSamples;
-  const int64_t blocks = (a.n + per_block - 1) / per_block;
-  hashgrid_encode_kernel<D, F, T, kRound>
-      <<<static_cast<unsigned>(blocks), warps * 32,
+  const int64_t groups = (a.n + kWarpSamples - 1) / kWarpSamples;
+  const dim3 blocks(static_cast<unsigned>((groups + warps - 1) / warps),
+                    (a.n_levels + kWarpLevels - 1) / kWarpLevels);
+  hashgrid_encode_kernel<D, F, T>
+      <<<blocks, warps * 32,
          static_cast<size_t>(warps) * warp_bytes, stream>>>(
           a.x, static_cast<const T*>(a.table), *a.geo, a.out, a.n, a.n_levels,
           a.table_rows, a.additive, a.max_level);
   return static_cast<int>(cudaGetLastError());
 }
 
-// table_type: 0 float32, 1 bf16, 2 float32 read rounded to bf16
 template <int D, int F>
-int dispatch_table(int table_type, const Forward& a, cudaStream_t stream) {
-  switch (table_type) {
-    case 0: return launch<D, F, float, false>(a, stream);
-    case 1: return launch<D, F, __nv_bfloat16, false>(a, stream);
-    case 2: return launch<D, F, float, true>(a, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int dispatch_table(int table_bf16, const Forward& a, cudaStream_t stream) {
+  return table_bf16 ? launch<D, F, __nv_bfloat16>(a, stream)
+                    : launch<D, F, float>(a, stream);
 }
 
 template <int D>
-int dispatch_features(int n_features, int table_type, const Forward& a,
+int dispatch_features(int n_features, int table_bf16, const Forward& a,
                       cudaStream_t stream) {
   switch (n_features) {
-    case 1: return dispatch_table<D, 1>(table_type, a, stream);
-    case 2: return dispatch_table<D, 2>(table_type, a, stream);
-    case 4: return dispatch_table<D, 4>(table_type, a, stream);
-    case 8: return dispatch_table<D, 8>(table_type, a, stream);
+    case 1: return dispatch_table<D, 1>(table_bf16, a, stream);
+    case 2: return dispatch_table<D, 2>(table_bf16, a, stream);
+    case 4: return dispatch_table<D, 4>(table_bf16, a, stream);
+    case 8: return dispatch_table<D, 8>(table_bf16, a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -380,13 +385,12 @@ int dispatch_backward(int n_features, const Args& a, const float* g,
 
 // C interface, bound with ctypes by ngp_tpu_torch/ops/hashgrid.py. Pointers
 // are device pointers of contiguous tensors, except `geometry`, a host
-// pointer to the per-level Geometry (copied into the launch's arguments);
-// table_type is 0 (float32), 1 (bf16) or 2 (float32 read rounded to bf16).
+// pointer to the per-level Geometry (copied into the launch's arguments).
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int hashgrid_encode(const void* x, const void* table,
                                const void* geometry, void* out, long long n,
                                int n_levels, long long table_rows,
-                               int n_features, int n_dims, int table_type,
+                               int n_features, int n_dims, int table_bf16,
                                int additive, int max_level, void* stream) {
   if (n <= 0) return 0;
   if (n_levels < 1 || n_levels > kMaxLevels) {
@@ -398,8 +402,8 @@ extern "C" int hashgrid_encode(const void* x, const void* table,
                   static_cast<int64_t>(table_rows), additive, max_level};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_dims) {
-    case 2: return dispatch_features<2>(n_features, table_type, a, s);
-    case 3: return dispatch_features<3>(n_features, table_type, a, s);
+    case 2: return dispatch_features<2>(n_features, table_bf16, a, s);
+    case 3: return dispatch_features<3>(n_features, table_bf16, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

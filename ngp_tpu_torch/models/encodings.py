@@ -40,14 +40,12 @@ class _GridEncode(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, x, enc, max_level):
+        read = table.to(torch.bfloat16) if enc.bf16_reads else table
         ctx.save_for_backward(x)
         ctx.enc, ctx.max_level, ctx.table_shape = enc, max_level, table.shape
-        # bf16 reads round the float32 master table inside the kernel (no
-        # cast of the table before every call)
         return hashgrid_encode(
-            x, table.contiguous(), enc.level_scale, enc.level_res,
+            x, read.contiguous(), enc.level_scale, enc.level_res,
             enc.level_size, enc.level_hashed, enc.hash_variant, max_level,
-            round_bf16=enc.bf16_reads,
         )
 
     @staticmethod

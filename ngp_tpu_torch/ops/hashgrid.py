@@ -81,23 +81,19 @@ def _host_geometry(scale, res, size, hashed) -> _Geometry:
 
 
 def hashgrid_encode(x, table, scale, res, size, hashed, hash_variant: str,
-                    max_level: int | None = None,
-                    round_bf16: bool = False) -> torch.Tensor:
+                    max_level: int | None = None) -> torch.Tensor:
     """Encode positions ``x`` (N, D) → (N, L·F) float32, level-major.
 
     ``table`` (L, T, F) float32 or bf16; ``scale`` (L,) float32 and ``res``,
     ``size``, ``hashed`` (L,) int32 per-level geometry (hashed levels have
     a power-of-two ``size``); ``hash_variant`` ``"tcnn"`` (XOR) or
-    ``"additive"``; levels above ``max_level`` are zero. ``round_bf16``
-    reads a float32 table's entries rounded to bf16, as if the caller had
-    passed ``table.to(torch.bfloat16)``."""
+    ``"additive"``; levels above ``max_level`` are zero."""
     if x.device.type == "cpu":
         return hashgrid_encode_reference(
-            x, table, scale, res, size, hashed, hash_variant, max_level,
-            round_bf16,
+            x, table, scale, res, size, hashed, hash_variant, max_level
         )
     return hashgrid_encode_cuda(
-        x, table, scale, res, size, hashed, hash_variant, max_level, round_bf16
+        x, table, scale, res, size, hashed, hash_variant, max_level
     )
 
 
@@ -145,13 +141,10 @@ def _levels(scale, res, size, hashed):
 
 def hashgrid_encode_reference(x, table, scale, res, size, hashed,
                               hash_variant: str,
-                              max_level: int | None = None,
-                              round_bf16: bool = False) -> torch.Tensor:
+                              max_level: int | None = None) -> torch.Tensor:
     """Plain PyTorch twin of the forward kernel, with the same arithmetic:
     products and sums in float32 in the kernel's corner order."""
     additive = HASH_VARIANTS[hash_variant] == 1
-    if round_bf16:
-        table = table.to(torch.bfloat16)
     N = x.shape[0]
     L, T, F = table.shape
     top = L - 1 if max_level is None else max_level
@@ -233,8 +226,7 @@ def _check_common(fn: str, x, L: int, F: int, scale, res, size, hashed,
 
 def hashgrid_encode_cuda(x, table, scale, res, size, hashed,
                          hash_variant: str,
-                         max_level: int | None = None,
-                         round_bf16: bool = False) -> torch.Tensor:
+                         max_level: int | None = None) -> torch.Tensor:
     """Launch the forward kernel of ``csrc/hashgrid_encode.cu`` on the
     current stream. Raises on any input the kernel does not take and on a
     refused launch."""
@@ -244,8 +236,6 @@ def hashgrid_encode_cuda(x, table, scale, res, size, hashed,
            f"{tuple(table.shape)} {table.dtype}")
     L, T, F = table.shape
     _check(L <= MAX_LEVELS, f"at most {MAX_LEVELS} levels, got {L}")
-    _check(not round_bf16 or table.dtype == torch.float32,
-           "round_bf16 takes a float32 table")
     _check_common("hashgrid_encode_cuda", x, L, F, scale, res, size, hashed,
                   hash_variant, {"table": table})
     N = x.shape[0]
@@ -253,11 +243,11 @@ def hashgrid_encode_cuda(x, table, scale, res, size, hashed,
     if N == 0:
         return out
     geo = _host_geometry(scale, res, size, hashed)
-    table_type = 2 if round_bf16 else int(table.dtype == torch.bfloat16)
     lib = HASHGRID_ENCODE.library()
     rc = launch_on(dev, lambda stream: lib.hashgrid_encode(
         x.data_ptr(), table.data_ptr(), ctypes.addressof(geo), out.data_ptr(),
-        N, L, T, F, x.shape[1], table_type, HASH_VARIANTS[hash_variant],
+        N, L, T, F, x.shape[1], int(table.dtype == torch.bfloat16),
+        HASH_VARIANTS[hash_variant],
         L - 1 if max_level is None else max_level, stream))
     if rc != 0:
         msg = lib.hashgrid_encode_error_string(rc).decode()

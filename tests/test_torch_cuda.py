@@ -54,8 +54,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(d, f, variant, seed, n=1 << 14):
-    enc = GridEncoding(n_input_dims=d, n_levels=4, n_features_per_level=f,
+def _case(d, f, variant, seed, n=1 << 14, n_levels=4):
+    enc = GridEncoding(n_input_dims=d, n_levels=n_levels, n_features_per_level=f,
                        log2_hashmap_size=12 if d == 3 else 10,
                        base_resolution=8, per_level_scale=2.0,
                        hash_variant=variant, device="cuda")
@@ -117,24 +117,26 @@ def _edge_case(d, f, variant, seed, n_random=4096):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("positions", ["uniform", "edges"])
+@pytest.mark.parametrize("positions", ["uniform", "edges", "nine_levels"])
 @pytest.mark.parametrize("d", [2, 3])
 @pytest.mark.parametrize("f", [1, 2, 4, 8])
 @pytest.mark.parametrize("variant", ["tcnn", "additive"])
 def test_kernel_matches_twin(cuda, variant, f, d, positions):
     """The forward kernel gives the twin's bits: float32 and bf16 tables,
-    a float32 table read rounded to bf16, with and without max_level, on
-    uniform positions and on every edge of the corner math."""
-    make = _case if positions == "uniform" else _edge_case
-    x, table, geo = make(d, f, variant, 10 * f + d)
-    for tab, rounded in ((table, False), (table.to(torch.bfloat16), False),
-                         (table, True)):
+    with and without max_level, on uniform positions, on every edge of the
+    corner math, and with nine levels (a warp's run of eight, then one:
+    rows of 9·F floats, stored 16 bytes at a time only for F = 4, 8)."""
+    if positions == "edges":
+        x, table, geo = _edge_case(d, f, variant, 10 * f + d)
+    else:
+        x, table, geo = _case(d, f, variant, 10 * f + d,
+                              n_levels=9 if positions == "nine_levels" else 4)
+    for tab in (table, table.to(torch.bfloat16)):
         for max_level in (None, 1):
             before = HASHGRID_ENCODE.launches["hashgrid_encode"]
-            got = hashgrid_encode(x, tab, *geo, max_level, round_bf16=rounded)
+            got = hashgrid_encode(x, tab, *geo, max_level)
             assert HASHGRID_ENCODE.launches["hashgrid_encode"] == before + 1
-            want = hashgrid_encode_reference(x, tab, *geo, max_level,
-                                             round_bf16=rounded)
+            want = hashgrid_encode_reference(x, tab, *geo, max_level)
             assert torch.equal(got, want), float((got - want).abs().max())
 
 
@@ -153,8 +155,6 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     for args in bad:
         with pytest.raises(ValueError):
             hashgrid_encode_cuda(args[0], args[1], *args[2])
-    with pytest.raises(ValueError):
-        hashgrid_encode_cuda(x, table.to(torch.bfloat16), *geo, round_bf16=True)
     many = [t.repeat(9) for t in geo[:4]]  # 36 levels, above the kernel's 32
     with pytest.raises(ValueError):
         hashgrid_encode_cuda(x, table.repeat(9, 1, 1), *many, geo[4])

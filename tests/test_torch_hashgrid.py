@@ -21,7 +21,6 @@ from ngp_tpu_torch.ops.hashgrid import (
     _host_geometry,
     hashgrid_encode,
     hashgrid_encode_cuda,
-    hashgrid_encode_reference,
 )
 
 torch.set_num_threads(2)
@@ -157,23 +156,6 @@ def test_not_yet_ported_grid_options_raise():
         GridEncoding(grid_type="Tiled", device="cpu")
     with pytest.raises(ValueError, match="not yet ported"):
         GridEncoding(interpolation="Simplex", device="cpu")
-
-
-@pytest.mark.parametrize("variant", ["tcnn", "additive"])
-def test_round_bf16_reads_as_a_bf16_table(variant):
-    """``round_bf16`` rounds a float32 table's entries as
-    ``table.to(torch.bfloat16)`` does, so the module's bf16 reads (which
-    use it) give the bits of a bf16 table, and the JAX package's
-    ``packed_bf16`` path is held to it by the test above."""
-    _, penc = _encodings(3, 2, variant)
-    table = torch.from_numpy(_table(penc, 3))
-    x = torch.from_numpy(_positions(2048, 3, 4))
-    geo = (penc.level_scale, penc.level_res, penc.level_size,
-           penc.level_hashed, variant)
-    rounded = hashgrid_encode(x, table, *geo, round_bf16=True)
-    assert torch.equal(rounded, hashgrid_encode_reference(
-        x, table.to(torch.bfloat16), *geo))
-    assert not torch.equal(rounded, hashgrid_encode_reference(x, table, *geo))
 
 
 def test_host_geometry_is_read_once_per_tensor_set():
