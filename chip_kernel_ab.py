@@ -3,7 +3,7 @@
 in turns, so that a change to a kernel is measured against its parent on
 the same card in the same run:
 
-    python3 chip_kernel_ab.py BEFORE AFTER [--kernels b1 b5 segsum]
+    python3 chip_kernel_ab.py BEFORE AFTER [--kernels b1 b5 segsum bwd b3]
 
 BEFORE and AFTER are repository roots, for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory, and ``.``. Each
@@ -25,6 +25,15 @@ allocation included). Kernels:
 - ``segsum``: ``segsum_times`` of ``chip_smoke.py`` (``batched_segment_sum``
   over all levels and each level alone, beside ``index_add_``) on the grid
   backward's keys and addends for each of ``--samples`` uniform positions.
+- ``bwd``: the grid backward, (x, g) → d(table), as each checkout computes
+  it: one ``hashgrid_backward_cuda`` where the root has it, else
+  ``hashgrid_backward_addends_cuda`` then ``batched_segment_sum`` (the two
+  launches before the fused kernel); on each of ``--samples`` uniform
+  positions and on one training step's own (x, g), captured once, by a
+  first process that runs ``chip_smoke.phase_train`` with AFTER's package,
+  and shared by every turn.
+- ``b3``: ``segment_count_cuda`` over all levels and each level alone, on
+  the corner keys of the same positions.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 POSITIONS = os.path.join(HERE, "build", "kernel_ab_serve_positions.pt")
+STEP_INPUTS = os.path.join(HERE, "build", "kernel_ab_train_step.pt")
 
 
 def _helpers(root: str):
@@ -94,6 +104,41 @@ def b5_times(helpers) -> dict:
             "library_ms": helpers.device_ms(lambda: torch.sort(keys, dim=1))}
 
 
+def bwd_times(helpers, x, g, geo, T: int) -> dict:
+    from ngp_tpu_torch.ops import hashgrid
+
+    if hasattr(hashgrid, "hashgrid_backward_cuda"):
+        route = "hashgrid_backward"
+        fn = lambda: hashgrid.hashgrid_backward_cuda(x, g, *geo, None, T)  # noqa: E731
+    else:  # a checkout from before the fused kernel
+        from ngp_tpu_torch.ops.segsum import batched_segment_sum
+
+        route = "hashgrid_backward_addends+segment_sum"
+        fn = lambda: batched_segment_sum(  # noqa: E731
+            *hashgrid.hashgrid_backward_addends_cuda(x, g, *geo), T)
+    return {"route": route, "ms": helpers.device_ms(fn)}
+
+
+def b3_times(helpers, keys, T: int) -> dict:
+    from ngp_tpu_torch.ops.segsum import segment_count_cuda
+
+    return {"ms": helpers.device_ms(lambda: segment_count_cuda(keys, T)),
+            "levels_ms": [helpers.device_ms(lambda: segment_count_cuda(keys[l:l + 1], T))
+                          for l in range(keys.shape[0])]}
+
+
+def step_cases(helpers, samples: list[int]):
+    """(label, x, g, geometry, T) for each of ``samples`` uniform positions
+    and for the captured training step."""
+    import torch
+
+    for n in samples:
+        yield ("uniform", *helpers.train_inputs(n))
+    x, g, scale, res, size, hashed, variant, T = torch.load(STEP_INPUTS)
+    yield ("train_step", x.cuda(), g.cuda(),
+           tuple(t.cuda() for t in (scale, res, size, hashed)) + (variant,), T)
+
+
 def turn(root: str, label: str, kernels: list[str], b1_samples: int,
          samples: list[int]):
     import torch
@@ -114,9 +159,19 @@ def turn(root: str, label: str, kernels: list[str], b1_samples: int,
         helpers.emit({**base, "kernel": "b5", **b5_times(helpers)})
     if "segsum" in kernels:
         for n in samples:
-            _, _, _, keys, vals, T, sizes = helpers.train_addends(n)
+            x, g, geo, T = helpers.train_inputs(n)
+            keys, vals = helpers.corner_addends(x, g, geo)
             helpers.emit({**base, "kernel": "segsum", "N": n, "M": keys.shape[1],
-                          **helpers.segsum_times(keys, vals, T, sizes)})
+                          **helpers.segsum_times(keys, vals, T, geo[2].tolist())})
+    if "bwd" in kernels or "b3" in kernels:
+        for positions, x, g, geo, T in step_cases(helpers, samples):
+            case = {**base, "positions": positions, "N": x.shape[0]}
+            if "bwd" in kernels:
+                helpers.emit({**case, "kernel": "bwd", **bwd_times(helpers, x, g, geo, T)})
+            if "b3" in kernels:
+                keys, _ = helpers.corner_addends(x, g, geo)
+                helpers.emit({**case, "kernel": "b3", **b3_times(helpers, keys, T)})
+                del keys
 
 
 def capture(root: str):
@@ -130,20 +185,35 @@ def capture(root: str):
     torch.save(x.cpu(), POSITIONS)
 
 
+def capture_step(root: str):
+    """Train with ``root``'s package as phase train does and keep one more
+    step's grid-backward inputs: positions, cotangents, geometry, rows."""
+    import torch
+
+    helpers = _helpers(os.path.abspath(root))
+    x, g, geo, T = helpers.phase_train()[5]
+    os.makedirs(os.path.dirname(STEP_INPUTS), exist_ok=True)
+    torch.save((x.cpu(), g.cpu(), *(t.cpu() for t in geo[:4]), geo[4], T),
+               STEP_INPUTS)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("before")
     ap.add_argument("after")
     ap.add_argument("--kernels", nargs="+", default=["b1", "b5"],
-                    choices=["b1", "b5", "segsum"])
+                    choices=["b1", "b5", "segsum", "bwd", "b3"])
     ap.add_argument("--b1-samples", type=int, default=470671,
                     help="uniform positions for b1 (the serve path's mean launch)")
     ap.add_argument("--samples", type=int, nargs="+", default=[78827, 163840],
-                    help="network samples for segsum")
+                    help="network samples for segsum, bwd and b3")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn == "capture":
         capture(args.after)
+        return
+    if args.turn == "capture_step":
+        capture_step(args.after)
         return
     if args.turn:
         turn(getattr(args, args.turn), args.turn, args.kernels, args.b1_samples,
@@ -154,6 +224,8 @@ def main():
     labels = ["before", "after", "after", "before"]
     if "b1" in args.kernels:
         labels.insert(0, "capture")
+    if "bwd" in args.kernels or "b3" in args.kernels:
+        labels.insert(0, "capture_step")
     for label in labels:
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), args.before, args.after,

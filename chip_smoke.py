@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
 
 1. env: the card (``nvidia-smi`` name and power limit), torch, CUDA, nvcc.
 2. build: compiles every CUDA source of ``ngp_tpu_torch/csrc`` (one nvcc
-   each, in parallel) into ``build/ngp_tpu_torch/``.
+   each, in parallel) into ``build/ngp_tpu_torch/``, and counts the atomic
+   instructions of each kernel in the libraries' SASS (``cuobjdump``).
 3. kernel: ``hashgrid_encode_cuda`` against its plain PyTorch twin on the
    card, bit for bit, at N = 2^20 samples, "tpu" tier (L=8, F=2, T=2^18,
    additive) and "upstream" tier (L=16, F=2, T=2^19, XOR), float32 and
@@ -35,15 +36,19 @@ Phases, each printing one JSON line:
    step, grid 128), 400 steps through ``NerfEngine.train``: ms per step,
    network samples per second, final loss, batch geometry, kernel launches
    per step, and the PSNR of view 0, which must reach ``TRAIN_PSNR_MIN``.
-9. kernel_train and segsum_levels: the training kernels against their
-   twins at the training step's shapes ("tpu" tier, L=8 levels of M = 8·N
-   corner addends, F=2, T=2^18, for N the path's mean network samples per
-   step and for N the full budget of 163,840): B1's forward on the same
-   positions, the grid backward's addends
-   (B1's backward half), the segment sum (B2, also level by level), the
-   key histogram (B3) and the one-level entry
-   points (B4); error, times, a one-call PyTorch yardstick and the bound
-   of each.
+   Then one more step, whose grid backward's positions and cotangents
+   (x, g) are kept (by reference) for phase 9.
+9. kernel_train, segsum_levels and backward_levels: the training kernels
+   against their twins at the training step's shapes ("tpu" tier, L=8
+   levels, F=2, T=2^18; uniform positions for N the path's mean network
+   samples per step and for N the full budget of 163,840, then the kept
+   step's own (x, g)): B1's forward on the same uniform positions, the
+   fused grid backward (x, g → d(table)), and, on the corner keys and
+   addends that the backward's twin makes on the card (L levels of
+   M = 8·N), the segment sum (B2, also level by level), the key histogram
+   (B3) and the one-level entry points (B4); error, times, a one-call
+   PyTorch yardstick and the bound of each. The grid backward and B3 also
+   level by level (phase ``backward_levels``).
 10. train_profile: two windows of 16 more steps (one occupancy-update
    cycle) under ``torch.profiler``: one run as phase train runs them, for
    the device's busy share of a step; one with the backward on the calling
@@ -82,7 +87,6 @@ N_KERNEL = 1 << 20
 # (2^-8 of one activation). Composited over a ray that stays well below
 # 1e-3, five times the CPU bound of 2e-4.
 GOLDEN_TOL = 1e-3
-KERNEL_REL_TOL = 1e-5  # B1's backward addends against their twin
 TRAIN_STEPS = 400
 TRAIN_PROFILE_STEPS = 16  # one cycle of the stride-residue occupancy updates
 # host sleep between a profiler window's edges and the calls it times
@@ -221,8 +225,28 @@ def phase_env():
           "torch": torch.__version__, "cuda": torch.version.cuda, "nvcc": nvcc})
 
 
+def sass_atomics(library: str) -> dict:
+    """The atomic instructions (RED, ATOM, ATOMS, ATOMG) of each kernel in
+    a library's SASS, by opcode: {kernel: {opcode: count}}."""
+    from ngp_tpu_torch.ops.cuda_build import nvcc_path
+
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    found, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :")[1].strip()[:80]
+            continue
+        op = re.search(r"\b(?:RED|ATOMS|ATOMG|ATOM)\.[\w.]+", line)
+        if op and kernel:
+            ops = found.setdefault(kernel, {})
+            ops[op.group(0)] = ops.get(op.group(0), 0) + 1
+    return found
+
+
 def phase_build():
-    from ngp_tpu_torch.ops.cuda_build import build_all
+    from ngp_tpu_torch.ops.cuda_build import KERNELS, build_all
 
     t0 = time.perf_counter()
     logs = build_all()
@@ -231,6 +255,8 @@ def phase_build():
         for name, log in logs.items()
     }
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": usage})
+    emit({"phase": "sass", "atomics": {
+        k.name: sass_atomics(str(k.lib_path())) for k in KERNELS}})
 
 
 def _encoding(tier: str, aabb_scale: int = 4):
@@ -574,14 +600,12 @@ def phase_serve():
     return frames, launches, largest[0]
 
 
-def train_addends(n_samples: int):
-    """The grid backward's inputs and outputs at a training step's shape:
-    ``n_samples`` uniform positions and small cotangents for the "tpu" tier
-    at aabb_scale 1, and the keys and addends that B1's backward half
-    writes for them. Returns (x, g, geometry, keys, vals, T, level sizes)."""
+def train_inputs(n_samples: int):
+    """The grid backward's inputs at a training step's shape: ``n_samples``
+    uniform positions and small cotangents for the "tpu" tier at aabb_scale
+    1. Returns (x, g, geometry, T), geometry being the encoding's (scale,
+    res, size, hashed, hash_variant)."""
     import torch
-
-    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_cuda
 
     enc = _encoding("tpu", aabb_scale=1)
     L, T, F = enc.table.shape
@@ -590,9 +614,20 @@ def train_addends(n_samples: int):
     gen = torch.Generator().manual_seed(2)
     x = torch.rand((n_samples, 3), generator=gen).cuda()
     g = (torch.randn((n_samples, L * F), generator=gen) * 1e-3).cuda()
-    keys, vals = hashgrid_backward_addends_cuda(x, g, *geo)
+    return x, g, geo, T
+
+
+def corner_addends(x, g, geo):
+    """The corner keys (L, 8N) int32 and addends w_c·g (L, 8N, F) float32
+    of the grid backward, made on the card by the backward's twin: the
+    inputs of the segment sum and the histogram."""
+    import torch
+
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
+
+    keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
     torch.cuda.synchronize()
-    return x, g, geo, keys, vals, T, enc.level_geometry()[2].tolist()
+    return keys, vals
 
 
 def segsum_times(keys, vals, T: int, sizes: list) -> dict:
@@ -626,67 +661,105 @@ def segsum_times(keys, vals, T: int, sizes: list) -> dict:
     return out
 
 
-def phase_kernel_train(n_samples: int, shape: str) -> dict:
-    """Each training kernel against its twin at a step's shapes: the grid
-    backward of ``n_samples`` network samples of the "tpu" tier at
-    aabb_scale 1, whose keys and addends then feed the segment sum, the
-    histogram and the one-level entry points. Per kernel: ``ms``, the
-    device time of a call (its output's zero-fill included) from the
-    profiler; ``call_ms``, CUDA events around 20 calls of the wrapper;
-    the twin's time, the library yardstick's device time (timed alike) and
-    the bound. The segment sum also per level (phase ``segsum_levels``).
-    Returns the kernels' rows of the ``kernels`` line (without launches)."""
+def _sum_error(name, got, want, k, v, T):
+    """Max abs error of a float32 sum of bf16 addends against its twin's:
+    within 2·(n−1)·2^-24·Σ|addend| per row (a float32 sum of n addends in
+    any order is within half that of the exact one), untouched rows +0.0."""
+    import torch
+
+    from ngp_tpu_torch.ops import segsum
+
+    n = segsum.segment_count_reference(k, T)[..., None].float()
+    mass = segsum.segment_sum_reference(k, v.abs(), T)
+    excess = (got - want).abs() - 2.0 * n * 2.0 ** -24 * mass
+    if float(excess.max()) > 0:
+        raise AssertionError(f"{name}: beyond the float32 order bound")
+    if bool(torch.signbit(got[mass == 0]).any()) or bool((got[mass == 0] != 0).any()):
+        raise AssertionError(f"{name}: an untouched row is not +0.0")
+    return float((got - want).abs().max())
+
+
+def backward_levels(x, g, geo, keys, T: int) -> list:
+    """Device ms of the fused grid backward and of the histogram for each
+    level alone: the backward on that level's geometry and cotangents, B3
+    on its keys (each with its zeroed output)."""
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_cuda
+    from ngp_tpu_torch.ops.segsum import segment_count_cuda
+
+    L = geo[0].shape[0]
+    F = g.shape[1] // L
+    out = []
+    for l in range(L):
+        one = tuple(t[l:l + 1] for t in geo[:4]) + (geo[4],)
+        gl = g[:, l * F:(l + 1) * F].contiguous()
+        kl = keys[l:l + 1]
+        out.append({
+            "level": l, "rows": int(geo[2][l]),
+            "backward_ms": device_ms(lambda: hashgrid_backward_cuda(x, gl, *one, None, T)),
+            "segment_count_ms": device_ms(lambda: segment_count_cuda(kl, T)),
+        })
+    return out
+
+
+def phase_kernel_train(shape: str, x, g, geo, T: int) -> dict:
+    """Each training kernel against its twin at a step's shapes: the fused
+    grid backward of positions ``x`` (N, 3) and cotangents ``g`` (N, L·F)
+    at the encoding geometry ``geo``, then the segment sum, the histogram
+    and the one-level entry points on the corner keys and addends that the
+    backward's twin makes of them; on uniform positions also B1's forward.
+    Per kernel: ``ms``, the device time of a call (its output's zero-fill
+    included) from the profiler; ``call_ms``, CUDA events around 20 calls
+    of the wrapper; the twin's time, the library yardstick's device time
+    (timed alike) and the bound. The segment sum also per level (phase
+    ``segsum_levels``), the backward and the histogram too (phase
+    ``backward_levels``). Returns the kernels' rows of the ``kernels``
+    line (without launches)."""
     import torch
 
     from ngp_tpu_torch.ops import segsum
     from ngp_tpu_torch.ops.hashgrid import (
-        hashgrid_backward_addends_cuda,
-        hashgrid_backward_addends_reference,
+        hashgrid_backward_cuda,
+        hashgrid_backward_reference,
     )
 
-    x, g, geo, keys, vals, T, sizes = train_addends(n_samples)
+    n_samples = x.shape[0]
+    sizes = geo[2].tolist()
+    keys, vals = corner_addends(x, g, geo)
     L, M, F = vals.shape
     rows = {}
 
-    # B1 forward at the step's shape: the same positions, bf16 reads
-    emit({"phase": "kernel_train", "shape": shape, "kernel": "hashgrid_encode",
-          **_kernel_case("tpu", torch.bfloat16, torch.Generator().manual_seed(3),
-                         x=x, aabb_scale=1)})
+    if shape != "captured_step":
+        # B1 forward at the step's shape: the same positions, bf16 reads
+        emit({"phase": "kernel_train", "shape": shape, "kernel": "hashgrid_encode",
+              **_kernel_case("tpu", torch.bfloat16, torch.Generator().manual_seed(3),
+                             x=x, aabb_scale=1)})
 
-    # B1 backward: corner keys and addends w_c·g
-    wkeys, wvals = hashgrid_backward_addends_reference(x, g, *geo)
-    if not torch.equal(keys, wkeys):
-        raise AssertionError("hashgrid_backward_addends: keys differ from the twin")
-    err = float((vals - wvals).abs().max())
-    if not err <= KERNEL_REL_TOL * float(wvals.abs().max()):
-        raise AssertionError(f"hashgrid_backward_addends: max abs err {err}")
-    del wkeys, wvals
-    bwd = lambda: hashgrid_backward_addends_cuda(x, g, *geo)  # noqa: E731
-    rows["hashgrid_backward_addends"] = {
+    # B1 backward, fused: (x, g) → d(table), bf16 addends summed in float32
+    bwd = lambda: hashgrid_backward_cuda(x, g, *geo, None, T)  # noqa: E731
+    got = bwd()
+    torch.cuda.synchronize()
+    err = _sum_error("hashgrid_backward", got,
+                     segsum.segment_sum_reference(keys, vals, T), keys, vals, T)
+    del got
+    rows["hashgrid_backward"] = {
         "max_abs_err": err, "ms": device_ms(bwd), "call_ms": cuda_ms(bwd, iters=20),
-        "plain_ms": cuda_ms(lambda: hashgrid_backward_addends_reference(x, g, *geo),
+        "plain_ms": cuda_ms(lambda: hashgrid_backward_reference(x, g, *geo, None, T),
                             iters=3, warmup=1),
         "library_ms": None,
-        # positions and cotangents read once, keys and addends written once;
-        # 3D + 8·(D−1) + 8·F float operations per (sample, level)
-        **_bound(n_samples * (12 + 4 * L * F) + L * M * (4 + 4 * F),
-                 n_samples * L * (9 + 16 + 8 * F)),
+        # positions and cotangents read once, d(table) written once;
+        # 3D + 8·(D−1) weight products and 8·F products and sums per
+        # (sample, level)
+        **_bound(n_samples * (12 + 4 * L * F) + L * T * F * 4,
+                 n_samples * L * (9 + 16 + 16 * F)),
     }
+    emit({"phase": "backward_levels", "shape": shape, "N": n_samples,
+          "levels": backward_levels(x, g, geo, keys, T)})
 
     # B2: the segment sum of those addends (bf16 payloads)
-    def sum_error(got, want, k, v):
-        n = segsum.segment_count_reference(k, T)[..., None].float()
-        mass = segsum.segment_sum_reference(k, v.abs(), T)
-        excess = (got - want).abs() - 2.0 * n * 2.0 ** -24 * mass
-        if float(excess.max()) > 0:
-            raise AssertionError("segment_sum: beyond the float32 order bound")
-        if bool(torch.signbit(got[mass == 0]).any()) or bool((got[mass == 0] != 0).any()):
-            raise AssertionError("segment_sum: an untouched row is not +0.0")
-        return float((got - want).abs().max())
-
     got = segsum.segment_sum_cuda(keys, vals, T)
     torch.cuda.synchronize()
-    err = sum_error(got, segsum.segment_sum_reference(keys, vals, T), keys, vals)
+    err = _sum_error("segment_sum", got, segsum.segment_sum_reference(keys, vals, T),
+                     keys, vals, T)
     del got
     times = segsum_times(keys, vals, T, sizes)
     emit({"phase": "segsum_levels", "shape": shape, "N": n_samples, "M": M, **times})
@@ -723,8 +796,9 @@ def phase_kernel_train(n_samples: int, shape: str) -> dict:
     k1, v1 = keys[-1].contiguous(), vals[-1].contiguous()
     got = segsum.segment_sum_onehot(k1, v1, T)
     torch.cuda.synchronize()
-    err = sum_error(got[None], segsum.segment_sum_reference(k1[None], v1[None], T),
-                    k1[None], v1[None])
+    err = _sum_error("segment_sum_onehot", got[None],
+                     segsum.segment_sum_reference(k1[None], v1[None], T),
+                     k1[None], v1[None], T)
     k1l, v1b = k1.long(), v1.to(torch.bfloat16).float()
     b4 = lambda: segsum.segment_sum_onehot(k1, v1, T)  # noqa: E731
     rows["segment_sum_onehot"] = {
@@ -803,7 +877,8 @@ def phase_kernel_sort() -> dict:
 def phase_train():
     """The bench's fallback configuration, 400 steps through
     ``NerfEngine.train`` one step per call (each synchronized and timed);
-    then the PSNR of view 0."""
+    then the PSNR of view 0, and one more step whose grid backward's
+    arguments are kept (positions, cotangents, geometry; by reference)."""
     import numpy as np
     import torch
 
@@ -851,10 +926,28 @@ def phase_train():
         raise AssertionError(f"training loss is not finite: {loss}")
     if not psnr >= TRAIN_PSNR_MIN:
         raise AssertionError(f"PSNR {psnr} dB after {TRAIN_STEPS} steps < {TRAIN_PSNR_MIN}")
-    for name in ("hashgrid_encode", "hashgrid_backward_addends", "segment_sum"):
+    for name in ("hashgrid_encode", "hashgrid_backward"):
         if launches[name] == 0:
             raise AssertionError(f"the training path launched {name} no time")
-    return eng, state, grid, launches, result
+
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+
+    backward = hashgrid_ops.hashgrid_backward_cuda
+    kept = []
+
+    def keep(x, g, *geo_and_rows):
+        kept[:] = [(x, g, *geo_and_rows)]
+        return backward(x, g, *geo_and_rows)
+
+    hashgrid_ops.hashgrid_backward_cuda = keep
+    try:
+        state, grid, _ = eng.train(state, grid, 1)
+        torch.cuda.synchronize()
+    finally:
+        hashgrid_ops.hashgrid_backward_cuda = backward
+    x, g, scale, res, size, hashed, variant, _, n_rows = kept[0]
+    return eng, state, grid, launches, result, (x, g, (scale, res, size, hashed, variant),
+                                                n_rows)
 
 
 def _profile_steps(eng, state, grid, n_steps: int, threaded: bool):
@@ -942,11 +1035,15 @@ def main():
                          x=x_serve)})
     del x_serve
 
-    eng, state, grid, train_launches, train = phase_train()
-    # the kernels at the path's mean network samples per step (the kernels
-    # line) and at the step's full sample budget
-    train_rows = phase_kernel_train(int(train["network_samples_per_step"]), "main_path")
-    phase_kernel_train(eng.samples_per_step, "full_budget")
+    eng, state, grid, train_launches, train, step_inputs = phase_train()
+    # the kernels at the path's mean network samples per step on uniform
+    # positions (the kernels line), at the step's full sample budget, and on
+    # the kept step's own positions and cotangents
+    train_rows = phase_kernel_train(
+        "main_path", *train_inputs(int(train["network_samples_per_step"])))
+    phase_kernel_train("full_budget", *train_inputs(eng.samples_per_step))
+    phase_kernel_train("captured_step", *step_inputs)
+    del step_inputs
     phase_train_profile(eng, state, grid, train["median_ms_per_step"])
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -959,8 +1056,10 @@ def main():
         **{k: main_case[k] for k in keys},
     }]
     for name, source, replaces, launched in (
-        ("hashgrid_backward_addends", "hashgrid_encode.cu",
-         "ngp_tpu/models/encodings.py:378", train_launches["hashgrid_backward_addends"]),
+        ("hashgrid_backward", "hashgrid_encode.cu",
+         "ngp_tpu/models/encodings.py:378", train_launches["hashgrid_backward"]),
+        # B2's work on the path is done by the fused backward; its launches
+        # there are counted all the same
         ("segment_sum", "segment_sum.cu", "ngp_tpu/ops/pallas/segsum_sorted.py:67",
          train_launches["segment_sum"]),
         ("segment_count", "segment_sum.cu", "ngp_tpu/ops/pallas/segsum.py:135",

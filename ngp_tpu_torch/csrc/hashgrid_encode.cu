@@ -1,5 +1,5 @@
 // Multiresolution hash/dense grid encoding for Hopper (sm_90a): the forward
-// and the first half of its table gradient.
+// and its table gradient.
 //
 // Replaces the TPU kernel ngp_tpu/ops/pallas/hashgrid.py:_encode_kernel
 // (hashgrid_encode_pallas). That kernel computes the XOR hash only; this one
@@ -57,30 +57,58 @@
 // reproduces the result bit for bit. Nothing of the TPU kernel's block
 // layout (pack_table, 8192-row VMEM tiles, lane select) is carried over.
 //
-// Backward (hashgrid_backward_addends), the counterpart of the JAX package's
-// _pge_bwd / _ggbe_bwd / _gdgb_bwd (ngp_tpu/models/encodings.py): the same
-// corner rows and weights (cell_corners, shared with the forward), written
-// out as segment keys and addends w_c * g that csrc/segment_sum.cu sums
-// into d(table). Depositing corner by corner gives the JAX package's
-// gradient on the dense top plane too: its additive path shifts the cell
-// base down and pushes the fraction to 1 there, the per-corner clamp puts
-// the same total weight on the same row. Bound: it reads 4*D + 4*L*F bytes
-// and writes L * 2^D * (4 + 4F) bytes per sample (76 B in, 768 B out at the
-// tpu tier), so it is bound by its stores; fusing it with the accumulation
-// removes the (L, N * 2^D, F) buffer and is the obvious later step. One
-// thread per (level, sample), level-major.
+// Backward (hashgrid_backward), the port of the JAX package's _pge_bwd
+// (ngp_tpu/models/encodings.py), the VJP that pairs with the TPU kernel,
+// whose sum is segment_sum_sorted_blocks on the TPU:
+//
+//   d(table)[l, idx_c(x[n]), :] += bf16(w_c(x[n]) * g[n, l, :])
+//
+// summed in float32 over samples n and corners c, for levels l <=
+// max_level; every other row stays +0.0. The corner rows and weights come
+// from cell_corners, shared with the forward. Depositing corner by corner
+// gives the JAX package's gradient on the dense top plane too: its
+// additive path shifts the cell base down and pushes the fraction to 1
+// there, the per-corner clamp puts the same total weight on the same row.
+// Each addend is rounded to bf16 (round to nearest even) before it is
+// added, the precision of the JAX package's default payload; the sum is
+// float32, in an order atomics decide.
+//
+// Bound on the H100: the kernel must read x and g once and write d(table)
+// once, N * (4D + 4LF) + 4LTF bytes (22.7 MB, 0.0068 ms at 3.35 TB/s for
+// the training step's mean of 78,416 samples at the "tpu" tier). What sets
+// its pace is the count of atomic reductions into L2: L * 2^D per sample,
+// about 5.0 M a step. Design, for that:
+//   - One kernel, no buffer: each corner's addend goes straight to its
+//     row with a vector atomic (csrc/atomic_rows.cuh, shared with the
+//     segment sum), where the kernel it replaces wrote (L, N * 2^D) keys
+//     and (L, N * 2^D, F) addends, 768 B a sample at the "tpu" tier, for
+//     csrc/segment_sum.cu to read back.
+//   - Corners c and c + 1 (the x bit) paired inside the thread for F <= 2:
+//     the same row (a dense level's clamp) is one atomic of their sum, rows
+//     2r and 2r + 1 (the additive hash, the XOR hash at even x, a dense
+//     level) one float2 / float4 atomic, on levels whose rows start on a
+//     vector boundary (l * T even). All-zero vectors are skipped.
+//   - Level-uniform warps: a warp takes 32 consecutive samples, one a lane,
+//     at one level; consecutive warps take consecutive levels of the same
+//     samples, so a block's warps share the lines of x and g, and the
+//     card works on every level at once instead of crowding the coarse
+//     levels' few rows one level after another. The geometry is the
+//     forward's __grid_constant__ struct, read at the warp's level.
+//   - One vector load of g[n, l, :] per (sample, level).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "atomic_rows.cuh"
 
 namespace {
 
 constexpr uint32_t kPrime1 = 2654435761u;
 constexpr uint32_t kPrime2 = 805459861u;
 constexpr int kThreads = 256;       // the backward's block
-constexpr int kMaxLevels = 32;      // levels the forward's geometry holds
-constexpr int kWarpSamples = 32;    // samples a forward warp encodes, one a lane
+constexpr int kMaxLevels = 32;      // levels the geometry holds
+constexpr int kWarpSamples = 32;    // samples a warp takes, one a lane
 constexpr int kWarpLevels = 8;      // levels a forward warp encodes, at most
 constexpr int kMaxBlockWarps = 8;   // warps a forward block has at most
 constexpr int kMaxBlockSmem = 48 * 1024;
@@ -90,14 +118,7 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// F features of one table row (or one output row), loaded or stored as a
-// single aligned vector.
-template <typename T, int F>
-struct alignas(sizeof(T) * F) Row {
-  T v[F];
-};
-
-// Per-level geometry, passed by value among the forward kernel's arguments
+// Per-level geometry, passed by value among the kernels' arguments
 // (mirrored by ctypes in ngp_tpu_torch/ops/hashgrid.py). The kernel takes it
 // as a __grid_constant__ parameter, so that indexing it by the warp's level
 // reads the parameter's constant bank instead of a local copy.
@@ -106,18 +127,6 @@ struct Geometry {
   int32_t res[kMaxLevels];
   uint32_t mask[kMaxLevels];  // size - 1; used on hashed levels
   int32_t hashed[kMaxLevels];
-};
-
-struct Args {
-  const float* x;
-  const float* level_scale;
-  const int32_t* level_res;
-  const int32_t* level_size;
-  const int32_t* level_hashed;
-  int64_t n;
-  int n_levels;
-  int additive;
-  int max_level;
 };
 
 // Table rows and multilinear weights of the 2^D corners of one sample's
@@ -263,49 +272,48 @@ hashgrid_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
   }
 }
 
-// Backward half: for each (level, sample) the 2^D corner rows as segment
-// keys and w_c * g[sample, level, :] as addends. Threads are level-major so
-// that a warp's key and addend stores are contiguous:
-//   keys[l, s * 2^D + c] = idx_c,  vals[l, s * 2^D + c, :] = w_c * g[s, l, :]
-// Levels above max_level get zero addends (their keys are still the corner
-// rows).
+// Backward: warp w of the grid takes samples 32 * (w / levels) onwards at
+// level w % levels (levels = min(L, max_level + 1)), one sample a lane, and
+// adds each corner's bf16-rounded w_c * g[s, l, :] to its row of out.
 template <int D, int F>
 __global__ void __launch_bounds__(kThreads)
-hashgrid_backward_addends_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ g,
-                                 const float* __restrict__ level_scale,
-                                 const int32_t* __restrict__ level_res,
-                                 const int32_t* __restrict__ level_size,
-                                 const int32_t* __restrict__ level_hashed,
-                                 int32_t* __restrict__ keys,
-                                 float* __restrict__ vals, int64_t n,
-                                 int n_levels, int additive, int max_level) {
+hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                         const __grid_constant__ Geometry geo,
+                         float* __restrict__ out, int64_t n, int n_levels,
+                         int levels, int64_t table_rows, int additive) {
   constexpr int C = 1 << D;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n * n_levels) return;
-  const int l = static_cast<int>(i / n);
-  const int64_t s = i - static_cast<int64_t>(l) * n;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int l = static_cast<int>(warp % levels);
+  const int64_t s = (warp / levels) * kWarpSamples + (threadIdx.x & 31);
+  if (s >= n) return;
 
   uint32_t idx[C];
   float w[C];
-  cell_corners<D>(x + s * D, level_scale[l], level_res[l], level_hashed[l] != 0,
-                  static_cast<uint32_t>(level_size[l]) - 1u, additive, idx, w);
-  Row<float, F> gl;
-  if (l <= max_level) {
-    gl = *reinterpret_cast<const Row<float, F>*>(g + (s * n_levels + l) * F);
-  } else {
+  cell_corners<D>(x + s * D, geo.scale[l], geo.res[l], geo.hashed[l] != 0,
+                  geo.mask[l], additive, idx, w);
+  const Row<float, F> gl =
+      *reinterpret_cast<const Row<float, F>*>(g + (s * n_levels + l) * F);
+  float* o = out + l * table_rows * F;
+  const bool pair = (l * table_rows) % 2 == 0;  // o on a vector boundary
 #pragma unroll
-    for (int f = 0; f < F; ++f) gl.v[f] = 0.0f;
-  }
-  int32_t* k = keys + i * C;
-  float* v = vals + i * C * F;
+  for (int c = 0; c < C; c += 2) {
+    Row<float, F> a0, a1;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    k[c] = static_cast<int32_t>(idx[c]);
-    Row<float, F> a;
-#pragma unroll
-    for (int f = 0; f < F; ++f) a.v[f] = __fmul_rn(w[c], gl.v[f]);
-    *reinterpret_cast<Row<float, F>*>(v + c * F) = a;
+    for (int f = 0; f < F; ++f) {
+      a0.v[f] = round_bf16(__fmul_rn(w[c], gl.v[f]));
+      a1.v[f] = round_bf16(__fmul_rn(w[c + 1], gl.v[f]));
+    }
+    const int32_t k0 = static_cast<int32_t>(idx[c]);
+    const int32_t k1 = static_cast<int32_t>(idx[c + 1]);
+    if constexpr (F <= 2) {
+      if (pair && rows_pair(k0, k1)) {
+        add_pair<F>(o, k0, a0, k1, a1);
+        continue;
+      }
+    }
+    add_to_device<F>(o + static_cast<int64_t>(k0) * F, a0);
+    add_to_device<F>(o + static_cast<int64_t>(k1) * F, a1);
   }
 }
 
@@ -358,25 +366,34 @@ int dispatch_features(int n_features, int table_bf16, const Forward& a,
   }
 }
 
+struct Backward {
+  const float* x;
+  const float* g;
+  const Geometry* geo;
+  float* out;
+  int64_t n;
+  int n_levels;
+  int levels;
+  int64_t table_rows;
+  int additive;
+};
+
 template <int D, int F>
-int launch_backward(const Args& a, const float* g, int32_t* keys, float* vals,
-                    cudaStream_t stream) {
-  const int64_t total = a.n * a.n_levels;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  hashgrid_backward_addends_kernel<D, F><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      a.x, g, a.level_scale, a.level_res, a.level_size, a.level_hashed, keys,
-      vals, a.n, a.n_levels, a.additive, a.max_level);
+int launch_backward(const Backward& a, cudaStream_t stream) {
+  const int64_t warps = (a.n + kWarpSamples - 1) / kWarpSamples * a.levels;
+  const int64_t blocks = (warps * 32 + kThreads - 1) / kThreads;
+  hashgrid_backward_kernel<D, F><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      a.x, a.g, *a.geo, a.out, a.n, a.n_levels, a.levels, a.table_rows, a.additive);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int dispatch_backward(int n_features, const Args& a, const float* g,
-                      int32_t* keys, float* vals, cudaStream_t stream) {
+int dispatch_backward(int n_features, const Backward& a, cudaStream_t stream) {
   switch (n_features) {
-    case 1: return launch_backward<D, 1>(a, g, keys, vals, stream);
-    case 2: return launch_backward<D, 2>(a, g, keys, vals, stream);
-    case 4: return launch_backward<D, 4>(a, g, keys, vals, stream);
-    case 8: return launch_backward<D, 8>(a, g, keys, vals, stream);
+    case 1: return launch_backward<D, 1>(a, stream);
+    case 2: return launch_backward<D, 2>(a, stream);
+    case 4: return launch_backward<D, 4>(a, stream);
+    case 8: return launch_backward<D, 8>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -408,28 +425,27 @@ extern "C" int hashgrid_encode(const void* x, const void* table,
   }
 }
 
-// Keys (L, N * 2^D) int32 and addends (L, N * 2^D, F) float32 of the
-// gradient of hashgrid_encode with respect to its table, given positions x
-// (N, D) and the output cotangent g (N, L * F). Same conventions as above.
-extern "C" int hashgrid_backward_addends(
-    const void* x, const void* g, const void* level_scale,
-    const void* level_res, const void* level_size, const void* level_hashed,
-    void* keys, void* vals, long long n, int n_levels, int n_features,
-    int n_dims, int additive, int max_level, void* stream) {
-  if (n <= 0) return 0;
-  const Args a{static_cast<const float*>(x),
-               static_cast<const float*>(level_scale),
-               static_cast<const int32_t*>(level_res),
-               static_cast<const int32_t*>(level_size),
-               static_cast<const int32_t*>(level_hashed),
-               static_cast<int64_t>(n), n_levels, additive, max_level};
+// d(table) (L, table_rows, F) float32 of hashgrid_encode with respect to its
+// table, given positions x (N, D) and the output cotangent g (N, L * F),
+// added into `out`, which the caller zeroes. Same conventions as above.
+extern "C" int hashgrid_backward(const void* x, const void* g,
+                                 const void* geometry, void* out, long long n,
+                                 int n_levels, long long table_rows,
+                                 int n_features, int n_dims, int additive,
+                                 int max_level, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int levels = max_level + 1 < n_levels ? max_level + 1 : n_levels;
+  if (n <= 0 || levels <= 0) return 0;
+  const Backward a{static_cast<const float*>(x), static_cast<const float*>(g),
+                   static_cast<const Geometry*>(geometry), static_cast<float*>(out),
+                   static_cast<int64_t>(n), n_levels, levels,
+                   static_cast<int64_t>(table_rows), additive};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* gp = static_cast<const float*>(g);
-  auto* kp = static_cast<int32_t*>(keys);
-  auto* vp = static_cast<float*>(vals);
   switch (n_dims) {
-    case 2: return dispatch_backward<2>(n_features, a, gp, kp, vp, s);
-    case 3: return dispatch_backward<3>(n_features, a, gp, kp, vp, s);
+    case 2: return dispatch_backward<2>(n_features, a, s);
+    case 3: return dispatch_backward<3>(n_features, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -24,24 +24,24 @@
 // is no sort and no window: each addend goes to its row with an atomic
 // reduction (RED), and what costs is the number of them.
 //
-// Bound on the H100: the kernel must read M * (4 + 4F) bytes per level and
+// Bound on the H100: segment_sum must read M * (4 + 4F) bytes per level and
 // write the dense table once, 4 * L * T * F bytes (77 MB, 0.023 ms at
 // 3.35 TB/s for the training step's 8 levels of 644,280 addends, F = 2,
-// T = 2^18). The design cuts the atomics two ways:
-//   - vector atomics: sm_90 adds a float2 or a float4 in one operation
-//     (RED.E.ADD.F32x2 / F32x4), so a row of F = 2 or 4 is one atomic and
-//     F = 8 two, where one per feature was issued before;
-//   - neighbouring pairs: the grid backward writes a sample's corners x and
-//     x + 1 as neighbouring addends, and with the additive hash, the XOR
-//     hash at even x, or a dense level, their rows are 2r and 2r + 1 half
-//     the time (or the same row, where a dense level clamps). For F <= 2,
-//     lanes 2w and 2w + 1 of a warp hold neighbouring addends; where their
-//     rows are one such pair (or the same row), the even lane adds both
-//     with one vector atomic and the odd lane adds nothing. Any keys are
-//     summed right; this only saves atomics where the pairs occur. A level
-//     pairs only where its rows start on a vector boundary (l * T even):
-//     with T odd, every odd level's row 2r lies off the float2 / float4
-//     alignment that the vector atomic needs, and is added row by row.
+// T = 2^18). What costs is the number of atomics, and the design cuts them
+// two ways, with the deposit rule of csrc/atomic_rows.cuh (shared with the
+// fused grid backward):
+//   - vector atomics: a row of F = 2 or 4 is one atomic and F = 8 two;
+//   - neighbouring pairs: the grid backward's corners x and x + 1 come as
+//     neighbouring addends, and with the additive hash, the XOR hash at
+//     even x, or a dense level, their rows are 2r and 2r + 1 half the time
+//     (or the same row, where a dense level clamps). For F <= 2, lanes 2w
+//     and 2w + 1 of a warp hold neighbouring addends; where their rows
+//     pair, the even lane adds both with one atomic and the odd lane adds
+//     nothing. Any keys are summed right; this only saves atomics where
+//     the pairs occur. A level pairs only where its rows start on a vector
+//     boundary (l * T even): with T odd, every odd level's row 2r lies off
+//     the float2 / float4 alignment that the vector atomic needs, and is
+//     added row by row.
 // A vector whose components are all zero is skipped, so a row that no
 // nonzero addend touches stays +0.0. One launch covers every level, sized
 // to fill the card once (SMs times the blocks an SM holds), each thread
@@ -55,51 +55,43 @@
 // The float32 sums run in another order than the twin's; a float32 sum of n
 // addends in any order is within (n - 1) * 2^-24 * sum |addend| of the
 // exact one.
+//
+// segment_count is bound the same way: it reads L * M * 4 bytes of keys
+// and writes L * T * 4 bytes of counts (28.5 MB, 0.0085 ms at the training
+// step's shape), and issues one integer atomic per key. Its design:
+//   - one launch sized to the card, grid-stride loops over each level;
+//   - keys loaded 16 bytes (four keys) at a time, the level's few keys
+//     before the first 16-byte boundary and after the last one singly;
+//   - neighbouring keys (the first and second of a load, the third and
+//     fourth) paired in the thread: equal keys add 2 with one atomic; rows
+//     2r and 2r + 1 (on a level whose counters start on an 8-byte
+//     boundary, l * T even) add 1 to both with one 64-bit atomic of
+//     1 + 2^32 on the aligned pair of counters, row 2r the low word.
+//     Counts stay below 2^31, so the low word never carries into the high.
+// A level's histogram is T * 4 bytes (1 MB at T = 2^18), above a block's
+// shared memory, and the contract gives no level's live size, so the
+// counts are not privatised in shared memory. Counts are exact.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "atomic_rows.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;  // addends a thread loads before it adds them
 
-template <int F>
-struct alignas(4 * F) Row {
-  float v[F];
-};
-
 template <int F, bool kBf16>
-__device__ __forceinline__ Row<F> load_addend(const float* __restrict__ vals,
-                                              int64_t i) {
-  Row<F> r = *reinterpret_cast<const Row<F>*>(vals + i * F);
+__device__ __forceinline__ Row<float, F> load_addend(const float* __restrict__ vals,
+                                                     int64_t i) {
+  Row<float, F> r = *reinterpret_cast<const Row<float, F>*>(vals + i * F);
   if (kBf16) {
 #pragma unroll
-    for (int f = 0; f < F; ++f)
-      r.v[f] = __bfloat162float(__float2bfloat16_rn(r.v[f]));
+    for (int f = 0; f < F; ++f) r.v[f] = round_bf16(r.v[f]);
   }
   return r;
-}
-
-// Adds a row to device memory: one float2 or float4 atomic per vector of
-// the row, skipping a vector whose components are all zero.
-template <int F>
-__device__ __forceinline__ void add_to_device(float* dst, const Row<F>& a) {
-  if constexpr (F == 1) {
-    if (a.v[0] != 0.0f) atomicAdd(dst, a.v[0]);
-  } else if constexpr (F == 2) {
-    if (a.v[0] != 0.0f || a.v[1] != 0.0f)
-      atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a.v[0], a.v[1]));
-  } else {
-#pragma unroll
-    for (int q = 0; q < F; q += 4) {
-      if (a.v[q] != 0.0f || a.v[q + 1] != 0.0f || a.v[q + 2] != 0.0f ||
-          a.v[q + 3] != 0.0f)
-        atomicAdd(reinterpret_cast<float4*>(dst + q),
-                  make_float4(a.v[q], a.v[q + 1], a.v[q + 2], a.v[q + 3]));
-    }
-  }
 }
 
 // Adds addend a to row key of out (key < 0: nothing), pairing it with the
@@ -108,28 +100,16 @@ __device__ __forceinline__ void add_to_device(float* dst, const Row<F>& a) {
 // together.
 template <int F>
 __device__ __forceinline__ void add_pairwise(float* out, int32_t key,
-                                             Row<F> a, bool pair) {
+                                             const Row<float, F>& a, bool pair) {
   if constexpr (F <= 2) {
     if (pair) {
       const int32_t pk = __shfl_xor_sync(0xffffffffu, key, 1);
-      Row<F> pa;
+      Row<float, F> pa;
 #pragma unroll
       for (int f = 0; f < F; ++f) pa.v[f] = __shfl_xor_sync(0xffffffffu, a.v[f], 1);
       if (key < 0) return;
-      const bool odd = threadIdx.x & 1;
-      if (pk == key) {  // the same row: one atomic of the two addends' sum
-        if (odd) return;
-#pragma unroll
-        for (int f = 0; f < F; ++f) a.v[f] += pa.v[f];
-      } else if (pk >= 0 && (key ^ pk) == 1) {  // rows 2r and 2r + 1
-        if (odd) return;
-        Row<2 * F> w;
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-          w.v[f] = key < pk ? a.v[f] : pa.v[f];
-          w.v[F + f] = key < pk ? pa.v[f] : a.v[f];
-        }
-        add_to_device<2 * F>(out + static_cast<int64_t>(key & ~1) * F, w);
+      if (pk >= 0 && rows_pair(key, pk)) {
+        if ((threadIdx.x & 1) == 0) add_pair<F>(out, key, a, pk, pa);
         return;
       }
     }
@@ -153,13 +133,13 @@ segment_sum_kernel(const int32_t* __restrict__ keys,
     const bool pair = (l * n_segments) % 2 == 0;  // o on a vector boundary
     for (int64_t i = 0; warp_first + i < m; i += kUnroll * step) {
       int32_t key[kUnroll];
-      Row<F> a[kUnroll];
+      Row<float, F> a[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int64_t iu = first + i + u * step;
         key[u] = iu < m ? k[iu] : -1;
         if (key[u] >= n_segments) key[u] = -1;
-        a[u] = iu < m ? load_addend<F, kBf16>(v, iu) : Row<F>{};
+        a[u] = iu < m ? load_addend<F, kBf16>(v, iu) : Row<float, F>{};
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) add_pairwise<F>(o, key[u], a[u], pair);
@@ -167,22 +147,59 @@ segment_sum_kernel(const int32_t* __restrict__ keys,
   }
 }
 
+// Counts keys k0 and k1 of one level (o: its counters), one atomic for the
+// two where they pair as the header says. Keys outside [0, t) count nothing.
+__device__ __forceinline__ void count_two(int32_t* o, int32_t k0, int32_t k1,
+                                          int64_t t, bool pair) {
+  const bool in0 = k0 >= 0 && k0 < t;
+  const bool in1 = k1 >= 0 && k1 < t;
+  if (in0 && in1) {
+    if (k0 == k1) {
+      atomicAdd(o + k0, 2);
+      return;
+    }
+    if (pair && (k0 ^ k1) == 1) {  // rows 2r and 2r + 1, row 2r the low word
+      atomicAdd(reinterpret_cast<unsigned long long*>(o + (k0 & ~1)),
+                1ull + (1ull << 32));
+      return;
+    }
+  }
+  if (in0) atomicAdd(o + k0, 1);
+  if (in1) atomicAdd(o + k1, 1);
+}
+
 __global__ void __launch_bounds__(kThreads)
 segment_count_kernel(const int32_t* __restrict__ keys, int32_t* __restrict__ out,
                      int64_t m, int n_levels, int64_t n_segments) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= m * n_levels) return;
-  const int32_t key = keys[i];
-  if (key < 0 || key >= n_segments) return;
-  atomicAdd(out + (i / m) * n_segments + key, 1);
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  for (int l = 0; l < n_levels; ++l) {
+    const int32_t* k = keys + l * m;
+    int32_t* o = out + l * n_segments;
+    const bool pair = (l * n_segments) % 2 == 0;  // o + 2r on an 8-byte boundary
+    // keys before the level's first 16-byte boundary, four at a time from
+    // there, and the rest after the last
+    const int64_t to_edge = ((16 - (reinterpret_cast<uintptr_t>(k) & 15)) & 15) / 4;
+    const int64_t head = to_edge < m ? to_edge : m;
+    const int64_t quads = (m - head) / 4;
+    const int4* q4 = reinterpret_cast<const int4*>(k + head);
+    for (int64_t q = first; q < quads; q += step) {
+      const int4 v = q4[q];
+      count_two(o, v.x, v.y, n_segments, pair);
+      count_two(o, v.z, v.w, n_segments, pair);
+    }
+    const int64_t tail = head + 4 * quads;
+    if (first < head) count_two(o, k[first], -1, n_segments, false);
+    if (first < m - tail) count_two(o, k[tail + first], -1, n_segments, false);
+  }
 }
 
 int64_t n_blocks(int64_t n) { return (n + kThreads - 1) / kThreads; }
 
-// The blocks of segment_sum_kernel<F, kBf16> that fill the current device
-// once (SMs times the blocks an SM holds), asked of the runtime on each
-// device's first launch only.
-template <int F, bool kBf16>
+// The blocks of `kernel` (kThreads each) that fill the current device once
+// (SMs times the blocks an SM holds), asked of the runtime on each device's
+// first launch only.
+template <auto kernel>
 cudaError_t card_blocks(int64_t* blocks) {
   constexpr int kDevices = 64;
   static int known[kDevices] = {};
@@ -196,8 +213,7 @@ cudaError_t card_blocks(int64_t* blocks) {
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, segment_sum_kernel<F, kBf16>, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   if (err != cudaSuccess) return err;
   *blocks = sms * per_sm > 0 ? sms * per_sm : 1;
   if (dev < kDevices) known[dev] = static_cast<int>(*blocks);
@@ -208,7 +224,7 @@ template <int F, bool kBf16>
 int launch_sum(const int32_t* keys, const float* vals, float* out, int64_t m,
                int n_levels, int64_t n_segments, cudaStream_t s) {
   int64_t card = 0;
-  const cudaError_t err = card_blocks<F, kBf16>(&card);
+  const cudaError_t err = card_blocks<segment_sum_kernel<F, kBf16>>(&card);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t blocks = card < n_blocks(m) ? card : n_blocks(m);
   segment_sum_kernel<F, kBf16><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
@@ -248,8 +264,13 @@ extern "C" int segment_sum(const void* keys, const void* vals, void* out,
 extern "C" int segment_count(const void* keys, void* out, long long m,
                              int n_levels, long long n_segments, void* stream) {
   if (m <= 0 || n_levels <= 0) return 0;
-  segment_count_kernel<<<static_cast<unsigned>(n_blocks(m * n_levels)), kThreads,
-                         0, static_cast<cudaStream_t>(stream)>>>(
+  int64_t card = 0;
+  const cudaError_t err = card_blocks<segment_count_kernel>(&card);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t quads = n_blocks((m + 3) / 4);
+  const int64_t blocks = card < quads ? card : quads;
+  segment_count_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(keys), static_cast<int32_t*>(out), m,
       n_levels, n_segments);
   return static_cast<int>(cudaGetLastError());

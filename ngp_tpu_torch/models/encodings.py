@@ -3,9 +3,8 @@
 
 ``GridEncoding`` (Hash and Dense grids, Linear interpolation, XOR or
 additive hash) runs through :func:`ngp_tpu_torch.ops.hashgrid.hashgrid_encode`
-forward and, for d(table), :func:`~ngp_tpu_torch.ops.hashgrid.hashgrid_backward_addends`
-then :func:`~ngp_tpu_torch.ops.segsum.batched_segment_sum`: CUDA kernels on
-the card, their plain twins on the CPU. Spherical harmonics (degree ≤ 4),
+forward and :func:`~ngp_tpu_torch.ops.hashgrid.hashgrid_backward` for
+d(table): CUDA kernels on the card, their plain twins on the CPU. Spherical harmonics (degree ≤ 4),
 Identity and Composite are plain tensor code. Tiled grids, Simplex
 interpolation and gradients with respect to positions are not yet ported
 and raise.
@@ -23,8 +22,7 @@ import torch
 from torch import nn
 
 from ngp_tpu_torch.device import resolve_device
-from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends, hashgrid_encode
-from ngp_tpu_torch.ops.segsum import batched_segment_sum
+from ngp_tpu_torch.ops.hashgrid import hashgrid_backward, hashgrid_encode
 
 
 def _next_multiple(x: int, m: int) -> int:
@@ -32,8 +30,8 @@ def _next_multiple(x: int, m: int) -> int:
 
 
 class _GridEncode(torch.autograd.Function):
-    """Grid forward (kernel B1) whose backward is B1's backward half then
-    the segment-sum kernel: d(table) float32 for the float32 master table,
+    """Grid forward (kernel B1) whose backward is one kernel, the JAX
+    package's ``_pge_bwd``: d(table) float32 for the float32 master table,
     addends rounded to bf16 (the JAX package's default
     ``batched_segment_sum`` payload). Positions get no gradient, as in the
     JAX package's training path."""
@@ -52,11 +50,11 @@ class _GridEncode(torch.autograd.Function):
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         enc = ctx.enc
-        keys, vals = hashgrid_backward_addends(
+        dtable = hashgrid_backward(
             x, g.contiguous(), enc.level_scale, enc.level_res, enc.level_size,
             enc.level_hashed, enc.hash_variant, ctx.max_level,
+            ctx.table_shape[1],
         )
-        dtable = batched_segment_sum(keys, vals, ctx.table_shape[1])
         return dtable, None, None, None
 
 

@@ -3,8 +3,9 @@
 Each source in ``ngp_tpu_torch/csrc/`` exports a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``. Libraries land in ``build/ngp_tpu_torch/`` at the repository
-root (git-ignored), named by a hash of the source and the flags, so an
-unchanged source is compiled once per checkout. Nothing is built when a
+root (git-ignored), named by a hash of the source, the headers of
+``csrc/`` and the flags, so an unchanged source is compiled once per
+checkout and an edited header builds anew. Nothing is built when a
 module is imported: :meth:`CudaKernel.library` builds at first use, and
 :func:`build_all` builds every registered source in parallel.
 """
@@ -62,7 +63,12 @@ class CudaKernel:
         return self.source.stem
 
     def lib_path(self) -> Path:
+        """The library's path, named by a hash of the source, every header
+        beside it (``*.cuh``, which a source may include) and the flags."""
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode())
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
 

@@ -1,22 +1,24 @@
 """Multiresolution hash/dense grid encoding: the CUDA kernels' wrappers
-(:func:`hashgrid_encode_cuda`, :func:`hashgrid_backward_addends_cuda`) and
-their plain PyTorch twins (:func:`hashgrid_encode_reference`,
-:func:`hashgrid_backward_addends_reference`).
+(:func:`hashgrid_encode_cuda`, :func:`hashgrid_backward_cuda`) and their
+plain PyTorch twins (:func:`hashgrid_encode_reference`,
+:func:`hashgrid_backward_reference`).
 
 Counterpart of ``ngp_tpu/ops/pallas/hashgrid.py`` (``_encode_kernel``),
 extended to the additive hash that the JAX package computes with XLA
 gathers (``models/encodings.py:grid_dup_gather_blend``). The source and its
 design notes are in ``ngp_tpu_torch/csrc/hashgrid_encode.cu``.
 
-:func:`hashgrid_encode` and :func:`hashgrid_backward_addends` pick by the
-device of ``x``: the twin for CPU tensors, the kernel for CUDA tensors. On a
-CUDA tensor the kernel launches or the call raises; nothing falls back to
-the twin.
+:func:`hashgrid_encode` and :func:`hashgrid_backward` pick by the device
+of ``x``: the twin for CPU tensors, the kernel for CUDA tensors. On a CUDA
+tensor the kernel launches or the call raises; nothing falls back to the
+twin.
 
-The backward half writes, for every (level, sample, corner), the corner's
-table row as a segment key and ``w_c · g`` as the addend;
-``ops/segsum.batched_segment_sum`` turns them into d(table) (the JAX
-package's ``_pge_bwd``, ``models/encodings.py``).
+The backward is the JAX package's ``_pge_bwd`` (``models/encodings.py``):
+d(table), each corner's ``w_c · g`` rounded to bf16 and summed in float32
+by row. Its twin is built from two: :func:`hashgrid_backward_addends_reference`
+writes every (level, sample, corner)'s row as a segment key and ``w_c · g``
+as the addend, and ``ops/segsum.segment_sum_reference`` sums them; the
+kernel adds each addend to its row as it computes it.
 """
 
 from __future__ import annotations
@@ -26,9 +28,10 @@ import ctypes
 import torch
 
 from ngp_tpu_torch.ops.cuda_build import CudaKernel, launch_on
+from ngp_tpu_torch.ops.segsum import segment_sum_reference
 
 HASH_PRIMES = (1, 2654435761, 805459861)
-MAX_LEVELS = 32  # levels the forward kernel's geometry argument holds
+MAX_LEVELS = 32  # levels the kernels' geometry argument holds
 HASH_VARIANTS = {"tcnn": 0, "additive": 1}  # XOR | addition of the prime terms
 _U32 = 0xFFFFFFFF
 
@@ -40,19 +43,19 @@ HASHGRID_ENCODE = CudaKernel(
             _i,
             [_vp] * 4 + [_ll, _i, _ll, _i, _i, _i, _i, _i, _vp],
         ),
-        "hashgrid_backward_addends": (
+        "hashgrid_backward": (
             _i,
-            [_vp] * 8 + [_ll, _i, _i, _i, _i, _i, _vp],
+            [_vp] * 4 + [_ll, _i, _ll, _i, _i, _i, _i, _vp],
         ),
         "hashgrid_encode_error_string": (ctypes.c_char_p, [_i]),
     },
-    ("hashgrid_encode", "hashgrid_backward_addends"),
+    ("hashgrid_encode", "hashgrid_backward"),
 )
 
 
 class _Geometry(ctypes.Structure):
-    """The forward kernel's per-level geometry (``Geometry`` in
-    ``csrc/hashgrid_encode.cu``), passed by value in its arguments."""
+    """The kernels' per-level geometry (``Geometry`` in
+    ``csrc/hashgrid_encode.cu``), passed by value in their arguments."""
 
     _fields_ = [("scale", ctypes.c_float * MAX_LEVELS),
                 ("res", ctypes.c_int32 * MAX_LEVELS),
@@ -160,27 +163,40 @@ def hashgrid_encode_reference(x, table, scale, res, size, hashed,
     return out.reshape(N, L * F)
 
 
-def hashgrid_backward_addends(x, g, scale, res, size, hashed,
-                              hash_variant: str,
-                              max_level: int | None = None):
-    """Segment keys and addends of d(table) for positions ``x`` (N, D) and
-    the output cotangent ``g`` (N, L·F): keys (L, N·2^D) int32 (the corner
-    rows, sample-major then corner), vals (L, N·2^D, F) float32 ``w_c·g``;
-    levels above ``max_level`` get zero addends."""
+def hashgrid_backward(x, g, scale, res, size, hashed, hash_variant: str,
+                      max_level: int | None, n_rows: int) -> torch.Tensor:
+    """d(table) (L, n_rows, F) float32 of :func:`hashgrid_encode` for
+    positions ``x`` (N, D) and the output cotangent ``g`` (N, L·F): each
+    corner's ``w_c · g`` rounded to bf16, summed in float32 by row; levels
+    above ``max_level`` and rows no corner reaches are +0.0."""
     if x.device.type == "cpu":
-        return hashgrid_backward_addends_reference(
-            x, g, scale, res, size, hashed, hash_variant, max_level
+        return hashgrid_backward_reference(
+            x, g, scale, res, size, hashed, hash_variant, max_level, n_rows
         )
-    return hashgrid_backward_addends_cuda(
-        x, g, scale, res, size, hashed, hash_variant, max_level
+    return hashgrid_backward_cuda(
+        x, g, scale, res, size, hashed, hash_variant, max_level, n_rows
     )
+
+
+def hashgrid_backward_reference(x, g, scale, res, size, hashed,
+                                hash_variant: str, max_level: int | None,
+                                n_rows: int) -> torch.Tensor:
+    """Plain PyTorch twin of the backward kernel: the corner keys and
+    addends of :func:`hashgrid_backward_addends_reference`, summed by
+    ``segment_sum_reference`` with bf16 addends."""
+    keys, vals = hashgrid_backward_addends_reference(
+        x, g, scale, res, size, hashed, hash_variant, max_level)
+    return segment_sum_reference(keys, vals, n_rows)
 
 
 def hashgrid_backward_addends_reference(x, g, scale, res, size, hashed,
                                         hash_variant: str,
                                         max_level: int | None = None):
-    """Plain PyTorch twin of the backward-addends kernel: the forward twin's
-    corner loop, with ``w_c · g`` in place of the table read."""
+    """Segment keys and addends of d(table): keys (L, N·2^D) int32 (the
+    corner rows, sample-major then corner), vals (L, N·2^D, F) float32
+    ``w_c·g``, zero on levels above ``max_level``. The forward twin's corner
+    loop, with ``w_c · g`` in place of the table read; the backward twin
+    sums them."""
     additive = HASH_VARIANTS[hash_variant] == 1
     N, D = x.shape
     L = scale.shape[0]
@@ -205,13 +221,14 @@ def _check(cond: bool, msg: str, fn: str = "hashgrid_encode_cuda"):
 
 def _check_common(fn: str, x, L: int, F: int, scale, res, size, hashed,
                   hash_variant: str, tensors: dict):
-    """Checks shared by both kernels' wrappers: positions, geometry, device
-    and contiguity."""
+    """Checks shared by both kernels' wrappers: positions, levels, geometry,
+    device and contiguity."""
     dev = x.device
     _check(dev.type == "cuda", f"x must be a CUDA tensor, got {dev}", fn)
     _check(x.dtype == torch.float32 and x.dim() == 2 and x.shape[1] in (2, 3),
            f"x must be (N, 2|3) float32, got {tuple(x.shape)} {x.dtype}", fn)
     _check(F in (1, 2, 4, 8), f"F must be 1, 2, 4 or 8, got {F}", fn)
+    _check(L <= MAX_LEVELS, f"at most {MAX_LEVELS} levels, got {L}", fn)
     _check(hash_variant in HASH_VARIANTS,
            f"hash_variant must be one of {sorted(HASH_VARIANTS)}", fn)
     for name, t, dt in (("scale", scale, torch.float32), ("res", res, torch.int32),
@@ -235,7 +252,6 @@ def hashgrid_encode_cuda(x, table, scale, res, size, hashed,
            f"table must be (L, T, F) float32|bf16, got "
            f"{tuple(table.shape)} {table.dtype}")
     L, T, F = table.shape
-    _check(L <= MAX_LEVELS, f"at most {MAX_LEVELS} levels, got {L}")
     _check_common("hashgrid_encode_cuda", x, L, F, scale, res, size, hashed,
                   hash_variant, {"table": table})
     N = x.shape[0]
@@ -256,13 +272,12 @@ def hashgrid_encode_cuda(x, table, scale, res, size, hashed,
     return out
 
 
-def hashgrid_backward_addends_cuda(x, g, scale, res, size, hashed,
-                                   hash_variant: str,
-                                   max_level: int | None = None):
-    """Launch the backward-addends kernel of ``csrc/hashgrid_encode.cu`` on
-    the current stream. Raises on any input the kernel does not take and on
-    a refused launch."""
-    fn = "hashgrid_backward_addends_cuda"
+def hashgrid_backward_cuda(x, g, scale, res, size, hashed, hash_variant: str,
+                           max_level: int | None, n_rows: int) -> torch.Tensor:
+    """Launch the backward kernel of ``csrc/hashgrid_encode.cu`` on the
+    current stream into a zeroed (L, n_rows, F) float32 output. Raises on
+    any input the kernel does not take and on a refused launch."""
+    fn = "hashgrid_backward_cuda"
     dev = x.device
     L = scale.shape[0]
     _check(g.dtype == torch.float32 and g.dim() == 2
@@ -271,20 +286,20 @@ def hashgrid_backward_addends_cuda(x, g, scale, res, size, hashed,
     F = g.shape[1] // L
     _check_common(fn, x, L, F, scale, res, size, hashed, hash_variant,
                   {"g": g})
+    geo = _host_geometry(scale, res, size, hashed)
+    rows = max(geo.mask[l] for l in range(L)) + 1
+    _check(rows <= n_rows, f"n_rows {n_rows} is below a level's {rows} rows", fn)
+    out = torch.zeros((L, n_rows, F), dtype=torch.float32, device=dev)
     N, D = x.shape
-    C = 1 << D
-    keys = torch.empty((L, N * C), dtype=torch.int32, device=dev)
-    vals = torch.empty((L, N * C, F), dtype=torch.float32, device=dev)
     if N == 0:
-        return keys, vals
+        return out
     lib = HASHGRID_ENCODE.library()
-    rc = launch_on(dev, lambda stream: lib.hashgrid_backward_addends(
-        x.data_ptr(), g.data_ptr(), scale.data_ptr(), res.data_ptr(),
-        size.data_ptr(), hashed.data_ptr(), keys.data_ptr(),
-        vals.data_ptr(), N, L, F, D, HASH_VARIANTS[hash_variant],
+    rc = launch_on(dev, lambda stream: lib.hashgrid_backward(
+        x.data_ptr(), g.data_ptr(), ctypes.addressof(geo), out.data_ptr(), N,
+        L, n_rows, F, D, HASH_VARIANTS[hash_variant],
         L - 1 if max_level is None else max_level, stream))
     if rc != 0:
         msg = lib.hashgrid_encode_error_string(rc).decode()
-        raise RuntimeError(f"hashgrid_backward_addends launch failed: {msg} ({rc})")
-    HASHGRID_ENCODE.launches["hashgrid_backward_addends"] += 1
-    return keys, vals
+        raise RuntimeError(f"hashgrid_backward launch failed: {msg} ({rc})")
+    HASHGRID_ENCODE.launches["hashgrid_backward"] += 1
+    return out

@@ -13,11 +13,13 @@ import pytest
 import torch
 
 from ngp_tpu_torch.models.encodings import GridEncoding
+from ngp_tpu_torch.ops.cuda_build import launch_counts
 from ngp_tpu_torch.ops.hashgrid import (
     HASHGRID_ENCODE,
-    hashgrid_backward_addends,
-    hashgrid_backward_addends_cuda,
+    hashgrid_backward,
     hashgrid_backward_addends_reference,
+    hashgrid_backward_cuda,
+    hashgrid_backward_reference,
     hashgrid_encode,
     hashgrid_encode_cuda,
     hashgrid_encode_reference,
@@ -40,12 +42,6 @@ from ngp_tpu_torch.ops.sort import (
     bitonic_sort_pos_cuda,
     bitonic_sort_pos_reference,
 )
-
-# The kernel rounds every product and sum as the twin does, in the same
-# order; only a compiler's different rounding of floorf or the bf16 widening
-# could separate them, so the bound is float32-tight.
-RTOL, ATOL = 1e-5, 1e-6
-
 
 @pytest.fixture
 def cuda():
@@ -160,30 +156,81 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         hashgrid_encode_cuda(x, table.repeat(9, 1, 1), *many, geo[4])
 
 
+def _crowded_case(d, f, variant, seed, n=1 << 14):
+    """Many samples in few coarse cells: positions within 0.02 of two
+    points, so that the coarse levels' warps add to the same few rows."""
+    x, table, geo = _case(d, f, variant, seed, n=n)
+    rng = np.random.default_rng(seed)
+    centre = np.where(rng.random((n, 1)) < 0.5, 0.31, 0.62)
+    x = centre + rng.uniform(-0.02, 0.02, (n, d))
+    return torch.from_numpy(x.astype(np.float32)).cuda(), table, geo
+
+
+def _assert_within_order_bound(got, want, keys, vals, n_rows):
+    """The kernel adds the twin's bf16-rounded addends in another float32
+    order: a float32 sum of n addends in any order is within
+    (n − 1)·2^-24·Σ|addend| of the exact one, so two orders differ by at
+    most twice that per row. Rows that no nonzero addend touches are +0.0."""
+    mass = segment_sum_reference(keys, vals.abs(), n_rows)
+    n = segment_count_reference(keys, n_rows)[..., None].float()
+    assert ((got - want).abs() <= 2.0 * n * 2.0 ** -24 * mass).all(), \
+        float((got - want).abs().max())
+    untouched = mass == 0
+    assert not got[untouched].any() and not torch.signbit(got[untouched]).any()
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("positions", ["uniform", "edges", "nine_levels", "crowded"])
 @pytest.mark.parametrize("d", [2, 3])
 @pytest.mark.parametrize("f", [1, 2, 4, 8])
 @pytest.mark.parametrize("variant", ["tcnn", "additive"])
-def test_backward_addends_match_twin(cuda, variant, f, d):
-    x, table, geo = _case(d, f, variant, 100 + 10 * f + d)
-    L = table.shape[0]
+def test_backward_matches_twin(cuda, variant, f, d, positions):
+    """The fused backward kernel against its twin within the float32 order
+    bound: with and without max_level, into tables of the levels' rows and
+    of an odd number of rows (every odd level then starts off the vector
+    atomics' alignment and pairs nothing)."""
+    seed = 100 + 10 * f + d
+    if positions == "edges":
+        x, table, geo = _edge_case(d, f, variant, seed)
+    elif positions == "crowded":
+        x, table, geo = _crowded_case(d, f, variant, seed)
+    else:
+        x, table, geo = _case(d, f, variant, seed,
+                              n_levels=9 if positions == "nine_levels" else 4)
+    L, T = table.shape[:2]
     g = torch.randn((x.shape[0], L * f), generator=torch.Generator().manual_seed(d)).cuda()
-    for max_level in (None, 1):
-        before = HASHGRID_ENCODE.launches["hashgrid_backward_addends"]
-        keys, vals = hashgrid_backward_addends(x, g, *geo, max_level)
-        assert HASHGRID_ENCODE.launches["hashgrid_backward_addends"] == before + 1
-        wkeys, wvals = hashgrid_backward_addends_reference(x, g, *geo, max_level)
-        assert torch.equal(keys, wkeys)
-        torch.testing.assert_close(vals, wvals, rtol=RTOL, atol=ATOL)
+    for n_rows in sorted({T, T | 1}):
+        for max_level in (None, 1):
+            before = HASHGRID_ENCODE.launches["hashgrid_backward"]
+            got = hashgrid_backward(x, g, *geo, max_level, n_rows)
+            torch.cuda.synchronize()
+            assert HASHGRID_ENCODE.launches["hashgrid_backward"] == before + 1
+            assert got.shape == (L, n_rows, f)
+            keys, vals = hashgrid_backward_addends_reference(x, g, *geo, max_level)
+            want = hashgrid_backward_reference(x, g, *geo, max_level, n_rows)
+            _assert_within_order_bound(got, want, keys, vals, n_rows)
+            if max_level is not None:
+                assert not got[max_level + 1:].any()
 
 
 def _keys_and_vals(kind, L, M, T, F, seed):
     rng = np.random.default_rng(seed)
     keys = rng.integers(0, T, (L, M))
+    pairs = 2 * (M // 2)
     if kind == "one_hot_row":
         keys[:, : M // 2] = 7
     elif kind == "few_rows":  # most rows empty, must stay exactly zero
         keys = rng.integers(0, 16, (L, M)) * (T // 16)
+    elif kind == "pairs":  # keys 2i, 2i + 1 on rows 2r, 2r + 1, either order
+        even = rng.integers(0, T // 2, (L, M // 2)) * 2
+        swap = rng.random((L, M // 2)) < 0.5
+        keys[:, 0:pairs:2], keys[:, 1:pairs:2] = even + swap, even + 1 - swap
+    elif kind == "equal":  # keys 2i and 2i + 1 equal
+        keys[:, 1:pairs:2] = keys[:, 0:pairs:2]
+    elif kind == "crowded":  # four rows: equal keys and pairs throughout
+        keys = rng.integers(0, 4, (L, M))
+    elif kind == "outside":  # a third below 0, a third at or above T
+        keys = rng.integers(-T, 2 * T, (L, M))
     vals = rng.normal(size=(L, M, F)).astype(np.float32)
     vals[:, ::5] = 0.0  # zero addends skip the atomic
     return (torch.from_numpy(keys.astype(np.int32)).cuda(),
@@ -211,13 +258,25 @@ def test_segment_sum_matches_twin(cuda, payload, f, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["uniform", "one_hot_row", "few_rows"])
+@pytest.mark.parametrize("kind", ["uniform", "one_hot_row", "few_rows", "pairs",
+                                  "equal", "crowded", "outside", "odd_T"])
 def test_segment_count_matches_twin(cuda, kind):
-    keys, _ = _keys_and_vals(kind, 3, 1 << 16, 1 << 12, 1, 5)
-    before = SEGMENT_SUM.launches["segment_count"]
-    got = segment_count(keys, 1 << 12)
-    assert SEGMENT_SUM.launches["segment_count"] == before + 1
-    assert torch.equal(got, segment_count_reference(keys, 1 << 12))
+    """B3 and B4's count exact against the twin. M is odd, so levels after
+    the first start off a 16-byte boundary and end with a partial load's
+    keys; with T odd (pairs) every odd level's counters start off the
+    64-bit atomic's alignment."""
+    T = (1 << 12) + 1 if kind == "odd_T" else 1 << 12
+    keys, _ = _keys_and_vals("pairs" if kind == "odd_T" else kind, 3,
+                             (1 << 16) + 3, T, 1, 5)
+    before = dict(SEGMENT_SUM.launches)
+    got = segment_count(keys, T)
+    assert torch.equal(got, segment_count_reference(keys, T))
+    for l in range(3):
+        assert torch.equal(segment_count_onehot(keys[l], T),
+                           segment_count_reference(keys[l:l + 1], T)[0])
+    assert {k: n - before[k] for k, n in SEGMENT_SUM.launches.items()} == {
+        "segment_sum": 0, "segment_count": 1,
+        "segment_sum_onehot": 0, "segment_count_onehot": 3}
 
 
 @pytest.mark.cuda
@@ -238,9 +297,10 @@ def test_onehot_entry_points_run_the_kernels(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["tcnn", "additive"])
 def test_grid_gradient_matches_cpu(cuda, variant):
-    """d(table) of GridEncoding through the two kernels on the card against
-    the same module on the CPU (the twins): bf16 addends are identical, only
-    the float32 order of the sums differs."""
+    """d(table) of GridEncoding through the fused backward kernel on the
+    card against the same module on the CPU (the twins): bf16 addends are
+    identical, only the float32 order of the sums differs. The backward on
+    the card launches ``hashgrid_backward`` once and no other kernel."""
     encs = [GridEncoding(n_levels=4, log2_hashmap_size=12, base_resolution=8,
                          hash_variant=variant, device=dev) for dev in ("cpu", "cuda")]
     rng = np.random.default_rng(3)
@@ -250,7 +310,11 @@ def test_grid_gradient_matches_cpu(cuda, variant):
     for enc in encs:
         enc.reset_parameters(torch.Generator().manual_seed(0))
         dev = enc.table.device
-        (enc(x.to(dev)) * g.to(dev)).sum().backward()
+        y = (enc(x.to(dev)) * g.to(dev)).sum()
+        before = launch_counts()
+        y.backward()
+        launched = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+        assert launched == ({"hashgrid_backward": 1} if dev.type == "cuda" else {})
         grads.append(enc.table.grad.cpu())
     mass = grads[0].abs().amax()
     torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-5 * float(mass))
@@ -259,11 +323,20 @@ def test_grid_gradient_matches_cpu(cuda, variant):
 @pytest.mark.cuda
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x, table, geo = _case(3, 2, "tcnn", 0, n=64)
+    T = table.shape[1]
     g = torch.zeros((64, 8), device="cuda")
     for args in [(x, g.double()), (x, g[:, :7].contiguous()), (x, g.t().contiguous().t()),
-                 (x.cpu(), g), (x, g.cpu())]:
+                 (x.cpu(), g), (x, g.cpu()), (x.double(), g), (x[:, :1].contiguous(), g),
+                 (x[:32], g), (x, g.reshape(64, 8, 1).repeat(1, 1, 3).reshape(64, 24))]:
         with pytest.raises(ValueError):
-            hashgrid_backward_addends_cuda(*args, *geo)
+            hashgrid_backward_cuda(*args, *geo, None, T)
+    with pytest.raises(ValueError):  # fewer rows than a level has
+        hashgrid_backward_cuda(x, g, *geo, None, T - 1)
+    with pytest.raises(ValueError):
+        hashgrid_backward_cuda(x, g, *geo[:4], "xor", None, T)
+    many = [t.repeat(9) for t in geo[:4]]  # 36 levels, above the kernel's 32
+    with pytest.raises(ValueError):
+        hashgrid_backward_cuda(x, g.repeat(1, 9), *many, geo[4], None, T)
     keys, vals = _keys_and_vals("uniform", 2, 64, 128, 2, 0)
     for args in [(keys.long(), vals), (keys[0], vals), (keys, vals.double()),
                  (keys, vals[:, :, :1].repeat(1, 1, 3)), (keys.cpu(), vals),

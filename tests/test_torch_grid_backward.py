@@ -1,7 +1,9 @@
 """The port's grid-encoding table gradient (``GridEncoding`` backward:
-``hashgrid_backward_addends`` then ``batched_segment_sum``, the plain twins
-of the two CUDA kernels, on the CPU) against ``jax.grad`` of the JAX
-package's ``GridEncoding.__call__`` with the same cotangent.
+``hashgrid_backward``, on the CPU the plain twin of the fused CUDA kernel,
+``hashgrid_backward_addends_reference`` summed by ``segment_sum_reference``)
+against ``jax.grad`` of the JAX package's ``GridEncoding.__call__`` with the
+same cotangent, and against ``_pge_bwd``, the VJP that the backward kernel
+ports.
 
 The JAX package reaches its d(table) by three routes, all covered: the
 additive hash through the corner-duplicated view and its "quads" backward
@@ -30,10 +32,14 @@ import jax
 import jax.numpy as jnp
 
 from ngp_tpu.models.encodings import GridEncoding as JaxGridEncoding
-from ngp_tpu.models.encodings import pallas_grid_encode
+from ngp_tpu.models.encodings import _pge_bwd, pallas_grid_encode
 from ngp_tpu_torch.models.encodings import GridEncoding
-from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
-from ngp_tpu_torch.ops.segsum import batched_segment_sum
+from ngp_tpu_torch.ops.hashgrid import (
+    HASHGRID_ENCODE,
+    hashgrid_backward,
+    hashgrid_backward_addends_reference,
+)
+from ngp_tpu_torch.ops.segsum import batched_segment_sum, segment_sum_reference
 
 torch.set_num_threads(2)
 
@@ -53,8 +59,8 @@ def _positions(n, d, seed):
     return x
 
 
-def _encodings(d, f, variant, **kw):
-    args = dict(n_input_dims=d, n_levels=4, n_features_per_level=f,
+def _encodings(d, f, variant, n_levels=4, **kw):
+    args = dict(n_input_dims=d, n_levels=n_levels, n_features_per_level=f,
                 log2_hashmap_size=12 if d == 3 else 10, base_resolution=8,
                 per_level_scale=2.0, hash_variant=variant, **kw)
     return JaxGridEncoding(**args), GridEncoding(device="cpu", **args)
@@ -119,6 +125,46 @@ def test_table_gradient_other_widths(f):
     want, got = _grads(jenc, penc, x, g)
     err, scale = _level_err(want, got)
     assert (err <= BOUND * scale).all(), (err / scale)
+
+
+@pytest.mark.parametrize("max_level", [None, 3])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", ["tcnn", "additive"])
+def test_backward_matches_composed_twins_and_pge_bwd(variant, f, d, max_level):
+    """``hashgrid_backward`` on CPU tensors is the composed twins bit for
+    bit, and the encoding's autograd backward is exactly it; against the
+    JAX package's ``_pge_bwd`` (cotangents above ``max_level`` zeroed, as
+    the JAX forward zeroes those features) within the file's bound, 2^-6 of
+    max|d(table)| per level. Five levels, so that max_level = 3 cuts one;
+    levels above it are +0.0 in the port."""
+    jenc, penc = _encodings(d, f, variant, n_levels=5)
+    L, T, _ = penc.table.shape
+    x = _positions(1000, d, 10 * f + d)
+    g = np.random.default_rng(f + d).normal(size=(1000, L * f)).astype(np.float32)
+    geo = (penc.level_scale, penc.level_res, penc.level_size, penc.level_hashed,
+           variant)
+    tx, tg = torch.from_numpy(x), torch.from_numpy(g)
+    before = dict(HASHGRID_ENCODE.launches)
+    got = hashgrid_backward(tx, tg, *geo, max_level, T)
+    assert HASHGRID_ENCODE.launches == before  # CPU tensors run the twin
+    composed = segment_sum_reference(
+        *hashgrid_backward_addends_reference(tx, tg, *geo, max_level), T)
+    assert torch.equal(got, composed)
+    penc.table.grad = None
+    (penc(tx, max_level=max_level) * tg).sum().backward()
+    assert torch.equal(penc.table.grad, got)
+
+    gj = g.copy()
+    if max_level is not None:
+        gj[:, (max_level + 1) * f:] = 0.0
+    want = np.asarray(_pge_bwd(jenc, jnp.asarray(x), jnp.asarray(gj))[0])
+    got = got.numpy()
+    err, scale = _level_err(want, got)
+    assert (err <= BOUND * scale).all(), (err / np.maximum(scale, 1e-30))
+    if max_level is not None:
+        cut = got[max_level + 1:]
+        assert not cut.any() and not np.signbit(cut).any()
 
 
 def test_matches_pallas_forward_backward():

@@ -8,7 +8,10 @@ against the JAX package's Pallas kernels in interpret mode: B2
 
 Cases: uniform keys, one hot row, mostly empty rows (which must be exactly
 zero), unsorted keys (the port takes any order), and per-level live sizes
-(``level_sizes``) with keys at or above them.
+(``level_sizes``) with keys at or above them. The histogram also counts
+neighbouring keys on rows 2r and 2r + 1 and equal neighbours (which its
+kernel adds with one atomic each pair), and both with an odd T (where its
+kernel pairs no rows on odd levels).
 """
 
 import numpy as np
@@ -39,6 +42,7 @@ from ngp_tpu_torch.ops.segsum import (
 torch.set_num_threads(2)
 
 KINDS = ["uniform", "one_hot_row", "few_rows"]
+COUNT_KINDS = KINDS + ["pairs", "equal_neighbours", "odd_T"]
 
 
 def _keys_vals(kind, L, M, T, F, seed):
@@ -48,6 +52,13 @@ def _keys_vals(kind, L, M, T, F, seed):
         keys[:, : M // 2] = RB + 3
     elif kind == "few_rows":
         keys = rng.integers(0, 8, (L, M)) * (T // 8) + 1
+    elif kind in ("pairs", "odd_T"):  # keys 2i, 2i + 1 on rows 2r, 2r + 1
+        even = rng.integers(0, T // 2, (L, M // 2)) * 2
+        swap = rng.random((L, M // 2)) < 0.5
+        keys[:, 0::2], keys[:, 1::2] = even + swap, even + 1 - swap
+        keys[:, : M // 8] = rng.integers(0, T, (L, M // 8))  # some unpaired
+    elif kind == "equal_neighbours":
+        keys[:, 1::2] = keys[:, 0::2]
     vals = rng.normal(size=(L, M, F)).astype(np.float32)
     return keys.astype(np.int32), vals
 
@@ -138,10 +149,11 @@ def test_matches_jax_batched_segment_sum():
         batched_segment_sum(tk, tv, T, level_sizes=sizes[:2])
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", COUNT_KINDS)
 def test_count_matches_batched_onehot_kernel(kind):
     """B3 in interpret mode, exact."""
-    L, M, T = 3, 4000, 4 * RB
+    L, M = 3, 4000
+    T = 4 * RB + 1 if kind == "odd_T" else 4 * RB
     keys, _ = _keys_vals(kind, L, M, T, 1, 3)
     want = np.asarray(segment_count_onehot_batched(jnp.asarray(keys), T, interpret=True))
     got = segment_count(torch.from_numpy(keys), T).numpy()
