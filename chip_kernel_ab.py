@@ -145,6 +145,8 @@ def turn(root: str, label: str, kernels: list[str], b1_samples: int,
 
     root = os.path.abspath(root)
     helpers = _helpers(root)
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
+
     base = {"turn": label, "root": root}
     if "b1" in kernels:
         x = torch.rand((b1_samples, 3), generator=torch.Generator().manual_seed(1)).cuda()
@@ -160,7 +162,7 @@ def turn(root: str, label: str, kernels: list[str], b1_samples: int,
     if "segsum" in kernels:
         for n in samples:
             x, g, geo, T = helpers.train_inputs(n)
-            keys, vals = helpers.corner_addends(x, g, geo)
+            keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
             helpers.emit({**base, "kernel": "segsum", "N": n, "M": keys.shape[1],
                           **helpers.segsum_times(keys, vals, T, geo[2].tolist())})
     if "bwd" in kernels or "b3" in kernels:
@@ -169,7 +171,7 @@ def turn(root: str, label: str, kernels: list[str], b1_samples: int,
             if "bwd" in kernels:
                 helpers.emit({**case, "kernel": "bwd", **bwd_times(helpers, x, g, geo, T)})
             if "b3" in kernels:
-                keys, _ = helpers.corner_addends(x, g, geo)
+                keys, _ = hashgrid_backward_addends_reference(x, g, *geo)
                 helpers.emit({**case, "kernel": "b3", **b3_times(helpers, keys, T)})
                 del keys
 

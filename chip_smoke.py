@@ -226,7 +226,7 @@ def phase_env():
 
 
 def sass_atomics(library: str) -> dict:
-    """The atomic instructions (RED, ATOM, ATOMS, ATOMG) of each kernel in
+    """The atomic instructions (RED, REDG, ATOM, ATOMG, ATOMS) of each kernel in
     a library's SASS, by opcode: {kernel: {opcode: count}}."""
     from ngp_tpu_torch.ops.cuda_build import nvcc_path
 
@@ -238,7 +238,7 @@ def sass_atomics(library: str) -> dict:
         if "Function :" in line:
             kernel = line.split("Function :")[1].strip()[:80]
             continue
-        op = re.search(r"\b(?:RED|ATOMS|ATOMG|ATOM)\.[\w.]+", line)
+        op = re.search(r"\b(?:REDG|RED|ATOMG|ATOMS|ATOM)\.[\w.]+", line)
         if op and kernel:
             ops = found.setdefault(kernel, {})
             ops[op.group(0)] = ops.get(op.group(0), 0) + 1
@@ -617,19 +617,6 @@ def train_inputs(n_samples: int):
     return x, g, geo, T
 
 
-def corner_addends(x, g, geo):
-    """The corner keys (L, 8N) int32 and addends w_c·g (L, 8N, F) float32
-    of the grid backward, made on the card by the backward's twin: the
-    inputs of the segment sum and the histogram."""
-    import torch
-
-    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
-
-    keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
-    torch.cuda.synchronize()
-    return keys, vals
-
-
 def segsum_times(keys, vals, T: int, sizes: list) -> dict:
     """Device ms of ``batched_segment_sum`` (zero-fill and kernel) over all
     levels and for each level alone (``sizes``: its rows), beside the
@@ -718,13 +705,16 @@ def phase_kernel_train(shape: str, x, g, geo, T: int) -> dict:
 
     from ngp_tpu_torch.ops import segsum
     from ngp_tpu_torch.ops.hashgrid import (
+        hashgrid_backward_addends_reference,
         hashgrid_backward_cuda,
         hashgrid_backward_reference,
     )
 
     n_samples = x.shape[0]
     sizes = geo[2].tolist()
-    keys, vals = corner_addends(x, g, geo)
+    # the corner keys (L, 8N) and addends (L, 8N, F) as the backward's twin
+    # makes them on the card: the inputs of B2, B3 and B4
+    keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
     L, M, F = vals.shape
     rows = {}
 

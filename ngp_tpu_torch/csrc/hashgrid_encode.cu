@@ -95,6 +95,10 @@
 //     levels' few rows one level after another. The geometry is the
 //     forward's __grid_constant__ struct, read at the warp's level.
 //   - One vector load of g[n, l, :] per (sample, level).
+// Warp aggregation (lanes whose corners share a row summed by shuffles,
+// one atomic for them, on warps whose samples share a cell) was measured
+// and dropped: 20% slower on a training step's own positions, where the
+// coarse levels crowd (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

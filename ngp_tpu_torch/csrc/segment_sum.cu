@@ -59,18 +59,25 @@
 // segment_count is bound the same way: it reads L * M * 4 bytes of keys
 // and writes L * T * 4 bytes of counts (28.5 MB, 0.0085 ms at the training
 // step's shape), and issues one integer atomic per key. Its design:
-//   - one launch sized to the card, grid-stride loops over each level;
-//   - keys loaded 16 bytes (four keys) at a time, the level's few keys
-//     before the first 16-byte boundary and after the last one singly;
-//   - neighbouring keys (the first and second of a load, the third and
-//     fourth) paired in the thread: equal keys add 2 with one atomic; rows
-//     2r and 2r + 1 (on a level whose counters start on an 8-byte
-//     boundary, l * T even) add 1 to both with one 64-bit atomic of
-//     1 + 2^32 on the aligned pair of counters, row 2r the low word.
-//     Counts stay below 2^31, so the low word never carries into the high.
-// A level's histogram is T * 4 bytes (1 MB at T = 2^18), above a block's
-// shared memory, and the contract gives no level's live size, so the
-// counts are not privatised in shared memory. Counts are exact.
+//   - one launch sized to the card, grid-stride loops over each level with
+//     kUnroll keys a thread in flight, one key a lane, so that a warp's
+//     atomic instruction covers 32 consecutive keys: the corners of four
+//     samples, whose rows often share 32-byte sectors;
+//   - neighbouring keys paired across lanes 2w and 2w + 1, as segment_sum
+//     pairs addends: equal keys add 2 from the even lane with one atomic;
+//     rows 2r and 2r + 1 (on a level whose counters start on an 8-byte
+//     boundary, l * T even) add 1 to both from the even lane with one
+//     64-bit atomic of 1 + 2^32 on the aligned pair of counters, row 2r
+//     the low word. Counts stay below 2^31, so the low word never carries
+//     into the high.
+// Measured and dropped (PERF.md): four keys a thread from one 16-byte load,
+// paired inside the thread, whose instructions each cover every fourth key
+// (12% slower than one thread a key, unpaired; slower still without the
+// pairs), two keys a thread from one 8-byte load, and warp aggregation
+// with __match_any_sync. A level's histogram is T * 4 bytes (1 MB at
+// T = 2^18), above a block's shared memory, and the contract gives no
+// level's live size, so the counts are not privatised in shared memory.
+// Counts are exact.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,7 +88,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;  // addends a thread loads before it adds them
+constexpr int kUnroll = 4;  // keys (and addends) a thread loads before it adds them
 
 template <int F, bool kBf16>
 __device__ __forceinline__ Row<float, F> load_addend(const float* __restrict__ vals,
@@ -147,25 +154,22 @@ segment_sum_kernel(const int32_t* __restrict__ keys,
   }
 }
 
-// Counts keys k0 and k1 of one level (o: its counters), one atomic for the
-// two where they pair as the header says. Keys outside [0, t) count nothing.
-__device__ __forceinline__ void count_two(int32_t* o, int32_t k0, int32_t k1,
-                                          int64_t t, bool pair) {
-  const bool in0 = k0 >= 0 && k0 < t;
-  const bool in1 = k1 >= 0 && k1 < t;
-  if (in0 && in1) {
-    if (k0 == k1) {
-      atomicAdd(o + k0, 2);
-      return;
-    }
-    if (pair && (k0 ^ k1) == 1) {  // rows 2r and 2r + 1, row 2r the low word
-      atomicAdd(reinterpret_cast<unsigned long long*>(o + (k0 & ~1)),
+// Counts key in o (one level's counters; key < 0: nothing), pairing it
+// with the neighbouring lane's (lane ^ 1) as the header says. Every lane of
+// the warp must call it together.
+__device__ __forceinline__ void count_pairwise(int32_t* o, int32_t key, bool pair) {
+  const int32_t pk = __shfl_xor_sync(0xffffffffu, key, 1);
+  if (key < 0) return;
+  const bool odd = threadIdx.x & 1;
+  if (pk == key) {  // the same row: 2 from the even lane
+    if (!odd) atomicAdd(o + key, 2);
+  } else if (pair && pk >= 0 && (key ^ pk) == 1) {  // rows 2r and 2r + 1
+    if (!odd)
+      atomicAdd(reinterpret_cast<unsigned long long*>(o + (key & ~1)),
                 1ull + (1ull << 32));
-      return;
-    }
+  } else {
+    atomicAdd(o + key, 1);
   }
-  if (in0) atomicAdd(o + k0, 1);
-  if (in1) atomicAdd(o + k1, 1);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -173,24 +177,23 @@ segment_count_kernel(const int32_t* __restrict__ keys, int32_t* __restrict__ out
                      int64_t m, int n_levels, int64_t n_segments) {
   const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  // the warp's first key: it keeps the loop the same for every lane
+  const int64_t warp_first = first - (threadIdx.x & 31);
   for (int l = 0; l < n_levels; ++l) {
     const int32_t* k = keys + l * m;
     int32_t* o = out + l * n_segments;
     const bool pair = (l * n_segments) % 2 == 0;  // o + 2r on an 8-byte boundary
-    // keys before the level's first 16-byte boundary, four at a time from
-    // there, and the rest after the last
-    const int64_t to_edge = ((16 - (reinterpret_cast<uintptr_t>(k) & 15)) & 15) / 4;
-    const int64_t head = to_edge < m ? to_edge : m;
-    const int64_t quads = (m - head) / 4;
-    const int4* q4 = reinterpret_cast<const int4*>(k + head);
-    for (int64_t q = first; q < quads; q += step) {
-      const int4 v = q4[q];
-      count_two(o, v.x, v.y, n_segments, pair);
-      count_two(o, v.z, v.w, n_segments, pair);
+    for (int64_t i = 0; warp_first + i < m; i += kUnroll * step) {
+      int32_t key[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t iu = first + i + u * step;
+        key[u] = iu < m ? k[iu] : -1;
+        if (key[u] >= n_segments) key[u] = -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) count_pairwise(o, key[u], pair);
     }
-    const int64_t tail = head + 4 * quads;
-    if (first < head) count_two(o, k[first], -1, n_segments, false);
-    if (first < m - tail) count_two(o, k[tail + first], -1, n_segments, false);
   }
 }
 
@@ -267,8 +270,7 @@ extern "C" int segment_count(const void* keys, void* out, long long m,
   int64_t card = 0;
   const cudaError_t err = card_blocks<segment_count_kernel>(&card);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t quads = n_blocks((m + 3) / 4);
-  const int64_t blocks = card < quads ? card : quads;
+  const int64_t blocks = card < n_blocks(m) ? card : n_blocks(m);
   segment_count_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(keys), static_cast<int32_t*>(out), m,
