@@ -53,9 +53,19 @@ Phases, each printing one JSON line:
    cycle) under ``torch.profiler``: one run as phase train runs them, for
    the device's busy share of a step; one with the backward on the calling
    thread, for the device time per stage (march, network forward, loss,
-   backward, grid backward, optimizer, grid update). Then the ``kernels``
-   line, the card's ``name, power.limit``, and last the ``{"ok": true,
-   ...}`` line.
+   backward, grid backward, optimizer, grid update).
+11. capture: a real capture end to end. Writes a textured sphere in the
+   transforms dialect of instant-ngp's fox scene (OpenCV lens, off-center
+   principal point, aabb_scale 2) as 24 train and 4 held-out 800×800 RGBA
+   PNG frames into ``build/capture_smoke/``; loads both files with
+   ``load_nerf`` (the port's own PNG decoder); trains the full-width "tpu"
+   tier (2^18 sample slots per step) for 1,000 steps; scores the held-out
+   views with ``eval_test_transforms``, whose mean PSNR must reach
+   ``CAPTURE_PSNR_MIN``; then holds B1 against its twin, bit for bit, on
+   the positions of the eval's largest launch (phase
+   ``kernel_capture_positions``, timed by CUDA events only).
+Then the ``kernels`` line, the card's ``name, power.limit``, and last the
+``{"ok": true, ...}`` line.
 
 Each kernel has two times: ``ms``, the device time of one call (the
 kernels and the zero-fill of its output that the call puts on the card,
@@ -95,6 +105,11 @@ PROFILER_PAD_S = 0.05
 # runs of this configuration read 51.4 and 53.0 dB, so the gate sits well
 # above 20 dB to catch a table gradient that is badly wrong.
 TRAIN_PSNR_MIN = 40.0
+# phase capture: nerf_synthetic's frame size, the steps, and the gate on the
+# held-out views' mean PSNR, fixed before the first card run
+CAPTURE_RES = 800
+CAPTURE_STEPS = 1000
+CAPTURE_PSNR_MIN = 30.0
 
 
 def emit(obj):
@@ -279,11 +294,13 @@ def _bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL, x=None,
-                 aabb_scale: int = 4):
+                 aabb_scale: int = 4, profiled: bool = True):
     """B1 against its twin, exactly, on ``n`` uniform positions (or the
     positions ``x``) with a random table of ``table_dtype``. With a bf16
     table it also times the cast of the float32 table that the encoding
-    makes before each call ("cast_ms")."""
+    makes before each call ("cast_ms"). ``profiled=False`` times by CUDA
+    events only (``call_ms``, ``plain_ms``): no ``ms``, ``cast_ms`` or
+    library yardstick."""
     import torch
     import torch.nn.functional as tnf
 
@@ -311,17 +328,31 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL, x=None,
     if not torch.equal(out, ref):
         raise AssertionError(f"{tier} {table_dtype}: differs from the twin, "
                              f"max abs err {err}")
-    ms = device_ms(lambda: hashgrid_encode_cuda(x, table, *geo))
+    ms = device_ms(lambda: hashgrid_encode_cuda(x, table, *geo)) if profiled else None
     call_ms = cuda_ms(lambda: hashgrid_encode_cuda(x, table, *geo), iters=20)
     plain_ms = cuda_ms(lambda: hashgrid_encode_reference(x, table, *geo),
                        iters=3, warmup=1)
+    # bound: positions read and features written once, each live table row
+    # read once; operations: 3D for p, 2^D·(D-1) weight products and
+    # 2·2^D·F multiply-adds per (sample, level), float32 rate
+    sizes = geo[2].tolist()
+    row = {
+        "tier": tier, "table": str(table_dtype).replace("torch.", ""),
+        "N": n, "L": L, "T": T, "F": F, "hash": enc.hash_variant,
+        "max_abs_err": err, "max_abs_ref": scale, "call_ms": call_ms, "plain_ms": plain_ms,
+        **_bound(n * D * 4 + n * L * F * 4 + sum(sizes) * F * table.element_size(),
+                 n * L * (3 * D + C * (D - 1) + 2 * C * F)),
+        "table_bf16_reads_on_main_path": enc.bf16_reads,
+    }
+    if not profiled:
+        return row
     cast = ({"cast_ms": device_ms(lambda: master.to(torch.bfloat16))}
             if table_dtype == torch.bfloat16 else {})
 
     # Yardstick: the gather and weighted sum as one library call
     # (embedding_bag, mode "sum", per-corner weights), given corner rows and
     # weights computed beforehand with the twin's arithmetic (excluded).
-    scales, ress, sizes, hashed = (t.tolist() for t in geo[:4])
+    scales, ress, _, hashed = (t.tolist() for t in geo[:4])
     additive = enc.hash_variant == "additive"
     idx = torch.empty((n, L, C), dtype=torch.int64, device="cuda")
     wts = torch.empty((n, L, C), dtype=torch.float32, device="cuda")
@@ -350,20 +381,7 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL, x=None,
     library_ms = device_ms(lambda: tnf.embedding_bag(
         bags, flat, per_sample_weights=bag_w, mode="sum"), iters=10)
     del idx, wts, bags, bag_w, lib
-
-    # bound: positions read and features written once, each live table row
-    # read once; operations: 3D for p, 2^D·(D-1) weight products and
-    # 2·2^D·F multiply-adds per (sample, level), float32 rate
-    item = table.element_size()
-    return {
-        "tier": tier, "table": str(table_dtype).replace("torch.", ""),
-        "N": n, "L": L, "T": T, "F": F, "hash": enc.hash_variant,
-        "max_abs_err": err, "max_abs_ref": scale, "ms": ms, "call_ms": call_ms,
-        "plain_ms": plain_ms, "library_ms": library_ms, **cast,
-        **_bound(n * D * 4 + n * L * F * 4 + sum(sizes) * F * item,
-                 n * L * (3 * D + C * (D - 1) + 2 * C * F)),
-        "table_bf16_reads_on_main_path": enc.bf16_reads,
-    }
+    return {**row, "ms": ms, "library_ms": library_ms, **cast}
 
 
 def phase_kernel():
@@ -971,8 +989,9 @@ def phase_train_profile(eng, state, grid, timed_median_ms: float):
     from ngp_tpu_torch.engines import nerf as engine_mod
     from ngp_tpu_torch.models import encodings
 
-    engine_mod.march_rays = _ranged("march", engine_mod.march_rays)
-    engine_mod.nerf_training_loss = _ranged("loss", engine_mod.nerf_training_loss)
+    march, loss = engine_mod.march_rays, engine_mod.nerf_training_loss
+    engine_mod.march_rays = _ranged("march", march)
+    engine_mod.nerf_training_loss = _ranged("loss", loss)
     eng._network_on_samples = _ranged("network_forward", eng._network_on_samples)
     eng.apply_grads = _ranged("optimizer", eng.apply_grads)
     eng.update_grid = _ranged("grid_update", eng.update_grid)
@@ -1001,6 +1020,123 @@ def phase_train_profile(eng, state, grid, timed_median_ms: float):
     finally:
         torch.Tensor.backward = backward
         encodings._GridEncode.backward = staticmethod(grid_bwd)
+        engine_mod.march_rays, engine_mod.nerf_training_loss = march, loss
+
+
+def phase_capture():
+    """Write a PNG capture, load it, train on it and score its held-out
+    views; then B1 on the eval's positions. Returns the launches of the
+    path (load, train, eval), counted from zero."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.config import default_config
+    from ngp_tpu_torch.data.nerf_loader import load_nerf
+    from ngp_tpu_torch.data.synthetic import (
+        CAPTURE_TEST_VIEWS,
+        CAPTURE_TRAIN_VIEWS,
+        write_sphere_capture,
+    )
+    from ngp_tpu_torch.engines.nerf import NerfEngine
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
+
+    out = os.path.join(ROOT, "build", "capture_smoke")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    train_json, test_json = write_sphere_capture(out, res=CAPTURE_RES, device="cuda")
+    write_s = time.perf_counter() - t0
+
+    reset_launches()
+    t0 = time.perf_counter()
+    ds, test = load_nerf(train_json), load_nerf(test_json)
+    load_s = time.perf_counter() - t0
+    n_frames = ds.n_images + test.n_images
+    if ds.images.shape != (CAPTURE_TRAIN_VIEWS, CAPTURE_RES, CAPTURE_RES, 4) or \
+            test.images.shape != (CAPTURE_TEST_VIEWS, CAPTURE_RES, CAPTURE_RES, 4):
+        raise AssertionError(f"load_nerf: frames {ds.images.shape}, {test.images.shape}")
+
+    eng = NerfEngine(default_config("tpu"), ds, batch_size=1 << 18)
+    state, grid = eng.init_state(), eng.init_grid()
+    torch.cuda.synchronize()
+    step_ms, samples = [], []
+    for _ in range(CAPTURE_STEPS):
+        t0 = time.perf_counter()
+        state, grid, metrics = eng.train(state, grid, 1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        samples.append(metrics["network_samples"])
+    train_launches = launch_counts()
+
+    # the eval keeps the positions of its largest B1 launch (a reference)
+    encode = hashgrid_ops.hashgrid_encode_cuda
+    largest = []
+
+    def keep_largest(x, *args, **kwargs):
+        if not largest or x.shape[0] > largest[0].shape[0]:
+            largest[:] = [x]
+        return encode(x, *args, **kwargs)
+
+    hashgrid_ops.hashgrid_encode_cuda = keep_largest
+    try:
+        t0 = time.perf_counter()
+        scores = eng.eval_test_transforms(state, grid, test)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    finally:
+        hashgrid_ops.hashgrid_encode_cuda = encode
+    launches = launch_counts()
+    eval_launches = {k: n - train_launches[k] for k, n in launches.items()}
+
+    # one more render of held-out view 0, alone: the render's share of a view
+    t0 = time.perf_counter()
+    rgb, _, _ = eng.render_view(state, grid, test.xforms[0, 0], test.focal_lengths[0],
+                                test.principal_points[0], lens=test.lens,
+                                min_transmittance=1e-4)
+    torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t0) * 1e3
+    steady = step_ms[256:]
+    result = {
+        "phase": "capture", "res": CAPTURE_RES, "train_views": ds.n_images,
+        "test_views": test.n_images, "lens": [ds.lens.mode, list(ds.lens.params)],
+        "aabb_scale": eng.aabb_scale, "cascades": eng.grid_cfg.n_cascades,
+        "write_s": write_s, "load_s": load_s, "load_s_per_image": load_s / n_frames,
+        "steps": CAPTURE_STEPS, "median_ms_per_step": float(np.median(steady)),
+        "median_ms_per_step_warmup_32_256": float(np.median(step_ms[32:256])),
+        "network_samples_per_step": float(np.mean(samples[256:])),
+        "final_loss": float(metrics["loss"]), "k_and_rays": list(eng.batch_geometry),
+        "launches_per_step": {k: n / CAPTURE_STEPS for k, n in train_launches.items()},
+        "eval_launches": eval_launches,
+        "psnr": scores["psnr"], "min_psnr": scores["min_psnr"],
+        "max_psnr": scores["max_psnr"], "ssim": scores["ssim"],
+        "per_view_psnr": [v["psnr"] for v in scores["per_view"]],
+        "psnr_gate": CAPTURE_PSNR_MIN,
+        "eval_ms_per_view": eval_s * 1e3 / scores["n_views"],
+        "render_ms_view0": render_ms, "render_samples_view0": eng.last_render_samples,
+        "render_finite": bool(torch.isfinite(rgb).all()),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(result)
+    if not result["render_finite"] or tuple(rgb.shape) != (CAPTURE_RES, CAPTURE_RES, 3):
+        raise AssertionError(f"held-out render: shape {tuple(rgb.shape)} or non-finite")
+    if not scores["psnr"] >= CAPTURE_PSNR_MIN:
+        raise AssertionError(f"held-out PSNR {scores['psnr']} dB after {CAPTURE_STEPS} "
+                             f"steps < {CAPTURE_PSNR_MIN}")
+    for name in ("hashgrid_encode", "hashgrid_backward"):
+        if launches[name] == 0:
+            raise AssertionError(f"the capture path launched {name} no time")
+    if eval_launches["hashgrid_encode"] == 0:
+        raise AssertionError("the held-out eval launched hashgrid_encode no time")
+
+    # By CUDA events: after phase train_profile's windows, the profiler
+    # keeps 13 of 20 records of a kernel in every later window of the
+    # process (H100, torch 2.11), and device_ms then fails.
+    positions = _kernel_case("tpu", torch.bfloat16, torch.Generator().manual_seed(4),
+                             x=largest[0], aabb_scale=eng.aabb_scale, profiled=False)
+    emit({"phase": "kernel_capture_positions", **positions})
+    return launches
 
 
 def main():
@@ -1035,6 +1171,8 @@ def main():
     phase_kernel_train("captured_step", *step_inputs)
     del step_inputs
     phase_train_profile(eng, state, grid, train["median_ms_per_step"])
+    del eng, state, grid
+    capture_launches = phase_capture()
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1042,7 +1180,8 @@ def main():
         "name": "hashgrid_encode_cuda", "route": "cuda",
         "source": "ngp_tpu_torch/csrc/hashgrid_encode.cu",
         "replaces": "ngp_tpu/ops/pallas/hashgrid.py:66",
-        "launches": launches["hashgrid_encode"] + train_launches["hashgrid_encode"],
+        "launches": (launches["hashgrid_encode"] + train_launches["hashgrid_encode"]
+                     + capture_launches["hashgrid_encode"]),
         **{k: main_case[k] for k in keys},
     }]
     for name, source, replaces, launched in (
@@ -1064,15 +1203,17 @@ def main():
     ):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"ngp_tpu_torch/csrc/{source}",
-                        "replaces": replaces, "launches": launched,
+                        "replaces": replaces,
+                        "launches": launched + capture_launches[name],
                         **{k: train_rows[name][k] for k in keys}})
     # B5 is on no path of either package (ngp_tpu/ops/pallas/sort.py:24-31):
-    # its launches on the serve and train paths are counted all the same
+    # its launches on the serve, train and capture paths are counted all the same
     kernels.append({"name": "bitonic_sort_pos", "route": "cuda",
                     "source": "ngp_tpu_torch/csrc/bitonic_sort.cu",
                     "replaces": "ngp_tpu/ops/pallas/sort.py:77",
                     "launches": launches["bitonic_sort_pos"]
-                    + train_launches["bitonic_sort_pos"],
+                    + train_launches["bitonic_sort_pos"]
+                    + capture_launches["bitonic_sort_pos"],
                     **{k: sort_row[k] for k in keys}})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

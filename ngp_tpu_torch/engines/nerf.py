@@ -20,10 +20,18 @@ package: samples that the render compaction budget drops are removed from
 (fault C1 in ROADMAP.md), so there a dropped sample composites with raw
 output 0, i.e. density exp(0) = 1.
 
+Held-out evaluation: ``render_view`` renders any camera (its own lens,
+``spp`` jittered passes averaged in linear radiance, every
+``pixel_stride``-th pixel, thin-lens depth of field) and
+``eval_test_transforms`` scores a test dataset's views as the reference's
+``--test_transforms`` protocol does (sRGB-clipped PSNR and SSIM, FLIP on
+request).
+
 Not yet ported, and refused when asked for: camera, exposure, focal and
 distortion refinement, trainable envmap, depth supervision, latent codes
-in training, supplied per-pixel rays, other lenses than pinhole, the
-decoupled occupancy schedule and probe-sampled grid updates.
+in training, supplied per-pixel rays, a dataset's envmap background,
+rolling shutter, the render crop box (``render_aabb``), the decoupled
+occupancy schedule and probe-sampled grid updates.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from ngp_tpu_torch.data import ingp_snapshot
 from ngp_tpu_torch.data.nerf_loader import NerfDataset
 from ngp_tpu_torch.device import resolve_device
 from ngp_tpu_torch.geometry.aabb import AABB
-from ngp_tpu_torch.geometry.camera import pixel_dirs_cam
+from ngp_tpu_torch.geometry.camera import Lens, pixel_dirs_cam, square2disk_shirley
 from ngp_tpu_torch.interop import load_jax_params
 from ngp_tpu_torch.models.factory import create_nerf_network
 from ngp_tpu_torch.models.nerf_network import NerfNetwork
@@ -65,6 +73,7 @@ from ngp_tpu_torch.ops.marching import (
     ray_aabb_range,
     warp_direction,
 )
+from ngp_tpu_torch.ops.tonemap import linear_to_srgb, srgb_to_linear
 from ngp_tpu_torch.optim import (
     OptimizerConfig,
     adam_skip_zero_step,
@@ -73,6 +82,7 @@ from ngp_tpu_torch.optim import (
     param_groups,
 )
 from ngp_tpu_torch.train import TrainState
+from ngp_tpu_torch.utils import metrics
 
 # Network rows per call: bounds the MLP's (rows, 64) float32 activations.
 NETWORK_CHUNK = 1 << 20
@@ -174,8 +184,16 @@ class NerfEngine:
             if getattr(self, name):
                 raise ValueError(f"{name} is not yet ported")
         ds = self.dataset
-        if getattr(ds, "rays", None) is not None:
+        if ds.rays is not None:
             raise ValueError("datasets with supplied per-pixel rays are not yet ported")
+        if ds.envmap is not None:
+            raise ValueError("a dataset's envmap background is not yet ported")
+        if ds.render_aabb is not None:
+            raise ValueError("the render crop box (render_aabb) is not yet ported")
+        if ds.xforms.shape[1] > 1 and (any(abs(v) > 0 for v in ds.rolling_shutter)
+                                       or bool(np.any(ds.xforms[:, 1] != ds.xforms[:, 0]))):
+            raise ValueError("rolling shutter and motion blur (start and end "
+                             "matrices) are not yet ported")
         aabb_scale = min(int(ds.aabb_scale), 1 << (occ.NERF_CASCADES - 1))
         if aabb_scale & (aabb_scale - 1):
             raise ValueError("aabb_scale must be a power of two")
@@ -658,9 +676,11 @@ class NerfEngine:
         return bg.expand(dirs.shape[0], 3)
 
     def _finish_shade(self, dirs, marched: MarchedRays, rgb, sigma,
-                      mode: str):
+                      mode: str, min_transmittance: float | None = None):
+        if min_transmittance is None:
+            min_transmittance = self.min_transmittance_render
         comp = composite(rgb, sigma, marched.dt, marched.t, marched.valid,
-                         self.min_transmittance_render)
+                         min_transmittance)
         if mode == "depth":
             return comp.depth[:, None].expand(-1, 3), comp.depth, comp.opacity
         if mode == "ao":
@@ -669,7 +689,7 @@ class NerfEngine:
         return out_rgb, comp.depth, comp.opacity
 
     def _render_chunk(self, model: NerfNetwork, bitfield, origins, dirs,
-                      mode: str = "shade"):
+                      mode: str = "shade", min_transmittance: float | None = None):
         """One chunk of rays → (rgb, depth, opacity)."""
         tmin, tmax = ray_aabb_range(origins, dirs, self.aabb.min, self.aabb.max)
         n0 = self.stepping.to_steps(tmin + 1e-4)
@@ -682,15 +702,18 @@ class NerfEngine:
         rgb, sigma, marched = self._eval_marched(
             model, origins, dirs, marched, self.render_compaction_frac
         )
-        return self._finish_shade(dirs, marched, rgb, sigma, mode)
+        return self._finish_shade(dirs, marched, rgb, sigma, mode, min_transmittance)
 
     @torch.no_grad()
     def render_rays(self, state: TrainState, grid: occ.OccupancyGridState,
                     origins: torch.Tensor, dirs: torch.Tensor,
-                    chunk: int | None = None, mode: str = "shade"):
+                    chunk: int | None = None, mode: str = "shade",
+                    min_transmittance: float | None = None):
         """Render rays (N, 3) + unit directions (N, 3) in chunks of
         ``chunk`` rays (default ``ray_chunk``); returns (rgb (N, 3), depth (N,),
-        opacity (N,)). ``mode``: ``shade``, ``depth`` or ``ao``."""
+        opacity (N,)). ``mode``: ``shade``, ``depth`` or ``ao``.
+        ``min_transmittance`` overrides ``min_transmittance_render`` for
+        this call (the reference's eval uses 1e-4)."""
         if mode not in ("shade", "depth", "ao"):
             raise ValueError(f"render mode {mode!r} is not yet ported "
                              "(shade | depth | ao)")
@@ -701,7 +724,7 @@ class NerfEngine:
         self.last_render_samples = 0
         outs = [
             self._render_chunk(model, grid.bitfield, origins[s:s + chunk],
-                               dirs[s:s + chunk], mode)
+                               dirs[s:s + chunk], mode, min_transmittance)
             for s in range(0, origins.shape[0], chunk)
         ]
         return tuple(torch.cat([o[i] for o in outs], 0) for i in range(3))
@@ -734,3 +757,127 @@ class NerfEngine:
         o, d, hw = self.view_rays(image_index, stride)
         rgb, _, _ = self.render_rays(state, grid, o, d, mode=mode)
         return rgb.reshape(*hw, 3)
+
+    # -- held-out evaluation
+
+    def render_view(self, state: TrainState, grid: occ.OccupancyGridState,
+                    xform, focal, pp=(0.5, 0.5), width: int | None = None,
+                    height: int | None = None, spp: int = 1,
+                    snap_to_pixel_centers: bool | None = None, seed: int = 0,
+                    aperture_size: float = 0.0, focus_z: float = 1.0,
+                    pixel_stride: int = 1, lens: Lens | None = None,
+                    min_transmittance: float | None = None):
+        """Render any camera: ``xform`` (3, 4) camera-to-world, ``focal``
+        (fx, fy) in pixels at ``width`` × ``height`` (default the dataset's
+        resolution), ``pp`` the principal point in [0, 1]², ``lens`` (default
+        the dataset's). ``spp`` passes, each with one sub-pixel offset
+        (pixel centers when ``snap_to_pixel_centers``, which defaults to
+        ``spp <= 1``), are averaged in linear radiance; ``pixel_stride``
+        renders every Nth pixel of the full raster at its true center, in
+        register with ``image[::N, ::N]``. ``aperture_size`` > 0 samples a
+        thin lens focused at ``focus_z``, one disk sample a ray and pass.
+        Offsets and disk samples come from ``np.random.default_rng(seed)``,
+        as in the JAX package. Returns (rgb (H', W', 3) in the training
+        color space, depth (H', W'), opacity (H', W')) on the engine's
+        device.
+
+        Unlike the JAX package's ``render_view``, which undistorts only the
+        OpenCV and fisheye lenses, every lens goes through
+        ``pixel_dirs_cam`` here (ROADMAP C.ref 8)."""
+        W = int(width if width is not None else self.resolution[0])
+        H = int(height if height is not None else self.resolution[1])
+        lens = self.lens if lens is None else lens
+        f32 = dict(dtype=torch.float32, device=self.device)
+        xform = torch.as_tensor(np.asarray(xform, np.float32), **f32)
+        focal = torch.as_tensor(np.asarray(focal, np.float32).reshape(2), **f32)
+        pp = torch.as_tensor(np.asarray(pp, np.float32).reshape(2), **f32)
+        px, py = np.meshgrid(np.arange(0, W, pixel_stride), np.arange(0, H, pixel_stride))
+        h_out, w_out = px.shape
+        base = np.stack([px, py], axis=-1).reshape(-1, 2).astype(np.float32)
+        n = base.shape[0]
+        snap = (spp <= 1) if snap_to_pixel_centers is None else snap_to_pixel_centers
+        linear = self.rgb_act == "Logistic"  # sRGB outputs average in linear
+        rng = np.random.default_rng(seed)
+        acc_rgb = acc_depth = acc_opacity = 0.0
+        for _ in range(max(spp, 1)):
+            off = (np.asarray([0.5, 0.5], np.float32) if snap or spp <= 1
+                   else rng.random(2).astype(np.float32))
+            uv = torch.as_tensor((base + off) / np.asarray([W, H], np.float32), **f32)
+            dir_cam = pixel_dirs_cam(lens, (W, H), uv, focal.expand(n, 2), pp.expand(n, 2))
+            d = dir_cam @ xform[:, :3].T
+            o = xform[:, 3].expand(n, 3)
+            if aperture_size > 0.0:
+                au = torch.as_tensor(rng.random((n, 2)).astype(np.float32), **f32)
+                blur = aperture_size * square2disk_shirley(au * 2.0 - 1.0)
+                offset = blur[:, 0:1] * xform[:, 0] + blur[:, 1:2] * xform[:, 1]
+                lookat = o + d * focus_z
+                o = o + offset
+                d = (lookat - o) / focus_z
+            d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+            rgb, depth, opacity = self.render_rays(state, grid, o, d,
+                                                   min_transmittance=min_transmittance)
+            acc_rgb = acc_rgb + (srgb_to_linear(rgb) if linear else rgb)
+            acc_depth = acc_depth + depth
+            acc_opacity = acc_opacity + opacity
+        k = float(max(spp, 1))
+        rgb = acc_rgb / k
+        if linear:
+            rgb = linear_to_srgb(rgb)
+        return (rgb.reshape(h_out, w_out, 3), (acc_depth / k).reshape(h_out, w_out),
+                (acc_opacity / k).reshape(h_out, w_out))
+
+    def eval_test_transforms(self, state: TrainState, grid: occ.OccupancyGridState,
+                             test_dataset: NerfDataset, spp: int = 1, stride: int = 1,
+                             max_views: int | None = None, compute_flip: bool = False,
+                             save_first_to: str | None = None) -> dict:
+        """Score a held-out dataset's views as the reference's
+        ``--test_transforms`` protocol does (``scripts/run.py:208-266``):
+        each view rendered by ``render_view`` with the test set's own
+        intrinsics and lens, pixel-center rays (every ``stride``-th pixel),
+        min transmittance 1e-4, over the engine's background; the image
+        composited over black; both clipped to [0, 1] in sRGB; MSE, PSNR
+        and SSIM per view, FLIP when ``compute_flip``. The test dataset
+        must share the training set's scale and offset, as ``load_nerf``
+        gives them for one scene's transform files. ``save_first_to``
+        writes the first view's render as an 8-bit PNG.
+
+        Returns {"n_views", "psnr" (mean), "min_psnr", "max_psnr", "ssim"
+        (mean), "per_view": [{"view", "mse", "psnr", "ssim"[, "flip"]}]
+        [, "flip" (mean)]}."""
+        from ngp_tpu_torch.data.png import write_png
+
+        n_views = test_dataset.images.shape[0]
+        if max_views is not None:
+            n_views = min(n_views, max_views)
+        W, H = test_dataset.resolution
+        per_view = []
+        for i in range(n_views):
+            rgb, _, _ = self.render_view(
+                state, grid, test_dataset.xforms[i, 0], test_dataset.focal_lengths[i],
+                test_dataset.principal_points[i], width=W, height=H, spp=spp,
+                pixel_stride=stride, lens=test_dataset.lens, min_transmittance=1e-4)
+            pred = np.clip(rgb.cpu().numpy(), 0.0, 1.0)
+            img = test_dataset.images[i][::stride, ::stride].astype(np.float32)
+            if test_dataset.images.dtype == np.uint8:
+                img = img / 255.0
+            ref = np.clip(img[..., :3] * img[..., 3:4], 0.0, 1.0)
+            m = metrics.mse(pred, ref)
+            entry = {"view": i, "mse": m, "psnr": metrics.psnr_from_mse(m),
+                     "ssim": metrics.ssim(pred, ref)}
+            if compute_flip:
+                entry["flip"] = metrics.flip(ref, pred)
+            per_view.append(entry)
+            if i == 0 and save_first_to:
+                write_png(save_first_to, (pred * 255).astype(np.uint8))
+        psnrs = [e["psnr"] for e in per_view]
+        res = {
+            "n_views": len(per_view),
+            "psnr": float(np.mean(psnrs)),
+            "min_psnr": float(np.min(psnrs)),
+            "max_psnr": float(np.max(psnrs)),
+            "ssim": float(np.mean([e["ssim"] for e in per_view])),
+            "per_view": per_view,
+        }
+        if compute_flip:
+            res["flip"] = float(np.mean([e["flip"] for e in per_view]))
+        return res
