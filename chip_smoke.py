@@ -64,6 +64,27 @@ Phases, each printing one JSON line:
    ``CAPTURE_PSNR_MIN``; then holds B1 against its twin, bit for bit, on
    the positions of the eval's largest launch (phase
    ``kernel_capture_positions``, timed by CUDA events only).
+12. cli: the port's entry point as a user runs it, ``python -m
+   ngp_tpu_torch.run``, in subprocesses on the capture of phase 11, with
+   ``Testbed``'s default config (instant-ngp's ``base.json``: L=16, F=2,
+   T=2^19, XOR hash, float32 table reads). Run 1 trains 1,000 steps, scores
+   the held-out views (gate ``CLI_PSNR_MIN``), saves a snapshot and a
+   screenshot; run 2 loads the snapshot, scores the held-out views again
+   (within ``CLI_RELOAD_DB`` of run 1), exports a 128³ marching-cubes mesh
+   (non-empty, inside the scene's box) and renders a 3-keyframe camera path
+   as 8 PNG frames (decoded by the port's reader). Then, in a fresh process
+   of this script (``chip_smoke.py cli_checks``: its profiler windows are
+   whole, which phase 10 leaves them not), phase ``cli_checks``: the
+   snapshot loaded again and trained 64 more steps, the last 16 kept for
+   their kernels' shapes; native snapshots round
+   trip with parameters, EMA and optimizer moments bit for bit, and the
+   bitfield cells the float16 density grid changes are counted; a second
+   reference ``.ingp`` of a loaded one has the same parameter and grid
+   bytes; B1 against its twin, bit for bit, at that tier on uniform
+   positions at those steps' mean launch and on the positions of a
+   held-out render's largest launch; the fused grid backward within the
+   float32 order bound at the steps' mean and on their last step's own
+   (x, g) (phase ``kernel_cli``).
 Then the ``kernels`` line, the card's ``name, power.limit``, and last the
 ``{"ok": true, ...}`` line.
 
@@ -110,6 +131,18 @@ TRAIN_PSNR_MIN = 40.0
 CAPTURE_RES = 800
 CAPTURE_STEPS = 1000
 CAPTURE_PSNR_MIN = 30.0
+# phase cli: the capture phase's gate on the CLI's held-out PSNR, the reload's
+# agreement, the mesh lattice and the camera-path video (frames at 320×180)
+CLI_STEPS = 1000
+CLI_PSNR_MIN = CAPTURE_PSNR_MIN
+CLI_RELOAD_DB = 0.05
+CLI_MESH_RES = 128
+CLI_VIDEO = {"w": 320, "h": 180, "fps": 8, "seconds": 1}
+# phase cli_checks: steps continued from the snapshot before the kept ones
+# (a loaded engine starts its batch geometry afresh and adapts it from step
+# 32 on), then the kept steps, whose kernel launches give the shapes
+CLI_SETTLE_STEPS = 48
+CLI_KEPT_STEPS = 16
 
 
 def emit(obj):
@@ -706,6 +739,36 @@ def backward_levels(x, g, geo, keys, T: int) -> list:
     return out
 
 
+def _backward_row(x, g, geo, T: int, keys, vals) -> dict:
+    """The fused grid backward, (x, g) → d(table) with bf16 addends summed
+    in float32, against its twin within the float32 order bound (``keys``
+    and ``vals``: the twin's corner keys and addends); its times and
+    bound."""
+    import torch
+
+    from ngp_tpu_torch.ops import segsum
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_cuda, hashgrid_backward_reference
+
+    n_samples, L, F = x.shape[0], vals.shape[0], vals.shape[2]
+    bwd = lambda: hashgrid_backward_cuda(x, g, *geo, None, T)  # noqa: E731
+    got = bwd()
+    torch.cuda.synchronize()
+    err = _sum_error("hashgrid_backward", got,
+                     segsum.segment_sum_reference(keys, vals, T), keys, vals, T)
+    del got
+    return {
+        "max_abs_err": err, "ms": device_ms(bwd), "call_ms": cuda_ms(bwd, iters=20),
+        "plain_ms": cuda_ms(lambda: hashgrid_backward_reference(x, g, *geo, None, T),
+                            iters=3, warmup=1),
+        "library_ms": None,
+        # positions and cotangents read once, d(table) written once;
+        # 3D + 8·(D−1) weight products and 8·F products and sums per
+        # (sample, level)
+        **_bound(n_samples * (12 + 4 * L * F) + L * T * F * 4,
+                 n_samples * L * (9 + 16 + 16 * F)),
+    }
+
+
 def phase_kernel_train(shape: str, x, g, geo, T: int) -> dict:
     """Each training kernel against its twin at a step's shapes: the fused
     grid backward of positions ``x`` (N, 3) and cotangents ``g`` (N, L·F)
@@ -722,11 +785,7 @@ def phase_kernel_train(shape: str, x, g, geo, T: int) -> dict:
     import torch
 
     from ngp_tpu_torch.ops import segsum
-    from ngp_tpu_torch.ops.hashgrid import (
-        hashgrid_backward_addends_reference,
-        hashgrid_backward_cuda,
-        hashgrid_backward_reference,
-    )
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
 
     n_samples = x.shape[0]
     sizes = geo[2].tolist()
@@ -742,24 +801,7 @@ def phase_kernel_train(shape: str, x, g, geo, T: int) -> dict:
               **_kernel_case("tpu", torch.bfloat16, torch.Generator().manual_seed(3),
                              x=x, aabb_scale=1)})
 
-    # B1 backward, fused: (x, g) → d(table), bf16 addends summed in float32
-    bwd = lambda: hashgrid_backward_cuda(x, g, *geo, None, T)  # noqa: E731
-    got = bwd()
-    torch.cuda.synchronize()
-    err = _sum_error("hashgrid_backward", got,
-                     segsum.segment_sum_reference(keys, vals, T), keys, vals, T)
-    del got
-    rows["hashgrid_backward"] = {
-        "max_abs_err": err, "ms": device_ms(bwd), "call_ms": cuda_ms(bwd, iters=20),
-        "plain_ms": cuda_ms(lambda: hashgrid_backward_reference(x, g, *geo, None, T),
-                            iters=3, warmup=1),
-        "library_ms": None,
-        # positions and cotangents read once, d(table) written once;
-        # 3D + 8·(D−1) weight products and 8·F products and sums per
-        # (sample, level)
-        **_bound(n_samples * (12 + 4 * L * F) + L * T * F * 4,
-                 n_samples * L * (9 + 16 + 16 * F)),
-    }
+    rows["hashgrid_backward"] = _backward_row(x, g, geo, T, keys, vals)
     emit({"phase": "backward_levels", "shape": shape, "N": n_samples,
           "levels": backward_levels(x, g, geo, keys, T)})
 
@@ -1139,6 +1181,293 @@ def phase_capture():
     return launches
 
 
+def _cli(args: list) -> list:
+    """Run ``python -m ngp_tpu_torch.run`` with ``args`` from the repository
+    root; returns its output lines, each with the seconds since the start
+    at which it arrived. A non-zero exit fails the run."""
+    proc = subprocess.Popen([sys.executable, "-u", "-m", "ngp_tpu_torch.run", *args],
+                            cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    lines = [(time.perf_counter() - t0, line.rstrip("\n")) for line in proc.stdout]
+    if proc.wait() != 0:
+        raise AssertionError(f"ngp_tpu_torch.run {' '.join(args)} exited {proc.returncode}:\n"
+                             + "\n".join(text for _, text in lines[-20:]))
+    return lines
+
+
+def _cli_line(lines: list, prefix: str) -> tuple:
+    """(seconds, text, seconds since the line before) of the first output
+    line that starts with ``prefix``."""
+    for i, (t, text) in enumerate(lines):
+        if text.startswith(prefix):
+            return t, text, t - (lines[i - 1][0] if i else 0.0)
+    raise AssertionError(f"the CLI printed no line starting with {prefix!r}")
+
+
+def _cli_scores(lines: list) -> dict:
+    text = _cli_line(lines, "test_transforms:")[1]
+    return {"psnr": float(re.search(r"PSNR=(\S+)", text).group(1)),
+            "min_psnr": float(re.search(r"min=(\S+)", text).group(1)),
+            "ssim": float(re.search(r"SSIM=(\S+)", text).group(1))}
+
+
+def _cli_launches(lines: list) -> dict:
+    return json.loads(_cli_line(lines, "kernel launches:")[1].split(":", 1)[1])
+
+
+def phase_cli():
+    """The CLI on phase capture's written capture (runs 1 and 2), then the
+    in-process checks in a fresh process (phase ``cli_checks``). Returns
+    the two runs' kernel launches, summed."""
+    import numpy as np
+
+    from ngp_tpu_torch.data.png import read_png
+    from ngp_tpu_torch.utils.camera_path import CameraKeyframe, CameraPath
+
+    capture = os.path.join(ROOT, "build", "capture_smoke")
+    out = os.path.join(ROOT, "build", "cli_smoke")
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    train_json = os.path.join(capture, "transforms_train.json")
+    test_json = os.path.join(capture, "transforms_test.json")
+    snapshot = os.path.join(out, "scene.ingp")
+    metrics_file = os.path.join(out, "train_metrics.jsonl")
+
+    # run 1: train, score the held-out views, save, screenshot
+    run1 = _cli([train_json, "--test_transforms", test_json, "--n_steps", str(CLI_STEPS),
+                 "--save_snapshot", snapshot, "--screenshot", os.path.join(out, "shot.png"),
+                 "--metrics_file", metrics_file])
+    trained = _cli_line(run1, "trained ")[1]
+    train_s = float(re.search(r"in (\S+)s", trained).group(1))
+    scores1 = _cli_scores(run1)
+    with open(metrics_file) as f:
+        records = [json.loads(line) for line in f]
+    # a window's record is written when the next window ends; the last at
+    # the end of the call
+    window_ms = [(b["t"] - a["t"]) / 16 * 1e3 for a, b in zip(records[:-2], records[1:-1])
+                 if a["step"] >= 240]
+    last = records[-1]
+    shot = read_png(os.path.join(out, "shot.png"))
+
+    # run 2: load, score again, a mesh and a camera-path video
+    center = np.full(3, 0.5, np.float32)
+    path = CameraPath(keyframes=[
+        CameraKeyframe.from_matrix(_lookat(center + 1.2 * np.asarray(
+            [math.cos(a), math.sin(a), 0.1], np.float32), center), fov=40.0)
+        for a in (0.0, math.pi / 3, 2 * math.pi / 3)])
+    path_json = os.path.join(out, "path.json")
+    path.save(path_json)
+    frames_dir = os.path.join(out, "frames")
+    mesh_path = os.path.join(out, "mesh.obj")
+    run2 = _cli([train_json, "--load_snapshot", snapshot, "--n_steps", "0",
+                 "--test_transforms", test_json, "--save_mesh", mesh_path,
+                 "--marching_cubes_res", str(CLI_MESH_RES), "--video_camera_path", path_json,
+                 "--video_n_seconds", str(CLI_VIDEO["seconds"]),
+                 "--video_fps", str(CLI_VIDEO["fps"]), "--video_w", str(CLI_VIDEO["w"]),
+                 "--video_h", str(CLI_VIDEO["h"]), "--video_output", frames_dir])
+    scores2 = _cli_scores(run2)
+    _, video_line, video_s = _cli_line(run2, "rendered ")
+    _, mesh_line, mesh_s = _cli_line(run2, f"wrote {mesh_path}")
+    n_verts, n_faces = (int(v) for v in re.search(r"\((\d+) verts, (\d+) faces\)",
+                                                   mesh_line).groups())
+    verts = np.asarray([[float(v) for v in line.split()[1:]]
+                        for line in open(mesh_path) if line.startswith("v ")], np.float32)
+    frames = sorted(os.listdir(frames_dir))
+    decoded = [read_png(os.path.join(frames_dir, name)) for name in frames]
+    n_video = CLI_VIDEO["fps"] * CLI_VIDEO["seconds"]
+    with open(train_json) as f:
+        half = 0.5 * json.load(f)["aabb_scale"]  # the scene's box around (0.5,)³
+    result = {
+        "phase": "cli", "steps": CLI_STEPS, "config": "Testbed default (base.json)",
+        "train_s": train_s, "wall_ms_per_step": train_s / CLI_STEPS * 1e3,
+        "median_ms_per_step_256_992": float(np.median(window_ms)),
+        "measured_samples_per_step_ema": last["samples_per_s"] * last["step_ms"] / 1e3,
+        "final_loss_ema": last["loss_ema"], "k": last["k"],
+        "run1_s": run1[-1][0], "run2_s": run2[-1][0],
+        "psnr": scores1["psnr"], "min_psnr": scores1["min_psnr"], "ssim": scores1["ssim"],
+        "psnr_gate": CLI_PSNR_MIN,
+        "psnr_reloaded": scores2["psnr"], "reload_tol_db": CLI_RELOAD_DB,
+        "train_view_psnr": [float(_cli_line(r, "PSNR (train view")[1].split(": ")[1].split()[0])
+                            for r in (run1, run2)],
+        "snapshot_bytes": os.path.getsize(snapshot),
+        "snapshot_write_s": _cli_line(run1, "saved snapshot")[2],
+        "screenshot": list(shot.shape),
+        "mesh_res": CLI_MESH_RES, "mesh_s": mesh_s, "mesh_verts": n_verts,
+        "mesh_faces": n_faces, "mesh_bytes": os.path.getsize(mesh_path),
+        "video_frames": len(frames), "video_s_per_frame": video_s / max(len(frames), 1),
+        "video_line": video_line,
+        "launches": {k: a + b for (k, a), b in zip(_cli_launches(run1).items(),
+                                                    _cli_launches(run2).values())},
+    }
+    emit(result)
+    if not scores1["psnr"] >= CLI_PSNR_MIN:
+        raise AssertionError(f"CLI held-out PSNR {scores1['psnr']} dB < {CLI_PSNR_MIN}")
+    if not abs(scores2["psnr"] - scores1["psnr"]) <= CLI_RELOAD_DB:
+        raise AssertionError(f"reloaded held-out PSNR {scores2['psnr']} dB, trained "
+                             f"{scores1['psnr']} dB")
+    if n_verts == 0 or n_faces == 0 or verts.shape != (n_verts, 3):
+        raise AssertionError(f"mesh: {n_verts} verts, {n_faces} faces, read {verts.shape}")
+    if not (verts.min() >= 0.5 - half and verts.max() <= 0.5 + half):
+        raise AssertionError(f"mesh vertices outside the scene's box: "
+                             f"{verts.min()} .. {verts.max()}")
+    if len(decoded) != n_video or any(
+            d.shape != (CLI_VIDEO["h"], CLI_VIDEO["w"], 3) for d in decoded):
+        raise AssertionError(f"video frames: {[d.shape for d in decoded]}")
+    for name in ("hashgrid_encode", "hashgrid_backward"):
+        if result["launches"][name] == 0:
+            raise AssertionError(f"the CLI launched {name} no time")
+
+    # the in-process checks, in a process of their own
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "cli_checks"],
+                          cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    for line in proc.stdout.splitlines():
+        print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"chip_smoke.py cli_checks exited {proc.returncode}")
+    return result["launches"]
+
+
+def phase_cli_checks():
+    """In a fresh process: phase cli's snapshot loaded by ``Testbed`` and
+    trained ``CLI_SETTLE_STEPS`` more steps, then ``CLI_KEPT_STEPS`` steps
+    keeping each B1 and grid backward launch's size and the last
+    backward's (x, g); the snapshot round trips; then B1 and the fused
+    backward at that tier against their twins."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.data import ingp_snapshot
+    from ngp_tpu_torch.data.nerf_loader import load_nerf
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
+    from ngp_tpu_torch.testbed import Testbed
+
+    capture = os.path.join(ROOT, "build", "capture_smoke")
+    out = os.path.join(ROOT, "build", "cli_smoke")
+    tb = Testbed(scene=os.path.join(capture, "transforms_train.json"))
+    eng = tb.engine
+    t0 = time.perf_counter()
+    tb.load_snapshot(os.path.join(out, "scene.ingp"))
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+
+    encode, backward = hashgrid_ops.hashgrid_encode_cuda, hashgrid_ops.hashgrid_backward_cuda
+    encode_n, backward_n, kept = [], [], []
+
+    def count_encode(x, *args, **kwargs):
+        encode_n.append(x.shape[0])
+        return encode(x, *args, **kwargs)
+
+    def keep_backward(x, g, *geo_and_rows):
+        backward_n.append(x.shape[0])
+        kept[:] = [(x, g, *geo_and_rows)]
+        return backward(x, g, *geo_and_rows)
+
+    tb.train(CLI_SETTLE_STEPS)
+    hashgrid_ops.hashgrid_encode_cuda = count_encode
+    hashgrid_ops.hashgrid_backward_cuda = keep_backward
+    try:
+        tb.train(CLI_KEPT_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        hashgrid_ops.hashgrid_encode_cuda = encode
+        hashgrid_ops.hashgrid_backward_cuda = backward
+    state, grid = tb.state, tb.grid
+
+    # native snapshot, optimizer included (raw msgpack), and a second save
+    snap1, snap2 = (os.path.join(out, f"roundtrip_{i}.msgpack") for i in (1, 2))
+    t0 = time.perf_counter()
+    eng.save_snapshot(snap1, state, grid, include_optimizer=True)
+    native_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state2, grid2 = eng.load_snapshot(snap1)
+    torch.cuda.synchronize()
+    native_read_s = time.perf_counter() - t0
+    eng.save_snapshot(snap2, state2, grid2, include_optimizer=True)
+    tensors = lambda st: [  # noqa: E731
+        *st.model.parameters(), *st.ema.parameters(),
+        *(t for opt in st.opt_state.values() for t in (*opt.mu, *opt.nu))]
+    same = (state2.step == state.step
+            and [o.count for o in state2.opt_state.values()]
+            == [o.count for o in state.opt_state.values()]
+            and all(torch.equal(x, y) for x, y in zip(tensors(state), tensors(state2))))
+    bitfield_changed = int((grid.bitfield != grid2.bitfield).sum())
+
+    # reference .ingp: save, load, save
+    ref1, ref2 = (os.path.join(out, f"reference_{i}.ingp") for i in (1, 2))
+    t0 = time.perf_counter()
+    eng.save_reference_snapshot(ref1, state, grid)
+    ref_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state3, grid3 = eng.load_reference_snapshot(ref1)
+    torch.cuda.synchronize()
+    ref_read_s = time.perf_counter() - t0
+    eng.save_reference_snapshot(ref2, state3, grid3)
+    d1, d2 = (ingp_snapshot.load_ingp(p)["snapshot"] for p in (ref1, ref2))
+    ref_same = all(d1[k] == d2[k] for k in ("params_binary", "density_grid_binary"))
+    emit({"phase": "cli_checks", "kept_steps": [state.step - CLI_KEPT_STEPS, state.step],
+          "k_and_rays": list(eng.batch_geometry),
+          "snapshot_read_s": read_s,
+          "native_write_s": native_write_s, "native_read_s": native_read_s,
+          "native_bytes": os.path.getsize(snap1),
+          "native_round_trip_bit_identical": same,
+          "native_second_save_identical": open(snap1, "rb").read() == open(snap2, "rb").read(),
+          "bitfield_cells_changed_by_float16": bitfield_changed,
+          "bitfield_cells": int(grid.bitfield.numel()),
+          "reference_write_s": ref_write_s, "reference_read_s": ref_read_s,
+          "reference_bytes": os.path.getsize(ref1),
+          "reference_second_save_same_bytes": ref_same})
+    if not same:
+        raise AssertionError("native snapshot round trip changed a parameter or moment")
+    if not ref_same:
+        raise AssertionError("a second reference .ingp differs in its parameter or grid bytes")
+    del state2, grid2, state3, grid3
+
+    # B1 at the tier (float32 reads): uniform positions at the steps' mean
+    # launch, then the positions of a held-out render's largest launch
+    n_mean = int(round(sum(encode_n) / len(encode_n)))
+    emit({"phase": "kernel_cli", "kernel": "hashgrid_encode", "shape": "steps_mean",
+          **_kernel_case("upstream", torch.float32, torch.Generator().manual_seed(6),
+                         n_mean, aabb_scale=eng.aabb_scale)})
+    test = load_nerf(os.path.join(capture, "transforms_test.json"))
+    largest = []
+
+    def keep_largest(x, *args, **kwargs):
+        if not largest or x.shape[0] > largest[0].shape[0]:
+            largest[:] = [x]
+        return encode(x, *args, **kwargs)
+
+    hashgrid_ops.hashgrid_encode_cuda = keep_largest
+    try:
+        eng.render_view(state, grid, test.xforms[0, 0], test.focal_lengths[0],
+                        test.principal_points[0], lens=test.lens, min_transmittance=1e-4)
+        torch.cuda.synchronize()
+    finally:
+        hashgrid_ops.hashgrid_encode_cuda = encode
+    emit({"phase": "kernel_cli", "kernel": "hashgrid_encode", "shape": "render_positions",
+          **_kernel_case("upstream", torch.float32, torch.Generator().manual_seed(7),
+                         x=largest[0], aabb_scale=eng.aabb_scale)})
+    del largest
+
+    # the fused backward at the tier: uniform (x, g) at the steps' mean,
+    # then the last step's own
+    x, g, scale, res, size, hashed, variant, _, n_rows = kept[0]
+    geo = (scale, res, size, hashed, variant)
+    gen = torch.Generator().manual_seed(8)
+    L = scale.shape[0]
+    n_bwd = int(round(sum(backward_n) / len(backward_n)))
+    xu = torch.rand((n_bwd, 3), generator=gen).cuda()
+    gu = (torch.randn((n_bwd, g.shape[1]), generator=gen) * 1e-3).cuda()
+    for shape, (xs, gs) in (("steps_mean", (xu, gu)), ("captured_step", (x, g))):
+        keys, vals = hashgrid_backward_addends_reference(xs, gs, *geo)
+        emit({"phase": "kernel_cli", "kernel": "hashgrid_backward", "shape": shape,
+              "N": xs.shape[0], "L": L, "T": n_rows, "F": vals.shape[2], "hash": variant,
+              **_backward_row(xs, gs, geo, n_rows, keys, vals)})
+        del keys, vals
+
+
 def main():
     phase_env()
     import torch
@@ -1173,6 +1502,7 @@ def main():
     phase_train_profile(eng, state, grid, train["median_ms_per_step"])
     del eng, state, grid
     capture_launches = phase_capture()
+    cli_launches = phase_cli()
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1181,7 +1511,7 @@ def main():
         "source": "ngp_tpu_torch/csrc/hashgrid_encode.cu",
         "replaces": "ngp_tpu/ops/pallas/hashgrid.py:66",
         "launches": (launches["hashgrid_encode"] + train_launches["hashgrid_encode"]
-                     + capture_launches["hashgrid_encode"]),
+                     + capture_launches["hashgrid_encode"] + cli_launches["hashgrid_encode"]),
         **{k: main_case[k] for k in keys},
     }]
     for name, source, replaces, launched in (
@@ -1204,7 +1534,7 @@ def main():
         kernels.append({"name": name, "route": "cuda",
                         "source": f"ngp_tpu_torch/csrc/{source}",
                         "replaces": replaces,
-                        "launches": launched + capture_launches[name],
+                        "launches": launched + capture_launches[name] + cli_launches[name],
                         **{k: train_rows[name][k] for k in keys}})
     # B5 is on no path of either package (ngp_tpu/ops/pallas/sort.py:24-31):
     # its launches on the serve, train and capture paths are counted all the same
@@ -1213,7 +1543,8 @@ def main():
                     "replaces": "ngp_tpu/ops/pallas/sort.py:77",
                     "launches": launches["bitonic_sort_pos"]
                     + train_launches["bitonic_sort_pos"]
-                    + capture_launches["bitonic_sort_pos"],
+                    + capture_launches["bitonic_sort_pos"]
+                    + cli_launches["bitonic_sort_pos"],
                     **{k: sort_row[k] for k in keys}})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
@@ -1223,4 +1554,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["cli_checks"]:
+        phase_cli_checks()
+    else:
+        main()

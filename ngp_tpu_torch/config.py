@@ -1,7 +1,14 @@
-"""Flagship NeRF network configs, the port's copy of the JAX package's
-``__graft_entry__._default_config``."""
+"""Network configs: the flagship NeRF configs (the port's copy of the JAX
+package's ``__graft_entry__._default_config``) and reference-format JSON
+config files (the port's copy of ``ngp_tpu/config.py``): ``//`` comments and
+``"parent"`` inheritance, so the reference's shipped configs load
+unchanged."""
 
 from __future__ import annotations
+
+import copy
+import json
+import os
 
 TIERS = ("tpu", "upstream", "fork")
 
@@ -63,3 +70,59 @@ def default_config(tier: str = "tpu") -> dict:
             "output_activation": "None", "n_neurons": 64, "n_hidden_layers": 2,
         },
     }
+
+
+def _strip_comments(text: str) -> str:
+    """Remove ``//`` line comments outside of string literals."""
+    out, i, n, in_str = [], 0, len(text), False
+    while i < n:
+        c = text[i]
+        if in_str:
+            out.append(c)
+            if c == "\\" and i + 1 < n:
+                out.append(text[i + 1])
+                i += 1
+            elif c == '"':
+                in_str = False
+        elif c == '"':
+            in_str = True
+            out.append(c)
+        elif c == "/" and i + 1 < n and text[i + 1] == "/":
+            while i < n and text[i] != "\n":
+                i += 1
+            continue
+        else:
+            out.append(c)
+        i += 1
+    return "".join(out)
+
+
+def loads_jsonc(text: str) -> dict:
+    """Parse JSON with ``//`` comments, as the reference's configs use them."""
+    return json.loads(_strip_comments(text))
+
+
+def load_config(path: str) -> dict:
+    """Load a network config, resolving ``"parent"`` inheritance as the
+    reference's ``merge_parent_network_config`` does
+    (``src/testbed.cu:95-106``): the parent (relative to the child's
+    directory) is loaded first and the child's top-level keys replace its
+    own."""
+    with open(path) as f:
+        cfg = loads_jsonc(f.read())
+    if "parent" in cfg:
+        parent = load_config(os.path.join(os.path.dirname(path), cfg.pop("parent")))
+        parent.update(cfg)
+        cfg = parent
+    return cfg
+
+
+def merge(base: dict, override: dict) -> dict:
+    """Recursive dict merge, ``override`` winning; for overrides in code."""
+    out = copy.deepcopy(base)
+    for k, v in override.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = merge(out[k], v)
+        else:
+            out[k] = copy.deepcopy(v)
+    return out

@@ -1,5 +1,6 @@
-"""Reference ``.ingp`` snapshot reading, the port's copy of the read half of
-``ngp_tpu/data/ingp_snapshot.py``.
+"""Reference ``.ingp`` snapshots, the port's copy of
+``ngp_tpu/data/ingp_snapshot.py``: reading, and writing the file the
+reference's ``Testbed::save_snapshot`` writes.
 
 A snapshot is msgpack of the network config with a ``"snapshot"`` key,
 zlib-wrapped for ``.ingp``. Inside it:
@@ -21,6 +22,7 @@ import numpy as np
 
 from ngp_tpu_torch.data import msgpack_lite
 
+SNAPSHOT_FORMAT_VERSION = 1  # testbed.cu:80
 _ALIGN = 16  # FullyFusedMLP output alignment
 
 
@@ -41,6 +43,17 @@ def load_ingp(path: str) -> dict:
         except zlib.error:
             pass  # raw msgpack (.msgpack)
     return msgpack_lite.unpackb(blob)
+
+
+def save_ingp(path: str, config: dict, compress: bool = True) -> None:
+    """Encode ``config`` as the reference writes it: msgpack, wrapped in a
+    zlib stream (level 6, or 0 without ``compress``) when the extension is
+    ``.ingp``."""
+    blob = msgpack_lite.packb(config)
+    if path.lower().endswith(".ingp"):
+        blob = zlib.compress(blob, 6 if compress else 0)
+    with open(path, "wb") as f:
+        f.write(blob)
 
 
 def _mlp_padded_layout(mlp) -> list[tuple[int, int]]:
@@ -67,6 +80,20 @@ def _mlp_from_flat(flat: np.ndarray, off: int, mlp) -> tuple[dict, int]:
     return {"weights": ws}, off
 
 
+def _mlp_to_flat(params: dict, mlp, dtype) -> list[np.ndarray]:
+    """One MLP's ``{"weights": [(in, out), ...]}`` as tcnn's row-major
+    ``[n_out, n_in]`` matrices, the last output width padded with zeros."""
+    out = []
+    for w, (rows, cols) in zip(params["weights"], _mlp_padded_layout(mlp)):
+        w = np.asarray(w, np.float32).T  # (out, in)
+        if w.shape[0] < rows:
+            w = np.concatenate([w, np.zeros((rows - w.shape[0], cols), np.float32)], 0)
+        if w.shape != (rows, cols):
+            raise ValueError(f"MLP layer of shape {w.shape}, tcnn layout {(rows, cols)}")
+        out.append(w.astype(dtype).reshape(-1))
+    return out
+
+
 def _grid_from_flat(flat: np.ndarray, off: int, enc) -> tuple[dict, int]:
     _, _, sizes, _ = enc.level_geometry()
     F = enc.n_features_per_level
@@ -76,6 +103,14 @@ def _grid_from_flat(flat: np.ndarray, off: int, enc) -> tuple[dict, int]:
         table[l, : int(size)] = flat[off:off + n].reshape(int(size), F)
         off += n
     return {"table": table}, off
+
+
+def _grid_to_flat(params: dict, enc, dtype) -> list[np.ndarray]:
+    """The grid table's live rows, level after level."""
+    _, _, sizes, _ = enc.level_geometry()
+    table = np.asarray(params["table"], np.float32)
+    return [table[l, : int(size)].astype(dtype).reshape(-1)
+            for l, size in enumerate(sizes)]
 
 
 def reference_n_params(network) -> int:
@@ -105,6 +140,15 @@ def params_from_reference(snapshot: dict, network) -> dict:
     rgb, off = _mlp_from_flat(flat, off, network.rgb_mlp)
     pos, off = _grid_from_flat(flat, off, network.pos_encoding)
     return {"pos_encoding": pos, "density_mlp": density, "rgb_mlp": rgb}
+
+
+def params_to_reference(model_params: dict, network, dtype=np.float16) -> bytes:
+    """A JAX-layout parameter tree of ``network`` (``interop.export_jax_params``)
+    → tcnn's flat parameter buffer: density MLP, rgb MLP, grid levels."""
+    chunks = _mlp_to_flat(model_params["density_mlp"], network.density_mlp, dtype)
+    chunks += _mlp_to_flat(model_params["rgb_mlp"], network.rgb_mlp, dtype)
+    chunks += _grid_to_flat(model_params["pos_encoding"], network.pos_encoding, dtype)
+    return np.concatenate(chunks).tobytes()
 
 
 def morton_codes(G: int) -> np.ndarray:
@@ -141,3 +185,14 @@ def density_grid_from_reference(blob: bytes, n_cascades: int,
     for c in range(n_cascades):
         out[c] = g[c * n_cells:][codes]
     return out.reshape(n_cascades, grid_size, grid_size, grid_size)
+
+
+def density_grid_to_reference(density: np.ndarray) -> bytes:
+    """Row-major ``(C, G, G, G)`` grid → float16 Morton-ordered bytes."""
+    C, G = density.shape[0], density.shape[1]
+    codes = morton_codes(G)
+    out = np.empty((C, G ** 3), np.float16)
+    flat = np.asarray(density, np.float32).reshape(C, -1)
+    for c in range(C):
+        out[c, codes] = flat[c]
+    return out.tobytes()

@@ -27,17 +27,26 @@ Held-out evaluation: ``render_view`` renders any camera (its own lens,
 ``--test_transforms`` protocol does (sRGB-clipped PSNR and SSIM, FLIP on
 request).
 
+Products: native snapshots (``save_snapshot`` / ``load_snapshot``, the JAX
+package's format, so each package loads the other's), reference ``.ingp``
+snapshots (``save_reference_snapshot`` / ``load_reference_snapshot``) and
+a marching-cubes mesh of the density field
+(``compute_marching_cubes_mesh``). Training keeps loss and throughput
+meters (``self.meters``), optionally logged as JSONL.
+
 Not yet ported, and refused when asked for: camera, exposure, focal and
-distortion refinement, trainable envmap, depth supervision, latent codes
-in training, supplied per-pixel rays, a dataset's envmap background,
-rolling shutter, the render crop box (``render_aabb``), the decoupled
-occupancy schedule and probe-sampled grid updates.
+distortion refinement (also in a loaded snapshot), trainable envmap, depth
+supervision, latent codes in training, supplied per-pixel rays, a
+dataset's envmap background, rolling shutter, the render crop box
+(``render_aabb``), the decoupled occupancy schedule, probe-sampled grid
+updates and mesh vertex optimisation.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import time
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -49,7 +58,12 @@ from ngp_tpu_torch.data.nerf_loader import NerfDataset
 from ngp_tpu_torch.device import resolve_device
 from ngp_tpu_torch.geometry.aabb import AABB
 from ngp_tpu_torch.geometry.camera import Lens, pixel_dirs_cam, square2disk_shirley
-from ngp_tpu_torch.interop import load_jax_params
+from ngp_tpu_torch.interop import (
+    export_jax_params,
+    export_jax_train_state,
+    load_jax_params,
+    load_jax_train_state,
+)
 from ngp_tpu_torch.models.factory import create_nerf_network
 from ngp_tpu_torch.models.nerf_network import NerfNetwork
 from ngp_tpu_torch.ops import occupancy as occ
@@ -83,6 +97,7 @@ from ngp_tpu_torch.optim import (
 )
 from ngp_tpu_torch.train import TrainState
 from ngp_tpu_torch.utils import metrics
+from ngp_tpu_torch.utils.meters import MetricsLogger, TrainMeters
 
 # Network rows per call: bounds the MLP's (rows, 64) float32 activations.
 NETWORK_CHUNK = 1 << 20
@@ -93,6 +108,9 @@ MARCH_POINTS = 1 << 24
 DENSITY_CHUNK = 1 << 19
 
 ERROR_MAP_RES = 16  # testbed.h:674
+# the JAX engine's camera group: per-image pose, exposure and latent
+# parameters, a focal multiplier and a distortion map (testbed.h:713)
+DISTORTION_RESOLUTION = (32, 32)
 MIN_PDF = 0.01
 
 
@@ -249,7 +267,8 @@ class NerfEngine:
                                      and self.n_lattice % 8 == 0)
         self._seg_budget: int | None = None
         self._zero_sample_checks = 0
-        self._pending_metrics = None
+        self._pending_window = None  # the adapt window read one window late
+        self.meters: TrainMeters | None = None
         self.use_importance_sampling = bool(ds.wants_importance_sampling)
         self._emap: ErrorMapState | None = None
         self._emap_interval = 128
@@ -355,6 +374,148 @@ class NerfEngine:
         )
         state = TrainState.create(net, int(snap.get("training_step", 0)))
         return state, self.grid_from_density(torch.from_numpy(density))
+
+    def save_reference_snapshot(self, path: str, state: TrainState,
+                                grid: occ.OccupancyGridState, compress: bool = True) -> None:
+        """Write a reference-format ``.ingp`` / ``.msgpack`` snapshot
+        (``Testbed::save_snapshot``, ``src/testbed.cu:4873-4937``): the
+        network config with a ``snapshot`` key holding the served
+        parameters in tcnn's float16 layout and the float16 density grid in
+        Morton order, as the JAX package writes it."""
+        doc = dict(self.config)
+        doc["snapshot"] = {
+            "version": ingp_snapshot.SNAPSHOT_FORMAT_VERSION,
+            "mode": "nerf",
+            "training_step": int(state.step),
+            "loss": 0.0,
+            "density_grid_size": self.grid_size,
+            "density_grid_binary": ingp_snapshot.density_grid_to_reference(
+                grid.density.cpu().numpy()),
+            "n_params": ingp_snapshot.reference_n_params(self.network),
+            "params_type": "__half",
+            "params_binary": ingp_snapshot.params_to_reference(
+                export_jax_params(self.inference_params(state)), self.network),
+            "nerf": {"aabb_scale": self.aabb_scale},
+        }
+        ingp_snapshot.save_ingp(path, doc, compress=compress)
+
+    # -- native snapshots (the JAX package's format)
+
+    def _camera_group(self) -> dict:
+        """The JAX engine's ``camera`` parameter group at its shapes, zero:
+        the port trains no camera parameter, and a JAX engine that loads
+        the snapshot trains on from there."""
+        n = self.images.shape[0]
+        shapes = {"distortion": (*DISTORTION_RESOLUTION, 2), "exposure": (n, 3), "focal": (2,),
+                  "latents": (n, max(self.n_extra_dims, 1)), "pos": (n, 3), "rot": (n, 3)}
+        return {k: np.zeros(shape, np.float32) for k, shape in shapes.items()}
+
+    def _jax_param_tree(self, model: NerfNetwork) -> dict:
+        """The JAX engine's parameter tree of ``model``: keys sorted, as
+        the JAX package's tree maps leave them."""
+        def ordered(tree):
+            if isinstance(tree, dict):
+                return {k: ordered(tree[k]) for k in sorted(tree)}
+            if isinstance(tree, list):
+                return [ordered(v) for v in tree]
+            return tree
+
+        return ordered({"camera": self._camera_group(), "model": export_jax_params(model)})
+
+    def _check_camera(self, params: dict) -> None:
+        if "envmap" in params:
+            raise ValueError("a trainable envmap is not yet ported (ROADMAP A5)")
+        for name, value in params.get("camera", {}).items():
+            if name == "latents" and self.n_extra_dims == 0:
+                continue  # unused without extra dims; the JAX engine draws them
+            if np.any(np.asarray(value) != 0):
+                raise ValueError("camera refinement is not yet ported (ROADMAP A5): "
+                                 f"the snapshot's camera.{name} is not zero")
+
+    def save_snapshot(self, path: str, state: TrainState, grid: occ.OccupancyGridState,
+                      include_optimizer: bool = False) -> None:
+        """Write a native snapshot (``utils/snapshot.py``; zlib-compressed
+        for ``.ingp``) with the JAX engine's keys and dtypes: training step
+        (int32), parameters and EMA parameters as the JAX engine's trees
+        (its zero ``camera`` group included), the density grid (float16)
+        and its mean (float32), ``aabb_scale`` and the loss EMA. With
+        ``include_optimizer`` also ``opt_state``, in the port's own layout
+        (``interop.export_jax_train_state``'s ``"opt"`` tree)."""
+        from ngp_tpu_torch.utils.snapshot import save_snapshot
+
+        snap = {
+            "training_step": np.asarray(state.step, np.int32),
+            "params": self._jax_param_tree(state.model),
+            "ema_params": self._jax_param_tree(state.inference_model()),
+            "density_grid": grid.density.cpu().numpy().astype(np.float16),
+            "density_grid_mean": np.asarray(grid.mean_density.cpu().numpy(), np.float32),
+            "aabb_scale": self.aabb_scale,
+            # restored on load, as the reference does (testbed.cu:5037-5038)
+            "loss_ema": self.meters.loss_ema if self.meters is not None else 0.0,
+        }
+        if include_optimizer:
+            snap["opt_state"] = export_jax_train_state(state)["opt"]
+        save_snapshot(path, {"mode": "nerf", "network_config": self.config,
+                             "snapshot": snap})
+
+    def load_snapshot(self, path: str):
+        """Read a native snapshot, the port's or the JAX package's, into
+        ``(TrainState, grid)``. The density grid's bitfield is rebuilt from
+        the stored (float16) densities and mean. Optimizer moments are
+        restored where the snapshot holds them in the port's layout; else
+        (none, or the JAX package's optax tree) they start at zero, as the
+        JAX package's ``load_snapshot`` starts them. A snapshot with
+        camera parameters that are not zero (latents aside, while the
+        network has no extra dims) is refused: camera refinement is not
+        yet ported."""
+        from ngp_tpu_torch.utils.snapshot import load_snapshot
+
+        snap = load_snapshot(path)["snapshot"]
+        for tree in ("params", "ema_params"):
+            self._check_camera(snap[tree])
+        step = int(snap["training_step"])
+        ema_tree = snap["ema_params"]["model"] if self.opt_cfg.ema_decay is not None else None
+        net = self._new_network()
+        opt = snap.get("opt_state")
+        if isinstance(opt, dict) and set(opt) == {"dense", "grid"}:
+            state = load_jax_train_state(net, {"step": step, "params": snap["params"]["model"],
+                                               "opt": opt, "ema": ema_tree})
+        else:
+            state = TrainState.create(load_jax_params(net, snap["params"]["model"]), step)
+            if ema_tree is not None:
+                state.ema = load_jax_params(copy.deepcopy(net), ema_tree).requires_grad_(False)
+        density = torch.as_tensor(snap["density_grid"].astype(np.float32), device=self.device)
+        mean = torch.as_tensor(snap["density_grid_mean"], dtype=torch.float32,
+                               device=self.device)
+        grid = occ.OccupancyGridState(density, occ.build_bitfield(density, mean), mean)
+        if "loss_ema" in snap:
+            self.meters = TrainMeters()
+            self.meters.loss_ema = float(snap["loss_ema"])
+            self.meters.n_loss_updates = 1
+        return state, grid
+
+    # -- mesh export (compute_marching_cubes_mesh, python_api.cu:101-125)
+
+    def compute_marching_cubes_mesh(self, state: TrainState, resolution: int = 256,
+                                    density_thresh: float = 2.5, aabb=None):
+        """An isosurface of the raw density output (the reference meshes
+        raw network values, GUI threshold 2.5) on a ``resolution``³ lattice
+        spanning ``aabb`` (default the scene box), the corners included.
+        The density queries run through ``chunked_density`` on the
+        engine's device; the marching cubes run on the host. Returns
+        (verts (V, 3) float32 in scene space, faces (F, 3) int32)."""
+        from ngp_tpu_torch.ops.marching_cubes import marching_cubes
+
+        lo, hi = aabb if aabb is not None else (self.aabb.min, self.aabb.max)
+        lo = np.asarray(lo.cpu() if isinstance(lo, torch.Tensor) else lo, np.float32)
+        hi = np.asarray(hi.cpu() if isinstance(hi, torch.Tensor) else hi, np.float32)
+        n = resolution
+        axes = [np.linspace(lo[d], hi[d], n, dtype=np.float32) for d in range(3)]
+        points = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+        pos_w = self.aabb.relative_pos(torch.as_tensor(points, device=self.device))
+        raw = self.chunked_density(self.inference_params(state), pos_w).cpu().numpy()
+        return marching_cubes(raw.reshape(n, n, n), density_thresh, origin=lo,
+                              spacing=(hi - lo) / (n - 1))
 
     # -- training: rays
 
@@ -608,13 +769,35 @@ class NerfEngine:
 
     # -- training: the loop
 
-    def train(self, state: TrainState, grid: occ.OccupancyGridState, n_steps: int):
+    def train(self, state: TrainState, grid: occ.OccupancyGridState, n_steps: int,
+              log_every: int = 0, metrics_file: str | None = None):
         """Run ``n_steps`` steps from ``state.step`` with occupancy updates
         on the reference's cadence (every clamp(step/16, 1, 16) steps, all
         cells before step 256), error-map rebuilds every 128 steps growing
-        ×1.5, and a batch-geometry update every ``adapt_every`` steps from
-        the previous window's metrics (so the check never waits for the
-        device). Returns (state, grid, metrics of the last step)."""
+        ×1.5, and, every ``adapt_every`` steps, the previous window's
+        metrics read on the host (so the read never waits for the device):
+        they update ``self.meters``, a line of ``metrics_file`` (JSONL,
+        appended; the last window is read at the end of the call when a file
+        is given) and the batch geometry. ``log_every`` prints a step's
+        loss every that many steps (a device sync each). Returns (state,
+        grid, metrics of the last step)."""
+        if self.meters is None:
+            self.meters = TrainMeters()
+        logger = MetricsLogger(metrics_file) if metrics_file else None
+        try:
+            state, grid, metrics = self._train_steps(state, grid, n_steps, log_every, logger)
+            if logger is not None:
+                prev, self._pending_window = self._pending_window, None
+                if prev is not None:
+                    self._process_window(prev, logger)
+        finally:
+            if logger is not None:
+                logger.close()
+        return state, grid, metrics
+
+    def _train_steps(self, state: TrainState, grid: occ.OccupancyGridState, n_steps: int,
+                     log_every: int, logger: MetricsLogger | None):
+        win_t0, win_steps = time.monotonic(), 0
         metrics = {}
         if self._emap is None:
             self._emap = self.init_error_map()
@@ -628,11 +811,38 @@ class NerfEngine:
                 self._emap_interval = int(self._emap_interval * 1.5)
                 self._emap_next_rebuild = step + self._emap_interval
             self._emap, metrics = self.train_step(state, grid, self._emap)
+            win_steps += 1
             if (step + 1) % self.adapt_every == 0:
-                prev, self._pending_metrics = self._pending_metrics, metrics
+                window = {"metrics": metrics, "steps": win_steps,
+                          "rays": float(self._n_rays) * win_steps,
+                          "wall": time.monotonic() - win_t0, "step": step + 1}
+                prev, self._pending_window = self._pending_window, window
                 if prev is not None:
-                    self.adapt_batch_geometry(prev)
+                    self._process_window(prev, logger)
+                win_t0, win_steps = time.monotonic(), 0
+            if log_every and step % log_every == 0:
+                print(f"step {step}: loss={float(metrics['loss']):.5f} "
+                      f"samples={int(metrics['measured_samples'])} k={self._k} "
+                      f"({self.meters.samples_per_s.value / 1e6:.2f} Msamples/s)")
         return state, grid, metrics
+
+    def _process_window(self, win: dict, logger: MetricsLogger | None) -> None:
+        """One adapt window's metrics on the host (one copy): the meters,
+        the log line, the batch geometry."""
+        m = dict(win["metrics"])
+        keys = [k for k, v in m.items() if isinstance(v, torch.Tensor)]
+        if keys:
+            host = torch.stack([m[k].to(torch.float64) for k in keys]).tolist()
+            m.update(zip(keys, host))
+        loss_ema = self.meters.update_loss(float(m["loss"]))
+        self.meters.update_window(win["steps"], float(m["measured_samples"]) * win["steps"],
+                                  win["rays"], win["wall"])
+        if logger is not None:
+            logger.log(win["step"], loss=float(m["loss"]), loss_ema=loss_ema,
+                       samples_per_s=self.meters.samples_per_s.value,
+                       rays_per_s=self.meters.rays_per_s.value,
+                       step_ms=self.meters.step_ms.value, k=self._k)
+        self.adapt_batch_geometry(m)
 
     def psnr(self, state: TrainState, grid: occ.OccupancyGridState,
              image_index: int, stride: int = 1) -> float:

@@ -1,0 +1,295 @@
+"""The ``Testbed`` orchestrator for NeRF, the port of ``ngp_tpu/testbed.py``
+(the reference's ``Testbed`` class and ``pyngp`` surface,
+``src/testbed.cu``, ``src/python_api.cu:266-696``).
+
+The mode comes from the scene path as in ``mode_from_scene``
+(``src/common.cu:144-173``): a directory or ``transforms.json`` is NeRF,
+``.obj``/``.stl`` SDF, ``.nvdb``/``.npy`` a volume, image files an image.
+Only NeRF is ported; the other modes raise. ``Testbed`` loads a capture,
+trains, renders, evaluates, exports a mesh and saves and loads snapshots
+through ``engines/nerf.py:NerfEngine``, on the card unless it is built
+with ``device="cpu"``.
+
+Not yet ported, and refused: the SDF, image and volume modes (ROADMAP A8 to
+A10), ``frame()`` (the viewer's heartbeat, A11), rolling-shutter renders
+(``render(end_matrix=...)``, A5), the render crop box (``render_aabb``,
+A6) and a scene's geometry prior (a ``<name>.obj`` or ``<name>.xyz`` beside
+the capture, which the JAX package seeds the density grid from; A5).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import os
+from typing import Any
+
+import numpy as np
+import torch
+
+from ngp_tpu_torch.config import load_config
+
+MODES = ("nerf", "sdf", "image", "volume")
+# the ROADMAP item that ports each mode other than NeRF
+_MODE_ITEMS = {"image": "A8", "sdf": "A9", "volume": "A10"}
+
+# instant-ngp's configs/nerf/base.json, as the JAX package's Testbed holds it
+_DEFAULT_CONFIGS = {
+    "nerf": {
+        "loss": {"otype": "Huber"},
+        "optimizer": {
+            "otype": "Ema", "decay": 0.95,
+            "nested": {
+                "otype": "ExponentialDecay", "decay_start": 20000,
+                "decay_interval": 10000, "decay_base": 0.33,
+                "nested": {"otype": "Adam", "learning_rate": 1e-2, "beta1": 0.9,
+                           "beta2": 0.99, "epsilon": 1e-15, "l2_reg": 1e-6},
+            },
+        },
+        "encoding": {"otype": "HashGrid", "n_levels": 16,
+                     "n_features_per_level": 2, "log2_hashmap_size": 19,
+                     "base_resolution": 16},
+        "network": {"otype": "FullyFusedMLP", "activation": "ReLU",
+                    "output_activation": "None", "n_neurons": 64,
+                    "n_hidden_layers": 1},
+        "dir_encoding": {"otype": "Composite", "nested": [
+            {"n_dims_to_encode": 3, "otype": "SphericalHarmonics", "degree": 4},
+            {"otype": "Identity"},
+        ]},
+        "rgb_network": {"otype": "FullyFusedMLP", "activation": "ReLU",
+                        "output_activation": "None", "n_neurons": 64,
+                        "n_hidden_layers": 2},
+    },
+}
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported (ROADMAP {item})")
+
+
+def mode_from_scene(path: str) -> str | None:
+    """``mode_from_scene`` (``src/common.cu:144-173``)."""
+    if os.path.isdir(path):
+        return "nerf"
+    ext = os.path.splitext(path)[1].lower().lstrip(".")
+    if ext == "json":
+        return "nerf"
+    if ext in ("obj", "stl"):
+        return "sdf"
+    if ext in ("nvdb", "npy"):
+        return "volume"
+    if ext in ("exr", "bin", "png", "jpg", "jpeg", "bmp", "tga", "hdr"):
+        return "image"
+    return None
+
+
+def _check_mode(mode: str) -> None:
+    if mode in _MODE_ITEMS:
+        raise not_ported(f"the {mode} mode", _MODE_ITEMS[mode])
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+
+
+def default_config(mode: str) -> dict:
+    _check_mode(mode)
+    return copy.deepcopy(_DEFAULT_CONFIGS[mode])
+
+
+class Testbed:
+    """``Testbed(mode=None, scene=None, config=None, **engine_kwargs)``.
+
+    ``engine_kwargs`` go to ``NerfEngine`` where it has such a field
+    (``device``, ``seed``, ``batch_size``, ...); ``frame_subset`` trains
+    on those views of the scene only. Methods mirror the pyngp surface:
+    ``load_training_data``, ``reload_network_from_json``, ``train``,
+    ``render``, ``psnr``, ``save_snapshot`` / ``load_snapshot``,
+    ``compute_marching_cubes_mesh``, ``training_step``, ``loss``."""
+
+    def __init__(self, mode: str | None = None, scene: str | None = None,
+                 config: str | dict | None = None, **engine_kwargs):
+        if mode is not None:
+            _check_mode(mode)
+        self.mode = mode
+        self.scene: str | None = None
+        self.engine: Any = None
+        self.state = None
+        self.grid = None
+        self.loss = float("nan")
+        self._engine_kwargs = engine_kwargs
+        self.network_config: dict | None = None
+        if config is not None:
+            self.reload_network_from_json(config, rebuild=False)
+        if scene is not None:
+            self.load_training_data(scene)
+
+    # -- data and config loading
+
+    def load_training_data(self, path: str) -> None:
+        mode = self.mode or mode_from_scene(path)
+        if mode is None:
+            raise ValueError(f"cannot infer mode from scene path {path!r}")
+        _check_mode(mode)
+        self.mode = mode
+        self.scene = path
+        self.network_config = self.network_config or default_config(mode)
+        self._build_engine(self.network_config)
+
+    def reload_network_from_json(self, config: str | dict, rebuild: bool = True) -> None:
+        if isinstance(config, str):
+            config = load_config(config)
+        self.network_config = config
+        if rebuild and self.mode is not None and self.scene:
+            self._build_engine(config)
+
+    def _check_geometry_prior(self) -> None:
+        """The JAX package seeds the density grid from a ``<name>.obj`` mesh
+        or ``<name>.xyz`` point cloud beside the capture
+        (``Testbed::load_nerf``, ``src/testbed_nerf.cu:3115-3159``);
+        training without it would train another model."""
+        base = self.scene if os.path.isdir(self.scene) else os.path.dirname(self.scene)
+        name = os.path.basename(os.path.normpath(base))
+        for ext in (".obj", ".xyz"):
+            prior = os.path.join(base, name + ext)
+            if os.path.exists(prior):
+                raise not_ported(f"seeding the density grid from {prior}", "A5")
+
+    def _build_engine(self, cfg: dict) -> None:
+        from ngp_tpu_torch.data.nerf_loader import load_nerf
+        from ngp_tpu_torch.engines.nerf import NerfEngine
+
+        kw = self._engine_kwargs
+        ds = load_nerf(self.scene)
+        if kw.get("frame_subset") is not None:
+            ds = ds.subset(kw["frame_subset"])
+        self._check_geometry_prior()
+        fields = {f.name for f in dataclasses.fields(NerfEngine)}
+        self.engine = NerfEngine(copy.deepcopy(cfg), ds,
+                                 **{k: v for k, v in kw.items() if k in fields})
+        self.state = self.engine.init_state()
+        self.grid = self.engine.init_grid()
+
+    # -- training
+
+    @property
+    def training_step(self) -> int:
+        return int(self.state.step) if self.state is not None else 0
+
+    def train(self, n_steps: int) -> None:
+        self.state, self.grid, metrics = self.engine.train(self.state, self.grid, n_steps)
+        if metrics:
+            self.loss = float(metrics["loss"])
+
+    def frame(self, *args, **kwargs) -> dict:
+        raise not_ported("frame() (the viewer's heartbeat)", "A11")
+
+    # -- the training set, edited in place (pyngp's nerf.training surface)
+
+    @property
+    def n_images(self) -> int:
+        return int(self.engine.images.shape[0])
+
+    def set_camera_extrinsics(self, frame_idx: int, camera_to_world,
+                              convert_to_ngp: bool = True) -> None:
+        """Overwrite one training camera's pose: ``camera_to_world`` (3, 4)
+        or (4, 4), converted from the NeRF convention with the dataset's
+        scale and offset when ``convert_to_ngp``."""
+        from ngp_tpu_torch.data.nerf_loader import nerf_matrix_to_ngp
+
+        m = np.asarray(camera_to_world, np.float32)[:3, :4]
+        ds = self.engine.dataset
+        if convert_to_ngp:
+            m = nerf_matrix_to_ngp(m, ds.scale, np.asarray(ds.offset))
+        self.engine.xforms[frame_idx] = torch.as_tensor(m, device=self.engine.device)
+
+    def get_camera_extrinsics(self, frame_idx: int,
+                              convert_to_nerf: bool = True) -> np.ndarray:
+        from ngp_tpu_torch.data.nerf_loader import ngp_matrix_to_nerf
+
+        m = self.engine.xforms[frame_idx].cpu().numpy()
+        ds = self.engine.dataset
+        if convert_to_nerf:
+            m = ngp_matrix_to_nerf(m, ds.scale, np.asarray(ds.offset))
+        return m
+
+    def set_camera_intrinsics(self, frame_idx: int, fx: float | None = None,
+                              fy: float | None = None, cx: float | None = None,
+                              cy: float | None = None) -> None:
+        """Overwrite one training camera's focal lengths and principal
+        point, in pixels."""
+        W, H = self.engine.resolution
+        for i, v in ((0, fx), (1, fy)):
+            if v is not None:
+                self.engine.focals[frame_idx, i] = v
+        for i, v, size in ((0, cx, W), (1, cy, H)):
+            if v is not None:
+                self.engine.pps[frame_idx, i] = v / size
+
+    def set_image(self, frame_idx: int, img: np.ndarray, depth: np.ndarray | None = None) -> None:
+        """Replace one training image ((H, W, 3 | 4), float in [0, 1] or
+        uint8). Depth maps are not yet ported (depth supervision, A5)."""
+        if depth is not None:
+            raise not_ported("depth supervision", "A5")
+        images = self.engine.images
+        img = np.asarray(img)
+        if img.shape[-1] == 3:
+            alpha = np.full_like(img[..., :1], 255 if img.dtype == np.uint8 else 1)
+            img = np.concatenate([img, alpha], -1)
+        if images.dtype == torch.uint8 and img.dtype != np.uint8:
+            img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        images[frame_idx] = torch.as_tensor(img, device=images.device).to(images.dtype)
+
+    # -- rendering
+
+    def render(self, width: int, height: int, spp: int = 1, camera_matrix=None,
+               eye=None, lookat=None, fov_deg: float = 50.0,
+               training_view: int | None = None, start_matrix=None,
+               end_matrix=None, shutter_fraction: float = 0.0) -> np.ndarray:
+        """Render (H, W, 3) float32, ``pyngp.Testbed.render``: the dataset
+        view ``training_view`` at its own resolution, or a pinhole camera
+        ``camera_matrix`` (NGP space; default ``start_matrix``, else
+        training view 0) with a vertical field of view of ``fov_deg``.
+        ``spp``, ``eye`` and ``lookat`` do not apply to NeRF, as in the JAX
+        package."""
+        if end_matrix is not None:
+            raise not_ported("rolling shutter (render(end_matrix=...))", "A5")
+        if training_view is not None:
+            return self.engine.render_image(self.state, self.grid, training_view).cpu().numpy()
+        if camera_matrix is None:
+            camera_matrix = (start_matrix if start_matrix is not None
+                             else self.engine.xforms[0].cpu().numpy())
+        W, H = width, height
+        f = 0.5 * H / np.tan(0.5 * np.radians(fov_deg))
+        px, py = np.meshgrid((np.arange(W) + 0.5) / W, (np.arange(H) + 0.5) / H)
+        x = (px - 0.5) * W / f
+        y = (py - 0.5) * H / f
+        dc = np.stack([x, y, np.ones_like(x)], -1).reshape(-1, 3)
+        m = np.asarray(camera_matrix, np.float32)[:3, :4]
+        d = dc @ m[:, :3].T
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        o = np.broadcast_to(m[:, 3], d.shape)
+        rgb, _, _ = self.engine.render_rays(
+            self.state, self.grid, torch.as_tensor(o.astype(np.float32)),
+            torch.as_tensor(d.astype(np.float32)))
+        return rgb.cpu().numpy().reshape(H, W, 3)
+
+    @property
+    def render_aabb(self):
+        raise not_ported("the render crop box (render_aabb)", "A6")
+
+    @render_aabb.setter
+    def render_aabb(self, box) -> None:
+        raise not_ported("the render crop box (render_aabb)", "A6")
+
+    # -- evaluation and products
+
+    def psnr(self, view: int = 0, stride: int = 1) -> float:
+        return self.engine.psnr(self.state, self.grid, view, stride)
+
+    def compute_marching_cubes_mesh(self, resolution: int = 256, thresh: float = 2.5):
+        return self.engine.compute_marching_cubes_mesh(self.state, resolution, thresh)
+
+    def save_snapshot(self, path: str) -> None:
+        self.engine.save_snapshot(path, self.state, self.grid)
+
+    def load_snapshot(self, path: str) -> None:
+        self.state, self.grid = self.engine.load_snapshot(path)

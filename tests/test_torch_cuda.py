@@ -480,3 +480,83 @@ def test_capture_load_train_eval_on_card(cuda, tmp_path):
     assert scores["n_views"] == 4
     assert all(np.isfinite(v["psnr"]) and np.isfinite(v["ssim"]) for v in scores["per_view"])
     assert launches["hashgrid_encode"] > 0 and launches["hashgrid_backward"] > 0
+
+
+@pytest.mark.cuda
+def test_upstream_tier_matches_twin(cuda):
+    """The tier that ``Testbed`` and the CLI train by default (instant-ngp's
+    base.json: L=16, F=2, T=2^19, XOR hash, float32 table reads,
+    per_level_scale for aabb_scale 2): the forward bit for bit and the fused
+    backward within the float32 order bound, on uniform positions and on
+    positions crowded into one small cube (many samples per row)."""
+    import math
+
+    enc = GridEncoding(n_input_dims=3, n_levels=16, n_features_per_level=2,
+                       log2_hashmap_size=19, base_resolution=16,
+                       per_level_scale=math.exp(math.log(2048.0 * 2 / 16) / 15),
+                       hash_variant="tcnn", device="cuda")
+    assert not enc.bf16_reads
+    L, T, F = enc.table.shape
+    geo = (enc.level_scale, enc.level_res, enc.level_size, enc.level_hashed, "tcnn")
+    rng = np.random.default_rng(19)
+    table = torch.from_numpy(rng.uniform(-1, 1, (L, T, F)).astype(np.float32)).cuda()
+    for x in (rng.uniform(0, 1, (1 << 16, 3)), 0.5 + 0.01 * rng.uniform(0, 1, (1 << 16, 3))):
+        x = torch.from_numpy(x.astype(np.float32)).cuda()
+        got = hashgrid_encode(x, table, *geo)
+        want = hashgrid_encode_reference(x, table, *geo)
+        assert torch.equal(got, want), float((got - want).abs().max())
+        g = torch.from_numpy(rng.normal(0, 1e-3, (x.shape[0], L * F)).astype(np.float32)).cuda()
+        before = HASHGRID_ENCODE.launches["hashgrid_backward"]
+        got = hashgrid_backward(x, g, *geo, None, T)
+        torch.cuda.synchronize()
+        assert HASHGRID_ENCODE.launches["hashgrid_backward"] == before + 1
+        keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
+        want = hashgrid_backward_reference(x, g, *geo, None, T)
+        _assert_within_order_bound(got, want, keys, vals, T)
+
+
+@pytest.mark.cuda
+def test_cli_round_trip_on_card(cuda, tmp_path, capsys):
+    """``python -m ngp_tpu_torch.run`` on the card with its defaults
+    (``Testbed``'s base.json config, grid 128) on a 64² capture: 50 steps,
+    held-out eval, snapshot, screenshot; then the snapshot loaded with no
+    training, scored again (equal within 0.05 dB; the density grid passes
+    through float16), a mesh and two video frames. Both runs launch the
+    hash-grid kernels; only the first trains."""
+    import json
+
+    from ngp_tpu_torch import run
+    from ngp_tpu_torch.data.png import read_png
+    from ngp_tpu_torch.data.synthetic import write_sphere_capture
+
+    train_json, test_json = write_sphere_capture(str(tmp_path / "cap"), res=64, device="cuda")
+    out = tmp_path / "out"
+    path = tmp_path / "path.json"
+    path.write_text(json.dumps({"loop": False, "path": [
+        {"R": [0, 0, 0, 1], "T": [0.5, 0.5, -0.7], "fov": 40.0},
+        {"R": [0, 0.3826834, 0, 0.9238795], "T": [0.0, 0.5, -0.4], "fov": 40.0}]}))
+
+    def held_out(text):
+        line = next(ln for ln in text.splitlines() if ln.startswith("test_transforms:"))
+        return float(line.split("PSNR=")[1].split()[0])
+
+    def launches(text):
+        return json.loads(text.splitlines()[-1].split(":", 1)[1])
+
+    run.main([train_json, "--n_steps", "50", "--test_transforms", test_json,
+              "--save_snapshot", str(out / "scene.ingp"), "--screenshot", str(out / "shot.png")])
+    first = capsys.readouterr().out
+    run.main([train_json, "--n_steps", "0", "--load_snapshot", str(out / "scene.ingp"),
+              "--test_transforms", test_json, "--save_mesh", str(out / "mesh.obj"),
+              "--marching_cubes_res", "64", "--video_camera_path", str(path),
+              "--video_n_seconds", "1", "--video_fps", "2", "--video_w", "48",
+              "--video_h", "32", "--video_output", str(out / "frames")])
+    second = capsys.readouterr().out
+    assert "loaded snapshot at step 50" in second
+    assert abs(held_out(first) - held_out(second)) <= 0.05
+    assert read_png(str(out / "shot.png")).shape == (64, 64, 3)
+    assert (out / "mesh.obj").exists()
+    assert [read_png(str(out / "frames" / f"frame_{i:04d}.png")).shape
+            for i in range(2)] == [(32, 48, 3)] * 2
+    assert launches(first)["hashgrid_encode"] > 0 and launches(first)["hashgrid_backward"] > 0
+    assert launches(second)["hashgrid_encode"] > 0 and launches(second)["hashgrid_backward"] == 0
