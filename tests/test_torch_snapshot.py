@@ -189,8 +189,11 @@ def test_native_snapshot_from_port_loads_in_jax(golden, tmp_path):
     engine: parameters, EMA, density grid, step and loss EMA equal; its
     document has the JAX engine's keys and dtypes; the JAX engine renders
     it within the golden bound."""
+    from ngp_tpu_torch.utils.meters import TrainMeters
+
     peng, pstate, pgrid, jeng, _, _ = golden
-    peng.meters = None
+    peng.meters = TrainMeters()
+    peng.meters.loss_ema = 0.0456
     path = str(tmp_path / "port.ingp")
     peng.save_snapshot(path, pstate, pgrid)
     doc = jsnapshot.load_snapshot(path)
@@ -201,8 +204,9 @@ def test_native_snapshot_from_port_loads_in_jax(golden, tmp_path):
     assert snap["training_step"].dtype == np.int32 and snap["training_step"].shape == ()
     assert snap["density_grid"].dtype == np.float16
     assert snap["density_grid_mean"].dtype == np.float32 and snap["density_grid_mean"].shape == ()
-    assert snap["loss_ema"] == 0.0 and snap["aabb_scale"] == 1
+    assert snap["loss_ema"] == 0.0456 and snap["aabb_scale"] == 1
     jstate, jgrid = jeng.load_snapshot(path)
+    assert jeng.meters.loss_ema == 0.0456
     want = export_jax_params(pstate.model)
     _assert_trees_equal(_jax_tree(jstate.params["model"]), _jax_tree(want))
     _assert_trees_equal(_jax_tree(jstate.ema.params["model"]),
