@@ -85,6 +85,25 @@ Phases, each printing one JSON line:
    held-out render's largest launch; the fused grid backward within the
    float32 order bound at the steps' mean and on their last step's own
    (x, g) (phase ``kernel_cli``).
+13. image: in a fresh process (``chip_smoke.py image``), the image
+   primitive at instant-ngp's configs/image/base.json width (``Testbed``'s
+   default: D=2, L=16, F=2, T=2^24, XOR hash; levels 0-8 dense, level 8 of
+   exactly 2^24 rows), fitting the 104.9 MP procedural image of
+   ``scripts/bench_gigapixel.py`` made on the card in float16: 2,048 steps
+   of 2^18 Stratified positions through ``ImageEngine.train`` in calls of
+   128; ms a step (median after step 512), samples/s, peak memory, the
+   PSNR of the stride-16 texel subsample (gate ``IMAGE_PSNR_MIN``), the
+   full-image MSE and a 1920×1080 render. Then (phase ``image_kernels``)
+   B1 bit for bit and the fused backward within the float32 order bound
+   on one more step's own positions and cotangents, and (phase
+   ``image_profile``) 16 steps under ``torch.profiler``: device ms a step
+   by stage (positions and targets, forward, backward, grid backward,
+   optimizer).
+14. image_cli: ``python -m ngp_tpu_torch.run`` in subprocesses on a
+   written 2048² ``.bin`` image: the default config 1,000 steps with a
+   screenshot (gate ``IMAGE_CLI_PSNR_MIN`` on the printed PSNR), then a
+   T=2^18 ``--network`` file trained, saved, and loaded in a new process,
+   whose MSE line must equal the saved run's.
 Then the ``kernels`` line, the card's ``name, power.limit``, and last the
 ``{"ok": true, ...}`` line.
 
@@ -143,6 +162,23 @@ CLI_VIDEO = {"w": 320, "h": 180, "fps": 8, "seconds": 1}
 # 32 on), then the kept steps, whose kernel launches give the shapes
 CLI_SETTLE_STEPS = 48
 CLI_KEPT_STEPS = 16
+# phase image: the gigapixel image's side (104.9 MP), the steps in calls of
+# 128 (ms a step: the median of the calls after the first 512 steps), the
+# profiled steps, the stride of the PSNR's texel subsample and its gate
+IMAGE_SIDE = 10240
+IMAGE_STEPS = 2048
+IMAGE_CALL_STEPS = 128
+IMAGE_TIMED_FROM = 512
+IMAGE_PROFILE_STEPS = 16
+IMAGE_PSNR_STRIDE = 16
+IMAGE_PSNR_MIN = 25.0
+# phase image_cli: the written .bin image's side, the default config's
+# steps and gate; the snapshot round trip's table size and steps
+IMAGE_CLI_SIDE = 2048
+IMAGE_CLI_STEPS = 1000
+IMAGE_CLI_PSNR_MIN = 25.0
+IMAGE_SNAPSHOT_LOG2 = 18
+IMAGE_SNAPSHOT_STEPS = 200
 
 
 def emit(obj):
@@ -327,13 +363,16 @@ def _bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL, x=None,
-                 aabb_scale: int = 4, profiled: bool = True):
+                 aabb_scale: int = 4, profiled: bool = True, enc=None,
+                 rows_read: int | None = None):
     """B1 against its twin, exactly, on ``n`` uniform positions (or the
-    positions ``x``) with a random table of ``table_dtype``. With a bf16
-    table it also times the cast of the float32 table that the encoding
-    makes before each call ("cast_ms"). ``profiled=False`` times by CUDA
-    events only (``call_ms``, ``plain_ms``): no ``ms``, ``cast_ms`` or
-    library yardstick."""
+    positions ``x``) with a random table of ``table_dtype``, for the 3D
+    tier ``tier``'s encoding or the encoding ``enc`` (``tier`` then names
+    it). With a bf16 table it also times the cast of the float32 table
+    that the encoding makes before each call ("cast_ms").
+    ``profiled=False`` times by CUDA events only (``call_ms``,
+    ``plain_ms``): no ``ms``, ``cast_ms`` or library yardstick. The bound
+    reads ``rows_read`` table rows (default: every live row)."""
     import torch
     import torch.nn.functional as tnf
 
@@ -343,9 +382,10 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL, x=None,
         hashgrid_encode_reference,
     )
 
-    enc = _encoding(tier, aabb_scale)
+    enc = enc if enc is not None else _encoding(tier, aabb_scale)
     L, T, F = enc.table.shape
-    D, C = 3, 8
+    D = enc.n_input_dims
+    C = 1 << D
     master = (torch.rand((L, T, F), generator=gen) * 2 - 1).cuda()
     table = master.to(table_dtype)
     if x is None:
@@ -365,15 +405,18 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL, x=None,
     call_ms = cuda_ms(lambda: hashgrid_encode_cuda(x, table, *geo), iters=20)
     plain_ms = cuda_ms(lambda: hashgrid_encode_reference(x, table, *geo),
                        iters=3, warmup=1)
-    # bound: positions read and features written once, each live table row
-    # read once; operations: 3D for p, 2^D·(D-1) weight products and
-    # 2·2^D·F multiply-adds per (sample, level), float32 rate
+    # bound: positions read and features written once, each table row read
+    # once (every live row unless rows_read says); operations: 3D for p,
+    # 2^D·(D-1) weight products and 2·2^D·F multiply-adds per (sample,
+    # level), float32 rate
     sizes = geo[2].tolist()
+    rows_read = sum(sizes) if rows_read is None else rows_read
     row = {
         "tier": tier, "table": str(table_dtype).replace("torch.", ""),
         "N": n, "L": L, "T": T, "F": F, "hash": enc.hash_variant,
         "max_abs_err": err, "max_abs_ref": scale, "call_ms": call_ms, "plain_ms": plain_ms,
-        **_bound(n * D * 4 + n * L * F * 4 + sum(sizes) * F * table.element_size(),
+        "rows_read": rows_read,
+        **_bound(n * D * 4 + n * L * F * 4 + rows_read * F * table.element_size(),
                  n * L * (3 * D + C * (D - 1) + 2 * C * F)),
         "table_bf16_reads_on_main_path": enc.bf16_reads,
     }
@@ -749,7 +792,8 @@ def _backward_row(x, g, geo, T: int, keys, vals) -> dict:
     from ngp_tpu_torch.ops import segsum
     from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_cuda, hashgrid_backward_reference
 
-    n_samples, L, F = x.shape[0], vals.shape[0], vals.shape[2]
+    (n_samples, D), L, F = x.shape, vals.shape[0], vals.shape[2]
+    C = 1 << D
     bwd = lambda: hashgrid_backward_cuda(x, g, *geo, None, T)  # noqa: E731
     got = bwd()
     torch.cuda.synchronize()
@@ -762,10 +806,10 @@ def _backward_row(x, g, geo, T: int, keys, vals) -> dict:
                             iters=3, warmup=1),
         "library_ms": None,
         # positions and cotangents read once, d(table) written once;
-        # 3D + 8·(D−1) weight products and 8·F products and sums per
+        # 3D + 2^D·(D−1) weight products and 2^D·F products and sums per
         # (sample, level)
-        **_bound(n_samples * (12 + 4 * L * F) + L * T * F * 4,
-                 n_samples * L * (9 + 16 + 16 * F)),
+        **_bound(n_samples * (4 * D + 4 * L * F) + L * T * F * 4,
+                 n_samples * L * (3 * D + C * (D - 1) + 2 * C * F)),
     }
 
 
@@ -1319,13 +1363,7 @@ def phase_cli():
         if result["launches"][name] == 0:
             raise AssertionError(f"the CLI launched {name} no time")
 
-    # the in-process checks, in a process of their own
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "cli_checks"],
-                          cwd=ROOT, stdout=subprocess.PIPE, text=True)
-    for line in proc.stdout.splitlines():
-        print(line, flush=True)
-    if proc.returncode != 0:
-        raise AssertionError(f"chip_smoke.py cli_checks exited {proc.returncode}")
+    _child("cli_checks")  # the in-process checks, in a process of their own
     return result["launches"]
 
 
@@ -1468,6 +1506,285 @@ def phase_cli_checks():
         del keys, vals
 
 
+def _image_psnr(eng, state, stride: int) -> float:
+    """PSNR over the texels (stride·i, stride·j), snapped targets in sRGB,
+    as ``scripts/bench_gigapixel.py`` scores its fit."""
+    import torch
+
+    from ngp_tpu_torch.engines.image import CHUNK, eval_image_and_snap
+
+    H, W = eng.image.shape[:2]
+    xs = (torch.arange(0, W, stride, dtype=torch.float32, device="cuda") + 0.5) / W
+    ys = (torch.arange(0, H, stride, dtype=torch.float32, device="cuda") + 0.5) / H
+    Y, X = torch.meshgrid(ys, xs, indexing="ij")
+    pos = torch.stack([X, Y], dim=-1).reshape(-1, 2)
+    model = state.inference_model()
+    total = torch.zeros((), dtype=torch.float64, device="cuda")
+    with torch.no_grad():
+        for i in range(0, pos.shape[0], CHUNK):
+            p, targets = eval_image_and_snap(eng.image, pos[i:i + CHUNK])
+            d = targets - model(p)[:, :3]
+            total += torch.sum(d * d) / 3.0
+    return -10.0 * math.log10(max(float(total) / pos.shape[0], 1e-12))
+
+
+def phase_image():
+    """In a fresh process (``chip_smoke.py image``): the 104.9 MP gigapixel
+    image made on the card in float16, fitted by ``ImageEngine`` with
+    ``Testbed``'s default image config (instant-ngp's configs/image/base.json:
+    L=16, F=2, T=2^24, XOR hash, RelativeL2, Ema 0.99), Stratified
+    positions, 2^18 a step, ``IMAGE_STEPS`` steps in synchronized calls of
+    ``IMAGE_CALL_STEPS``; then the subsampled PSNR (gate
+    ``IMAGE_PSNR_MIN``), the full-image MSE and a 1920×1080 render. Then
+    one more step keeps its grid backward's (x, g): B1 bit for bit and the
+    fused backward within the float32 order bound on them (phase
+    ``image_kernels``), and last ``IMAGE_PROFILE_STEPS`` steps under
+    ``torch.profiler`` for the device time per stage (phase
+    ``image_profile``; the profiler windows of the kernels come first, as
+    later windows in a process that profiled training lack records)."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.data.synthetic import gigapixel_image
+    from ngp_tpu_torch.engines.image import ImageEngine
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
+    from ngp_tpu_torch.testbed import default_config
+
+    t0 = time.perf_counter()
+    img = gigapixel_image(IMAGE_SIDE, "cuda", torch.float16)
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    cfg = default_config("image")
+    eng = ImageEngine(cfg, img, batch_size=1 << 18)
+    t0 = time.perf_counter()
+    state = eng.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    enc = state.model.encoding
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    step_ms, losses = [], []
+    t_start = time.perf_counter()
+    for _ in range(IMAGE_STEPS // IMAGE_CALL_STEPS):
+        t0 = time.perf_counter()
+        state, loss = eng.train(state, IMAGE_CALL_STEPS)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / IMAGE_CALL_STEPS)
+        losses.append(loss)
+    wall_s = time.perf_counter() - t_start
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.cat(losses).cpu().numpy()
+    median_ms = float(np.median(step_ms[IMAGE_TIMED_FROM // IMAGE_CALL_STEPS:]))
+
+    t0 = time.perf_counter()
+    psnr = _image_psnr(eng, state, IMAGE_PSNR_STRIDE)
+    psnr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mse = eng.compute_mse(state)
+    mse_s = time.perf_counter() - t0
+    render_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        frame = eng.render(state, 1920, 1080)
+        torch.cuda.synchronize()
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+    sizes = enc.level_size.tolist()
+    result = {
+        "phase": "image", "side": IMAGE_SIDE, "megapixels": IMAGE_SIDE ** 2 / 1e6,
+        "image_dtype": str(img.dtype).replace("torch.", ""),
+        "config": "Testbed default (configs/image/base.json)",
+        "table": list(enc.table.shape),
+        "dense_levels": sum(1 for h in enc.level_hashed.tolist() if not h),
+        "live_rows": sum(sizes), "n_params": state.model.n_params,
+        "batch": eng.batch_size, "random_mode": eng.random_mode,
+        "synth_s": synth_s, "init_s": init_s, "steps": IMAGE_STEPS, "wall_s": wall_s,
+        "ms_per_step_by_call": step_ms,
+        f"median_ms_per_step_{IMAGE_TIMED_FROM}_{IMAGE_STEPS - 1}": median_ms,
+        "samples_per_s": eng.batch_size / (median_ms / 1e3),
+        "loss_first_last": [float(losses[0]), float(losses[-1])],
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "peak_mem_gb": peak_gb,
+        "launches": launches,
+        "psnr_subsampled": psnr, "psnr_stride": IMAGE_PSNR_STRIDE,
+        "psnr_gate": IMAGE_PSNR_MIN, "psnr_s": psnr_s,
+        "mse_full": mse, "psnr_full": -10.0 * math.log10(max(mse, 1e-12)), "mse_full_s": mse_s,
+        "render_1920x1080_ms": render_ms,
+        "render_finite": bool(torch.isfinite(frame).all()),
+    }
+    emit(result)
+    if not result["losses_finite"]:
+        raise AssertionError("image training loss is not finite")
+    if tuple(frame.shape) != (1080, 1920, 3) or not result["render_finite"]:
+        raise AssertionError(f"render: shape {tuple(frame.shape)} or non-finite")
+    if not psnr >= IMAGE_PSNR_MIN:
+        raise AssertionError(f"image PSNR {psnr} dB after {IMAGE_STEPS} steps "
+                             f"< {IMAGE_PSNR_MIN}")
+    for name in ("hashgrid_encode", "hashgrid_backward"):
+        if launches[name] != IMAGE_STEPS:
+            raise AssertionError(f"the image path launched {name} {launches[name]} "
+                                 f"times in {IMAGE_STEPS} steps")
+    del frame
+
+    # one more step keeps its grid backward's arguments (by reference)
+    backward = hashgrid_ops.hashgrid_backward_cuda
+    kept = []
+
+    def keep(x, g, *geo_and_rows):
+        kept[:] = [(x, g, *geo_and_rows)]
+        return backward(x, g, *geo_and_rows)
+
+    hashgrid_ops.hashgrid_backward_cuda = keep
+    try:
+        state, _ = eng.train(state, 1)
+        torch.cuda.synchronize()
+    finally:
+        hashgrid_ops.hashgrid_backward_cuda = backward
+    x, g, scale, res, size, hashed, variant, _, n_rows = kept[0]
+    geo = (scale, res, size, hashed, variant)
+    keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
+    L, T = scale.shape[0], n_rows
+    # the table rows the step's corners read, level by level
+    rows_read = int(torch.unique(keys.long() + torch.arange(L, device="cuda")[:, None] * T
+                                 ).numel())
+    b1 = _kernel_case("image", torch.float32, torch.Generator().manual_seed(10), x=x,
+                      enc=enc, rows_read=rows_read)
+    emit({"phase": "image_kernels", "kernel": "hashgrid_encode", "shape": "step_positions",
+          **b1})
+    bwd = _backward_row(x, g, geo, T, keys, vals)
+    emit({"phase": "image_kernels", "kernel": "hashgrid_backward",
+          "shape": "step_positions", "N": x.shape[0], "L": L, "T": T,
+          "F": vals.shape[2], "hash": variant, **bwd})
+    del keys, vals, kept, x, g
+
+    # device time per stage over IMAGE_PROFILE_STEPS more steps, the
+    # backward on the calling thread so that its kernels fall in its range
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ngp_tpu_torch.models import encodings
+
+    trainer = eng.trainer
+    eng.make_batch = _ranged("batch", eng.make_batch)
+    trainer.loss = _ranged("forward", trainer.loss)
+    trainer.apply_grads = _ranged("optimizer", trainer.apply_grads)
+    grid_bwd = encodings._GridEncode.backward
+    encodings._GridEncode.backward = staticmethod(_ranged("grid_backward", grid_bwd))
+    tensor_backward = torch.Tensor.backward
+    torch.Tensor.backward = _ranged("backward", tensor_backward)
+    n = IMAGE_PROFILE_STEPS
+    try:
+        first = state.step
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                torch.autograd.set_multithreading_enabled(False):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                with record_function("step"):
+                    state, _ = eng.train(state, 1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.Tensor.backward = tensor_backward
+        encodings._GridEncode.backward = staticmethod(grid_bwd)
+    summary = _profile_summary(prof, ("batch", "forward", "backward", "grid_backward",
+                                      "optimizer"), "step", "step_other")
+    busy_ms = summary["device_busy_ms"] / n
+    emit({"phase": "image_profile", "steps": [first, state.step - 1],
+          "wall_ms_per_step": wall_ms / n, "device_busy_ms_per_step": busy_ms,
+          "busy_share_of_profiled_wall": busy_ms / (wall_ms / n),
+          "busy_share_of_unprofiled_median": busy_ms / median_ms,
+          "device_ops_per_step": summary["device_ops"] / n,
+          "stage_device_ms_per_step": {k: v / n for k, v in summary["stage_device_ms"].items()},
+          "top_device_ms": summary["top_device_ms"]})
+    return result, b1, bwd
+
+
+def _child(phase: str) -> list:
+    """Run ``chip_smoke.py phase`` in a fresh process, echo its lines and
+    return them parsed; a non-zero exit fails the run."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), phase], cwd=ROOT,
+                          stdout=subprocess.PIPE, text=True)
+    for line in proc.stdout.splitlines():
+        print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"chip_smoke.py {phase} exited {proc.returncode}")
+    return [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+
+
+def phase_image_cli():
+    """``python -m ngp_tpu_torch.run`` on a written 2048² ``.bin`` image in
+    fresh processes: the default config (T=2^24) ``IMAGE_CLI_STEPS`` steps
+    with a screenshot, gated at ``IMAGE_CLI_PSNR_MIN`` on the printed PSNR;
+    then a ``--network`` file with T=2^``IMAGE_SNAPSHOT_LOG2`` trained and
+    saved, and loaded in another process, whose printed MSE line must equal
+    the saved run's. Returns the three runs' kernel launches, summed."""
+    import shutil
+
+    import torch
+
+    from ngp_tpu_torch.data.png import read_png
+    from ngp_tpu_torch.data.synthetic import write_gigapixel_bin
+    from ngp_tpu_torch.testbed import default_config
+
+    out = os.path.join(ROOT, "build", "image_cli_smoke")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    image = write_gigapixel_bin(os.path.join(out, "gigapixel.bin"), IMAGE_CLI_SIDE, "cuda")
+    write_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    def mse_line(lines):
+        text = _cli_line(lines, "MSE:")[1]
+        return text, float(re.search(r"PSNR: (\S+) dB", text).group(1))
+
+    shot = os.path.join(out, "fit.png")
+    run1 = _cli([image, "--n_steps", str(IMAGE_CLI_STEPS), "--screenshot", shot,
+                 "--screenshot_w", "512", "--screenshot_h", "512"])
+    train_s = float(re.search(r"in (\S+)s", _cli_line(run1, "trained ")[1]).group(1))
+    line1, psnr1 = mse_line(run1)
+
+    net = os.path.join(out, "net.json")
+    cfg = default_config("image")
+    cfg["encoding"]["log2_hashmap_size"] = IMAGE_SNAPSHOT_LOG2
+    with open(net, "w") as f:
+        json.dump(cfg, f)
+    snapshot = os.path.join(out, "fit.ingp")
+    run2 = _cli([image, "--network", net, "--n_steps", str(IMAGE_SNAPSHOT_STEPS),
+                 "--save_snapshot", snapshot])
+    run3 = _cli([image, "--network", net, "--n_steps", "0", "--load_snapshot", snapshot])
+    line2, psnr2 = mse_line(run2)
+    line3, _ = mse_line(run3)
+    runs = (run1, run2, run3)
+    result = {
+        "phase": "image_cli", "side": IMAGE_CLI_SIDE, "write_s": write_s,
+        "steps": IMAGE_CLI_STEPS, "config": "Testbed default (configs/image/base.json)",
+        "train_s": train_s, "wall_ms_per_step": train_s / IMAGE_CLI_STEPS * 1e3,
+        "mse_line": line1, "psnr": psnr1, "psnr_gate": IMAGE_CLI_PSNR_MIN,
+        "screenshot": list(read_png(shot).shape),
+        "snapshot_log2_hashmap_size": IMAGE_SNAPSHOT_LOG2,
+        "snapshot_steps": IMAGE_SNAPSHOT_STEPS, "snapshot_psnr": psnr2,
+        "saved_mse_line": line2, "reloaded_mse_line": line3,
+        "snapshot_bytes": os.path.getsize(snapshot),
+        "snapshot_write_s": _cli_line(run2, "saved snapshot")[2],
+        "run_s": [r[-1][0] for r in runs],
+        "launches": {k: sum(_cli_launches(r)[k] for r in runs) for k in _cli_launches(run1)},
+    }
+    emit(result)
+    if not psnr1 >= IMAGE_CLI_PSNR_MIN:
+        raise AssertionError(f"image CLI PSNR {psnr1} dB < {IMAGE_CLI_PSNR_MIN}")
+    if line3 != line2:
+        raise AssertionError(f"reloaded {line3!r}, saved {line2!r}")
+    if result["screenshot"] != [512, 512, 3]:
+        raise AssertionError(f"screenshot {result['screenshot']}")
+    for name in ("hashgrid_encode", "hashgrid_backward"):
+        if _cli_launches(run1)[name] == 0:
+            raise AssertionError(f"the image CLI launched {name} no time")
+    return result["launches"]
+
+
 def main():
     phase_env()
     import torch
@@ -1503,6 +1820,11 @@ def main():
     del eng, state, grid
     capture_launches = phase_capture()
     cli_launches = phase_cli()
+    image_launches = next(line for line in _child("image")
+                          if line.get("phase") == "image")["launches"]
+    image_cli_launches = phase_image_cli()
+    later = {k: cli_launches[k] + image_launches[k] + image_cli_launches[k]
+             for k in cli_launches}
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1511,7 +1833,7 @@ def main():
         "source": "ngp_tpu_torch/csrc/hashgrid_encode.cu",
         "replaces": "ngp_tpu/ops/pallas/hashgrid.py:66",
         "launches": (launches["hashgrid_encode"] + train_launches["hashgrid_encode"]
-                     + capture_launches["hashgrid_encode"] + cli_launches["hashgrid_encode"]),
+                     + capture_launches["hashgrid_encode"] + later["hashgrid_encode"]),
         **{k: main_case[k] for k in keys},
     }]
     for name, source, replaces, launched in (
@@ -1534,7 +1856,7 @@ def main():
         kernels.append({"name": name, "route": "cuda",
                         "source": f"ngp_tpu_torch/csrc/{source}",
                         "replaces": replaces,
-                        "launches": launched + capture_launches[name] + cli_launches[name],
+                        "launches": launched + capture_launches[name] + later[name],
                         **{k: train_rows[name][k] for k in keys}})
     # B5 is on no path of either package (ngp_tpu/ops/pallas/sort.py:24-31):
     # its launches on the serve, train and capture paths are counted all the same
@@ -1544,7 +1866,7 @@ def main():
                     "launches": launches["bitonic_sort_pos"]
                     + train_launches["bitonic_sort_pos"]
                     + capture_launches["bitonic_sort_pos"]
-                    + cli_launches["bitonic_sort_pos"],
+                    + later["bitonic_sort_pos"],
                     **{k: sort_row[k] for k in keys}})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
@@ -1556,5 +1878,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["cli_checks"]:
         phase_cli_checks()
+    elif sys.argv[1:] == ["image"]:
+        phase_image()
     else:
         main()

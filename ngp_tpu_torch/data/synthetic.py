@@ -1,13 +1,16 @@
-"""A synthetic scene that needs no file: an opaque sphere of radius 0.2 at
-the scene center, color (0.9, 0.3, 0.2), seen by a ring of pinhole cameras.
-The port's copy of the JAX package's ``__graft_entry__._tiny_sphere_dataset``
-(the bench's fallback scene when no capture is present)."""
+"""Synthetic data that needs no file: an opaque sphere of radius 0.2 at
+the scene center, color (0.9, 0.3, 0.2), seen by a ring of pinhole cameras
+(the port's copy of the JAX package's ``__graft_entry__._tiny_sphere_dataset``,
+the bench's fallback scene when no capture is present), a written sphere
+capture, and a procedural gigapixel image (the formula of
+``scripts/bench_gigapixel.py``)."""
 
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
 
 from ngp_tpu_torch.data.nerf_loader import NerfDataset
 from ngp_tpu_torch.geometry.camera import Lens
@@ -173,3 +176,33 @@ def write_sphere_capture(out_dir: str, res: int = 800, device="cpu") -> tuple[st
             json.dump({**meta, "frames": frames}, f, indent=1)
         paths.append(path)
     return tuple(paths)
+
+
+def gigapixel_image(side: int, device="cpu", dtype=torch.float16) -> torch.Tensor:
+    """(side, side, 4) linear RGBA with structure at many scales (radial
+    waves, anisotropic stripes, a smooth colour field), computed in
+    float32 on ``device`` in blocks of 1024 rows and stored as ``dtype``:
+    the formula of ``scripts/bench_gigapixel.py:synth_image``, whose
+    10240² image is 104.9 MP."""
+    img = torch.empty((side, side, 4), dtype=dtype, device=device)
+    xs = (torch.arange(side, dtype=torch.float32, device=device) + 0.5) / side
+    for y0 in range(0, side, 1024):
+        y1 = min(y0 + 1024, side)
+        ys = (torch.arange(y0, y1, dtype=torch.float32, device=device) + 0.5) / side
+        Y, X = torch.meshgrid(ys, xs, indexing="ij")
+        r = torch.hypot(X - 0.5, Y - 0.5)
+        v1 = 0.5 + 0.5 * torch.sin(640.0 * math.pi * r) * torch.exp(-3.0 * r)
+        v2 = 0.5 + 0.5 * torch.sin(220.0 * math.pi * (X + 0.35 * torch.sin(6 * math.pi * Y)))
+        v3 = 0.5 + 0.5 * torch.cos(14.0 * math.pi * X) * torch.sin(10.0 * math.pi * Y)
+        img[y0:y1] = torch.stack([v1, 0.6 * v2 + 0.4 * v3, 0.5 * v1 + 0.5 * v3,
+                                  torch.ones_like(v1)], dim=-1).to(dtype)
+    return img
+
+
+def write_gigapixel_bin(path: str, side: int, device="cpu") -> str:
+    """Write :func:`gigapixel_image` of ``side`` as a ``.bin`` image (int32
+    height and width, then float16 RGBA; ``data/image_loader.py``)."""
+    from ngp_tpu_torch.data.image_loader import save_binary_image
+
+    save_binary_image(path, gigapixel_image(side, device, torch.float16).cpu().numpy())
+    return path

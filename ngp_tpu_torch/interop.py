@@ -1,13 +1,16 @@
 """Weights and training state across packages: the JAX package's
-``NerfNetwork`` parameter pytree and ``TrainState``, as numpy arrays, to
-and from the port's modules.
+``NerfNetwork`` and ``NetworkWithInputEncoding`` parameter pytrees and
+``TrainState``, as numpy arrays, to and from the port's modules.
 
-The tree layout is the JAX package's::
+The tree layouts are the JAX package's::
 
-    {"pos_encoding": {"table": (L, T, F)},
+    {"pos_encoding": {"table": (L, T, F)},   # NerfNetwork
      "dir_encoding": {...},                  # {} or {"nested_i": {...}}
      "density_mlp": {"weights": [(in, out), ...]},
      "rgb_mlp": {"weights": [(in, out), ...]}}
+
+    {"encoding": {"table": (L, T, F)},       # NetworkWithInputEncoding
+     "network": {"weights": [(in, out), ...]}}
 
 ``data/ingp_snapshot.params_from_reference`` produces the same layout from
 a reference ``.ingp`` snapshot.
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ngp_tpu_torch.models.encodings import CompositeEncoding, GridEncoding
+from ngp_tpu_torch.models.factory import NetworkWithInputEncoding
 from ngp_tpu_torch.models.mlp import MLP
 from ngp_tpu_torch.optim import GROUPS, AdamState, param_groups
 from ngp_tpu_torch.train import TrainState
@@ -74,9 +78,14 @@ def _load_mlp(mlp: MLP, tree: dict, name: str):
 
 
 def load_jax_params(network, tree: dict):
-    """Fill ``network`` (the port's ``NerfNetwork``) from a JAX-layout
-    parameter tree of numpy (or array-like) leaves. Raises on any shape
-    mismatch. Returns ``network``."""
+    """Fill ``network`` (the port's ``NerfNetwork`` or
+    ``NetworkWithInputEncoding``) from a JAX-layout parameter tree of
+    numpy (or array-like) leaves. Raises on any shape mismatch. Returns
+    ``network``."""
+    if isinstance(network, NetworkWithInputEncoding):
+        _load_encoding(network.encoding, tree.get("encoding", {}), "encoding")
+        _load_mlp(network.network, tree["network"], "network")
+        return network
     _load_encoding(network.pos_encoding, tree["pos_encoding"], "pos_encoding")
     _load_encoding(network.dir_encoding, tree.get("dir_encoding", {}),
                    "dir_encoding")
@@ -85,18 +94,22 @@ def load_jax_params(network, tree: dict):
     return network
 
 
+def _export_mlp(mlp: MLP) -> dict:
+    return {"weights": [w.detach().cpu().numpy().copy() for w in mlp.weights]}
+
+
 def export_jax_params(network) -> dict:
-    """The port's ``NerfNetwork`` parameters as a JAX-layout tree of numpy
-    float32 arrays (the inverse of :func:`load_jax_params`)."""
+    """The port's ``NerfNetwork`` or ``NetworkWithInputEncoding``
+    parameters as a JAX-layout tree of numpy float32 arrays (the inverse of
+    :func:`load_jax_params`)."""
+    if isinstance(network, NetworkWithInputEncoding):
+        return {"encoding": _export_encoding(network.encoding),
+                "network": _export_mlp(network.network)}
     return {
         "pos_encoding": _export_encoding(network.pos_encoding),
         "dir_encoding": _export_encoding(network.dir_encoding),
-        "density_mlp": {"weights": [
-            w.detach().cpu().numpy().copy() for w in network.density_mlp.weights
-        ]},
-        "rgb_mlp": {"weights": [
-            w.detach().cpu().numpy().copy() for w in network.rgb_mlp.weights
-        ]},
+        "density_mlp": _export_mlp(network.density_mlp),
+        "rgb_mlp": _export_mlp(network.rgb_mlp),
     }
 
 
@@ -133,7 +146,7 @@ def _tensor_like(param: torch.Tensor, value, name: str) -> torch.Tensor:
 
 
 def load_jax_train_state(network, tree: dict) -> TrainState:
-    """A ``TrainState`` of ``network`` (the port's ``NerfNetwork``, filled
+    """A ``TrainState`` of ``network`` (a port network, filled
     in place) from a training-state tree (module docstring)."""
     load_jax_params(network, tree["params"])
     groups = param_groups(network)

@@ -4,6 +4,9 @@ configs build the port's modules unchanged."""
 
 from __future__ import annotations
 
+import torch
+from torch import nn
+
 from ngp_tpu_torch.models.encodings import (
     CompositeEncoding,
     GridEncoding,
@@ -12,6 +15,7 @@ from ngp_tpu_torch.models.encodings import (
 )
 from ngp_tpu_torch.models.mlp import MLP
 from ngp_tpu_torch.models.nerf_network import NerfNetwork
+from ngp_tpu_torch.ops.losses import get_loss
 
 _NOT_YET_PORTED = ("tiledgrid", "frequency", "trianglewave", "oneblob", "takikawa")
 
@@ -73,6 +77,53 @@ def create_network(n_input_dims: int, n_output_dims: int, cfg: dict,
         output_activation=cfg.get("output_activation", "None"),
         device=device,
     )
+
+
+def create_loss(cfg: dict):
+    """The elementwise loss ``loss(target, prediction)`` of a config's
+    ``loss`` block (L2 when it names none)."""
+    return get_loss(cfg.get("otype", "L2"))
+
+
+class NetworkWithInputEncoding(nn.Module):
+    """Encoding → MLP composition, tcnn's ``NetworkWithInputEncoding`` that
+    the image, SDF and volume modes train (reference
+    ``src/testbed.cu:4101-4110``). A grid encoding runs B1 forward and the
+    fused grid backward (``GridEncoding``)."""
+
+    def __init__(self, encoding: nn.Module, network: MLP):
+        super().__init__()
+        self.encoding = encoding
+        self.network = network
+
+    @classmethod
+    def from_config(cls, n_input_dims: int, n_output_dims: int, cfg: dict,
+                    device="cuda") -> "NetworkWithInputEncoding":
+        enc = create_encoding(n_input_dims, cfg["encoding"], device)
+        net = create_network(enc.n_output_dims, n_output_dims, cfg["network"], device)
+        return cls(enc, net)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """The encoding's init, then the MLP's, drawn on the CPU from
+        ``generator``."""
+        if hasattr(self.encoding, "reset_parameters"):
+            self.encoding.reset_parameters(generator)
+        self.network.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.network(self.encoding(x))
+
+    @property
+    def n_params(self) -> int:
+        return getattr(self.encoding, "n_params", 0) + self.network.n_params
+
+
+def create_network_with_input_encoding(n_input_dims: int, n_output_dims: int,
+                                       cfg: dict, device="cuda") -> NetworkWithInputEncoding:
+    """Parameters start at zero; fill them with ``reset_parameters`` or
+    ``interop.load_jax_params``."""
+    return NetworkWithInputEncoding.from_config(n_input_dims, n_output_dims, cfg, device)
 
 
 def create_nerf_network(cfg: dict, n_extra_dims: int = 0,

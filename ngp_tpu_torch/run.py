@@ -1,8 +1,12 @@
-"""Train, evaluate and export a NeRF scene from the command line, the port of
-``scripts/run.py`` in nerf mode (the reference's ``scripts/run.py``): train
-on a capture, score a training view and held-out views, take a
-screenshot, export a marching-cubes mesh, render a camera path as video
-frames, and save and load snapshots.
+"""Train, evaluate and export a NeRF scene or fit an image from the command
+line, the port of ``scripts/run.py`` in nerf and image modes (the
+reference's ``scripts/run.py``). NeRF: train on a capture, score a
+training view and held-out views, take a screenshot, export a
+marching-cubes mesh, render a camera path as video frames, and save and
+load snapshots. Image (a ``.png``, ``.exr`` or ``.bin`` scene): fit it,
+print its MSE and PSNR over every texel, take a screenshot at
+``--screenshot_w`` × ``--screenshot_h``, and save and load snapshots; the
+NeRF-only flags raise or are ignored as the JAX package's CLI treats them.
 
 Examples:
 
@@ -12,14 +16,15 @@ Examples:
     python -m ngp_tpu_torch.run capture/transforms_train.json \\
         --load_snapshot out/scene.ingp --n_steps 0 --save_mesh out/mesh.obj \\
         --video_camera_path path.json --video_output out/frames
+    python -m ngp_tpu_torch.run image.bin --n_steps 1000 --screenshot out/fit.png
 
 It runs on the card unless ``--device cpu`` is given. It differs from the
 JAX package's CLI in these: ``--device`` takes the place of the JAX
 platform's environment; ``--profile`` writes a ``torch.profiler`` Chrome
 trace; ``--metrics_file`` appends the training meters as JSONL (one line a
-16-step window); images are written by the port's own PNG and EXR writers
-(other extensions raise); there is no compile cache and no multi-host
-rendezvous. The last line printed counts the launches of each CUDA kernel
+16-step window, NeRF only); images are written by the port's own PNG and
+EXR writers (other extensions raise); there is no compile cache and no
+multi-host rendezvous. The last line printed counts the launches of each CUDA kernel
 (zero on the CPU, where the kernels' plain versions run).
 """
 
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -70,7 +76,8 @@ def write_image(path: str, img) -> None:
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("scene", nargs="?", default="",
-                   help="scene path: a transforms.json or a directory of them")
+                   help="scene path: a transforms.json or a directory of them "
+                        "(NeRF), or an image file (image)")
     p.add_argument("--mode", default=None, choices=["nerf", "sdf", "image", "volume"])
     p.add_argument("--network", default=None, help="network config json")
     p.add_argument("--n_steps", type=int, default=2000)
@@ -133,29 +140,34 @@ def _train(tb, args) -> None:
     """``n_steps`` steps; under ``--profile`` the first 16 outside the trace
     (warm-up), the next 8 traced, the rest after."""
     eng = tb.engine
-    kw = {"metrics_file": args.metrics_file}
-    if not args.profile:
-        tb.state, tb.grid, metrics = eng.train(tb.state, tb.grid, args.n_steps, **kw)
+    if tb.mode == "image":
+        train = tb.train
     else:
-        from torch.profiler import ProfilerActivity, profile
+        def train(n):
+            tb.state, tb.grid, metrics = eng.train(tb.state, tb.grid, n,
+                                                   metrics_file=args.metrics_file)
+            tb.loss = float(metrics["loss"])
+    if not args.profile:
+        train(args.n_steps)
+        return
+    from torch.profiler import ProfilerActivity, profile
 
-        warm = min(args.n_steps, 16)
-        traced = min(max(args.n_steps - warm, 0), 8)
-        tb.state, tb.grid, metrics = eng.train(tb.state, tb.grid, warm, **kw)
-        if traced:
-            activities = [ProfilerActivity.CPU]
-            if eng.device.type == "cuda":
-                activities.append(ProfilerActivity.CUDA)
-            with profile(activities=activities) as prof:
-                tb.state, tb.grid, metrics = eng.train(tb.state, tb.grid, traced, **kw)
-                _sync(eng.device)
-            os.makedirs(os.path.dirname(args.profile) or ".", exist_ok=True)
-            prof.export_chrome_trace(args.profile)
-            print(f"profiler trace written to {args.profile}", flush=True)
-        rest = args.n_steps - warm - traced
-        if rest > 0:
-            tb.state, tb.grid, metrics = eng.train(tb.state, tb.grid, rest, **kw)
-    tb.loss = float(metrics["loss"])
+    warm = min(args.n_steps, 16)
+    traced = min(max(args.n_steps - warm, 0), 8)
+    train(warm)
+    if traced:
+        activities = [ProfilerActivity.CPU]
+        if eng.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            train(traced)
+            _sync(eng.device)
+        os.makedirs(os.path.dirname(args.profile) or ".", exist_ok=True)
+        prof.export_chrome_trace(args.profile)
+        print(f"profiler trace written to {args.profile}", flush=True)
+    rest = args.n_steps - warm - traced
+    if rest > 0:
+        train(rest)
 
 
 def _render_video(tb, args) -> None:
@@ -214,6 +226,9 @@ def main(argv=None) -> None:
               f"evaluating on {len(test_idx)}", flush=True)
     tb = Testbed(mode=args.mode, scene=args.scene or None, config=args.network, **kw)
 
+    if args.metrics_file and tb.mode == "image":
+        raise ValueError("--metrics_file records NeRF training meters; image mode has none")
+
     if args.load_snapshot:
         tb.load_snapshot(args.load_snapshot)
         print(f"loaded snapshot at step {tb.training_step}", flush=True)
@@ -228,7 +243,10 @@ def main(argv=None) -> None:
         print(f"trained {args.n_steps} steps in {dt:.1f}s "
               f"({args.n_steps / dt:.2f} steps/s), loss={tb.loss:.6f}", flush=True)
 
-    if tb.engine is not None:
+    if tb.mode == "image":
+        mse = tb.compute_image_mse()
+        print(f"MSE: {mse:.6f}  PSNR: {-10 * math.log10(max(mse, 1e-12)):.2f} dB", flush=True)
+    elif tb.engine is not None:
         psnr = tb.psnr(args.test_view, stride=args.eval_stride)
         print(f"PSNR (train view {args.test_view}): {psnr:.2f} dB", flush=True)
 
@@ -255,7 +273,9 @@ def main(argv=None) -> None:
 
     if args.screenshot:
         os.makedirs(os.path.dirname(args.screenshot) or ".", exist_ok=True)
-        if args.render_mode != "shade":
+        if tb.mode == "image":
+            img = tb.render(args.screenshot_w, args.screenshot_h)
+        elif args.render_mode != "shade":
             img = tb.engine.render_image(tb.state, tb.grid, args.test_view,
                                          mode=args.render_mode).cpu().numpy()
         else:

@@ -1,13 +1,27 @@
-"""Training state, the port of ``ngp_tpu/train.py:TrainState``."""
+"""Training state and the generic supervised trainer, the port of
+``ngp_tpu/train.py`` (tcnn's ``Trainer``: the reference's image, SDF and
+volume modes call ``m_trainer->training_step(input, target)``, e.g.
+``testbed_image.cu:214-285``)."""
 
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
+from typing import Callable
 
+import torch
 from torch import nn
 
-from ngp_tpu_torch.optim import GROUPS, AdamState, adam_init, param_groups
+from ngp_tpu_torch.optim import (
+    GROUPS,
+    AdamState,
+    OptimizerConfig,
+    adam_init,
+    adam_skip_zero_step,
+    adam_step,
+    ema_update,
+    param_groups,
+)
 
 
 @dataclass
@@ -41,3 +55,56 @@ class TrainState:
     def inference_model(self) -> nn.Module:
         """The EMA-averaged model where there is one, else the model."""
         return self.ema if self.ema is not None else self.model
+
+
+class Trainer:
+    """A model's supervised step: forward, an elementwise loss averaged
+    over all its elements (tcnn normalises by the number of loss
+    elements), backward, then the ``Ema{ExponentialDecay{Adam}}`` stack of
+    ``optimizer_cfg``: sparse Adam on encoding tables, Adam + L2 on the
+    rest, then the EMA. ``loss_fn(target, prediction)`` is elementwise;
+    the model's outputs beyond the targets' width are not trained.
+    ``TrainState.create(model)`` starts a state, and
+    ``TrainState.inference_model()`` serves the EMA."""
+
+    def __init__(self, loss_fn: Callable, optimizer_cfg: dict):
+        self.loss_fn = loss_fn
+        self.opt_cfg = OptimizerConfig.from_json(optimizer_cfg)
+
+    def loss(self, model: nn.Module, inputs: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+        pred = model(inputs)
+        return torch.mean(self.loss_fn(targets, pred[..., : targets.shape[-1]]))
+
+    def training_step(self, state: TrainState, inputs: torch.Tensor,
+                      targets: torch.Tensor) -> torch.Tensor:
+        """One update of ``state`` in place; returns the loss before it as
+        a tensor on the model's device (no host synchronisation)."""
+        state.model.zero_grad(set_to_none=True)
+        loss = self.loss(state.model, inputs, targets)
+        loss.backward()
+        self.apply_grads(state)
+        state.model.zero_grad(set_to_none=True)  # a table's d(table) is table-sized
+        return loss.detach()
+
+    def apply_grads(self, state: TrainState) -> None:
+        """One optimizer step from the ``.grad`` of ``state.model``, then
+        the EMA; in place."""
+        cfg = self.opt_cfg
+        if cfg.ema_decay is not None and state.ema is None:
+            state.start_ema()
+        groups = param_groups(state.model)
+        for name in GROUPS:
+            params = [p for _, p in groups[name]]
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params]
+            opt = state.opt_state[name]
+            lr = cfg.schedule(opt.count)
+            if name == "grid":
+                adam_skip_zero_step(params, grads, opt, lr, cfg.b1, cfg.b2, cfg.eps)
+            else:
+                adam_step(params, grads, opt, lr, cfg.b1, cfg.b2, cfg.eps, cfg.l2_reg)
+        if state.ema is not None:
+            ema_update(list(state.ema.parameters()), list(state.model.parameters()),
+                       cfg.ema_decay, state.step)
+        state.step += 1

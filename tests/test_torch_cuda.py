@@ -516,6 +516,72 @@ def test_upstream_tier_matches_twin(cuda):
 
 
 @pytest.mark.cuda
+def test_image_tier_matches_twin(cuda):
+    """The tier that ``Testbed`` fits images with by default (instant-ngp's
+    configs/image/base.json: D=2, L=16, F=2, T=2^24, XOR hash, float32
+    table reads, per_level_scale 2): levels 0-8 dense, level 8 exactly 2^24
+    rows (4096²), levels 9-15 hashed into 2^24 rows, a 2.15 GB table. The
+    forward bit for bit and the fused backward within the float32 order
+    bound, on uniform positions and on positions crowded into one small
+    square (many samples per row on every level)."""
+    enc = GridEncoding(n_input_dims=2, n_levels=16, n_features_per_level=2,
+                       log2_hashmap_size=24, base_resolution=16, per_level_scale=2.0,
+                       hash_variant="tcnn", device="cuda")
+    hashed = enc.level_hashed.tolist()
+    assert enc.level_size.tolist()[8] == 1 << 24 and hashed == [0] * 9 + [1] * 7
+    assert not enc.bf16_reads
+    L, T, F = enc.table.shape
+    assert T == 1 << 24
+    geo = (enc.level_scale, enc.level_res, enc.level_size, enc.level_hashed, "tcnn")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    table = torch.rand((L, T, F), generator=gen, device="cuda") * 2 - 1
+    del enc
+    n = 1 << 16
+    for x in (torch.rand((n, 2), generator=gen, device="cuda"),
+              0.3 + 0.001 * torch.rand((n, 2), generator=gen, device="cuda")):
+        got = hashgrid_encode(x, table, *geo)
+        want = hashgrid_encode_reference(x, table, *geo)
+        assert torch.equal(got, want), float((got - want).abs().max())
+        g = torch.randn((n, L * F), generator=gen, device="cuda") * 1e-3
+        before = HASHGRID_ENCODE.launches["hashgrid_backward"]
+        got = hashgrid_backward(x, g, *geo, None, T)
+        torch.cuda.synchronize()
+        assert HASHGRID_ENCODE.launches["hashgrid_backward"] == before + 1
+        keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
+        want = hashgrid_backward_reference(x, g, *geo, None, T)
+        _assert_within_order_bound(got, want, keys, vals, T)
+        del got, want, keys, vals
+
+
+@pytest.mark.cuda
+def test_image_fit_on_card(cuda, tmp_path):
+    """``ImageEngine`` on the card with a float16 image (a 256² crop of the
+    gigapixel formula, 8 levels of 2^16 rows, Stratified positions): each
+    step launches B1 and the fused backward once, 300 steps cut the MSE
+    below a quarter of the untrained one, and a native snapshot reloads
+    to the same MSE."""
+    from ngp_tpu_torch.data.synthetic import gigapixel_image
+    from ngp_tpu_torch.engines.image import ImageEngine
+    from ngp_tpu_torch.testbed import default_config
+
+    cfg = default_config("image")
+    cfg["encoding"].update(n_levels=8, log2_hashmap_size=16)
+    eng = ImageEngine(cfg, gigapixel_image(256, "cuda", torch.float16), batch_size=1 << 16)
+    state = eng.init_state()
+    untrained = eng.compute_mse(state)
+    before = launch_counts()
+    state, losses = eng.train(state, 300)
+    after = launch_counts()
+    assert losses.device.type == "cuda" and bool(torch.isfinite(losses).all())
+    for name in ("hashgrid_encode", "hashgrid_backward"):
+        assert after[name] - before[name] == 300, name
+    mse = eng.compute_mse(state)
+    assert mse < 0.25 * untrained, (mse, untrained)
+    eng.save_snapshot(str(tmp_path / "fit.ingp"), state)
+    assert eng.compute_mse(eng.load_snapshot(str(tmp_path / "fit.ingp"))) == mse
+
+
+@pytest.mark.cuda
 def test_cli_round_trip_on_card(cuda, tmp_path, capsys):
     """``python -m ngp_tpu_torch.run`` on the card with its defaults
     (``Testbed``'s base.json config, grid 128) on a 64² capture: 50 steps,

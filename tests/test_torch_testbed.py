@@ -400,7 +400,7 @@ def test_refusals(scene, testbeds, tmp_path, capsys, small_engines):
     from ngp_tpu_torch.testbed import Testbed, default_config
 
     ptb, _ = testbeds
-    for mode, item in (("image", "A8"), ("sdf", "A9"), ("volume", "A10")):
+    for mode, item in (("sdf", "A9"), ("volume", "A10")):
         with pytest.raises(NotImplementedError, match=f"not yet ported \\(ROADMAP {item}\\)"):
             Testbed(mode=mode)
         with pytest.raises(NotImplementedError, match=item):
