@@ -49,6 +49,19 @@ Phases, each printing one JSON line:
    (B3) and the one-level entry points (B4); error, times, a one-call
    PyTorch yardstick and the bound of each. The grid backward and B3 also
    level by level (phase ``backward_levels``).
+9b. normals, kernel_normals and debug_modes (before phase 10, whose
+   profiler windows leave later ones short of records): on phase train's sphere
+   ("tpu" tier), a 960×540 frame of the shade mode and one of the normals
+   mode through ``render_rays`` (launches, wall ms, device busy ms); the
+   normals frame launches ``hashgrid_input_grad`` and no table gradient,
+   and over its pixels of opacity above ``NORMALS_OPACITY`` the median
+   cosine between the rendered normal and the sphere's outward normal at
+   the hit point must reach ``NORMALS_COS_MIN``. Then the input gradient
+   against its twin within the float32 order bound on the frame's own
+   positions and cotangents and on a D = 2 case of the image geometry
+   (2^18 uniform positions, T = 2^18), and the grid backward with float32
+   addends on the frame's (x, g); then the positions, encoding and cost
+   modes once each (finite; cost exactly the march's count over 128).
 10. train_profile: two windows of 16 more steps (one occupancy-update
    cycle) under ``torch.profiler``: one run as phase train runs them, for
    the device's busy share of a step; one with the backward on the calling
@@ -70,7 +83,9 @@ Phases, each printing one JSON line:
    T=2^19, XOR hash, float32 table reads). Run 1 trains 1,000 steps, scores
    the held-out views (gate ``CLI_PSNR_MIN``), saves a snapshot and a
    screenshot; run 2 loads the snapshot, scores the held-out views again
-   (within ``CLI_RELOAD_DB`` of run 1), exports a 128³ marching-cubes mesh
+   (within ``CLI_RELOAD_DB`` of run 1), writes a normals-mode screenshot
+   (``--render_mode normals``; a view's size, finite, and the run launches
+   ``hashgrid_input_grad``), exports a 128³ marching-cubes mesh
    (non-empty, inside the scene's box) and renders a 3-keyframe camera path
    as 8 PNG frames (decoded by the port's reader). Then, in a fresh process
    of this script (``chip_smoke.py cli_checks``: its profiler windows are
@@ -84,7 +99,9 @@ Phases, each printing one JSON line:
    positions at those steps' mean launch and on the positions of a
    held-out render's largest launch; the fused grid backward within the
    float32 order bound at the steps' mean and on their last step's own
-   (x, g) (phase ``kernel_cli``).
+   (x, g), and the input gradient within its order bound on the largest
+   launch of a normals render of training view 0 at stride 2 (phase
+   ``kernel_cli``).
 13. image: in a fresh process (``chip_smoke.py image``), the image
    primitive at instant-ngp's configs/image/base.json width (``Testbed``'s
    default: D=2, L=16, F=2, T=2^24, XOR hash; levels 0-8 dense, level 8 of
@@ -145,6 +162,24 @@ PROFILER_PAD_S = 0.05
 # runs of this configuration read 51.4 and 53.0 dB, so the gate sits well
 # above 20 dB to catch a table gradient that is badly wrong.
 TRAIN_PSNR_MIN = 40.0
+# phase normals: the frame, and its gate (fixed before the first card run):
+# over the pixels whose opacity exceeds NORMALS_OPACITY, the median cosine
+# between the rendered normal 2·rgb − 1 and the sphere's outward normal at
+# the hit point o + d·depth/opacity. Noise reads 0 and a sign error the
+# negative of the true reading. A color-only fit of the one-colored sphere
+# learns a shell about 0.02 thick of noisy density (σ from 50 to 1400 a few
+# samples apart), so each sample's −∇σ/|∇σ| scatters: phase train's
+# configuration trained on the CPU (400 steps, 2^18 slots, 128² views)
+# reads a median of 0.26 (10%, 25%, 75%, 90% quantiles −0.62, −0.27, 0.68,
+# 0.87) on this frame at 96×54. The gate sits between that and noise.
+NORMALS_RES = (960, 540)
+NORMALS_OPACITY = 0.95
+NORMALS_COS_MIN = 0.1
+# the sphere of tiny_sphere_dataset (ngp_tpu_torch/data/synthetic.py)
+SPHERE_CENTER, SPHERE_RADIUS = (0.5, 0.5, 0.5), 0.2
+# the image config's geometry (D=2, L=16, F=2, base 16, scale 2) at a small
+# table for the input gradient's D = 2 case
+INPUT_GRAD_2D_LOG2 = 18
 # phase capture: nerf_synthetic's frame size, the steps, and the gate on the
 # held-out views' mean PSNR, fixed before the first card run
 CAPTURE_RES = 800
@@ -618,6 +653,20 @@ def _ranged(name, fn):
     return run
 
 
+def _keep_largest(module, name: str, kept: list):
+    """Wrap ``module.name`` so that the arguments of its call with the most
+    rows are kept (by reference) in ``kept``; returns the original."""
+    fn = getattr(module, name)
+
+    def keep(x, *args, **kwargs):
+        if not kept or x.shape[0] > kept[0][0].shape[0]:
+            kept[:] = [(x, *args)]
+        return fn(x, *args, **kwargs)
+
+    setattr(module, name, keep)
+    return fn
+
+
 def phase_serve():
     """Full-width "tpu" tier, seeded weights, aabb_scale 4, three 960×540
     views of an orbit at radius 2 (60° horizontal field of view) around a
@@ -669,18 +718,11 @@ def phase_serve():
     # reference, no copy), on which phase kernel_serve_positions times B1.
     from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
 
-    encode = hashgrid_ops.hashgrid_encode_cuda
     largest = []
-
-    def keep_largest(x, *args, **kwargs):
-        if not largest or x.shape[0] > largest[0].shape[0]:
-            largest[:] = [x]
-        return encode(x, *args, **kwargs)
-
     eng._render_chunk = _ranged("chunk", eng._render_chunk)
     eng._eval_marched = _ranged("shade", eng._eval_marched)
     eng._finish_shade = _ranged("composite", eng._finish_shade)
-    hashgrid_ops.hashgrid_encode_cuda = keep_largest
+    encode = _keep_largest(hashgrid_ops, "hashgrid_encode_cuda", largest)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -691,7 +733,7 @@ def phase_serve():
         hashgrid_ops.hashgrid_encode_cuda = encode
     emit({"phase": "serve_profile", "view": 0, "wall_ms": wall_ms,
           **_profile_summary(prof, ("shade", "composite"), "chunk", "march")})
-    return frames, launches, largest[0]
+    return frames, launches, largest[0][0]
 
 
 def train_inputs(n_samples: int):
@@ -742,16 +784,17 @@ def segsum_times(keys, vals, T: int, sizes: list) -> dict:
     return out
 
 
-def _sum_error(name, got, want, k, v, T):
-    """Max abs error of a float32 sum of bf16 addends against its twin's:
-    within 2·(n−1)·2^-24·Σ|addend| per row (a float32 sum of n addends in
-    any order is within half that of the exact one), untouched rows +0.0."""
+def _sum_error(name, got, want, k, v, T, payload: str = "bfloat16"):
+    """Max abs error of a float32 sum of addends (rounded to ``payload``)
+    against its twin's: within 2·(n−1)·2^-24·Σ|addend| per row (a float32
+    sum of n addends in any order is within half that of the exact one),
+    untouched rows +0.0."""
     import torch
 
     from ngp_tpu_torch.ops import segsum
 
     n = segsum.segment_count_reference(k, T)[..., None].float()
-    mass = segsum.segment_sum_reference(k, v.abs(), T)
+    mass = segsum.segment_sum_reference(k, v.abs(), T, payload)
     excess = (got - want).abs() - 2.0 * n * 2.0 ** -24 * mass
     if float(excess.max()) > 0:
         raise AssertionError(f"{name}: beyond the float32 order bound")
@@ -1039,7 +1082,7 @@ def phase_train():
         torch.cuda.synchronize()
     finally:
         hashgrid_ops.hashgrid_backward_cuda = backward
-    x, g, scale, res, size, hashed, variant, _, n_rows = kept[0]
+    x, g, scale, res, size, hashed, variant, _, n_rows = kept[0][:9]  # then the payload
     return eng, state, grid, launches, result, (x, g, (scale, res, size, hashed, variant),
                                                 n_rows)
 
@@ -1109,6 +1152,230 @@ def phase_train_profile(eng, state, grid, timed_median_ms: float):
         engine_mod.march_rays, engine_mod.nerf_training_loss = march, loss
 
 
+def _camera_rays(eye, center, res, hfov_deg: float):
+    """Origins and unit directions (H·W, 3) on the card of a pinhole camera
+    at ``eye`` looking at ``center`` (``_lookat``), ``res`` = (W, H), the
+    horizontal field of view ``hfov_deg``, through the pixel centers row by
+    row."""
+    import numpy as np
+    import torch
+
+    xf = torch.from_numpy(_lookat(np.asarray(eye, np.float32),
+                                  np.asarray(center, np.float32))).cuda()
+    W, H = res
+    f = 0.5 * W / math.tan(math.radians(hfov_deg) / 2)
+    u = (torch.arange(W, device="cuda") + 0.5 - 0.5 * W) / f
+    v = (torch.arange(H, device="cuda") + 0.5 - 0.5 * H) / f
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    d = torch.stack([uu, vv, torch.ones_like(uu)], -1).reshape(-1, 3) @ xf[:, :3].T
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    return xf[:, 3].expand(d.shape[0], 3).contiguous(), d
+
+
+def _frame_device_ms(fn) -> float:
+    """The device's busy ms (union of kernel and copy intervals) over one
+    call of ``fn`` under torch.profiler, padded as in :func:`device_ms`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAD_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_PAD_S)
+    return _profile_summary(prof, (), "frame", "frame")["device_busy_ms"]
+
+
+def _input_grad_row(x, g, table, geo) -> dict:
+    """``hashgrid_input_grad_cuda`` on (x, g, table) against its twin on the
+    card, within the float32 order bound 2·(n − 1)·2^-24·Σ|term| per
+    component (``bit_exact``: whether it gave the twin's bits); its times
+    and bound. No single PyTorch call computes dx, so no library time."""
+    import torch
+
+    from ngp_tpu_torch.ops.hashgrid import (
+        _level_corners,
+        _levels,
+        hashgrid_input_grad_cuda,
+        hashgrid_input_grad_mass,
+        hashgrid_input_grad_reference,
+    )
+
+    x = x.detach()  # a render's positions require grad
+    (N, D), (L, T, F) = x.shape, table.shape
+    C = 1 << D
+    run = lambda: hashgrid_input_grad_cuda(x, g, table, *geo)  # noqa: E731
+    got = run()
+    torch.cuda.synchronize()
+    want = hashgrid_input_grad_reference(x, g, table, *geo)
+    mass, n = hashgrid_input_grad_mass(x, g, table, *geo)
+    err = (got - want).abs()
+    if bool((err.double() > 2.0 * (n - 1) * 2.0 ** -24 * mass).any()):
+        raise AssertionError(f"hashgrid_input_grad: beyond the float32 order bound, "
+                             f"max abs err {float(err.max())}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("hashgrid_input_grad: non-finite dx")
+    # the distinct table rows these positions read, each read once
+    additive = geo[4] == "additive"
+    rows = 0
+    for l, lg in enumerate(_levels(*geo[:4])):
+        idx = torch.cat([i for i, _ in _level_corners(x, *lg, additive)])
+        rows += int(torch.unique(idx).numel())
+    del want, mass
+    return {
+        "N": N, "D": D, "L": L, "T": T, "F": F, "hash": geo[4],
+        "max_abs_err": float(err.max()), "max_abs_dx": float(got.abs().max()),
+        "bit_exact": bool(err.max() == 0), "rows_read": rows,
+        "ms": device_ms(run), "call_ms": cuda_ms(run, iters=20),
+        "plain_ms": cuda_ms(lambda: hashgrid_input_grad_reference(x, g, table, *geo),
+                            iters=3, warmup=1),
+        "library_ms": None,
+        # x and g read and dx written once, each distinct row read once;
+        # per (sample, level) 3D for the cell, per corner 2F for the
+        # feature sum and D·D for the weight products and the sums, then
+        # 2D for dx
+        **_bound(N * (4 * D + 4 * L * F + 4 * D) + rows * F * 4,
+                 N * L * (3 * D + C * (2 * F + D * D) + 2 * D)),
+    }
+
+
+def phase_normals(eng, state, grid):
+    """The debug render modes on phase train's sphere ("tpu" tier: additive
+    hash, bf16 reads for σ, float32 reads for ∇σ): a 960×540 frame of the
+    shade mode, then of the normals mode (launches counted, wall and
+    device ms each), gated on the sphere's analytic normals; the input
+    gradient on the normals frame's own positions and cotangents, on a D = 2
+    case of the image geometry, and the unrounded grid backward, against
+    their twins; then the positions, encoding and cost modes once each.
+    Returns the normals frame's launches and the input gradient's row."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.engines import nerf as engine_mod
+    from ngp_tpu_torch.models.encodings import GridEncoding
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
+    from ngp_tpu_torch.ops.hashgrid import (
+        hashgrid_backward_addends_reference,
+        hashgrid_backward_cuda,
+        hashgrid_backward_reference,
+    )
+
+    center = np.asarray(SPHERE_CENTER, np.float32)
+    eye = center + np.asarray([math.cos(0.4), math.sin(0.4), 0.3], np.float32) * 1.1
+    o, d = _camera_rays(eye, center, NORMALS_RES, 60.0)
+    render = lambda mode: eng.render_rays(state, grid, o, d, mode=mode)  # noqa: E731
+    frames, kept = {}, []
+    for mode in ("shade", "normals"):
+        reset_launches()
+        original = _keep_largest(hashgrid_ops, "hashgrid_input_grad_cuda", kept)
+        try:
+            t0 = time.perf_counter()
+            rgb, depth, opacity = render(mode)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            hashgrid_ops.hashgrid_input_grad_cuda = original
+        launches = launch_counts()
+        frames[mode] = {"wall_ms": wall_ms, "launches": launches,
+                        "samples": eng.last_render_samples,
+                        "device_ms": _frame_device_ms(lambda: render(mode))}
+    if not bool(torch.isfinite(rgb).all()):
+        raise AssertionError("normals frame: non-finite values")
+    normals_launches = frames["normals"]["launches"]
+    if normals_launches["hashgrid_input_grad"] == 0:
+        raise AssertionError("the normals frame launched hashgrid_input_grad no time")
+    if normals_launches["hashgrid_backward"] != 0:
+        raise AssertionError("the normals frame launched the table gradient")
+
+    hit = opacity > NORMALS_OPACITY
+    p = o[hit] + d[hit] * (depth[hit] / opacity[hit])[:, None]
+    truth = p - torch.from_numpy(center).cuda()
+    truth = truth / torch.linalg.norm(truth, dim=-1, keepdim=True)
+    n = 2.0 * rgb[hit] - 1.0
+    cos = (n * truth).sum(-1) / torch.clamp_min(torch.linalg.norm(n, dim=-1), 1e-12)
+    median_cos = float(cos.median()) if cos.numel() else float("nan")
+    hit_radius = torch.linalg.norm(p - torch.from_numpy(center).cuda(), dim=-1)
+    result = {
+        "phase": "normals", "res": list(NORMALS_RES),
+        "shade": frames["shade"], "normals": frames["normals"],
+        "pixels_gated": int(hit.sum()), "median_cos": median_cos,
+        "cos_quantiles_10_50_90": [float(q) for q in torch.quantile(
+            cos, torch.tensor([0.1, 0.5, 0.9], device="cuda"))] if cos.numel() else [],
+        "median_hit_radius": float(hit_radius.median()) if cos.numel() else None,
+        "sphere_radius": SPHERE_RADIUS,
+        "opacity_min": NORMALS_OPACITY, "cos_gate": NORMALS_COS_MIN,
+    }
+    emit(result)
+    if not median_cos >= NORMALS_COS_MIN:
+        raise AssertionError(f"normals: median cosine {median_cos} < {NORMALS_COS_MIN} "
+                             f"over {int(hit.sum())} pixels")
+
+    # the input gradient on the frame's own positions and cotangents (D = 3),
+    # then on a D = 2 case of the image config's geometry
+    x, g, table, *geo = kept[0]
+    x, geo = x.detach(), tuple(geo[:5])
+    frame_row = _input_grad_row(x, g, table, geo)
+    emit({"phase": "kernel_normals", "kernel": "hashgrid_input_grad",
+          "shape": "normals_frame", "launches": normals_launches["hashgrid_input_grad"],
+          **frame_row})
+    enc2 = GridEncoding(n_input_dims=2, n_levels=16, n_features_per_level=2,
+                        log2_hashmap_size=INPUT_GRAD_2D_LOG2, base_resolution=16,
+                        per_level_scale=2.0, hash_variant="tcnn", device="cuda")
+    gen = torch.Generator().manual_seed(12)
+    L2, T2, F2 = enc2.table.shape
+    x2 = torch.rand((1 << 18, 2), generator=gen).cuda()
+    g2 = torch.randn((1 << 18, L2 * F2), generator=gen).cuda()
+    t2 = (torch.rand((L2, T2, F2), generator=gen) * 2 - 1).cuda()
+    geo2 = (enc2.level_scale, enc2.level_res, enc2.level_size, enc2.level_hashed, "tcnn")
+    emit({"phase": "kernel_normals", "kernel": "hashgrid_input_grad",
+          "shape": "image_geometry_2d", **_input_grad_row(x2, g2, t2, geo2)})
+    del x2, g2, t2
+
+    # the unrounded grid backward (float32 addends) on the frame's (x, g)
+    T = table.shape[1]
+    keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
+    bwd = lambda: hashgrid_backward_cuda(x, g, *geo, None, T, "float32")  # noqa: E731
+    got = bwd()
+    torch.cuda.synchronize()
+    err = _sum_error("hashgrid_backward (float32 addends)", got,
+                     hashgrid_backward_reference(x, g, *geo, None, T, "float32"),
+                     keys, vals, T, "float32")
+    del got, keys, vals
+    emit({"phase": "kernel_normals", "kernel": "hashgrid_backward", "payload": "float32",
+          "shape": "normals_frame", "N": x.shape[0], "max_abs_err": err,
+          "ms": device_ms(bwd), "call_ms": cuda_ms(bwd, iters=20)})
+
+    # the other debug modes, once each; the cost mode is the march's count
+    counts = []
+    march = engine_mod.march_rays
+
+    def keep_counts(*args, **kwargs):
+        marched = march(*args, **kwargs)
+        counts.append(marched.n_samples)
+        return marched
+
+    modes = {}
+    for mode in ("positions", "encoding", "cost"):
+        engine_mod.march_rays = keep_counts if mode == "cost" else march
+        try:
+            t0 = time.perf_counter()
+            img = render(mode)[0]
+            torch.cuda.synchronize()
+        finally:
+            engine_mod.march_rays = march
+        modes[mode] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                       "mean": float(img.mean()), "finite": bool(torch.isfinite(img).all())}
+        if not modes[mode]["finite"]:
+            raise AssertionError(f"{mode} frame: non-finite values")
+    heat = torch.cat(counts).to(torch.float32) / 128.0
+    cost_exact = bool(torch.equal(img, heat[:, None].expand(-1, 3)))
+    emit({"phase": "debug_modes", **modes, "cost_is_march_count_over_128": cost_exact})
+    if not cost_exact:
+        raise AssertionError("cost frame differs from the march's count over 128")
+    return normals_launches, frame_row
+
+
 def phase_capture():
     """Write a PNG capture, load it, train on it and score its held-out
     views; then B1 on the eval's positions. Returns the launches of the
@@ -1157,15 +1424,8 @@ def phase_capture():
     train_launches = launch_counts()
 
     # the eval keeps the positions of its largest B1 launch (a reference)
-    encode = hashgrid_ops.hashgrid_encode_cuda
     largest = []
-
-    def keep_largest(x, *args, **kwargs):
-        if not largest or x.shape[0] > largest[0].shape[0]:
-            largest[:] = [x]
-        return encode(x, *args, **kwargs)
-
-    hashgrid_ops.hashgrid_encode_cuda = keep_largest
+    encode = _keep_largest(hashgrid_ops, "hashgrid_encode_cuda", largest)
     try:
         t0 = time.perf_counter()
         scores = eng.eval_test_transforms(state, grid, test)
@@ -1220,7 +1480,7 @@ def phase_capture():
     # keeps 13 of 20 records of a kernel in every later window of the
     # process (H100, torch 2.11), and device_ms then fails.
     positions = _kernel_case("tpu", torch.bfloat16, torch.Generator().manual_seed(4),
-                             x=largest[0], aabb_scale=eng.aabb_scale, profiled=False)
+                             x=largest[0][0], aabb_scale=eng.aabb_scale, profiled=False)
     emit({"phase": "kernel_capture_positions", **positions})
     return launches
 
@@ -1305,7 +1565,9 @@ def phase_cli():
     path.save(path_json)
     frames_dir = os.path.join(out, "frames")
     mesh_path = os.path.join(out, "mesh.obj")
+    normals_png = os.path.join(out, "normals.png")
     run2 = _cli([train_json, "--load_snapshot", snapshot, "--n_steps", "0",
+                 "--render_mode", "normals", "--screenshot", normals_png,
                  "--test_transforms", test_json, "--save_mesh", mesh_path,
                  "--marching_cubes_res", str(CLI_MESH_RES), "--video_camera_path", path_json,
                  "--video_n_seconds", str(CLI_VIDEO["seconds"]),
@@ -1320,6 +1582,8 @@ def phase_cli():
                         for line in open(mesh_path) if line.startswith("v ")], np.float32)
     frames = sorted(os.listdir(frames_dir))
     decoded = [read_png(os.path.join(frames_dir, name)) for name in frames]
+    _, _, normals_s = _cli_line(run2, f"wrote {normals_png}")
+    normals_shot = read_png(normals_png)
     n_video = CLI_VIDEO["fps"] * CLI_VIDEO["seconds"]
     with open(train_json) as f:
         half = 0.5 * json.load(f)["aabb_scale"]  # the scene's box around (0.5,)³
@@ -1340,6 +1604,8 @@ def phase_cli():
         "screenshot": list(shot.shape),
         "mesh_res": CLI_MESH_RES, "mesh_s": mesh_s, "mesh_verts": n_verts,
         "mesh_faces": n_faces, "mesh_bytes": os.path.getsize(mesh_path),
+        "normals_screenshot": list(normals_shot.shape), "normals_s": normals_s,
+        "normals_screenshot_mean": float(normals_shot.astype(np.float32).mean()),
         "video_frames": len(frames), "video_s_per_frame": video_s / max(len(frames), 1),
         "video_line": video_line,
         "launches": {k: a + b for (k, a), b in zip(_cli_launches(run1).items(),
@@ -1359,9 +1625,15 @@ def phase_cli():
     if len(decoded) != n_video or any(
             d.shape != (CLI_VIDEO["h"], CLI_VIDEO["w"], 3) for d in decoded):
         raise AssertionError(f"video frames: {[d.shape for d in decoded]}")
-    for name in ("hashgrid_encode", "hashgrid_backward"):
+    for name in ("hashgrid_encode", "hashgrid_backward", "hashgrid_input_grad"):
         if result["launches"][name] == 0:
             raise AssertionError(f"the CLI launched {name} no time")
+    with open(train_json) as f:
+        meta = json.load(f)
+    size = [int(meta["h"]), int(meta["w"]), 3]  # a training view's resolution
+    if list(normals_shot.shape) != size or not np.isfinite(
+            normals_shot.astype(np.float32)).all():
+        raise AssertionError(f"normals screenshot {normals_shot.shape}, a view is {size}")
 
     _child("cli_checks")  # the in-process checks, in a process of their own
     return result["launches"]
@@ -1471,13 +1743,7 @@ def phase_cli_checks():
                          n_mean, aabb_scale=eng.aabb_scale)})
     test = load_nerf(os.path.join(capture, "transforms_test.json"))
     largest = []
-
-    def keep_largest(x, *args, **kwargs):
-        if not largest or x.shape[0] > largest[0].shape[0]:
-            largest[:] = [x]
-        return encode(x, *args, **kwargs)
-
-    hashgrid_ops.hashgrid_encode_cuda = keep_largest
+    _keep_largest(hashgrid_ops, "hashgrid_encode_cuda", largest)
     try:
         eng.render_view(state, grid, test.xforms[0, 0], test.focal_lengths[0],
                         test.principal_points[0], lens=test.lens, min_transmittance=1e-4)
@@ -1486,12 +1752,26 @@ def phase_cli_checks():
         hashgrid_ops.hashgrid_encode_cuda = encode
     emit({"phase": "kernel_cli", "kernel": "hashgrid_encode", "shape": "render_positions",
           **_kernel_case("upstream", torch.float32, torch.Generator().manual_seed(7),
-                         x=largest[0], aabb_scale=eng.aabb_scale)})
+                         x=largest[0][0], aabb_scale=eng.aabb_scale)})
     del largest
+
+    # the input gradient at the tier, on a normals frame's largest launch
+    # (training view 0 at stride 2)
+    kept_grad = []
+    original = _keep_largest(hashgrid_ops, "hashgrid_input_grad_cuda", kept_grad)
+    try:
+        eng.render_image(state, grid, 0, stride=2, mode="normals")
+        torch.cuda.synchronize()
+    finally:
+        hashgrid_ops.hashgrid_input_grad_cuda = original
+    xg, gg, tg, *geo_g = kept_grad[0]
+    emit({"phase": "kernel_cli", "kernel": "hashgrid_input_grad", "shape": "normals_positions",
+          **_input_grad_row(xg, gg, tg, tuple(geo_g[:5]))})
+    del kept_grad, xg, gg, tg
 
     # the fused backward at the tier: uniform (x, g) at the steps' mean,
     # then the last step's own
-    x, g, scale, res, size, hashed, variant, _, n_rows = kept[0]
+    x, g, scale, res, size, hashed, variant, _, n_rows = kept[0][:9]  # then the payload
     geo = (scale, res, size, hashed, variant)
     gen = torch.Generator().manual_seed(8)
     L = scale.shape[0]
@@ -1643,7 +1923,7 @@ def phase_image():
         torch.cuda.synchronize()
     finally:
         hashgrid_ops.hashgrid_backward_cuda = backward
-    x, g, scale, res, size, hashed, variant, _, n_rows = kept[0]
+    x, g, scale, res, size, hashed, variant, _, n_rows = kept[0][:9]  # then the payload
     geo = (scale, res, size, hashed, variant)
     keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
     L, T = scale.shape[0], n_rows
@@ -1816,6 +2096,8 @@ def main():
     phase_kernel_train("full_budget", *train_inputs(eng.samples_per_step))
     phase_kernel_train("captured_step", *step_inputs)
     del step_inputs
+    # before train_profile, after whose windows the profiler loses records
+    normals_launches, input_grad_row = phase_normals(eng, state, grid)
     phase_train_profile(eng, state, grid, train["median_ms_per_step"])
     del eng, state, grid
     capture_launches = phase_capture()
@@ -1858,6 +2140,14 @@ def main():
                         "replaces": replaces,
                         "launches": launched + capture_launches[name] + later[name],
                         **{k: train_rows[name][k] for k in keys}})
+    # the position gradient has no TPU kernel: the JAX package runs XLA
+    # autodiff of its differentiable gather (ngp_tpu/models/encodings.py:824)
+    kernels.append({"name": "hashgrid_input_grad", "route": "cuda",
+                    "source": "ngp_tpu_torch/csrc/hashgrid_encode.cu",
+                    "replaces": "ngp_tpu/models/encodings.py:824",
+                    "launches": normals_launches["hashgrid_input_grad"]
+                    + later["hashgrid_input_grad"],
+                    **{k: input_grad_row[k] for k in keys}})
     # B5 is on no path of either package (ngp_tpu/ops/pallas/sort.py:24-31):
     # its launches on the serve, train and capture paths are counted all the same
     kernels.append({"name": "bitonic_sort_pos", "route": "cuda",

@@ -1,5 +1,5 @@
-// Multiresolution hash/dense grid encoding for Hopper (sm_90a): the forward
-// and its table gradient.
+// Multiresolution hash/dense grid encoding for Hopper (sm_90a): the forward,
+// its table gradient and its position gradient.
 //
 // Replaces the TPU kernel ngp_tpu/ops/pallas/hashgrid.py:_encode_kernel
 // (hashgrid_encode_pallas). That kernel computes the XOR hash only; this one
@@ -99,6 +99,38 @@
 // one atomic for them, on warps whose samples share a cell) was measured
 // and dropped: 20% slower on a training step's own positions, where the
 // coarse levels crowd (PERF.md).
+// With round_addends off (payload "float32") the backward sums each w_c * g
+// unrounded: the d(table) of the JAX package's differentiable_inputs path,
+// whose float32 take_along_axis gather autodiff transposes into a float32
+// scatter-add (ngp_tpu/models/encodings.py:824-834). The training path keeps
+// the bf16 rounding; the two are separate instantiations.
+//
+// Input gradient (hashgrid_input_grad): d(out)/dx contracted with the
+// output cotangent g, the VJP with respect to positions that JAX autodiff
+// computes through GridEncoding.__call__(..., differentiable_inputs=True)
+// (ngp_tpu/models/encodings.py:785-834). It has no TPU kernel: the JAX
+// package differentiates plain XLA gathers. For each sample n:
+//
+//   dx[n, d] = sum over l <= max_level of scale_l * sum over corners c of
+//              s_cd * (sum_f g[n, l, f] * table[l, idx_c, f])
+//                   * prod over d' != d of (bit_d'(c) ? f_d' : 1 - f_d')
+//
+// with s_cd = +1 where corner c takes the upper cell along d, else -1; the
+// floor has no gradient. Corner rows come from cell_corners, so the hash,
+// the dense clamp of each corner (two clamped corners on one row cancel)
+// and the twice-rounded x * scale + 0.5 are the forward's. The table is
+// read in float32, as the JAX package's differentiable path reads it.
+//
+// Bound on the H100: per sample it must read x (4D bytes) and g (4LF
+// bytes) and write dx (4D bytes), and read each table row it reaches once:
+// about (24 + 64) B a sample plus the rows at the "tpu" tier. Like the
+// forward it is paced by its 2^D * L row loads a sample. Design, simple
+// first: a thread a sample walks its levels and corners, so the sum over
+// levels, corners and features runs in a fixed order (no atomics, the
+// twin's order); neighbouring samples are neighbouring lanes, so on a
+// rendered frame's positions a warp's loads share lines on the coarse
+// levels. Products and sums are rounded one at a time, as in the forward,
+// so the twin in ngp_tpu_torch/ops/hashgrid.py gives the kernel's bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,13 +166,13 @@ struct Geometry {
 };
 
 // Table rows and multilinear weights of the 2^D corners of one sample's
-// cell at level l: the index math shared by the forward and the backward,
-// so the two cannot drift apart.
+// cell at level l, and the cell fractions: the index math shared by the
+// forward, the backward and the input gradient, so they cannot drift apart.
 template <int D>
 __device__ __forceinline__ void cell_corners(
     const float* __restrict__ xs, float scale, int res, bool hashed,
-    uint32_t mask, int additive, uint32_t (&idx)[1 << D], float (&w)[1 << D]) {
-  float frac[D];
+    uint32_t mask, int additive, uint32_t (&idx)[1 << D], float (&w)[1 << D],
+    float (&frac)[D]) {
   int p0[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
@@ -241,9 +273,9 @@ hashgrid_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
     for (int f = 0; f < F; ++f) acc[f] = 0.0f;
     if (live && l <= max_level) {
       uint32_t idx[1 << D];
-      float w[1 << D];
+      float w[1 << D], frac[D];
       cell_corners<D>(xs, geo.scale[l], geo.res[l], geo.hashed[l] != 0,
-                      geo.mask[l], additive, idx, w);
+                      geo.mask[l], additive, idx, w, frac);
       blend<D, F, T>(table, l * table_rows, idx, w, acc);
     }
 #pragma unroll
@@ -278,8 +310,9 @@ hashgrid_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
 
 // Backward: warp w of the grid takes samples 32 * (w / levels) onwards at
 // level w % levels (levels = min(L, max_level + 1)), one sample a lane, and
-// adds each corner's bf16-rounded w_c * g[s, l, :] to its row of out.
-template <int D, int F>
+// adds each corner's w_c * g[s, l, :], bf16-rounded where Round, to its row
+// of out.
+template <int D, int F, bool Round>
 __global__ void __launch_bounds__(kThreads)
 hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
                          const __grid_constant__ Geometry geo,
@@ -293,9 +326,9 @@ hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
   if (s >= n) return;
 
   uint32_t idx[C];
-  float w[C];
+  float w[C], frac[D];
   cell_corners<D>(x + s * D, geo.scale[l], geo.res[l], geo.hashed[l] != 0,
-                  geo.mask[l], additive, idx, w);
+                  geo.mask[l], additive, idx, w, frac);
   const Row<float, F> gl =
       *reinterpret_cast<const Row<float, F>*>(g + (s * n_levels + l) * F);
   float* o = out + l * table_rows * F;
@@ -305,8 +338,12 @@ hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
     Row<float, F> a0, a1;
 #pragma unroll
     for (int f = 0; f < F; ++f) {
-      a0.v[f] = round_bf16(__fmul_rn(w[c], gl.v[f]));
-      a1.v[f] = round_bf16(__fmul_rn(w[c + 1], gl.v[f]));
+      a0.v[f] = __fmul_rn(w[c], gl.v[f]);
+      a1.v[f] = __fmul_rn(w[c + 1], gl.v[f]);
+      if constexpr (Round) {
+        a0.v[f] = round_bf16(a0.v[f]);
+        a1.v[f] = round_bf16(a1.v[f]);
+      }
     }
     const int32_t k0 = static_cast<int32_t>(idx[c]);
     const int32_t k1 = static_cast<int32_t>(idx[c + 1]);
@@ -319,6 +356,59 @@ hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
     add_to_device<F>(o + static_cast<int64_t>(k0) * F, a0);
     add_to_device<F>(o + static_cast<int64_t>(k1) * F, a1);
   }
+}
+
+// Input gradient: a thread a sample, levels 0 .. levels - 1 in order, at
+// each the corners in order, at each corner the features in order.
+template <int D, int F>
+__global__ void __launch_bounds__(kThreads)
+hashgrid_input_grad_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                           const float* __restrict__ table,
+                           const __grid_constant__ Geometry geo,
+                           float* __restrict__ dx, int64_t n, int n_levels,
+                           int levels, int64_t table_rows, int additive) {
+  constexpr int C = 1 << D;
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (s >= n) return;
+  float xs[D], acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    xs[d] = x[s * D + d];
+    acc[d] = 0.0f;
+  }
+  for (int l = 0; l < levels; ++l) {
+    uint32_t idx[C];
+    float w[C], frac[D];
+    cell_corners<D>(xs, geo.scale[l], geo.res[l], geo.hashed[l] != 0,
+                    geo.mask[l], additive, idx, w, frac);
+    const Row<float, F> gl =
+        *reinterpret_cast<const Row<float, F>*>(g + (s * n_levels + l) * F);
+    float dfrac[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) dfrac[d] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const Row<float, F> row = *reinterpret_cast<const Row<float, F>*>(
+          table + (l * table_rows + idx[c]) * F);
+      float a = 0.0f;  // d(out)/d(w_c)
+#pragma unroll
+      for (int f = 0; f < F; ++f) a = __fadd_rn(a, __fmul_rn(gl.v[f], row.v[f]));
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        float p = a;
+#pragma unroll
+        for (int e = 0; e < D; ++e) {
+          if (e == d) continue;
+          p = __fmul_rn(p, ((c >> e) & 1) ? frac[e] : __fsub_rn(1.0f, frac[e]));
+        }
+        dfrac[d] = ((c >> d) & 1) ? __fadd_rn(dfrac[d], p) : __fsub_rn(dfrac[d], p);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] = __fadd_rn(acc[d], __fmul_rn(dfrac[d], geo.scale[l]));
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d) dx[s * D + d] = acc[d];
 }
 
 struct Forward {
@@ -383,21 +473,51 @@ struct Backward {
 };
 
 template <int D, int F>
-int launch_backward(const Backward& a, cudaStream_t stream) {
+int launch_backward(const Backward& a, int round_addends, cudaStream_t stream) {
   const int64_t warps = (a.n + kWarpSamples - 1) / kWarpSamples * a.levels;
-  const int64_t blocks = (warps * 32 + kThreads - 1) / kThreads;
-  hashgrid_backward_kernel<D, F><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      a.x, a.g, *a.geo, a.out, a.n, a.n_levels, a.levels, a.table_rows, a.additive);
+  const unsigned blocks =
+      static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads);
+  if (round_addends) {
+    hashgrid_backward_kernel<D, F, true><<<blocks, kThreads, 0, stream>>>(
+        a.x, a.g, *a.geo, a.out, a.n, a.n_levels, a.levels, a.table_rows, a.additive);
+  } else {
+    hashgrid_backward_kernel<D, F, false><<<blocks, kThreads, 0, stream>>>(
+        a.x, a.g, *a.geo, a.out, a.n, a.n_levels, a.levels, a.table_rows, a.additive);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int dispatch_backward(int n_features, const Backward& a, cudaStream_t stream) {
+int dispatch_backward(int n_features, const Backward& a, int round_addends,
+                      cudaStream_t stream) {
   switch (n_features) {
-    case 1: return launch_backward<D, 1>(a, stream);
-    case 2: return launch_backward<D, 2>(a, stream);
-    case 4: return launch_backward<D, 4>(a, stream);
-    case 8: return launch_backward<D, 8>(a, stream);
+    case 1: return launch_backward<D, 1>(a, round_addends, stream);
+    case 2: return launch_backward<D, 2>(a, round_addends, stream);
+    case 4: return launch_backward<D, 4>(a, round_addends, stream);
+    case 8: return launch_backward<D, 8>(a, round_addends, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The input gradient's launch: Backward's fields, `out` being dx and
+// `table` the float32 table.
+template <int D, int F>
+int launch_input_grad(const Backward& a, const float* table, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((a.n + kThreads - 1) / kThreads);
+  hashgrid_input_grad_kernel<D, F><<<blocks, kThreads, 0, stream>>>(
+      a.x, a.g, table, *a.geo, a.out, a.n, a.n_levels, a.levels, a.table_rows,
+      a.additive);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dispatch_input_grad(int n_features, const Backward& a, const float* table,
+                        cudaStream_t stream) {
+  switch (n_features) {
+    case 1: return launch_input_grad<D, 1>(a, table, stream);
+    case 2: return launch_input_grad<D, 2>(a, table, stream);
+    case 4: return launch_input_grad<D, 4>(a, table, stream);
+    case 8: return launch_input_grad<D, 8>(a, table, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -431,12 +551,13 @@ extern "C" int hashgrid_encode(const void* x, const void* table,
 
 // d(table) (L, table_rows, F) float32 of hashgrid_encode with respect to its
 // table, given positions x (N, D) and the output cotangent g (N, L * F),
-// added into `out`, which the caller zeroes. Same conventions as above.
+// added into `out`, which the caller zeroes; each addend rounded to bf16
+// where round_addends is not 0. Same conventions as above.
 extern "C" int hashgrid_backward(const void* x, const void* g,
                                  const void* geometry, void* out, long long n,
                                  int n_levels, long long table_rows,
                                  int n_features, int n_dims, int additive,
-                                 int max_level, void* stream) {
+                                 int max_level, int round_addends, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -448,8 +569,34 @@ extern "C" int hashgrid_backward(const void* x, const void* g,
                    static_cast<int64_t>(table_rows), additive};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_dims) {
-    case 2: return dispatch_backward<2>(n_features, a, s);
-    case 3: return dispatch_backward<3>(n_features, a, s);
+    case 2: return dispatch_backward<2>(n_features, a, round_addends, s);
+    case 3: return dispatch_backward<3>(n_features, a, round_addends, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// dx (N, D) float32, the gradient of sum(g * hashgrid_encode(x, table)) with
+// respect to x, for a float32 table (L, table_rows, F); written whole (levels
+// above max_level add nothing). Same conventions as above.
+extern "C" int hashgrid_input_grad(const void* x, const void* g, const void* table,
+                                   const void* geometry, void* dx, long long n,
+                                   int n_levels, long long table_rows,
+                                   int n_features, int n_dims, int additive,
+                                   int max_level, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return 0;
+  const int levels = max_level + 1 < n_levels ? max_level + 1 : n_levels;
+  const Backward a{static_cast<const float*>(x), static_cast<const float*>(g),
+                   static_cast<const Geometry*>(geometry), static_cast<float*>(dx),
+                   static_cast<int64_t>(n), n_levels, levels < 0 ? 0 : levels,
+                   static_cast<int64_t>(table_rows), additive};
+  const float* t = static_cast<const float*>(table);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_dims) {
+    case 2: return dispatch_input_grad<2>(n_features, a, t, s);
+    case 3: return dispatch_input_grad<3>(n_features, a, t, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -14,7 +14,11 @@ cadence (all cells while warming up, then stride residues) and adapts the
 (rays × samples) batch geometry from the measured samples per ray.
 
 Rendering a view: camera rays → march → compaction → network →
-front-to-back compositing. One deliberate difference from the JAX
+front-to-back compositing. The render modes are the JAX package's
+(``RENDER_MODES``): shade, depth and ao share that pass; the debug modes
+normals (−∇σ/|∇σ|, through the grid's position gradient), positions,
+encoding and cost evaluate every valid sample, as the JAX package runs
+them uncompacted. One deliberate difference from the JAX
 package: samples that the render compaction budget drops are removed from
 ``valid`` before compositing. The JAX package masks only a local copy
 (fault C1 in ROADMAP.md), so there a dropped sample composites with raw
@@ -38,12 +42,13 @@ Not yet ported, and refused when asked for: camera, exposure, focal and
 distortion refinement (also in a loaded snapshot), trainable envmap, depth
 supervision, latent codes in training, supplied per-pixel rays, a
 dataset's envmap background, rolling shutter, the render crop box
-(``render_aabb``), the decoupled occupancy schedule, probe-sampled grid
-updates and mesh vertex optimisation.
+(``render_aabb``), overlays, the decoupled occupancy schedule,
+probe-sampled grid updates and mesh vertex optimisation.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import time
@@ -88,14 +93,8 @@ from ngp_tpu_torch.ops.marching import (
     warp_direction,
 )
 from ngp_tpu_torch.ops.tonemap import linear_to_srgb, srgb_to_linear
-from ngp_tpu_torch.optim import (
-    OptimizerConfig,
-    adam_skip_zero_step,
-    adam_step,
-    ema_update,
-    param_groups,
-)
-from ngp_tpu_torch.train import TrainState
+from ngp_tpu_torch.optim import OptimizerConfig
+from ngp_tpu_torch.train import TrainState, apply_grads
 from ngp_tpu_torch.utils import metrics
 from ngp_tpu_torch.utils.meters import MetricsLogger, TrainMeters
 
@@ -108,10 +107,32 @@ MARCH_POINTS = 1 << 24
 DENSITY_CHUNK = 1 << 19
 
 ERROR_MAP_RES = 16  # testbed.h:674
+# ERenderMode (common.h:110-122) as the JAX engine's render_rays takes them;
+# the first three share the shade pass, the rest are debug modes
+RENDER_MODES = ("shade", "depth", "ao", "normals", "positions", "encoding", "cost")
+# march steps a ray of the cost mode reaches at full heat
+COST_STEPS = 128.0
 # the JAX engine's camera group: per-image pose, exposure and latent
 # parameters, a focal multiplier and a distortion map (testbed.h:713)
 DISTORTION_RESOLUTION = (32, 32)
 MIN_PDF = 0.01
+
+
+@contextlib.contextmanager
+def _parameters_frozen(model: torch.nn.Module):
+    """``model``'s parameters with ``requires_grad`` off inside the block,
+    restored after. A custom autograd Function's ``needs_input_grad``
+    follows ``requires_grad``, not the inputs an ``autograd.grad`` call asks
+    for: frozen, a gradient with respect to positions launches no
+    d(table) backward."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
 
 
 class RayBatch(NamedTuple):
@@ -653,25 +674,9 @@ class NerfEngine:
 
     def apply_grads(self, state: TrainState) -> None:
         """One optimizer step from the ``.grad`` of ``state.model``: sparse
-        Adam on the tables, Adam + L2 on the rest, then the EMA; in place."""
-        cfg = self.opt_cfg
-        if cfg.ema_decay is not None and state.ema is None:
-            state.start_ema()
-        groups = param_groups(state.model)
-        for name in ("dense", "grid"):
-            params = [p for _, p in groups[name]]
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in params]
-            opt = state.opt_state[name]
-            lr = cfg.schedule(opt.count)
-            if name == "grid":
-                adam_skip_zero_step(params, grads, opt, lr, cfg.b1, cfg.b2, cfg.eps)
-            else:
-                adam_step(params, grads, opt, lr, cfg.b1, cfg.b2, cfg.eps, cfg.l2_reg)
-        if state.ema is not None:
-            ema_update(list(state.ema.parameters()), list(state.model.parameters()),
-                       cfg.ema_decay, state.step)
-        state.step += 1
+        Adam on the tables, Adam + L2 on the rest, then the EMA; in place
+        (``train.apply_grads``, the generic trainer's step)."""
+        apply_grads(state, self.opt_cfg)
 
     def train_step(self, state: TrainState, grid: occ.OccupancyGridState,
                    emap: ErrorMapState | None = None):
@@ -909,10 +914,49 @@ class NerfEngine:
             self.grid_cfg.max_mip,
         )
         marched = marched._replace(valid=marched.valid & (marched.t <= tmax[:, None]))
-        rgb, sigma, marched = self._eval_marched(
-            model, origins, dirs, marched, self.render_compaction_frac
-        )
-        return self._finish_shade(dirs, marched, rgb, sigma, mode, min_transmittance)
+        if mode in ("shade", "depth", "ao"):
+            rgb, sigma, marched = self._eval_marched(
+                model, origins, dirs, marched, self.render_compaction_frac
+            )
+            return self._finish_shade(dirs, marched, rgb, sigma, mode, min_transmittance)
+        # The debug modes evaluate every valid sample (the JAX package runs
+        # them uncompacted, so no budget drops one).
+        rgb, sigma, marched = self._eval_marched(model, origins, dirs, marched, 1.0)
+        if mode == "cost":
+            _, depth, opacity = self._finish_shade(dirs, marched, rgb, sigma, "depth",
+                                                   min_transmittance)
+            heat = marched.n_samples.to(torch.float32) / COST_STEPS
+            return heat[:, None].expand(-1, 3), depth, opacity
+        pos = origins[:, None, :] + dirs[:, None, :] * marched.t[..., None]
+        pos_w = self.aabb.relative_pos(pos)
+        valid = marched.valid
+        if mode == "positions":
+            colors = pos_w[valid]
+        elif mode == "encoding":
+            colors = torch.cat([torch.sigmoid(model.pos_encoding(p)[:, :3] * 20.0)
+                                for p in pos_w[valid].split(NETWORK_CHUNK)])
+        else:
+            colors = (self._density_normals(model, pos_w[valid]) + 1.0) * 0.5
+        rgb = torch.zeros_like(pos_w)
+        rgb[valid] = colors
+        return self._finish_shade(dirs, marched, rgb, sigma, "shade", min_transmittance)
+
+    def _density_normals(self, model: NerfNetwork, pos_w: torch.Tensor) -> torch.Tensor:
+        """−∇σ/|∇σ| (n, 3) at warped positions ``pos_w`` (n, 3), σ the
+        activated density, its gradient through the grid's position
+        gradient (float32 table reads, the JAX package's
+        ``differentiable_inputs`` path), ``NETWORK_CHUNK`` rows at a time.
+        The model's parameters are frozen meanwhile, so the backward
+        computes no table gradient."""
+        act = density_activation(self.density_act)
+        grads = []
+        with torch.enable_grad(), _parameters_frozen(model):
+            for p in pos_w.split(NETWORK_CHUNK):
+                p = p.detach().requires_grad_(True)
+                sigma = act(model.density(p, differentiable_inputs=True)[:, 0])
+                grads.append(torch.autograd.grad(sigma.sum(), p)[0])
+        g = torch.cat(grads)
+        return -g / torch.clamp_min(torch.linalg.norm(g, dim=-1, keepdim=True), 1e-9)
 
     @torch.no_grad()
     def render_rays(self, state: TrainState, grid: occ.OccupancyGridState,
@@ -921,12 +965,17 @@ class NerfEngine:
                     min_transmittance: float | None = None):
         """Render rays (N, 3) + unit directions (N, 3) in chunks of
         ``chunk`` rays (default ``ray_chunk``); returns (rgb (N, 3), depth (N,),
-        opacity (N,)). ``mode``: ``shade``, ``depth`` or ``ao``.
-        ``min_transmittance`` overrides ``min_transmittance_render`` for
-        this call (the reference's eval uses 1e-4)."""
-        if mode not in ("shade", "depth", "ao"):
-            raise ValueError(f"render mode {mode!r} is not yet ported "
-                             "(shade | depth | ao)")
+        opacity (N,)). ``mode``: one of ``RENDER_MODES`` (the JAX
+        package's ``_render_chunk``): ``shade``; ``depth`` and ``ao`` (the
+        composited depth or opacity as grey); ``normals`` (−∇σ/|∇σ| mapped
+        to [0, 1]), ``positions`` (warped sample positions) and
+        ``encoding`` (sigmoid of 20× the first three grid features), each
+        composited like color over the background; ``cost`` (march steps
+        / 128 as grey). ``min_transmittance`` overrides
+        ``min_transmittance_render`` for this call (the reference's eval
+        uses 1e-4)."""
+        if mode not in RENDER_MODES:
+            raise ValueError(f"unknown render mode {mode!r} ({' | '.join(RENDER_MODES)})")
         chunk = chunk or self.ray_chunk
         model = self.inference_params(state)
         origins = origins.to(self.device, torch.float32)
@@ -961,9 +1010,13 @@ class NerfEngine:
         return xf[:, 3].expand(n, 3), d, (len(ys), len(xs))
 
     def render_image(self, state: TrainState, grid: occ.OccupancyGridState,
-                     image_index: int, stride: int = 1, mode: str = "shade"):
+                     image_index: int, stride: int = 1, mode: str = "shade",
+                     overlay: str | None = None):
         """Render the dataset view ``image_index``, every ``stride``-th
-        pixel; returns (H', W', 3) on the engine's device."""
+        pixel, in render ``mode``; returns (H', W', 3) on the engine's
+        device. Overlays are not yet ported."""
+        if overlay is not None:
+            raise NotImplementedError(f"overlay {overlay!r} is not yet ported (ROADMAP A6)")
         o, d, hw = self.view_rays(image_index, stride)
         rgb, _, _ = self.render_rays(state, grid, o, d, mode=mode)
         return rgb.reshape(*hw, 3)

@@ -3,11 +3,12 @@
 
 ``GridEncoding`` (Hash and Dense grids, Linear interpolation, XOR or
 additive hash) runs through :func:`ngp_tpu_torch.ops.hashgrid.hashgrid_encode`
-forward and :func:`~ngp_tpu_torch.ops.hashgrid.hashgrid_backward` for
-d(table): CUDA kernels on the card, their plain twins on the CPU. Spherical harmonics (degree ≤ 4),
-Identity and Composite are plain tensor code. Tiled grids, Simplex
-interpolation and gradients with respect to positions are not yet ported
-and raise.
+forward, :func:`~ngp_tpu_torch.ops.hashgrid.hashgrid_backward` for
+d(table) and, with ``differentiable_inputs=True``,
+:func:`~ngp_tpu_torch.ops.hashgrid.hashgrid_input_grad` for d(positions):
+CUDA kernels on the card, their plain twins on the CPU. Spherical
+harmonics (degree ≤ 4), Identity and Composite are plain tensor code.
+Tiled grids and Simplex interpolation are not yet ported and raise.
 
 Every module maps ``(N, n_input_dims)`` float32 in the encoding's domain
 ([0, 1] for grids and SH) to ``(N, n_output_dims)`` float32.
@@ -22,7 +23,11 @@ import torch
 from torch import nn
 
 from ngp_tpu_torch.device import resolve_device
-from ngp_tpu_torch.ops.hashgrid import hashgrid_backward, hashgrid_encode
+from ngp_tpu_torch.ops.hashgrid import (
+    hashgrid_backward,
+    hashgrid_encode,
+    hashgrid_input_grad,
+)
 
 
 def _next_multiple(x: int, m: int) -> int:
@@ -58,6 +63,42 @@ class _GridEncode(torch.autograd.Function):
         return dtable, None, None, None
 
 
+class _GridEncodeInputs(torch.autograd.Function):
+    """Grid forward (kernel B1) differentiable in the positions: the JAX
+    package's ``differentiable_inputs=True`` path, plain autodiff of float32
+    gathers. The table is read in float32 whatever ``bf16_reads`` says.
+    The backward returns dx (kernel ``hashgrid_input_grad``) where the
+    positions need it and d(table) with unrounded float32 addends where the
+    table needs it. ``needs_input_grad`` follows ``requires_grad``, not the
+    inputs an ``autograd.grad`` call asks for: a caller that wants dx alone
+    passes a table that does not require grad."""
+
+    @staticmethod
+    def forward(ctx, table, x, enc, max_level):
+        table = table.contiguous()
+        ctx.save_for_backward(table, x)
+        ctx.enc, ctx.max_level = enc, max_level
+        return hashgrid_encode(
+            x, table, enc.level_scale, enc.level_res, enc.level_size,
+            enc.level_hashed, enc.hash_variant, max_level,
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        table, x = ctx.saved_tensors
+        enc = ctx.enc
+        geo = (enc.level_scale, enc.level_res, enc.level_size, enc.level_hashed,
+               enc.hash_variant)
+        g = g.contiguous()
+        dtable = dx = None
+        if ctx.needs_input_grad[1]:
+            dx = hashgrid_input_grad(x, g, table, *geo, ctx.max_level)
+        if ctx.needs_input_grad[0]:
+            dtable = hashgrid_backward(x, g, *geo, ctx.max_level, table.shape[1],
+                                       payload_dtype="float32")
+        return dtable, dx, None, None
+
+
 class GridEncoding(nn.Module):
     """Multiresolution hash or dense grid (tcnn convention, as the JAX
     package): ``scale_l = 2^(l·log2(b))·N_min − 1``, ``res_l = ceil(scale_l)
@@ -69,8 +110,10 @@ class GridEncoding(nn.Module):
     JAX package reads ``dup_gather_dtype`` rows, by default bf16-rounded
     ("packed_bf16", F even); with the XOR hash it reads ``gather_dtype``
     rows, float32 by default. The blend itself is float32 either way.
+    With ``differentiable_inputs=True`` rows are read in float32.
 
-    d(table) sums per-corner addends rounded to bf16 in float32."""
+    d(table) sums per-corner addends rounded to bf16 in float32; with
+    ``differentiable_inputs=True`` the addends are float32."""
 
     def __init__(self, n_input_dims: int = 3, n_levels: int = 16,
                  n_features_per_level: int = 2, log2_hashmap_size: int = 19,
@@ -177,11 +220,12 @@ class GridEncoding(nn.Module):
                 differentiable_inputs: bool = False):
         """(N, D) positions in [0, 1] → (N, L·F); levels above ``max_level``
         are zero, gradients included (the reference's coarse-to-fine
-        ``set_max_level``). Gradients reach ``table`` only."""
+        ``set_max_level``). Gradients reach ``table`` only, unless
+        ``differentiable_inputs`` (the JAX package's flag of the same name:
+        float32 table reads, gradients to ``x`` and ``table``)."""
         if differentiable_inputs:
-            raise NotImplementedError(
-                "grid encoding gradients with respect to positions "
-                "(differentiable_inputs=True) are not yet ported")
+            return _GridEncodeInputs.apply(self.table, x.contiguous(), self,
+                                           max_level)
         return _GridEncode.apply(self.table, x.detach().contiguous(), self,
                                  max_level)
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ngp_tpu_torch.models.encodings import GridEncoding
+
 
 class NerfNetwork(nn.Module):
     def __init__(self, pos_encoding: nn.Module, dir_encoding: nn.Module,
@@ -32,17 +34,24 @@ class NerfNetwork(nn.Module):
             if hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
-    def density(self, pos: torch.Tensor, max_level: int | None = None):
-        """Raw density-network output (N, 16); channel 0 is raw log-density."""
+    def density(self, pos: torch.Tensor, max_level: int | None = None,
+                differentiable_inputs: bool = False):
+        """Raw density-network output (N, 16); channel 0 is raw log-density.
+        ``differentiable_inputs=True`` lets d(out)/d(pos) flow through a
+        grid encoding (analytic normals, camera refinement)."""
         kwargs = {} if max_level is None else {"max_level": max_level}
+        if differentiable_inputs and isinstance(self.pos_encoding, GridEncoding):
+            kwargs["differentiable_inputs"] = True
         return self.density_mlp(self.pos_encoding(pos, **kwargs))
 
     def forward(self, pos: torch.Tensor, dirs: torch.Tensor,
                 extra: torch.Tensor | None = None,
-                max_level: int | None = None) -> torch.Tensor:
+                max_level: int | None = None,
+                differentiable_inputs: bool = False) -> torch.Tensor:
         """(N, 3) warped positions and (N, 3) warped directions (plus
         extras) → (N, 4) raw [r, g, b, sigma]."""
-        feat = self.density(pos, max_level=max_level)
+        feat = self.density(pos, max_level=max_level,
+                            differentiable_inputs=differentiable_inputs)
         dir_in = dirs if extra is None else torch.cat([dirs, extra], dim=-1)
         rgb = self.rgb_mlp(torch.cat([feat, self.dir_encoding(dir_in)], dim=-1))
         return torch.cat([rgb[:, :3], feat[:, :1]], dim=-1)

@@ -1,24 +1,32 @@
 """Multiresolution hash/dense grid encoding: the CUDA kernels' wrappers
-(:func:`hashgrid_encode_cuda`, :func:`hashgrid_backward_cuda`) and their
-plain PyTorch twins (:func:`hashgrid_encode_reference`,
-:func:`hashgrid_backward_reference`).
+(:func:`hashgrid_encode_cuda`, :func:`hashgrid_backward_cuda`,
+:func:`hashgrid_input_grad_cuda`) and their plain PyTorch twins
+(:func:`hashgrid_encode_reference`, :func:`hashgrid_backward_reference`,
+:func:`hashgrid_input_grad_reference`).
 
 Counterpart of ``ngp_tpu/ops/pallas/hashgrid.py`` (``_encode_kernel``),
 extended to the additive hash that the JAX package computes with XLA
 gathers (``models/encodings.py:grid_dup_gather_blend``). The source and its
 design notes are in ``ngp_tpu_torch/csrc/hashgrid_encode.cu``.
 
-:func:`hashgrid_encode` and :func:`hashgrid_backward` pick by the device
-of ``x``: the twin for CPU tensors, the kernel for CUDA tensors. On a CUDA
-tensor the kernel launches or the call raises; nothing falls back to the
-twin.
+:func:`hashgrid_encode`, :func:`hashgrid_backward` and
+:func:`hashgrid_input_grad` pick by the device of ``x``: the twin for CPU
+tensors, the kernel for CUDA tensors. On a CUDA tensor the kernel launches
+or the call raises; nothing falls back to the twin.
 
 The backward is the JAX package's ``_pge_bwd`` (``models/encodings.py``):
 d(table), each corner's ``w_c · g`` rounded to bf16 and summed in float32
 by row. Its twin is built from two: :func:`hashgrid_backward_addends_reference`
 writes every (level, sample, corner)'s row as a segment key and ``w_c · g``
 as the addend, and ``ops/segsum.segment_sum_reference`` sums them; the
-kernel adds each addend to its row as it computes it.
+kernel adds each addend to its row as it computes it. With
+``payload_dtype="float32"`` the addends stay unrounded: the d(table) of
+the JAX package's ``differentiable_inputs`` path.
+
+The input gradient d(out)/dx contracted with the cotangent (the JAX
+package's autodiff through ``GridEncoding.__call__(...,
+differentiable_inputs=True)``) has no TPU kernel; its CUDA kernel is the
+port's own.
 """
 
 from __future__ import annotations
@@ -45,11 +53,15 @@ HASHGRID_ENCODE = CudaKernel(
         ),
         "hashgrid_backward": (
             _i,
-            [_vp] * 4 + [_ll, _i, _ll, _i, _i, _i, _i, _vp],
+            [_vp] * 4 + [_ll, _i, _ll, _i, _i, _i, _i, _i, _vp],
+        ),
+        "hashgrid_input_grad": (
+            _i,
+            [_vp] * 5 + [_ll, _i, _ll, _i, _i, _i, _i, _vp],
         ),
         "hashgrid_encode_error_string": (ctypes.c_char_p, [_i]),
     },
-    ("hashgrid_encode", "hashgrid_backward"),
+    ("hashgrid_encode", "hashgrid_backward", "hashgrid_input_grad"),
 )
 
 
@@ -100,16 +112,21 @@ def hashgrid_encode(x, table, scale, res, size, hashed, hash_variant: str,
     )
 
 
+def _cell_fraction(x, scale: float):
+    """(cell base (int64), fraction (float32)) of every sample at a level of
+    ``scale``, ``x · scale + 0.5`` rounded twice as the kernels round it."""
+    p = x * scale + 0.5
+    p0f = torch.floor(p)
+    return p0f.to(torch.int64), p - p0f
+
+
 def _level_corners(x, scale: float, res: int, size: int, hashed: bool,
                    additive: bool):
     """Table rows (int64) and multilinear weights (float32) of the 2^D
     corners of every sample's cell at one level, in the kernels' corner
     order and arithmetic: uint32 hashing done in int64 masked to 32 bits
     after every step, weights multiplied one dimension at a time."""
-    p = x * scale + 0.5
-    p0f = torch.floor(p)
-    frac = p - p0f
-    p0 = p0f.to(torch.int64)
+    p0, frac = _cell_fraction(x, scale)
     D = x.shape[1]
     for c in range(1 << D):
         w = None
@@ -146,47 +163,51 @@ def hashgrid_encode_reference(x, table, scale, res, size, hashed,
                               hash_variant: str,
                               max_level: int | None = None) -> torch.Tensor:
     """Plain PyTorch twin of the forward kernel, with the same arithmetic:
-    products and sums in float32 in the kernel's corner order."""
+    products and sums in float32 (the dtype of ``x``) in the kernel's
+    corner order."""
     additive = HASH_VARIANTS[hash_variant] == 1
     N = x.shape[0]
     L, T, F = table.shape
     top = L - 1 if max_level is None else max_level
     flat = table.reshape(L * T, F)
-    out = torch.zeros((N, L, F), dtype=torch.float32, device=x.device)
+    out = torch.zeros((N, L, F), dtype=x.dtype, device=x.device)
     for l, geo in enumerate(_levels(scale, res, size, hashed)):
         if l > top:
             continue
-        acc = torch.zeros((N, F), dtype=torch.float32, device=x.device)
+        acc = torch.zeros((N, F), dtype=x.dtype, device=x.device)
         for idx, w in _level_corners(x, *geo, additive):
-            acc = acc + w[:, None] * flat[idx + l * T].to(torch.float32)
+            acc = acc + w[:, None] * flat[idx + l * T].to(x.dtype)
         out[:, l] = acc
     return out.reshape(N, L * F)
 
 
 def hashgrid_backward(x, g, scale, res, size, hashed, hash_variant: str,
-                      max_level: int | None, n_rows: int) -> torch.Tensor:
+                      max_level: int | None, n_rows: int,
+                      payload_dtype: str = "bfloat16") -> torch.Tensor:
     """d(table) (L, n_rows, F) float32 of :func:`hashgrid_encode` for
     positions ``x`` (N, D) and the output cotangent ``g`` (N, L·F): each
-    corner's ``w_c · g`` rounded to bf16, summed in float32 by row; levels
+    corner's ``w_c · g`` rounded to ``payload_dtype`` (bf16, the training
+    path's rule, or float32, unrounded), summed in float32 by row; levels
     above ``max_level`` and rows no corner reaches are +0.0."""
     if x.device.type == "cpu":
         return hashgrid_backward_reference(
-            x, g, scale, res, size, hashed, hash_variant, max_level, n_rows
-        )
+            x, g, scale, res, size, hashed, hash_variant, max_level, n_rows,
+            payload_dtype)
     return hashgrid_backward_cuda(
-        x, g, scale, res, size, hashed, hash_variant, max_level, n_rows
-    )
+        x, g, scale, res, size, hashed, hash_variant, max_level, n_rows,
+        payload_dtype)
 
 
 def hashgrid_backward_reference(x, g, scale, res, size, hashed,
                                 hash_variant: str, max_level: int | None,
-                                n_rows: int) -> torch.Tensor:
+                                n_rows: int,
+                                payload_dtype: str = "bfloat16") -> torch.Tensor:
     """Plain PyTorch twin of the backward kernel: the corner keys and
     addends of :func:`hashgrid_backward_addends_reference`, summed by
-    ``segment_sum_reference`` with bf16 addends."""
+    ``segment_sum_reference`` with addends rounded to ``payload_dtype``."""
     keys, vals = hashgrid_backward_addends_reference(
         x, g, scale, res, size, hashed, hash_variant, max_level)
-    return segment_sum_reference(keys, vals, n_rows)
+    return segment_sum_reference(keys, vals, n_rows, payload_dtype)
 
 
 def hashgrid_backward_addends_reference(x, g, scale, res, size, hashed,
@@ -212,6 +233,86 @@ def hashgrid_backward_addends_reference(x, g, scale, res, size, hashed,
             if l <= top:
                 vals[l, :, c] = w[:, None] * gl[:, l]
     return keys.reshape(L, N * C), vals.reshape(L, N * C, F)
+
+
+def hashgrid_input_grad(x, g, table, scale, res, size, hashed,
+                        hash_variant: str,
+                        max_level: int | None = None) -> torch.Tensor:
+    """dx (N, D) float32: the gradient of ``sum(g · hashgrid_encode(x,
+    table))`` with respect to positions ``x`` (N, D), for the output
+    cotangent ``g`` (N, L·F) and a float32 ``table`` (L, T, F). Levels above
+    ``max_level`` add nothing; the floor of each cell has no gradient."""
+    if x.device.type == "cpu":
+        return hashgrid_input_grad_reference(
+            x, g, table, scale, res, size, hashed, hash_variant, max_level)
+    return hashgrid_input_grad_cuda(
+        x, g, table, scale, res, size, hashed, hash_variant, max_level)
+
+
+def hashgrid_input_grad_reference(x, g, table, scale, res, size, hashed,
+                                  hash_variant: str,
+                                  max_level: int | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of the input-gradient kernel, in its arithmetic:
+    per level, per corner ``a = Σ_f g·table[idx_c]`` (features in order),
+    ``a`` times the other dimensions' weight factors in dimension order,
+    added to dimension d's fraction gradient for the upper corner and
+    subtracted for the lower; then ``dx += dfrac · scale``, level by level.
+    Computed in the dtype of ``x`` (float32; float64 for checks)."""
+    additive = HASH_VARIANTS[hash_variant] == 1
+    N, D = x.shape
+    L, T, F = table.shape
+    top = L - 1 if max_level is None else max_level
+    flat = table.reshape(L * T, F)
+    gl = g.reshape(N, L, F)
+    zeros = lambda *shape: torch.zeros(shape, dtype=x.dtype, device=x.device)  # noqa: E731
+    dx = zeros(N, D)
+    for l, geo in enumerate(_levels(scale, res, size, hashed)):
+        if l > top:
+            break
+        _, frac = _cell_fraction(x, geo[0])
+        dfrac = [zeros(N)] * D
+        for c, (idx, _) in enumerate(_level_corners(x, *geo, additive)):
+            rows = flat[idx + l * T]
+            a = zeros(N)
+            for f in range(F):
+                a = a + gl[:, l, f] * rows[:, f]
+            for d in range(D):
+                p = a
+                for e in range(D):
+                    if e != d:
+                        p = p * (frac[:, e] if (c >> e) & 1 else 1.0 - frac[:, e])
+                dfrac[d] = dfrac[d] + p if (c >> d) & 1 else dfrac[d] - p
+        for d in range(D):
+            dx[:, d] = dx[:, d] + dfrac[d] * geo[0]
+    return dx
+
+
+def hashgrid_input_grad_mass(x, g, table, scale, res, size, hashed,
+                             hash_variant: str, max_level: int | None = None):
+    """What bounds dx's float32 rounding: Σ|term| (N, D) float64 over the
+    terms ``scale_l · g_f · table[idx_c, f] · Π_{d'≠d} w_{c,d'}`` that each
+    component sums, and their number n = levels · 2^D · F. Two orders of
+    the same float32 terms differ by at most 2·(n − 1)·2^-24·Σ|term|."""
+    additive = HASH_VARIANTS[hash_variant] == 1
+    N, D = x.shape
+    L, T, F = table.shape
+    top = L - 1 if max_level is None else min(max_level, L - 1)
+    flat = table.reshape(L * T, F).abs().double()
+    gl = g.reshape(N, L, F).abs().double()
+    mass = torch.zeros((N, D), dtype=torch.float64, device=x.device)
+    for l, geo in enumerate(_levels(scale, res, size, hashed)):
+        if l > top:
+            break
+        frac = _cell_fraction(x, geo[0])[1].double()
+        for c, (idx, _) in enumerate(_level_corners(x, *geo, additive)):
+            a = (gl[:, l] * flat[idx + l * T]).sum(1) * geo[0]
+            for d in range(D):
+                term = a
+                for e in range(D):
+                    if e != d:
+                        term = term * (frac[:, e] if (c >> e) & 1 else 1.0 - frac[:, e])
+                mass[:, d] += term
+    return mass, (top + 1) * (1 << D) * F
 
 
 def _check(cond: bool, msg: str, fn: str = "hashgrid_encode_cuda"):
@@ -272,17 +373,24 @@ def hashgrid_encode_cuda(x, table, scale, res, size, hashed,
     return out
 
 
+def _check_cotangent(fn: str, x, g, L: int):
+    _check(g.dtype == torch.float32 and g.dim() == 2
+           and g.shape[0] == x.shape[0] and L > 0 and g.shape[1] % L == 0,
+           f"g must be (N, L*F) float32, got {tuple(g.shape)} {g.dtype}", fn)
+
+
 def hashgrid_backward_cuda(x, g, scale, res, size, hashed, hash_variant: str,
-                           max_level: int | None, n_rows: int) -> torch.Tensor:
+                           max_level: int | None, n_rows: int,
+                           payload_dtype: str = "bfloat16") -> torch.Tensor:
     """Launch the backward kernel of ``csrc/hashgrid_encode.cu`` on the
     current stream into a zeroed (L, n_rows, F) float32 output. Raises on
     any input the kernel does not take and on a refused launch."""
     fn = "hashgrid_backward_cuda"
     dev = x.device
     L = scale.shape[0]
-    _check(g.dtype == torch.float32 and g.dim() == 2
-           and g.shape[0] == x.shape[0] and L > 0 and g.shape[1] % L == 0,
-           f"g must be (N, L*F) float32, got {tuple(g.shape)} {g.dtype}", fn)
+    _check_cotangent(fn, x, g, L)
+    _check(payload_dtype in ("bfloat16", "float32"),
+           f"payload_dtype must be bfloat16 or float32, got {payload_dtype!r}", fn)
     F = g.shape[1] // L
     _check_common(fn, x, L, F, scale, res, size, hashed, hash_variant,
                   {"g": g})
@@ -297,9 +405,45 @@ def hashgrid_backward_cuda(x, g, scale, res, size, hashed, hash_variant: str,
     rc = launch_on(dev, lambda stream: lib.hashgrid_backward(
         x.data_ptr(), g.data_ptr(), ctypes.addressof(geo), out.data_ptr(), N,
         L, n_rows, F, D, HASH_VARIANTS[hash_variant],
-        L - 1 if max_level is None else max_level, stream))
+        L - 1 if max_level is None else max_level,
+        int(payload_dtype == "bfloat16"), stream))
     if rc != 0:
         msg = lib.hashgrid_encode_error_string(rc).decode()
         raise RuntimeError(f"hashgrid_backward launch failed: {msg} ({rc})")
     HASHGRID_ENCODE.launches["hashgrid_backward"] += 1
     return out
+
+
+def hashgrid_input_grad_cuda(x, g, table, scale, res, size, hashed,
+                             hash_variant: str,
+                             max_level: int | None = None) -> torch.Tensor:
+    """Launch the input-gradient kernel of ``csrc/hashgrid_encode.cu`` on
+    the current stream into a new (N, D) float32 dx. Raises on any input the
+    kernel does not take and on a refused launch."""
+    fn = "hashgrid_input_grad_cuda"
+    dev = x.device
+    _check(table.dtype == torch.float32 and table.dim() == 3,
+           f"table must be (L, T, F) float32, got {tuple(table.shape)} "
+           f"{table.dtype}", fn)
+    L, T, F = table.shape
+    _check_cotangent(fn, x, g, L)
+    _check(g.shape[1] == L * F, f"g has {g.shape[1]} columns for L*F = {L * F}", fn)
+    _check_common(fn, x, L, F, scale, res, size, hashed, hash_variant,
+                  {"g": g, "table": table})
+    geo = _host_geometry(scale, res, size, hashed)
+    rows = max(geo.mask[l] for l in range(L)) + 1
+    _check(rows <= T, f"table has {T} rows, below a level's {rows}", fn)
+    dx = torch.empty_like(x)
+    N, D = x.shape
+    if N == 0:
+        return dx
+    lib = HASHGRID_ENCODE.library()
+    rc = launch_on(dev, lambda stream: lib.hashgrid_input_grad(
+        x.data_ptr(), g.data_ptr(), table.data_ptr(), ctypes.addressof(geo),
+        dx.data_ptr(), N, L, T, F, D, HASH_VARIANTS[hash_variant],
+        L - 1 if max_level is None else max_level, stream))
+    if rc != 0:
+        msg = lib.hashgrid_encode_error_string(rc).decode()
+        raise RuntimeError(f"hashgrid_input_grad launch failed: {msg} ({rc})")
+    HASHGRID_ENCODE.launches["hashgrid_input_grad"] += 1
+    return dx

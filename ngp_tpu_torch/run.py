@@ -115,8 +115,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--render_mode", default="shade",
                    choices=["shade", "depth", "normals", "positions",
                             "cost", "ao", "encoding"],
-                   help="screenshot render mode (ERenderMode; shade, depth "
-                        "and ao are ported)")
+                   help="screenshot render mode (ERenderMode): shade, or "
+                        "the debug modes depth, normals, positions, cost, ao "
+                        "and encoding, rendered at a training view's camera")
     p.add_argument("--tonemap", default="identity",
                    choices=["identity", "aces", "hable", "reinhard"],
                    help="tonemap curve for screenshots and video frames")

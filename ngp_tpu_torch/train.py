@@ -89,22 +89,29 @@ class Trainer:
 
     def apply_grads(self, state: TrainState) -> None:
         """One optimizer step from the ``.grad`` of ``state.model``, then
-        the EMA; in place."""
-        cfg = self.opt_cfg
-        if cfg.ema_decay is not None and state.ema is None:
-            state.start_ema()
-        groups = param_groups(state.model)
-        for name in GROUPS:
-            params = [p for _, p in groups[name]]
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in params]
-            opt = state.opt_state[name]
-            lr = cfg.schedule(opt.count)
-            if name == "grid":
-                adam_skip_zero_step(params, grads, opt, lr, cfg.b1, cfg.b2, cfg.eps)
-            else:
-                adam_step(params, grads, opt, lr, cfg.b1, cfg.b2, cfg.eps, cfg.l2_reg)
-        if state.ema is not None:
-            ema_update(list(state.ema.parameters()), list(state.model.parameters()),
-                       cfg.ema_decay, state.step)
-        state.step += 1
+        the EMA; in place (:func:`apply_grads`)."""
+        apply_grads(state, self.opt_cfg)
+
+
+def apply_grads(state: TrainState, cfg: OptimizerConfig) -> None:
+    """One step of ``cfg``'s optimizer stack from the ``.grad`` of
+    ``state.model``: sparse Adam on the tables, Adam + L2 on the rest, then
+    the EMA; in place. The step of every engine (``Trainer``, the NeRF
+    engine)."""
+    if cfg.ema_decay is not None and state.ema is None:
+        state.start_ema()
+    groups = param_groups(state.model)
+    for name in GROUPS:
+        params = [p for _, p in groups[name]]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        opt = state.opt_state[name]
+        lr = cfg.schedule(opt.count)
+        if name == "grid":
+            adam_skip_zero_step(params, grads, opt, lr, cfg.b1, cfg.b2, cfg.eps)
+        else:
+            adam_step(params, grads, opt, lr, cfg.b1, cfg.b2, cfg.eps, cfg.l2_reg)
+    if state.ema is not None:
+        ema_update(list(state.ema.parameters()), list(state.model.parameters()),
+                   cfg.ema_decay, state.step)
+    state.step += 1

@@ -23,6 +23,10 @@ from ngp_tpu_torch.ops.hashgrid import (
     hashgrid_encode,
     hashgrid_encode_cuda,
     hashgrid_encode_reference,
+    hashgrid_input_grad,
+    hashgrid_input_grad_cuda,
+    hashgrid_input_grad_mass,
+    hashgrid_input_grad_reference,
 )
 from ngp_tpu_torch.ops.segsum import (
     SEGMENT_SUM,
@@ -166,12 +170,12 @@ def _crowded_case(d, f, variant, seed, n=1 << 14):
     return torch.from_numpy(x.astype(np.float32)).cuda(), table, geo
 
 
-def _assert_within_order_bound(got, want, keys, vals, n_rows):
-    """The kernel adds the twin's bf16-rounded addends in another float32
-    order: a float32 sum of n addends in any order is within
+def _assert_within_order_bound(got, want, keys, vals, n_rows, payload="bfloat16"):
+    """The kernel adds the twin's addends (rounded to ``payload``) in another
+    float32 order: a float32 sum of n addends in any order is within
     (n − 1)·2^-24·Σ|addend| of the exact one, so two orders differ by at
     most twice that per row. Rows that no nonzero addend touches are +0.0."""
-    mass = segment_sum_reference(keys, vals.abs(), n_rows)
+    mass = segment_sum_reference(keys, vals.abs(), n_rows, payload)
     n = segment_count_reference(keys, n_rows)[..., None].float()
     assert ((got - want).abs() <= 2.0 * n * 2.0 ** -24 * mass).all(), \
         float((got - want).abs().max())
@@ -211,6 +215,84 @@ def test_backward_matches_twin(cuda, variant, f, d, positions):
             _assert_within_order_bound(got, want, keys, vals, n_rows)
             if max_level is not None:
                 assert not got[max_level + 1:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positions", ["uniform", "edges", "crowded"])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", ["tcnn", "additive"])
+def test_input_grad_matches_twin(cuda, variant, f, d, positions):
+    """The input-gradient kernel against its twin on the card, with and
+    without max_level: within the float32 order bound 2·(n − 1)·2^-24·Σ|term|
+    per component (the kernel keeps the twin's order, so it is expected to
+    give its bits); and the unrounded backward (payload float32) within the
+    order bound of its sum."""
+    seed = 200 + 10 * f + d
+    if positions == "edges":
+        x, table, geo = _edge_case(d, f, variant, seed)
+    elif positions == "crowded":
+        x, table, geo = _crowded_case(d, f, variant, seed)
+    else:
+        x, table, geo = _case(d, f, variant, seed)
+    L, T = table.shape[:2]
+    g = torch.randn((x.shape[0], L * f), generator=torch.Generator().manual_seed(d)).cuda()
+    for max_level in (None, 1):
+        before = HASHGRID_ENCODE.launches["hashgrid_input_grad"]
+        got = hashgrid_input_grad(x, g, table, *geo, max_level)
+        torch.cuda.synchronize()
+        assert HASHGRID_ENCODE.launches["hashgrid_input_grad"] == before + 1
+        want = hashgrid_input_grad_reference(x, g, table, *geo, max_level)
+        mass, n = hashgrid_input_grad_mass(x, g, table, *geo, max_level)
+        assert ((got - want).abs().double() <= 2.0 * (n - 1) * 2.0 ** -24 * mass).all(), \
+            float((got - want).abs().max())
+        got = hashgrid_backward(x, g, *geo, max_level, T, "float32")
+        keys, vals = hashgrid_backward_addends_reference(x, g, *geo, max_level)
+        want = hashgrid_backward_reference(x, g, *geo, max_level, T, "float32")
+        _assert_within_order_bound(got, want, keys, vals, T, "float32")
+
+
+@pytest.mark.cuda
+def test_input_grad_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, table, geo = _case(3, 2, "tcnn", 0, n=64)
+    g = torch.zeros((64, 8), device="cuda")
+    bad = [(x, g, table.to(torch.bfloat16)), (x, g[:, :6].contiguous(), table),
+           (x, g.double(), table), (x.cpu(), g, table), (x, g, table.cpu()),
+           (x, g, table[:, :16].contiguous()), (x, g, table.transpose(0, 1).contiguous())]
+    for args in bad:
+        with pytest.raises(ValueError):
+            hashgrid_input_grad_cuda(*args, *geo)
+
+
+@pytest.mark.cuda
+def test_normals_render_launches_the_input_gradient_and_no_table_gradient(cuda):
+    """A normals frame of the "tpu" tier on the card, served by a model
+    whose parameters require grad (no EMA yet): the grid's position
+    gradient runs through ``hashgrid_input_grad``, no ``hashgrid_backward``
+    launches, the frame is finite and the parameters still require grad
+    afterwards."""
+    from ngp_tpu_torch.config import default_config
+    from ngp_tpu_torch.data.synthetic import tiny_sphere_dataset
+    from ngp_tpu_torch.engines.nerf import NerfEngine
+    from ngp_tpu_torch.ops.cuda_build import reset_launches
+
+    eng = NerfEngine(default_config("tpu"), tiny_sphere_dataset(2, 24), grid_size=32)
+    state = eng.init_state()
+    with torch.no_grad():
+        state.model.pos_encoding.table.mul_(1e3)
+    assert state.ema is None and state.model.pos_encoding.table.requires_grad
+    r = (torch.arange(32, device="cuda") + 0.5) / 32 - 0.5
+    ball = (r[:, None, None] ** 2 + r[None, :, None] ** 2 + r[None, None, :] ** 2
+            <= 0.1).float()
+    grid = eng.grid_from_density(ball[None])
+    reset_launches()
+    rgb = eng.render_image(state, grid, 0, mode="normals")
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    assert launched["hashgrid_input_grad"] > 0 and launched["hashgrid_encode"] > 0
+    assert launched["hashgrid_backward"] == 0
+    assert rgb.shape == (24, 24, 3) and bool(torch.isfinite(rgb).all())
+    assert all(p.requires_grad for p in state.model.parameters())
 
 
 def _keys_and_vals(kind, L, M, T, F, seed):

@@ -206,9 +206,32 @@ def test_top_plane_gets_the_same_total_weight(monkeypatch):
 
 
 def test_differentiable_inputs_is_not_yet_ported():
+    """(Named when the flag raised; it is ported now.) With
+    ``differentiable_inputs=True`` the backward returns dx, the input
+    gradient's twin exactly, and d(table) with unrounded float32 addends:
+    the backward twin with a float32 payload exactly, which differs from
+    the training path's bf16-rounded d(table). Parity with JAX:
+    ``tests/test_torch_grid_input_grad.py``."""
+    from ngp_tpu_torch.ops.hashgrid import (
+        hashgrid_backward_reference,
+        hashgrid_input_grad_reference,
+    )
+
     _, penc = _encodings(3, 2, "tcnn")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        penc(torch.zeros((4, 3)), differentiable_inputs=True)
+    L, T, F = penc.table.shape
+    x = torch.from_numpy(_positions(600, 3, 2))
+    g = torch.from_numpy(np.random.default_rng(2).normal(size=(600, L * F)).astype(np.float32))
+    with torch.no_grad():
+        penc.table.uniform_(-1.0, 1.0, generator=torch.Generator().manual_seed(2))
+    geo = (penc.level_scale, penc.level_res, penc.level_size, penc.level_hashed, "tcnn")
+    xt = x.clone().requires_grad_(True)
+    penc.table.grad = None
+    (penc(xt, differentiable_inputs=True) * g).sum().backward()
+    table = penc.table.detach()
+    assert torch.equal(xt.grad, hashgrid_input_grad_reference(x, g, table, *geo))
+    unrounded = hashgrid_backward_reference(x, g, *geo, None, T, "float32")
+    assert torch.equal(penc.table.grad, unrounded)
+    assert not torch.equal(unrounded, hashgrid_backward_reference(x, g, *geo, None, T))
 
 
 def test_measured_error_is_far_below_the_bound():

@@ -426,11 +426,17 @@ def test_refusals(scene, testbeds, tmp_path, capsys, small_engines):
         Testbed(scene=str(prior / "transforms_train.json"), device="cpu")
     with pytest.raises(ValueError, match=".png and .exr"):
         run.write_image(str(tmp_path / "x.jpg"), np.zeros((4, 4, 3)))
-    with pytest.raises(ValueError, match="not yet ported"):
-        run.main([scene["train"], "--network", scene["network"], "--n_steps", "0",
-                  "--device", "cpu", "--screenshot", str(tmp_path / "n.png"),
-                  "--render_mode", "normals"])
-    capsys.readouterr()
+    with pytest.raises(NotImplementedError, match="A6"):
+        ptb.engine.render_image(ptb.state, ptb.grid, 0, stride=8, overlay="gt")
+    # the normals mode is ported: the CLI writes its screenshot
+    from ngp_tpu_torch.data.png import read_png
+
+    run.main([scene["train"], "--network", scene["network"], "--n_steps", "0",
+              "--device", "cpu", "--screenshot", str(tmp_path / "n.png"),
+              "--render_mode", "normals"])
+    assert f"wrote {tmp_path / 'n.png'}" in capsys.readouterr().out
+    shot = read_png(str(tmp_path / "n.png"))
+    assert shot.shape == (32, 32, 3) and np.isfinite(shot.astype(np.float32)).all()
 
 
 def test_entry_points_run_on_the_card_unless_asked(scene):
