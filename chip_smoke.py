@@ -121,6 +121,27 @@ Phases, each printing one JSON line:
    screenshot (gate ``IMAGE_CLI_PSNR_MIN`` on the printed PSNR), then a
    T=2^18 ``--network`` file trained, saved, and loaded in a new process,
    whose MSE line must equal the saved run's.
+15. sdf: in a fresh process (``chip_smoke.py sdf``, which also runs alone),
+   the SDF primitive at instant-ngp's configs/sdf/base.json width
+   (``Testbed``'s default: L=16, F=2, T=2^19, XOR hash, float32 reads, a
+   64-wide MLP of 2 hidden layers, MAPE, 2^18 samples a step) on a
+   327,680-triangle bumpy sphere written as an OBJ into
+   ``build/sdf_smoke/`` and loaded through ``Testbed`` (the BVH build's
+   seconds): 1,000 steps (ms a step, samples/s), the IoU over 2^18
+   uniform points (gate ``SDF_IOU_MIN``), 960×540 frames of the shade,
+   shade with shadows and normals modes (wall and device ms, launches), a
+   ground-truth frame of the BVH's distances and the IoU of the two hit
+   masks (gate ``SDF_HIT_IOU_MIN``), a 256³ marching-cubes mesh, one data
+   refresh in the raystab sign mode, and a snapshot round trip that must
+   give the same IoU. Then (phase ``sdf_kernels``) both BVH kernels bit for
+   bit against their twins, the closest point on a data refresh's own
+   2^17 queries and the ray hit on the frame's 518,400 rays, and B1, the
+   fused backward and the input gradient on one step's own (x, g); then
+   (phase ``sdf_profile``) 16 steps under ``torch.profiler``: the device's
+   busy share and device ms by stage.
+16. sdf_cli: ``python -m ngp_tpu_torch.run`` on the mesh, 300 steps with a
+   snapshot and a screenshot (it must print ``IoU:``), then the snapshot
+   loaded in a new process, which must print the same IoU line.
 Then the ``kernels`` line, the card's ``name, power.limit``, and last the
 ``{"ok": true, ...}`` line.
 
@@ -156,8 +177,10 @@ N_KERNEL = 1 << 20
 GOLDEN_TOL = 1e-3
 TRAIN_STEPS = 400
 TRAIN_PROFILE_STEPS = 16  # one cycle of the stride-residue occupancy updates
-# host sleep between a profiler window's edges and the calls it times
+# host sleep between a profiler window's edges and the calls it times, and
+# the untimed calls between those edges and the timed ones
 PROFILER_PAD_S = 0.05
+PROFILER_EDGE_CALLS = 2
 # The JAX package's test_train_sphere_to_psnr asks for 20 dB; two sound card
 # runs of this configuration read 51.4 and 53.0 dB, so the gate sits well
 # above 20 dB to catch a table gradient that is badly wrong.
@@ -214,6 +237,33 @@ IMAGE_CLI_STEPS = 1000
 IMAGE_CLI_PSNR_MIN = 25.0
 IMAGE_SNAPSHOT_LOG2 = 18
 IMAGE_SNAPSHOT_STEPS = 200
+# phase sdf: the bumpy sphere's subdivisions (327,680 triangles), the steps
+# in calls of 100, the profiled steps, the IoU's samples and its gate (that
+# of tests/test_sdf.py), the frame, the gate on the IoU of the model's and
+# the ground truth's hit masks, the mesh lattice, the CLI's steps; all fixed
+# before the first card run
+SDF_SUBDIVISIONS = 7
+SDF_STEPS = 1000
+SDF_CALL_STEPS = 100
+SDF_PROFILE_STEPS = 16
+SDF_IOU_SAMPLES = 1 << 18
+SDF_IOU_MIN = 0.9
+SDF_FRAME = (960, 540)
+SDF_HIT_IOU_MIN = 0.9
+SDF_MC_RES = 256
+SDF_CLI_STEPS = 300
+# float32 operations of one test, for the BVH kernels' bound: a point's
+# squared distance to a box (6 subtractions, 6 maxima, a 3-term dot); a
+# point's closest point on a triangle (Ericson: 15 subtractions, six 3-term
+# dots, three 2x2 determinants, the face's 2 divisions and 6 multiply-adds,
+# the squared distance and its test); a ray's slab test (6 subtractions, 6
+# products, 6 minima/maxima, 4 reductions, 3 tests); Moller-Trumbore (6
+# subtractions for the edges, 2 cross products, 4 dots, a division, 3 scalar
+# products, 6 tests)
+BOX_SQ_DIST_OPS = 17
+POINT_TRIANGLE_OPS = 80
+BOX_RAY_OPS = 25
+RAY_TRIANGLE_OPS = 58
 
 
 def emit(obj):
@@ -235,15 +285,19 @@ def device_ms(fn, iters: int = 20, warmup: int = 2, windows: int = 3) -> float:
     checks, launch issue) is not in it; :func:`cuda_ms` measures that.
 
     The trace may lack records: 19 of 20 launches of one kernel, and 16 of
-    20 in a process's first window, on an H100. The profiler keeps the
-    device records that fall inside its window, whose edges it takes on the
-    host's clock, so the calls run ``PROFILER_PAD_S`` of host sleep away
-    from both edges. A window that still lacks more than one record of an
+    20 in a process's first window, on an H100; two of 20 of one kernel in
+    six windows in a row, once earlier phases had profiled. The profiler
+    keeps the device records that fall inside its window, whose edges it
+    takes on the host's clock, so the calls run ``PROFILER_PAD_S`` of host
+    sleep away from both edges, and ``PROFILER_EDGE_CALLS`` more calls run
+    before and after the timed ones inside the window: only the device
+    records within the timed calls' range (its span on the device
+    timeline) count. A window whose range lacks more than one record of an
     operation is reported (phase ``profiler_retry``) and profiled again, up
     to ``windows`` times; then the run fails."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for _ in range(warmup):
         fn()
@@ -251,25 +305,38 @@ def device_ms(fn, iters: int = 20, warmup: int = 2, windows: int = 3) -> float:
     for window in range(windows):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILER_PAD_S)
-            for _ in range(iters):
+            for _ in range(PROFILER_EDGE_CALLS):
+                fn()
+            with record_function("device_ms"):
+                for _ in range(iters):
+                    fn()
+            for _ in range(PROFILER_EDGE_CALLS):
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILER_PAD_S)
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        # the timed range's device span; a trace without one counts every
+        # record of the window, edge calls included
+        timed = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.is_user_annotation and e.name == "device_ms"]
+        n_calls = iters if timed else iters + 2 * PROFILER_EDGE_CALLS
+        timed = timed or [(float("-inf"), float("inf"))]
         by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+        for e in events:
+            if not e.is_user_annotation and any(a <= e.time_range.start and e.time_range.end <= b
+                                                for a, b in timed):
                 by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
         # Each operation counts as its mean time times its records per
         # call, rounded; one record short is tolerated.
         us, short = 0.0, {}
         for name, spans in by_name.items():
-            per_call = max(1, round(len(spans) / iters))
-            if abs(len(spans) - per_call * iters) > 1:
+            per_call = max(1, round(len(spans) / n_calls))
+            if abs(len(spans) - per_call * n_calls) > 1:
                 short[name[:90]] = len(spans)
             us += sum(spans) / len(spans) * per_call
         if not short and us > 0:
             return us / 1e3
-        emit({"phase": "profiler_retry", "window": window, "calls": iters,
+        emit({"phase": "profiler_retry", "window": window, "calls": n_calls,
               "records": short or "none"})
     raise AssertionError(f"in {windows} windows of {iters} calls the profiler kept "
                          f"no whole number of device records a call: {short or 'none'}")
@@ -2065,6 +2132,385 @@ def phase_image_cli():
     return result["launches"]
 
 
+def _bvh_bound(stats: dict, tree, n_queries: int, query_bytes: int, out_bytes: int,
+               internal_ops: int, triangle_ops: int) -> dict:
+    """The bound of a traversal from its twin's visits (``stats``): the
+    distinct nodes popped, each node's box, children and flag read once,
+    each distinct leaf's 4 triangles read once, the queries read and the
+    outputs written once; the box tests (2 an internal pop, ``internal_ops``
+    each) and the triangle tests (4 a leaf pop, ``triangle_ops`` each) at
+    the float32 rate."""
+    visited = stats["visited"]
+    nodes = int(visited.sum())
+    leaves = int((visited & tree.node_leaf).sum())
+    node_bytes = 4 * 3 + 4 * 3 + 4 + 4 + 1
+    return {"nodes_read": nodes, "leaves_read": leaves,
+            "internal_pops": stats["internal_pops"], "leaf_pops": stats["leaf_pops"],
+            **_bound(nodes * node_bytes + leaves * 4 * 36 + n_queries * (query_bytes + out_bytes),
+                     stats["internal_pops"] * 2 * internal_ops
+                     + stats["leaf_pops"] * 4 * triangle_ops)}
+
+
+def _bvh_row(name: str, run, twin, tree, n_queries: int, query_bytes: int, out_bytes: int,
+             internal_ops: int, triangle_ops: int) -> dict:
+    """A traversal kernel (``run()``) against its twin (``twin(stats)``) on
+    the card, bit for bit; its times and bound. ``ms`` is timed by CUDA
+    events around 20 back-to-back calls, as ``call_ms`` is: the profiler
+    kept 15 or 16 of 20 records of this kernel in each of three windows
+    (the kernel runs milliseconds, the wrapper's host time is hidden
+    behind it). The twin runs once (seconds: a pop of every query an
+    iteration, thousands of iterations where a query near the middle of a
+    closed mesh prunes little), timed by events with its visit counting
+    (``plain_ms``). No PyTorch call computes a BVH query, so no library
+    time."""
+    import torch
+
+    got = run()
+    stats = {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = twin(stats)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = max(float((g.double() - w.double()).abs().nan_to_num(0.0).max()) if g.numel() else 0.0
+              for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name} differs from its twin, max abs err {err}")
+    call_ms = cuda_ms(run, iters=20)
+    return {"N": n_queries, "max_abs_err": err, "bit_exact": True,
+            "ms": call_ms, "ms_source": "cuda_events", "call_ms": call_ms,
+            "plain_ms": plain_ms, "twin_iterations": stats["iterations"], "library_ms": None,
+            **_bvh_bound(stats, tree, n_queries, query_bytes, out_bytes, internal_ops,
+                         triangle_ops)}
+
+
+def _sdf_frame(eng, state, o, d, mode: str, shadow: bool = False, gt_bvh: bool = False):
+    """One frame through ``render_rays``: its hit mask, wall and device ms
+    and the launches it added."""
+    import torch
+
+    from ngp_tpu_torch.ops.cuda_build import launch_counts
+
+    before = launch_counts()
+    t0 = time.perf_counter()
+    rgb, _, hit = eng.render_rays(state, o, d, gt_bvh, mode=mode, shadow=shadow)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+    if not bool(torch.isfinite(rgb).all()):
+        raise AssertionError(f"sdf {mode} frame: non-finite values")
+    return hit, {"wall_ms": wall_ms, "launches": launches,
+                 "device_ms": _frame_device_ms(lambda: eng.render_rays(
+                     state, o, d, gt_bvh, mode=mode, shadow=shadow)),
+                 "hit_share": float(hit.float().mean()),
+                 "mean_rgb": float(rgb.mean())}
+
+
+def phase_sdf():
+    """In a fresh process (``chip_smoke.py sdf``): the SDF primitive at
+    instant-ngp's configs/sdf/base.json (``Testbed``'s default: L=16, F=2,
+    T=2^19, XOR hash, float32 reads, 64-wide MLP with 2 hidden layers,
+    MAPE, Ema 0.95 over ExponentialDecay over Adam at 1e-4) and
+    ``SdfEngine``'s batch of 2^18, on the 327,680-triangle bumpy sphere
+    written as an OBJ into ``build/sdf_smoke/`` and loaded through
+    ``Testbed``. ``SDF_STEPS`` steps in calls of ``SDF_CALL_STEPS``; the
+    IoU over 2^18 uniform points (gate ``SDF_IOU_MIN``); 960×540 frames
+    of the shade, shade with shadows and normals modes; a ground-truth
+    frame (the BVH's distances) and the IoU of its hit mask with the shade
+    frame's (gate ``SDF_HIT_IOU_MIN``); a 256³ marching-cubes mesh; one data
+    refresh in the raystab sign mode against the watertight one; a
+    snapshot saved and loaded, which must give the same IoU. The launch
+    counts are read over all of it. Returns what the later phases use."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.data.synthetic import write_bumpy_sphere_mesh
+    from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
+    from ngp_tpu_torch.testbed import SDF_EYE, SDF_FOV_DEG, SDF_LOOKAT, Testbed
+
+    out = os.path.join(ROOT, "build", "sdf_smoke")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    mesh_path = write_bumpy_sphere_mesh(os.path.join(out, "bumpy_sphere.obj"), SDF_SUBDIVISIONS)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tb = Testbed(scene=mesh_path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    eng = tb.engine
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    step_ms, losses = [], []
+    t_start = time.perf_counter()
+    for _ in range(SDF_STEPS // SDF_CALL_STEPS):
+        t0 = time.perf_counter()
+        tb.state, loss = eng.train(tb.state, SDF_CALL_STEPS)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / SDF_CALL_STEPS)
+        losses.append(loss)
+    wall_s = time.perf_counter() - t_start
+    train_launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.cat(losses).cpu().numpy()
+    median_ms = float(np.median(step_ms[1:]))
+    state = tb.state
+
+    t0 = time.perf_counter()
+    iou = eng.calculate_iou(state, SDF_IOU_SAMPLES)
+    iou_s = time.perf_counter() - t0
+
+    o, d = (torch.from_numpy(a).cuda() for a in
+            eng.camera_rays(SDF_EYE, SDF_LOOKAT, SDF_FRAME, SDF_FOV_DEG))
+    frames = {}
+    hit, frames["shade"] = _sdf_frame(eng, state, o, d, "shade")
+    _, frames["shade_shadows"] = _sdf_frame(eng, state, o, d, "shade", shadow=True)
+    _, frames["normals"] = _sdf_frame(eng, state, o, d, "normals")
+    gt_hit, frames["gt_shade"] = _sdf_frame(eng, state, o, d, "shade", gt_bvh=True)
+    hit_iou = float((hit & gt_hit).sum()) / max(float((hit | gt_hit).sum()), 1.0)
+
+    t0 = time.perf_counter()
+    verts, faces = eng.compute_marching_cubes_mesh(state, SDF_MC_RES)
+    mc_s = time.perf_counter() - t0
+    vd = eng.signed_distance(torch.from_numpy(verts).cuda()).abs()
+    in_box = bool(((verts >= eng.mesh.aabb_min - 1e-6)
+                   & (verts <= eng.mesh.aabb_max + 1e-6)).all())
+
+    # one data refresh of the same step in each sign mode
+    water_pos, water = eng.training_batch(state.step)
+    eng.sign_mode = "raystab"
+    t0 = time.perf_counter()
+    stab_pos, stab = eng.training_batch(state.step)
+    torch.cuda.synchronize()
+    raystab_ms = (time.perf_counter() - t0) * 1e3
+    eng.sign_mode = "watertight"
+    firm = water.abs() > 1e-6
+    sign_agree = float((torch.sign(stab[firm]) == torch.sign(water[firm])).float().mean())
+
+    snapshot = os.path.join(out, "sdf.msgpack")  # uncompressed: zlib of 124 MB takes seconds
+    t0 = time.perf_counter()
+    tb.save_snapshot(snapshot)
+    tb.load_snapshot(snapshot)
+    snapshot_s = time.perf_counter() - t0
+    iou_reloaded = eng.calculate_iou(tb.state, SDF_IOU_SAMPLES)
+    launches = launch_counts()
+
+    tree = eng.bvh
+    result = {
+        "phase": "sdf", "config": "Testbed default (configs/sdf/base.json)",
+        "mesh": {"triangles": eng.mesh.n_triangles, "subdivisions": SDF_SUBDIVISIONS,
+                 "write_s": write_s, "obj_bytes": os.path.getsize(mesh_path),
+                 "testbed_load_s": load_s, "bvh_build_s": eng.bvh_build_s,
+                 "bvh_nodes": tree.node_a.shape[0], "bvh_depth": tree.depth},
+        "table": list(state.model.encoding.table.shape), "batch": eng.batch_size,
+        "steps": SDF_STEPS, "wall_s": wall_s, "ms_per_step_by_call": step_ms,
+        "median_ms_per_step": median_ms,
+        "samples_per_s": eng.batch_size / (median_ms / 1e3),
+        "loss_first_last": [float(losses[0]), float(losses[-1])],
+        "losses_finite": bool(np.isfinite(losses).all()), "peak_mem_gb": peak_gb,
+        "train_launches": train_launches,
+        "iou": iou, "iou_samples": SDF_IOU_SAMPLES, "iou_gate": SDF_IOU_MIN, "iou_s": iou_s,
+        "frame": list(SDF_FRAME), "frames": frames,
+        "model_gt_hit_iou": hit_iou, "hit_iou_gate": SDF_HIT_IOU_MIN,
+        "marching_cubes": {"res": SDF_MC_RES, "s": mc_s, "verts": len(verts),
+                           "faces": len(faces), "in_box": in_box,
+                           "median_abs_gt_distance": float(vd.median()) if len(verts) else None},
+        "raystab_refresh_ms": raystab_ms,
+        "raystab_abs_equal": bool(torch.equal(stab.abs(), water.abs())),
+        "raystab_sign_agreement": sign_agree,
+        "snapshot_s": snapshot_s, "snapshot_bytes": os.path.getsize(snapshot),
+        "iou_reloaded": iou_reloaded, "launches": launches,
+    }
+    emit(result)
+    if not result["losses_finite"]:
+        raise AssertionError("sdf training loss is not finite")
+    if not iou >= SDF_IOU_MIN:
+        raise AssertionError(f"sdf IoU {iou} after {SDF_STEPS} steps < {SDF_IOU_MIN}")
+    if not hit_iou >= SDF_HIT_IOU_MIN:
+        raise AssertionError(f"model and ground-truth hit masks: IoU {hit_iou} "
+                             f"< {SDF_HIT_IOU_MIN}")
+    if iou_reloaded != iou:
+        raise AssertionError(f"reloaded snapshot IoU {iou_reloaded} != {iou}")
+    if not (len(faces) and in_box):
+        raise AssertionError(f"marching cubes: {len(faces)} faces, inside the box {in_box}")
+    if not (result["raystab_abs_equal"] and torch.equal(stab_pos, water_pos)):
+        raise AssertionError("raystab refresh: positions or |distances| differ")
+    if frames["normals"]["launches"].get("hashgrid_input_grad", 0) == 0 or \
+            frames["normals"]["launches"].get("hashgrid_backward", 0):
+        raise AssertionError(f"normals frame launches {frames['normals']['launches']}")
+    for name in ("hashgrid_encode", "hashgrid_backward", "hashgrid_input_grad",
+                 "bvh_closest_point", "bvh_ray_intersect"):
+        if launches[name] == 0:
+            raise AssertionError(f"the sdf path launched {name} no time")
+    return tb, mesh_path, (o, d), launches, median_ms
+
+
+def phase_sdf_kernels(eng, state, rays) -> dict:
+    """The kernels of the SDF path against their twins on the card, at the
+    path's shapes: the closest-point kernel on a data refresh's own 2^17
+    queries (its offset and uniform points), the ray kernel on the frame's
+    518,400 camera rays, and B1, the fused grid backward and the input
+    gradient at the sdf config on one training step's own (x, g). Returns
+    the rows by kernel."""
+    import torch
+
+    from ngp_tpu_torch.ops import bvh as bvh_ops
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
+
+    tree = eng.bvh
+    kept_queries = []
+    cp_cuda = bvh_ops.bvh_closest_point_cuda
+
+    def keep_points(tree_, points):
+        kept_queries[:] = [points]
+        return cp_cuda(tree_, points)
+
+    backward = hashgrid_ops.hashgrid_backward_cuda
+    kept = []
+
+    def keep(x, g, *geo_and_rows):
+        kept[:] = [(x, g, *geo_and_rows)]
+        return backward(x, g, *geo_and_rows)
+
+    bvh_ops.bvh_closest_point_cuda = keep_points
+    hashgrid_ops.hashgrid_backward_cuda = keep
+    try:
+        eng.train(state, 1)  # a call's first step refreshes the data
+        torch.cuda.synchronize()
+    finally:
+        bvh_ops.bvh_closest_point_cuda = cp_cuda
+        hashgrid_ops.hashgrid_backward_cuda = backward
+    points = kept_queries[0]
+    rows = {}
+    rows["bvh_closest_point"] = _bvh_row(
+        "bvh_closest_point", lambda: bvh_ops.bvh_closest_point_cuda(tree, points),
+        lambda stats: bvh_ops.bvh_closest_point_reference(tree, points, stats), tree,
+        points.shape[0], 12, 20, BOX_SQ_DIST_OPS, POINT_TRIANGLE_OPS)
+    emit({"phase": "sdf_kernels", "kernel": "bvh_closest_point", "shape": "refresh_queries",
+          **rows["bvh_closest_point"]})
+    o, d = rays
+    rows["bvh_ray_intersect"] = _bvh_row(
+        "bvh_ray_intersect", lambda: bvh_ops.bvh_ray_intersect_cuda(tree, o, d),
+        lambda stats: bvh_ops.bvh_ray_intersect_reference(tree, o, d, stats), tree,
+        o.shape[0], 24, 8, BOX_RAY_OPS, RAY_TRIANGLE_OPS)
+    emit({"phase": "sdf_kernels", "kernel": "bvh_ray_intersect", "shape": "frame_rays",
+          **rows["bvh_ray_intersect"]})
+
+    x, g, scale, res, size, hashed, variant, _, n_rows = kept[0][:9]
+    geo = (scale, res, size, hashed, variant)
+    enc = state.model.encoding
+    keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
+    L, T = scale.shape[0], n_rows
+    rows_read = int(torch.unique(keys.long() + torch.arange(L, device="cuda")[:, None] * T
+                                 ).numel())
+    rows["hashgrid_encode"] = _kernel_case("sdf", torch.float32, torch.Generator().manual_seed(13),
+                                           x=x, enc=enc, rows_read=rows_read)
+    emit({"phase": "sdf_kernels", "kernel": "hashgrid_encode", "shape": "step_positions",
+          **rows["hashgrid_encode"]})
+    rows["hashgrid_backward"] = _backward_row(x, g, geo, T, keys, vals)
+    emit({"phase": "sdf_kernels", "kernel": "hashgrid_backward", "shape": "step_positions",
+          "N": x.shape[0], "L": L, "T": T, "F": vals.shape[2], "hash": variant,
+          **rows["hashgrid_backward"]})
+    del keys, vals
+    rows["hashgrid_input_grad"] = _input_grad_row(x, g, enc.table.detach(), geo)
+    emit({"phase": "sdf_kernels", "kernel": "hashgrid_input_grad", "shape": "step_positions",
+          **rows["hashgrid_input_grad"]})
+    return rows
+
+
+def phase_sdf_profile(eng, state, median_ms: float):
+    """``SDF_PROFILE_STEPS`` steps (one data refresh among them) under
+    torch.profiler, the backward on the calling thread: the device busy
+    share of a step and the device ms by stage (the refresh's samples and
+    ground truth, permutation and gather, forward, backward, grid
+    backward, optimizer)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ngp_tpu_torch.models import encodings
+
+    trainer = eng.trainer
+    eng.training_batch = _ranged("refresh", eng.training_batch)
+    trainer.loss = _ranged("forward", trainer.loss)
+    trainer.apply_grads = _ranged("optimizer", trainer.apply_grads)
+    grid_bwd = encodings._GridEncode.backward
+    encodings._GridEncode.backward = staticmethod(_ranged("grid_backward", grid_bwd))
+    tensor_backward = torch.Tensor.backward
+    torch.Tensor.backward = _ranged("backward", tensor_backward)
+    n = SDF_PROFILE_STEPS
+    try:
+        first = state.step
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                torch.autograd.set_multithreading_enabled(False):
+            t0 = time.perf_counter()
+            with record_function("steps"):
+                state, _ = eng.train(state, n)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.Tensor.backward = tensor_backward
+        encodings._GridEncode.backward = staticmethod(grid_bwd)
+        del eng.training_batch, trainer.loss, trainer.apply_grads
+    summary = _profile_summary(prof, ("refresh", "forward", "backward", "grid_backward",
+                                      "optimizer"), "steps", "permute_and_other")
+    busy_ms = summary["device_busy_ms"] / n
+    emit({"phase": "sdf_profile", "steps": [first, state.step - 1],
+          "wall_ms_per_step": wall_ms / n, "device_busy_ms_per_step": busy_ms,
+          "busy_share_of_profiled_wall": busy_ms / (wall_ms / n),
+          "busy_share_of_unprofiled_median": busy_ms / median_ms,
+          "device_ops_per_step": summary["device_ops"] / n,
+          "stage_device_ms_per_step": {k: v / n for k, v in summary["stage_device_ms"].items()},
+          "top_device_ms": summary["top_device_ms"]})
+
+
+def phase_sdf_cli(mesh_path: str) -> dict:
+    """``python -m ngp_tpu_torch.run`` on the written mesh in fresh
+    processes: ``SDF_CLI_STEPS`` steps with a snapshot and a screenshot,
+    which must print ``IoU:``; then the snapshot loaded with no steps, which
+    must print the same IoU line. Returns the two runs' kernel launches,
+    summed."""
+    from ngp_tpu_torch.data.png import read_png
+
+    out = os.path.dirname(mesh_path)
+    snapshot, shot = os.path.join(out, "cli.msgpack"), os.path.join(out, "cli.png")
+    run1 = _cli([mesh_path, "--n_steps", str(SDF_CLI_STEPS), "--save_snapshot", snapshot,
+                 "--screenshot", shot])
+    run2 = _cli([mesh_path, "--n_steps", "0", "--load_snapshot", snapshot])
+    iou1, iou2 = _cli_line(run1, "IoU:")[1], _cli_line(run2, "IoU:")[1]
+    runs = (run1, run2)
+    result = {
+        "phase": "sdf_cli", "steps": SDF_CLI_STEPS,
+        "trained": _cli_line(run1, "trained ")[1], "iou_line": iou1,
+        "reloaded_iou_line": iou2, "screenshot": list(read_png(shot).shape),
+        "run_s": [r[-1][0] for r in runs],
+        "launches": {k: sum(_cli_launches(r)[k] for r in runs) for k in _cli_launches(run1)},
+    }
+    emit(result)
+    if iou2 != iou1:
+        raise AssertionError(f"reloaded {iou2!r}, saved {iou1!r}")
+    if result["screenshot"] != [512, 512, 3]:
+        raise AssertionError(f"screenshot {result['screenshot']}")
+    for name in ("hashgrid_encode", "hashgrid_backward", "bvh_closest_point"):
+        if _cli_launches(run1)[name] == 0:
+            raise AssertionError(f"the sdf CLI launched {name} no time")
+    return result["launches"]
+
+
+def phase_sdf_all():
+    """``chip_smoke.py sdf``: phases sdf, sdf_kernels, sdf_profile (the
+    profiler's training window last: later windows in the process lack
+    records) and sdf_cli; then the launches of the path (phase sdf and
+    the CLI runs) on one line."""
+    tb, mesh_path, rays, launches, median_ms = phase_sdf()
+    phase_sdf_kernels(tb.engine, tb.state, rays)
+    phase_sdf_profile(tb.engine, tb.state, median_ms)
+    del tb
+    cli = phase_sdf_cli(mesh_path)
+    emit({"phase": "sdf_launches", "launches": {k: launches[k] + cli[k] for k in launches}})
+
+
 def main():
     phase_env()
     import torch
@@ -2105,7 +2551,11 @@ def main():
     image_launches = next(line for line in _child("image")
                           if line.get("phase") == "image")["launches"]
     image_cli_launches = phase_image_cli()
-    later = {k: cli_launches[k] + image_launches[k] + image_cli_launches[k]
+    sdf_lines = _child("sdf")
+    sdf_rows = {line["kernel"]: line for line in sdf_lines if line.get("phase") == "sdf_kernels"}
+    sdf_launches = next(line for line in sdf_lines
+                        if line.get("phase") == "sdf_launches")["launches"]
+    later = {k: cli_launches[k] + image_launches[k] + image_cli_launches[k] + sdf_launches[k]
              for k in cli_launches}
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2158,6 +2608,13 @@ def main():
                     + capture_launches["bitonic_sort_pos"]
                     + later["bitonic_sort_pos"],
                     **{k: sort_row[k] for k in keys}})
+    # the BVH traversals have no TPU kernel: the JAX package runs them as
+    # lax.while_loops; their rows come from phase sdf_kernels
+    for name, line in (("bvh_closest_point", 190), ("bvh_ray_intersect", 291)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "ngp_tpu_torch/csrc/triangle_bvh.cu",
+                        "replaces": f"ngp_tpu/geometry/triangle_bvh.py:{line}",
+                        "launches": later[name], **{k: sdf_rows[name][k] for k in keys}})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2170,5 +2627,7 @@ if __name__ == "__main__":
         phase_cli_checks()
     elif sys.argv[1:] == ["image"]:
         phase_image()
+    elif sys.argv[1:] == ["sdf"]:
+        phase_sdf_all()
     else:
         main()

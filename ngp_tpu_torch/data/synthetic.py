@@ -2,8 +2,9 @@
 the scene center, color (0.9, 0.3, 0.2), seen by a ring of pinhole cameras
 (the port's copy of the JAX package's ``__graft_entry__._tiny_sphere_dataset``,
 the bench's fallback scene when no capture is present), a written sphere
-capture, and a procedural gigapixel image (the formula of
-``scripts/bench_gigapixel.py``)."""
+capture, a procedural gigapixel image (the formula of
+``scripts/bench_gigapixel.py``) and a written bumpy-sphere mesh for SDF
+mode."""
 
 from __future__ import annotations
 
@@ -205,4 +206,61 @@ def write_gigapixel_bin(path: str, side: int, device="cpu") -> str:
     from ngp_tpu_torch.data.image_loader import save_binary_image
 
     save_binary_image(path, gigapixel_image(side, device, torch.float16).cpu().numpy())
+    return path
+
+
+# the icosahedron: 12 unit vertices, 20 faces wound counter-clockwise seen
+# from outside
+_ICO_T = (1.0 + 5.0 ** 0.5) / 2.0
+_ICO_VERTS = [(-1, _ICO_T, 0), (1, _ICO_T, 0), (-1, -_ICO_T, 0), (1, -_ICO_T, 0),
+              (0, -1, _ICO_T), (0, 1, _ICO_T), (0, -1, -_ICO_T), (0, 1, -_ICO_T),
+              (_ICO_T, 0, -1), (_ICO_T, 0, 1), (-_ICO_T, 0, -1), (-_ICO_T, 0, 1)]
+_ICO_FACES = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+              (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+              (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+              (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+
+
+def icosphere(subdivisions: int) -> tuple[np.ndarray, np.ndarray]:
+    """Unit icosphere: (V, 3) float64 vertices, (20·4^subdivisions, 3)
+    int64 faces wound outward. Each subdivision splits a face into four
+    at its edges' midpoints (shared by the two faces of an edge), pushed
+    out to the sphere."""
+    v = np.asarray(_ICO_VERTS, np.float64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    f = np.asarray(_ICO_FACES, np.int64)
+    for _ in range(subdivisions):
+        edges = np.sort(np.stack([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]], 1), -1)
+        uniq, inv = np.unique(edges.reshape(-1, 2), axis=0, return_inverse=True)
+        mid = v[uniq].mean(axis=1)
+        mid /= np.linalg.norm(mid, axis=1, keepdims=True)
+        m = len(v) + inv.reshape(-1, 3)  # midpoints of edges ab, bc, ca
+        a, b, c = f.T
+        ab, bc, ca = m.T
+        f = np.concatenate([np.stack(t, 1) for t in
+                            ((a, ab, ca), (ab, b, bc), (ca, bc, c), (ab, bc, ca))])
+        v = np.concatenate([v, mid])
+    return v, f
+
+
+def bumpy_sphere(subdivisions: int = 7) -> tuple[np.ndarray, np.ndarray]:
+    """The icosphere's vertices moved radially to r = 0.3·(1 + 0.15·sin 6θ ·
+    cos 4φ) (θ polar, φ azimuth), as float32, and its faces. A vertex is
+    shared by its faces and moves once, so the mesh stays closed."""
+    v, f = icosphere(subdivisions)
+    theta = np.arccos(np.clip(v[:, 2], -1.0, 1.0))
+    phi = np.arctan2(v[:, 1], v[:, 0])
+    r = 0.3 * (1.0 + 0.15 * np.sin(6.0 * theta) * np.cos(4.0 * phi))
+    return (v * r[:, None]).astype(np.float32), f
+
+
+def write_bumpy_sphere_mesh(path: str, subdivisions: int = 7) -> str:
+    """Write :func:`bumpy_sphere` as an indexed ASCII OBJ (``v`` and ``f``
+    lines, 1-based, every float32 coordinate exactly): at the default 7
+    subdivisions 327,680 triangles, the size class of the reference's
+    armadillo (345,944)."""
+    v, f = bumpy_sphere(subdivisions)
+    with open(path, "w") as out:
+        out.write("".join("v %.9g %.9g %.9g\n" % tuple(p) for p in v.tolist()))
+        out.write("".join("f %d %d %d\n" % tuple(t) for t in (f + 1).tolist()))
     return path

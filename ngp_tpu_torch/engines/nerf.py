@@ -48,7 +48,6 @@ probe-sampled grid updates and mesh vertex optimisation.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import math
 import time
@@ -94,7 +93,7 @@ from ngp_tpu_torch.ops.marching import (
 )
 from ngp_tpu_torch.ops.tonemap import linear_to_srgb, srgb_to_linear
 from ngp_tpu_torch.optim import OptimizerConfig
-from ngp_tpu_torch.train import TrainState, apply_grads
+from ngp_tpu_torch.train import TrainState, apply_grads, parameters_frozen
 from ngp_tpu_torch.utils import metrics
 from ngp_tpu_torch.utils.meters import MetricsLogger, TrainMeters
 
@@ -116,23 +115,6 @@ COST_STEPS = 128.0
 # parameters, a focal multiplier and a distortion map (testbed.h:713)
 DISTORTION_RESOLUTION = (32, 32)
 MIN_PDF = 0.01
-
-
-@contextlib.contextmanager
-def _parameters_frozen(model: torch.nn.Module):
-    """``model``'s parameters with ``requires_grad`` off inside the block,
-    restored after. A custom autograd Function's ``needs_input_grad``
-    follows ``requires_grad``, not the inputs an ``autograd.grad`` call asks
-    for: frozen, a gradient with respect to positions launches no
-    d(table) backward."""
-    params = [p for p in model.parameters() if p.requires_grad]
-    for p in params:
-        p.requires_grad_(False)
-    try:
-        yield
-    finally:
-        for p in params:
-            p.requires_grad_(True)
 
 
 class RayBatch(NamedTuple):
@@ -950,7 +932,7 @@ class NerfEngine:
         computes no table gradient."""
         act = density_activation(self.density_act)
         grads = []
-        with torch.enable_grad(), _parameters_frozen(model):
+        with torch.enable_grad(), parameters_frozen(model):
             for p in pos_w.split(NETWORK_CHUNK):
                 p = p.detach().requires_grad_(True)
                 sigma = act(model.density(p, differentiable_inputs=True)[:, 0])

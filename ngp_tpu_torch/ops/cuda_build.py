@@ -4,7 +4,7 @@ Each source in ``ngp_tpu_torch/csrc/`` exports a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``. Libraries land in ``build/ngp_tpu_torch/`` at the repository
 root (git-ignored), named by a hash of the source, the headers of
-``csrc/`` and the flags, so an unchanged source is compiled once per
+``csrc/`` and the flags (``NVCC_FLAGS`` and a source's own), so an unchanged source is compiled once per
 checkout and an edited header builds anew. Nothing is built when a
 module is imported: :meth:`CudaKernel.library` builds at first use, and
 :func:`build_all` builds every registered source in parallel.
@@ -49,11 +49,14 @@ class CudaKernel:
     """One CUDA source, its C functions' ctypes signatures, and a count of
     launches per kernel entry point (``launches[name]``) that the Python
     wrappers keep: each adds one where it launches its kernel, nowhere
-    else."""
+    else. ``flags`` are nvcc flags of this source only, after
+    ``NVCC_FLAGS``."""
 
-    def __init__(self, source: str, signatures: dict, entries: tuple):
+    def __init__(self, source: str, signatures: dict, entries: tuple,
+                 flags: tuple = ()):
         self.source = CSRC / source
         self.signatures = signatures  # name -> (restype, [argtypes])
+        self.flags = tuple(flags)
         self.launches = dict.fromkeys(entries, 0)
         self._lib = None
         KERNELS.append(self)
@@ -69,7 +72,7 @@ class CudaKernel:
         for header in sorted(self.source.parent.glob("*.cuh")):
             h.update(header.name.encode())
             h.update(header.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(NVCC_FLAGS + self.flags).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
 
     def start_build(self):
@@ -80,7 +83,7 @@ class CudaKernel:
             return None, out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *self.flags, "-o", str(tmp), str(self.source)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -125,7 +128,7 @@ def launch_on(dev: torch.device, launch):
 
 
 KERNEL_MODULES = ("ngp_tpu_torch.ops.hashgrid", "ngp_tpu_torch.ops.segsum",
-                  "ngp_tpu_torch.ops.sort")
+                  "ngp_tpu_torch.ops.sort", "ngp_tpu_torch.ops.bvh")
 
 
 def _register_all():

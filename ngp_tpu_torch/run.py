@@ -1,12 +1,16 @@
-"""Train, evaluate and export a NeRF scene or fit an image from the command
-line, the port of ``scripts/run.py`` in nerf and image modes (the
-reference's ``scripts/run.py``). NeRF: train on a capture, score a
+"""Train, evaluate and export a NeRF scene, an SDF or an image fit from the
+command line, the port of ``scripts/run.py`` in nerf, sdf and image modes
+(the reference's ``scripts/run.py``). NeRF: train on a capture, score a
 training view and held-out views, take a screenshot, export a
 marching-cubes mesh, render a camera path as video frames, and save and
-load snapshots. Image (a ``.png``, ``.exr`` or ``.bin`` scene): fit it,
-print its MSE and PSNR over every texel, take a screenshot at
-``--screenshot_w`` × ``--screenshot_h``, and save and load snapshots; the
-NeRF-only flags raise or are ignored as the JAX package's CLI treats them.
+load snapshots. SDF (an ASCII ``.obj`` or binary ``.stl`` mesh): fit it,
+print its IoU, take a screenshot (``--render_mode`` headlight, the
+default, or shade, ao, normals, positions, cost), export the learned
+surface, and save and load snapshots. Image (a ``.png``, ``.exr`` or
+``.bin`` scene): fit it, print its MSE and PSNR over every texel, take a
+screenshot at ``--screenshot_w`` × ``--screenshot_h``, and save and load
+snapshots. The NeRF-only flags raise or are ignored as the JAX package's
+CLI treats them.
 
 Examples:
 
@@ -17,13 +21,16 @@ Examples:
         --load_snapshot out/scene.ingp --n_steps 0 --save_mesh out/mesh.obj \\
         --video_camera_path path.json --video_output out/frames
     python -m ngp_tpu_torch.run image.bin --n_steps 1000 --screenshot out/fit.png
+    python -m ngp_tpu_torch.run mesh.obj --n_steps 1000 --save_mesh out/mesh.obj \\
+        --screenshot out/normals.png --render_mode normals
 
 It runs on the card unless ``--device cpu`` is given. It differs from the
 JAX package's CLI in these: ``--device`` takes the place of the JAX
 platform's environment; ``--profile`` writes a ``torch.profiler`` Chrome
 trace; ``--metrics_file`` appends the training meters as JSONL (one line a
-16-step window, NeRF only); images are written by the port's own PNG and
-EXR writers (other extensions raise); there is no compile cache and no
+16-step window, NeRF only); ``--render_mode`` also takes the SDF modes
+(the JAX CLI's SDF screenshot is always the headlight shade); images are
+written by the port's own PNG and EXR writers (other extensions raise); there is no compile cache and no
 multi-host rendezvous. The last line printed counts the launches of each CUDA kernel
 (zero on the CPU, where the kernels' plain versions run).
 """
@@ -77,7 +84,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("scene", nargs="?", default="",
                    help="scene path: a transforms.json or a directory of them "
-                        "(NeRF), or an image file (image)")
+                        "(NeRF), an obj/stl mesh (SDF), or an image file (image)")
     p.add_argument("--mode", default=None, choices=["nerf", "sdf", "image", "volume"])
     p.add_argument("--network", default=None, help="network config json")
     p.add_argument("--n_steps", type=int, default=2000)
@@ -112,12 +119,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--video_w", type=int, default=640)
     p.add_argument("--video_h", type=int, default=360)
     p.add_argument("--video_spp", type=int, default=1)
-    p.add_argument("--render_mode", default="shade",
+    p.add_argument("--render_mode", default=None,
                    choices=["shade", "depth", "normals", "positions",
-                            "cost", "ao", "encoding"],
-                   help="screenshot render mode (ERenderMode): shade, or "
-                        "the debug modes depth, normals, positions, cost, ao "
-                        "and encoding, rendered at a training view's camera")
+                            "cost", "ao", "encoding", "headlight"],
+                   help="screenshot render mode (ERenderMode). NeRF: shade "
+                        "(default), or the debug modes depth, normals, "
+                        "positions, cost, ao and encoding, rendered at a "
+                        "training view's camera; SDF: headlight (default), "
+                        "shade, ao, normals, positions or cost")
     p.add_argument("--tonemap", default="identity",
                    choices=["identity", "aces", "hable", "reinhard"],
                    help="tonemap curve for screenshots and video frames")
@@ -141,7 +150,7 @@ def _train(tb, args) -> None:
     """``n_steps`` steps; under ``--profile`` the first 16 outside the trace
     (warm-up), the next 8 traced, the rest after."""
     eng = tb.engine
-    if tb.mode == "image":
+    if tb.mode in ("image", "sdf"):
         train = tb.train
     else:
         def train(n):
@@ -208,7 +217,7 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     from ngp_tpu_torch.data.nerf_loader import load_nerf
     from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
-    from ngp_tpu_torch.testbed import Testbed
+    from ngp_tpu_torch.testbed import SDF_EYE, SDF_FOV_DEG, SDF_LOOKAT, Testbed
 
     reset_launches()
     kw = {"seed": args.seed, "device": args.device}
@@ -227,8 +236,9 @@ def main(argv=None) -> None:
               f"evaluating on {len(test_idx)}", flush=True)
     tb = Testbed(mode=args.mode, scene=args.scene or None, config=args.network, **kw)
 
-    if args.metrics_file and tb.mode == "image":
-        raise ValueError("--metrics_file records NeRF training meters; image mode has none")
+    if args.metrics_file and tb.mode in ("image", "sdf"):
+        raise ValueError(f"--metrics_file records NeRF training meters; {tb.mode} mode "
+                         "has none")
 
     if args.load_snapshot:
         tb.load_snapshot(args.load_snapshot)
@@ -247,6 +257,8 @@ def main(argv=None) -> None:
     if tb.mode == "image":
         mse = tb.compute_image_mse()
         print(f"MSE: {mse:.6f}  PSNR: {-10 * math.log10(max(mse, 1e-12)):.2f} dB", flush=True)
+    elif tb.mode == "sdf":
+        print(f"IoU: {tb.calculate_iou():.4f}", flush=True)
     elif tb.engine is not None:
         psnr = tb.psnr(args.test_view, stride=args.eval_stride)
         print(f"PSNR (train view {args.test_view}): {psnr:.2f} dB", flush=True)
@@ -274,9 +286,13 @@ def main(argv=None) -> None:
 
     if args.screenshot:
         os.makedirs(os.path.dirname(args.screenshot) or ".", exist_ok=True)
-        if tb.mode == "image":
+        if tb.mode == "image" or (tb.mode == "sdf" and args.render_mode in (None, "headlight")):
             img = tb.render(args.screenshot_w, args.screenshot_h)
-        elif args.render_mode != "shade":
+        elif tb.mode == "sdf":
+            img = tb.engine.render_image(
+                tb.state, SDF_EYE, SDF_LOOKAT, (args.screenshot_w, args.screenshot_h),
+                SDF_FOV_DEG, mode=args.render_mode)[0].cpu().numpy()
+        elif args.render_mode not in (None, "shade"):
             img = tb.engine.render_image(tb.state, tb.grid, args.test_view,
                                          mode=args.render_mode).cpu().numpy()
         else:

@@ -1,23 +1,26 @@
-"""The ``Testbed`` orchestrator for NeRF and images, the port of
+"""The ``Testbed`` orchestrator for NeRF, SDFs and images, the port of
 ``ngp_tpu/testbed.py`` (the reference's ``Testbed`` class and ``pyngp``
 surface, ``src/testbed.cu``, ``src/python_api.cu:266-696``).
 
 The mode comes from the scene path as in ``mode_from_scene``
 (``src/common.cu:144-173``): a directory or ``transforms.json`` is NeRF,
 ``.obj``/``.stl`` SDF, ``.nvdb``/``.npy`` a volume, image files an image.
-NeRF and image modes are ported; the others raise. In NeRF mode
-``Testbed`` loads a capture, trains, renders, evaluates, exports a mesh
-and saves and loads snapshots through ``engines/nerf.py:NerfEngine``; in
-image mode it loads a ``.png``, ``.exr`` or ``.bin`` image, trains,
-renders, scores and saves and loads snapshots through
-``engines/image.py:ImageEngine``. Both run on the card unless built with
-``device="cpu"``.
+NeRF, SDF and image modes are ported; the volume mode raises. In NeRF
+mode ``Testbed`` loads a capture, trains, renders, evaluates, exports a
+mesh and saves and loads snapshots through ``engines/nerf.py:NerfEngine``;
+in SDF mode it loads an ASCII ``.obj`` or binary ``.stl`` mesh, trains,
+scores the IoU, renders, exports a mesh and saves and loads snapshots
+through ``engines/sdf.py:SdfEngine``; in image mode it loads a ``.png``,
+``.exr`` or ``.bin`` image, trains, renders, scores and saves and loads
+snapshots through ``engines/image.py:ImageEngine``. All run on the card
+unless built with ``device="cpu"``.
 
-Not yet ported, and refused: the SDF and volume modes (ROADMAP A9 and
-A10), JPEG images (A2), ``frame()`` (the viewer's heartbeat, A11),
-rolling-shutter renders (``render(end_matrix=...)``, A5), the render crop
-box (``render_aabb``, A6) and a scene's geometry prior (a ``<name>.obj`` or ``<name>.xyz`` beside
-the capture, which the JAX package seeds the density grid from; A5).
+Not yet ported, and refused: the volume mode (ROADMAP A10), JPEG images
+(A2), ``frame()`` (the viewer's heartbeat, A11), rolling-shutter renders
+(``render(end_matrix=...)``, A5), the render crop box (``render_aabb``,
+A6) and a scene's geometry prior (a ``<name>.obj`` or ``<name>.xyz``
+beside the capture, which the JAX package seeds the density grid from;
+A5).
 """
 
 from __future__ import annotations
@@ -33,11 +36,14 @@ import torch
 from ngp_tpu_torch.config import load_config
 
 MODES = ("nerf", "sdf", "image", "volume")
-# the ROADMAP item that ports each mode other than NeRF
-_MODE_ITEMS = {"sdf": "A9", "volume": "A10"}
+# the SDF camera of render() when no eye or lookat is given, and its field
+# of view, as the JAX package's Testbed places it
+SDF_EYE, SDF_LOOKAT, SDF_FOV_DEG = (0.5, 0.5, 2.0), (0.5, 0.5, 0.5), 50.0
+# the ROADMAP item that ports each mode not yet ported
+_MODE_ITEMS = {"volume": "A10"}
 
-# instant-ngp's configs/nerf/base.json and configs/image/base.json, as the
-# JAX package's Testbed holds them
+# instant-ngp's configs/nerf/base.json, configs/sdf/base.json and
+# configs/image/base.json, as the JAX package's Testbed holds them
 _DEFAULT_CONFIGS = {
     "nerf": {
         "loss": {"otype": "Huber"},
@@ -63,6 +69,24 @@ _DEFAULT_CONFIGS = {
         "rgb_network": {"otype": "FullyFusedMLP", "activation": "ReLU",
                         "output_activation": "None", "n_neurons": 64,
                         "n_hidden_layers": 2},
+    },
+    "sdf": {
+        "loss": {"otype": "MAPE"},
+        "optimizer": {
+            "otype": "Ema", "decay": 0.95,
+            "nested": {
+                "otype": "ExponentialDecay", "decay_start": 10000,
+                "decay_interval": 5000, "decay_base": 0.33,
+                "nested": {"otype": "Adam", "learning_rate": 1e-4, "beta1": 0.9,
+                           "beta2": 0.99, "epsilon": 1e-15, "l2_reg": 1e-6},
+            },
+        },
+        "encoding": {"otype": "HashGrid", "n_levels": 16,
+                     "n_features_per_level": 2, "log2_hashmap_size": 19,
+                     "base_resolution": 16},
+        "network": {"otype": "FullyFusedMLP", "activation": "ReLU",
+                    "output_activation": "None", "n_neurons": 64,
+                    "n_hidden_layers": 2},
     },
     "image": {
         "loss": {"otype": "RelativeL2"},
@@ -121,13 +145,14 @@ class Testbed:
     """``Testbed(mode=None, scene=None, config=None, **engine_kwargs)``.
 
     ``engine_kwargs`` go to the mode's engine (``NerfEngine``,
-    ``ImageEngine``) where it has such a field (``device``, ``seed``,
+    ``SdfEngine``, ``ImageEngine``) where it has such a field (``device``, ``seed``,
     ``batch_size``, ...); ``frame_subset`` trains on those views of a
     NeRF scene only. Methods mirror the pyngp surface:
     ``load_training_data``, ``reload_network_from_json``, ``train``,
-    ``render``, ``psnr`` (NeRF), ``compute_image_mse`` (image),
+    ``render``, ``psnr`` (NeRF), ``calculate_iou`` and
+    ``override_sdf_training_data`` (SDF), ``compute_image_mse`` (image),
     ``save_snapshot`` / ``load_snapshot``, ``compute_marching_cubes_mesh``
-    (NeRF), ``training_step``, ``loss``."""
+    (NeRF, SDF), ``training_step``, ``loss``."""
 
     def __init__(self, mode: str | None = None, scene: str | None = None,
                  config: str | dict | None = None, **engine_kwargs):
@@ -190,6 +215,13 @@ class Testbed:
                                       **self._engine_fields(ImageEngine))
             self.state = self.engine.init_state()
             return
+        if self.mode == "sdf":
+            from ngp_tpu_torch.engines.sdf import SdfEngine
+
+            self.engine = SdfEngine.from_file(copy.deepcopy(cfg), self.scene,
+                                              **self._engine_fields(SdfEngine))
+            self.state = self.engine.init_state()
+            return
         from ngp_tpu_torch.data.nerf_loader import load_nerf
         from ngp_tpu_torch.engines.nerf import NerfEngine
 
@@ -209,7 +241,7 @@ class Testbed:
         return int(self.state.step) if self.state is not None else 0
 
     def train(self, n_steps: int) -> None:
-        if self.mode == "image":
+        if self.mode in ("image", "sdf"):
             self.state, losses = self.engine.train(self.state, n_steps)
             if len(losses):
                 self.loss = float(losses[-1])
@@ -288,10 +320,18 @@ class Testbed:
         camera ``camera_matrix`` (NGP space; default ``start_matrix``, else
         training view 0) with a vertical field of view of ``fov_deg``;
         ``spp``, ``eye`` and ``lookat`` do not apply, as in the JAX package.
-        Image: the fitted image at width × height texel centres, linear
-        colours; the camera arguments do not apply."""
+        SDF: the headlight shade from ``eye`` (default [0.5, 0.5, 2.0])
+        toward ``lookat`` (default [0.5, 0.5, 0.5]) with a horizontal field
+        of view of ``fov_deg``. Image: the fitted image at width × height
+        texel centres, linear colours; the camera arguments do not apply."""
         if self.mode == "image":
             return self.engine.render(self.state, width, height).cpu().numpy()
+        if self.mode == "sdf":
+            eye = SDF_EYE if eye is None else eye
+            lookat = SDF_LOOKAT if lookat is None else lookat
+            img, _ = self.engine.render_image(self.state, eye, lookat,
+                                              resolution=(width, height), fov_deg=fov_deg)
+            return img.cpu().numpy()
         if end_matrix is not None:
             raise not_ported("rolling shutter (render(end_matrix=...))", "A5")
         if training_view is not None:
@@ -332,6 +372,21 @@ class Testbed:
         self._require("nerf", "psnr")
         return self.engine.psnr(self.state, self.grid, view, stride)
 
+    def calculate_iou(self, n_samples: int = 1 << 17) -> float:
+        """The SDF's sign-agreement IoU over ``n_samples`` uniform points
+        (``SdfEngine.calculate_iou``)."""
+        self._require("sdf", "calculate_iou")
+        return self.engine.calculate_iou(self.state, n_samples)
+
+    def override_sdf_training_data(self, points, distances) -> None:
+        """Train the SDF on these (points (N, 3), distances (N,)) instead of
+        the BVH's samples (``python_api.cu:69-99``)."""
+        self._require("sdf", "override_sdf_training_data")
+        dev = self.engine.device
+        self.engine.override_training_data = (
+            torch.as_tensor(np.asarray(points, np.float32), device=dev),
+            torch.as_tensor(np.asarray(distances, np.float32), device=dev))
+
     def compute_image_mse(self) -> float:
         """The fitted image's MSE over every texel in the training colour
         space (``ImageEngine.compute_mse``)."""
@@ -339,17 +394,22 @@ class Testbed:
         return float(self.engine.compute_mse(self.state))
 
     def compute_marching_cubes_mesh(self, resolution: int = 256, thresh: float = 2.5):
-        self._require("nerf", "mesh export")
+        """NeRF: the density's ``thresh`` level set; SDF: the zero level
+        set (``thresh`` does not apply)."""
+        if self.mode == "sdf":
+            return self.engine.compute_marching_cubes_mesh(self.state, resolution)
+        if self.mode != "nerf":
+            raise ValueError(f"mesh export needs nerf or sdf mode, not {self.mode}")
         return self.engine.compute_marching_cubes_mesh(self.state, resolution, thresh)
 
     def save_snapshot(self, path: str) -> None:
-        if self.mode == "image":
+        if self.mode in ("image", "sdf"):
             self.engine.save_snapshot(path, self.state)
         else:
             self.engine.save_snapshot(path, self.state, self.grid)
 
     def load_snapshot(self, path: str) -> None:
-        if self.mode == "image":
+        if self.mode in ("image", "sdf"):
             self.state = self.engine.load_snapshot(path)
         else:
             self.state, self.grid = self.engine.load_snapshot(path)

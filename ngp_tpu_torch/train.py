@@ -5,6 +5,7 @@ volume modes call ``m_trainer->training_step(input, target)``, e.g.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from dataclasses import dataclass
 from typing import Callable
@@ -115,3 +116,20 @@ def apply_grads(state: TrainState, cfg: OptimizerConfig) -> None:
         ema_update(list(state.ema.parameters()), list(state.model.parameters()),
                    cfg.ema_decay, state.step)
     state.step += 1
+
+
+@contextlib.contextmanager
+def parameters_frozen(model: nn.Module):
+    """``model``'s parameters with ``requires_grad`` off inside the block,
+    restored after. A custom autograd Function's ``needs_input_grad``
+    follows ``requires_grad``, not the inputs an ``autograd.grad`` call asks
+    for: frozen, a gradient with respect to positions launches no
+    d(table) backward."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)

@@ -708,3 +708,138 @@ def test_cli_round_trip_on_card(cuda, tmp_path, capsys):
             for i in range(2)] == [(32, 48, 3)] * 2
     assert launches(first)["hashgrid_encode"] > 0 and launches(first)["hashgrid_backward"] > 0
     assert launches(second)["hashgrid_encode"] > 0 and launches(second)["hashgrid_backward"] == 0
+
+
+def _bvh_case(kind: str, seed: int, n: int = 1 << 14):
+    """A tree on the card and its queries: the bumpy icosphere of 4
+    subdivisions (5,120 triangles, closed), a 500-triangle soup or the
+    12-triangle cube; points uniform around the unit cube, on the surface
+    and at the mesh's vertices (ties between the triangles that share
+    them); rays from those points in seeded unit directions, a quarter
+    along the axes (zero components: the clamped inverse)."""
+    from ngp_tpu_torch.data.synthetic import bumpy_sphere
+    from ngp_tpu_torch.geometry.mesh import normalize_mesh, sample_surface
+    from ngp_tpu_torch.geometry.triangle_bvh import build_bvh
+
+    rng = np.random.default_rng(seed)
+    if kind == "bumpy":
+        v, f = bumpy_sphere(4)
+        tris = v[f]
+    elif kind == "soup":
+        tris = rng.uniform(0.1, 0.9, (500, 3, 3)).astype(np.float32)
+    else:
+        c = np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+                      [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]], np.float32)
+        faces = [(0, 2, 1), (0, 3, 2), (4, 5, 6), (4, 6, 7), (0, 1, 5), (0, 5, 4),
+                 (3, 6, 2), (3, 7, 6), (0, 4, 7), (0, 7, 3), (1, 2, 6), (1, 6, 5)]
+        tris = (c * 0.25 + 0.5)[np.asarray(faces)]
+    mesh = normalize_mesh(tris)
+    k = n // 4
+    pts = np.concatenate([
+        rng.uniform(-0.1, 1.1, (n - 2 * k, 3)).astype(np.float32),
+        sample_surface(mesh, rng.uniform(size=(k, 3)).astype(np.float32)),
+        mesh.triangles.reshape(-1, 3)[rng.integers(0, mesh.n_triangles * 3, k)]])
+    dirs = rng.normal(size=(n, 3))
+    dirs[:k] = np.eye(3)[rng.integers(0, 3, k)] * rng.choice([-1, 1], (k, 1))
+    dirs = (dirs / np.linalg.norm(dirs, axis=1, keepdims=True)).astype(np.float32)
+    tree = build_bvh(mesh.triangles, "cuda")
+    return tree, torch.from_numpy(pts).cuda(), torch.from_numpy(dirs).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bumpy", "soup", "cube"])
+def test_bvh_kernels_match_twins(cuda, kind):
+    """Both traversal kernels equal their plain twins on the card bit for
+    bit (distances, closest points, slots; t, inf on a miss, slots), ties
+    at shared vertices included; each call counts one launch."""
+    from ngp_tpu_torch.ops.bvh import (
+        TRIANGLE_BVH,
+        bvh_closest_point_cuda,
+        bvh_closest_point_reference,
+        bvh_ray_intersect_cuda,
+        bvh_ray_intersect_reference,
+    )
+
+    tree, pts, dirs = _bvh_case(kind, 3)
+    before = dict(TRIANGLE_BVH.launches)
+    got = bvh_closest_point_cuda(tree, pts)
+    torch.cuda.synchronize()
+    want = bvh_closest_point_reference(tree, pts)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool((got[2] >= 0).all())
+    got = bvh_ray_intersect_cuda(tree, pts, dirs)
+    torch.cuda.synchronize()
+    want = bvh_ray_intersect_reference(tree, pts, dirs)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(torch.isfinite(got[0]).any()) and not bool(torch.isfinite(got[0]).all())
+    assert TRIANGLE_BVH.launches["bvh_closest_point"] == before["bvh_closest_point"] + 1
+    assert TRIANGLE_BVH.launches["bvh_ray_intersect"] == before["bvh_ray_intersect"] + 1
+
+
+@pytest.mark.cuda
+def test_bvh_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from ngp_tpu_torch.ops.bvh import bvh_closest_point_cuda, bvh_ray_intersect_cuda
+
+    tree, pts, dirs = _bvh_case("cube", 4, n=64)
+    for bad in (pts.cpu(), pts.double(), pts[:, :2].contiguous(), pts.t().contiguous().t()):
+        with pytest.raises(ValueError):
+            bvh_closest_point_cuda(tree, bad)
+    with pytest.raises(ValueError):
+        bvh_ray_intersect_cuda(tree, pts, dirs[:32])
+    with pytest.raises(ValueError):
+        bvh_closest_point_cuda(tree._replace(node_a=tree.node_a.long()), pts)
+    with pytest.raises(ValueError):
+        bvh_closest_point_cuda(tree._replace(triangles=tree.triangles.cpu()), pts)
+    empty = bvh_closest_point_cuda(tree, pts[:0])
+    assert [t.shape[0] for t in empty] == [0, 0, 0]
+
+
+@pytest.mark.cuda
+def test_sdf_on_card(cuda, tmp_path):
+    """The SDF primitive on the card at a small size: training launches the
+    closest-point kernel (one refresh a 16 steps), a model normals frame
+    launches the grid's position gradient and no table gradient, a ground
+    truth frame and the raystab sign launch the traversal kernels, and a
+    snapshot reloads to the same IoU."""
+    from ngp_tpu_torch.data.synthetic import write_bumpy_sphere_mesh
+    from ngp_tpu_torch.ops.cuda_build import reset_launches
+    from ngp_tpu_torch.testbed import Testbed
+
+    cfg = {"loss": {"otype": "MAPE"},
+           "optimizer": {"otype": "Ema", "decay": 0.95, "nested": {
+               "otype": "Adam", "learning_rate": 1e-2, "beta1": 0.9, "beta2": 0.99,
+               "epsilon": 1e-15, "l2_reg": 1e-6}},
+           "encoding": {"otype": "HashGrid", "n_levels": 8, "n_features_per_level": 2,
+                        "log2_hashmap_size": 16, "base_resolution": 16},
+           "network": {"otype": "FullyFusedMLP", "activation": "ReLU",
+                       "output_activation": "None", "n_neurons": 64, "n_hidden_layers": 2}}
+    mesh = write_bumpy_sphere_mesh(str(tmp_path / "b.obj"), 4)
+    tb = Testbed(scene=mesh, config=cfg, batch_size=1 << 14)
+    reset_launches()
+    tb.train(64)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    assert launched["bvh_closest_point"] == 4 and launched["hashgrid_backward"] == 64
+    iou = tb.calculate_iou(1 << 16)
+    assert iou > 0.8, iou
+    reset_launches()
+    rgb, hit = tb.engine.render_image(tb.state, (0.5, 0.5, 2.0), (0.5, 0.5, 0.5), (64, 48),
+                                      mode="normals")
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    assert launched["hashgrid_input_grad"] > 0 and launched["hashgrid_backward"] == 0
+    assert rgb.shape == (48, 64, 3) and bool(torch.isfinite(rgb).all()) and bool(hit.any())
+    reset_launches()
+    tb.engine.render_image(tb.state, (0.5, 0.5, 2.0), (0.5, 0.5, 0.5), (64, 48), gt_bvh=True,
+                           mode="shade", shadow=True)
+    tb.engine.sign_mode = "raystab"
+    tb.engine.signed_distance(torch.rand(256, 3, device="cuda"))
+    launched = launch_counts()
+    assert launched["bvh_closest_point"] > 0 and launched["bvh_ray_intersect"] > 0
+    tb.engine.sign_mode = "watertight"
+    tb.save_snapshot(str(tmp_path / "s.ingp"))
+    tb.train(4)
+    tb.load_snapshot(str(tmp_path / "s.ingp"))
+    assert tb.calculate_iou(1 << 16) == iou

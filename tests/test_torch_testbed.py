@@ -400,13 +400,12 @@ def test_refusals(scene, testbeds, tmp_path, capsys, small_engines):
     from ngp_tpu_torch.testbed import Testbed, default_config
 
     ptb, _ = testbeds
-    for mode, item in (("sdf", "A9"), ("volume", "A10")):
-        with pytest.raises(NotImplementedError, match=f"not yet ported \\(ROADMAP {item}\\)"):
-            Testbed(mode=mode)
-        with pytest.raises(NotImplementedError, match=item):
-            default_config(mode)
-    with pytest.raises(NotImplementedError, match="A9"):
-        Testbed(scene=str(tmp_path / "mesh.obj"))
+    with pytest.raises(NotImplementedError, match="not yet ported \\(ROADMAP A10\\)"):
+        Testbed(mode="volume")
+    with pytest.raises(NotImplementedError, match="A10"):
+        default_config("volume")
+    with pytest.raises(NotImplementedError, match="A10"):
+        Testbed(scene=str(tmp_path / "volume.nvdb"))
     with pytest.raises(NotImplementedError, match="A11"):
         ptb.frame()
     m = ptb.engine.xforms[0].numpy()
