@@ -3,7 +3,7 @@
 in turns, so that a change to a kernel is measured against its parent on
 the same card in the same run:
 
-    python3 chip_kernel_ab.py BEFORE AFTER [--kernels b1 b5 segsum bwd b3]
+    python3 chip_kernel_ab.py BEFORE AFTER [--kernels b1 b5 segsum bwd b3 bvh]
 
 BEFORE and AFTER are repository roots, for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory, and ``.``. Each
@@ -34,6 +34,16 @@ allocation included). Kernels:
   and shared by every turn.
 - ``b3``: ``segment_count_cuda`` over all levels and each level alone, on
   the corner keys of the same positions.
+- ``bvh``: the triangle-BVH traversal kernels, each checkout on a tree it
+  builds itself from one mesh, chip_smoke.py's 327,680-triangle bumpy
+  sphere: ``bvh_closest_point_cuda`` on one data refresh's own 131,072
+  queries and ``bvh_ray_intersect_cuda`` on the 960×540 frame's 518,400
+  camera rays (the mesh, queries and rays written once, by a first process
+  with AFTER's package), timed by CUDA events (``cuda_ms``: the profiler
+  drops records of these kernels), with a hash of their outputs (equal in
+  every turn when the kernels agree bit for bit), and, printed once by
+  that first process, the bound of those inputs (``chip_smoke._bvh_bound``
+  from the twins' visits).
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 POSITIONS = os.path.join(HERE, "build", "kernel_ab_serve_positions.pt")
 STEP_INPUTS = os.path.join(HERE, "build", "kernel_ab_train_step.pt")
+BVH_MESH = os.path.join(HERE, "build", "kernel_ab_bvh", "bumpy_sphere.obj")
+BVH_INPUTS = os.path.join(HERE, "build", "kernel_ab_bvh", "queries.pt")
 
 
 def _helpers(root: str):
@@ -127,6 +139,36 @@ def b3_times(helpers, keys, T: int) -> dict:
                           for l in range(keys.shape[0])]}
 
 
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def bvh_times(helpers) -> list[dict]:
+    """Both traversal kernels of the imported checkout on its own tree of
+    ``BVH_MESH``: ms by CUDA events and an output hash."""
+    import torch
+
+    from ngp_tpu_torch.geometry.mesh import load_mesh
+    from ngp_tpu_torch.geometry.triangle_bvh import build_bvh
+    from ngp_tpu_torch.ops.bvh import bvh_closest_point_cuda, bvh_ray_intersect_cuda
+
+    tree = build_bvh(load_mesh(BVH_MESH).triangles, "cuda")
+    points, o, d = (t.cuda() for t in torch.load(BVH_INPUTS))
+    rows = []
+    for name, fn, n in (
+            ("bvh_closest_point", lambda: bvh_closest_point_cuda(tree, points), points.shape[0]),
+            ("bvh_ray_intersect", lambda: bvh_ray_intersect_cuda(tree, o, d), o.shape[0])):
+        out = fn()
+        rows.append({"kernel": name, "N": n, "ms": helpers.cuda_ms(fn, iters=20),
+                     "outputs": _digest(out)})
+    return rows
+
+
 def step_cases(helpers, samples: list[int]):
     """(label, x, g, geometry, T) for each of ``samples`` uniform positions
     and for the captured training step."""
@@ -165,6 +207,9 @@ def turn(root: str, label: str, kernels: list[str], b1_samples: int,
             keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
             helpers.emit({**base, "kernel": "segsum", "N": n, "M": keys.shape[1],
                           **helpers.segsum_times(keys, vals, T, geo[2].tolist())})
+    if "bvh" in kernels:
+        for row in bvh_times(helpers):
+            helpers.emit({**base, **row})
     if "bwd" in kernels or "b3" in kernels:
         for positions, x, g, geo, T in step_cases(helpers, samples):
             case = {**base, "positions": positions, "N": x.shape[0]}
@@ -199,12 +244,50 @@ def capture_step(root: str):
                STEP_INPUTS)
 
 
+def capture_bvh(root: str):
+    """Write chip_smoke.py's bumpy sphere, load it through ``Testbed`` with
+    ``root``'s package, and keep the closest-point kernel's queries of one
+    data refresh (step 0) and the sdf frame's camera rays."""
+    import torch
+
+    helpers = _helpers(os.path.abspath(root))
+    from ngp_tpu_torch.data.synthetic import write_bumpy_sphere_mesh
+    from ngp_tpu_torch.ops import bvh as bvh_ops
+    from ngp_tpu_torch.testbed import SDF_EYE, SDF_FOV_DEG, SDF_LOOKAT, Testbed
+
+    os.makedirs(os.path.dirname(BVH_MESH), exist_ok=True)
+    write_bumpy_sphere_mesh(BVH_MESH, helpers.SDF_SUBDIVISIONS)
+    eng = Testbed(scene=BVH_MESH).engine
+    kept, launch = [], bvh_ops.bvh_closest_point_cuda
+    bvh_ops.bvh_closest_point_cuda = lambda tree, points: kept.append(points) or launch(
+        tree, points)
+    try:
+        eng.training_batch(0)
+    finally:
+        bvh_ops.bvh_closest_point_cuda = launch
+    o, d = eng.camera_rays(SDF_EYE, SDF_LOOKAT, helpers.SDF_FRAME, SDF_FOV_DEG)
+    torch.save((kept[0].cpu(), torch.from_numpy(o), torch.from_numpy(d)), BVH_INPUTS)
+    # the bound both turns are held against: the work these inputs need
+    o, d = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+    cp_stats, ray_stats = {}, {}
+    bvh_ops.bvh_closest_point_reference(eng.bvh, kept[0], cp_stats)
+    bvh_ops.bvh_ray_intersect_reference(eng.bvh, o, d, ray_stats)
+    for name, stats, bound in (
+            ("bvh_closest_point", cp_stats, (kept[0].shape[0], 12, 20, helpers.BOX_SQ_DIST_OPS,
+                                             helpers.POINT_TRIANGLE_OPS)),
+            ("bvh_ray_intersect", ray_stats, (o.shape[0], 24, 8, helpers.BOX_RAY_OPS,
+                                              helpers.RAY_TRIANGLE_OPS))):
+        helpers.emit({"turn": "capture_bvh", "kernel": name, "N": bound[0],
+                      "twin_iterations": stats["iterations"],
+                      **helpers._bvh_bound(stats, eng.bvh, *bound)})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("before")
     ap.add_argument("after")
     ap.add_argument("--kernels", nargs="+", default=["b1", "b5"],
-                    choices=["b1", "b5", "segsum", "bwd", "b3"])
+                    choices=["b1", "b5", "segsum", "bwd", "b3", "bvh"])
     ap.add_argument("--b1-samples", type=int, default=470671,
                     help="uniform positions for b1 (the serve path's mean launch)")
     ap.add_argument("--samples", type=int, nargs="+", default=[78827, 163840],
@@ -217,6 +300,9 @@ def main():
     if args.turn == "capture_step":
         capture_step(args.after)
         return
+    if args.turn == "capture_bvh":
+        capture_bvh(args.after)
+        return
     if args.turn:
         turn(getattr(args, args.turn), args.turn, args.kernels, args.b1_samples,
              args.samples)
@@ -228,6 +314,8 @@ def main():
         labels.insert(0, "capture")
     if "bwd" in args.kernels or "b3" in args.kernels:
         labels.insert(0, "capture_step")
+    if "bvh" in args.kernels:
+        labels.insert(0, "capture_bvh")
     for label in labels:
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), args.before, args.after,

@@ -134,9 +134,11 @@ Phases, each printing one JSON line:
    masks (gate ``SDF_HIT_IOU_MIN``), a 256³ marching-cubes mesh, one data
    refresh in the raystab sign mode, and a snapshot round trip that must
    give the same IoU. Then (phase ``sdf_kernels``) both BVH kernels bit for
-   bit against their twins, the closest point on a data refresh's own
-   2^17 queries and the ray hit on the frame's 518,400 rays, and B1, the
-   fused backward and the input gradient on one step's own (x, g); then
+   bit against their twins, each query's nodes processed equal to the
+   twin's pops, the closest point on a data refresh's own 2^17 queries and
+   the ray hit on the frame's 518,400 rays (µs a node of the longest walk,
+   mean and longest walk, bound from the real triangles tested), and B1,
+   the fused backward and the input gradient on one step's own (x, g); then
    (phase ``sdf_profile``) 16 steps under ``torch.profiler``: the device's
    busy share and device ms by stage.
 16. sdf_cli: ``python -m ngp_tpu_torch.run`` on the mesh, 300 steps with a
@@ -2134,38 +2136,45 @@ def phase_image_cli():
 
 def _bvh_bound(stats: dict, tree, n_queries: int, query_bytes: int, out_bytes: int,
                internal_ops: int, triangle_ops: int) -> dict:
-    """The bound of a traversal from its twin's visits (``stats``): the
-    distinct nodes popped, each node's box, children and flag read once,
-    each distinct leaf's 4 triangles read once, the queries read and the
-    outputs written once; the box tests (2 an internal pop, ``internal_ops``
-    each) and the triangle tests (4 a leaf pop, ``triangle_ops`` each) at
-    the float32 rate."""
+    """The bound of a traversal from its twin's visits (``stats``), the
+    work the function needs whatever implements it: the distinct nodes
+    popped, each node's box, children and flag read once, each distinct
+    leaf's real triangles read once, the queries read and the outputs
+    written once; the box tests (2 an internal pop, ``internal_ops`` each)
+    and the real-triangle tests of each leaf pop (``triangle_ops`` each;
+    padding slots are not the function's work) at the float32 rate."""
     visited = stats["visited"]
     nodes = int(visited.sum())
-    leaves = int((visited & tree.node_leaf).sum())
+    leaves = visited & tree.node_leaf
+    real = (tree.tri_index.view(-1, 4) >= 0).sum(1)
+    leaf_tris = int(real[tree.node_a[leaves].long() // 4].sum())
     node_bytes = 4 * 3 + 4 * 3 + 4 + 4 + 1
-    return {"nodes_read": nodes, "leaves_read": leaves,
+    return {"nodes_read": nodes, "leaves_read": int(leaves.sum()),
             "internal_pops": stats["internal_pops"], "leaf_pops": stats["leaf_pops"],
-            **_bound(nodes * node_bytes + leaves * 4 * 36 + n_queries * (query_bytes + out_bytes),
+            "leaf_real_tests": stats["leaf_real_tests"],
+            **_bound(nodes * node_bytes + leaf_tris * 36 + n_queries * (query_bytes + out_bytes),
                      stats["internal_pops"] * 2 * internal_ops
-                     + stats["leaf_pops"] * 4 * triangle_ops)}
+                     + stats["leaf_real_tests"] * triangle_ops)}
 
 
 def _bvh_row(name: str, run, twin, tree, n_queries: int, query_bytes: int, out_bytes: int,
              internal_ops: int, triangle_ops: int) -> dict:
-    """A traversal kernel (``run()``) against its twin (``twin(stats)``) on
-    the card, bit for bit; its times and bound. ``ms`` is timed by CUDA
-    events around 20 back-to-back calls, as ``call_ms`` is: the profiler
-    kept 15 or 16 of 20 records of this kernel in each of three windows
-    (the kernel runs milliseconds, the wrapper's host time is hidden
-    behind it). The twin runs once (seconds: a pop of every query an
-    iteration, thousands of iterations where a query near the middle of a
-    closed mesh prunes little), timed by events with its visit counting
-    (``plain_ms``). No PyTorch call computes a BVH query, so no library
-    time."""
+    """A traversal kernel (``run(visits)``) against its twin
+    (``twin(stats)``) on the card: outputs bit for bit and each query's
+    nodes processed equal to the twin's pops; its times and bound. ``ms``
+    is timed by CUDA events around 20 back-to-back calls, as ``call_ms``
+    is: the profiler kept 15 or 16 of 20 records of this kernel in each of
+    three windows (the kernel runs milliseconds, the wrapper's host time
+    is hidden behind it); ``us_per_iteration`` is ``ms`` over the twin's
+    iterations, the longest walk. The twin runs once (seconds: a pop of
+    every query an iteration, thousands of iterations where a query near
+    the middle of a closed mesh prunes little), timed by events with its
+    visit counting (``plain_ms``). No PyTorch call computes a BVH query,
+    so no library time."""
     import torch
 
-    got = run()
+    visits = torch.full((n_queries,), -1, dtype=torch.int32, device="cuda")
+    got = run(visits)
     stats = {}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -2177,10 +2186,16 @@ def _bvh_row(name: str, run, twin, tree, n_queries: int, query_bytes: int, out_b
               for g, w in zip(got, want))
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(f"{name} differs from its twin, max abs err {err}")
-    call_ms = cuda_ms(run, iters=20)
+    if not torch.equal(visits, stats["visits"]):
+        raise AssertionError(f"{name}: nodes processed differ from the twin's pops at "
+                             f"{int((visits != stats['visits']).sum())} queries")
+    call_ms = cuda_ms(lambda: run(None), iters=20)
     return {"N": n_queries, "max_abs_err": err, "bit_exact": True,
             "ms": call_ms, "ms_source": "cuda_events", "call_ms": call_ms,
-            "plain_ms": plain_ms, "twin_iterations": stats["iterations"], "library_ms": None,
+            "plain_ms": plain_ms, "twin_iterations": stats["iterations"],
+            "us_per_iteration": call_ms * 1e3 / stats["iterations"],
+            "visits_equal_twin": True, "visits_mean": float(visits.float().mean()),
+            "visits_max": int(visits.max()), "library_ms": None,
             **_bvh_bound(stats, tree, n_queries, query_bytes, out_bytes, internal_ops,
                          triangle_ops)}
 
@@ -2363,9 +2378,9 @@ def phase_sdf_kernels(eng, state, rays) -> dict:
     kept_queries = []
     cp_cuda = bvh_ops.bvh_closest_point_cuda
 
-    def keep_points(tree_, points):
+    def keep_points(tree_, points, *args):
         kept_queries[:] = [points]
-        return cp_cuda(tree_, points)
+        return cp_cuda(tree_, points, *args)
 
     backward = hashgrid_ops.hashgrid_backward_cuda
     kept = []
@@ -2385,14 +2400,14 @@ def phase_sdf_kernels(eng, state, rays) -> dict:
     points = kept_queries[0]
     rows = {}
     rows["bvh_closest_point"] = _bvh_row(
-        "bvh_closest_point", lambda: bvh_ops.bvh_closest_point_cuda(tree, points),
+        "bvh_closest_point", lambda v: bvh_ops.bvh_closest_point_cuda(tree, points, v),
         lambda stats: bvh_ops.bvh_closest_point_reference(tree, points, stats), tree,
         points.shape[0], 12, 20, BOX_SQ_DIST_OPS, POINT_TRIANGLE_OPS)
     emit({"phase": "sdf_kernels", "kernel": "bvh_closest_point", "shape": "refresh_queries",
           **rows["bvh_closest_point"]})
     o, d = rays
     rows["bvh_ray_intersect"] = _bvh_row(
-        "bvh_ray_intersect", lambda: bvh_ops.bvh_ray_intersect_cuda(tree, o, d),
+        "bvh_ray_intersect", lambda v: bvh_ops.bvh_ray_intersect_cuda(tree, o, d, v),
         lambda stats: bvh_ops.bvh_ray_intersect_reference(tree, o, d, stats), tree,
         o.shape[0], 24, 8, BOX_RAY_OPS, RAY_TRIANGLE_OPS)
     emit({"phase": "sdf_kernels", "kernel": "bvh_ray_intersect", "shape": "frame_rays",

@@ -5,7 +5,8 @@
 The build makes the tree of the JAX package's numpy build (binary, median
 split on the longest centroid axis, leaves padded to exactly ``LEAF_SIZE``
 triangles at 1e10), a level at a time, and its arrays equal that
-build's exactly. The tree lives on the
+build's exactly. Beside those arrays the tree carries the traversal
+kernels' packed records (:func:`pack_bvh_records`). The tree lives on the
 engine's device. ``closest_point`` and ``ray_intersect`` run the traversal
 kernels of ``ops/bvh.py`` on the card and their twins on the CPU; the sign
 modes build on them. ``winding_number`` is plain PyTorch over triangle
@@ -21,14 +22,15 @@ import numpy as np
 import torch
 
 from ngp_tpu_torch.ops.bvh import (
+    FAR,
     LEAF_SIZE,
+    RECORD_WORDS,
     STACK_DEPTH,
     dot3,
     bvh_closest_point,
     bvh_ray_intersect,
+    leaf_ref,
 )
-
-FAR = 1e10  # padding triangles' coordinate
 
 
 class TriangleBvh(NamedTuple):
@@ -41,6 +43,8 @@ class TriangleBvh(NamedTuple):
     normals: torch.Tensor  # (Tp, 3) float32 unit
     tri_index: torch.Tensor  # (Tp,) int32 original triangle id, -1 for padding
     depth: int  # nodes on the longest root-to-leaf path
+    records: torch.Tensor  # (R, RECORD_WORDS) int32: the kernels' packed internal nodes
+    root: int  # the root's reference: record 0, or a leaf's (:func:`pack_bvh_records`)
 
 
 def _segment_reduce(ufunc, values: np.ndarray, starts: np.ndarray,
@@ -161,12 +165,58 @@ def _runs(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
     return first + np.arange(int(lens.sum()))
 
 
+def pack_bvh_records(arrays: dict) -> tuple[np.ndarray, int]:
+    """The traversal kernels' layout of the tree ``arrays`` (as
+    :func:`build_bvh_arrays` returns them): one 64-byte record for each
+    internal node, numbered level by level from the root (record 0), left
+    to right. A record holds, as
+    int32 words (floats by their bits):
+
+    - 0-5: the left child's box (min xyz, max xyz), 6-11: the right's;
+    - 12, 13: the left and right child's references: an internal child's
+      record number (≥ 0), or a leaf's ``~(leaf << 3 | real)``
+      (:func:`ops.bvh.leaf_ref`), where ``leaf`` is its first slot /
+      ``LEAF_SIZE`` and ``real`` the count of its triangles that are not
+      padding (slots ``real`` … ``LEAF_SIZE − 1`` are);
+    - 14, 15: the children's node numbers in ``arrays`` (for tests; the
+      kernels do not read them).
+
+    Returns the records (R, RECORD_WORDS) int32 and the root's reference
+    (0, or a leaf's when the root is a leaf and R = 0). The root's own box
+    is in no record: the traversal never tests it."""
+    node_a, node_b, leaf = arrays["node_a"], arrays["node_b"], arrays["node_leaf"]
+    real = (arrays["tri_index"].reshape(-1, LEAF_SIZE) >= 0).sum(1)
+    levels, level = [], np.zeros(1, np.int64)
+    while len(level):
+        inner = level[~leaf[level]]
+        levels.append(inner)
+        level = np.stack([node_a[inner], node_b[inner]], 1).ravel().astype(np.int64)
+    order = np.concatenate(levels)
+    record_of = np.full(len(leaf), -1, np.int64)
+    record_of[order] = np.arange(len(order))
+
+    def ref(nodes):
+        first = np.where(leaf[nodes], node_a[nodes] // LEAF_SIZE, 0)
+        return np.where(leaf[nodes], leaf_ref(first, real[first]), record_of[nodes])
+
+    left, right = node_a[order], node_b[order]
+    boxes = np.concatenate([arrays["node_min"][left], arrays["node_max"][left],
+                            arrays["node_min"][right], arrays["node_max"][right]], 1)
+    records = np.empty((len(order), RECORD_WORDS), np.int32)
+    records[:, :12] = np.ascontiguousarray(boxes, np.float32).view(np.int32)
+    records[:, 12], records[:, 13] = ref(left), ref(right)
+    records[:, 14], records[:, 15] = left, right
+    return records, int(ref(np.zeros(1, np.int64))[0])
+
+
 def build_bvh(triangles: np.ndarray, device="cpu") -> TriangleBvh:
-    """Build on the host (:func:`build_bvh_arrays`), keep on ``device``."""
+    """Build on the host (:func:`build_bvh_arrays`, :func:`pack_bvh_records`),
+    keep on ``device``."""
     arrays = build_bvh_arrays(triangles)
+    records, root = pack_bvh_records(arrays)
     depth = arrays.pop("depth")
     return TriangleBvh(**{k: torch.as_tensor(v, device=device) for k, v in arrays.items()},
-                       depth=depth)
+                       depth=depth, records=torch.as_tensor(records, device=device), root=root)
 
 
 def closest_point(bvh: TriangleBvh, points: torch.Tensor):

@@ -711,22 +711,29 @@ def test_cli_round_trip_on_card(cuda, tmp_path, capsys):
 
 
 def _bvh_case(kind: str, seed: int, n: int = 1 << 14):
-    """A tree on the card and its queries: the bumpy icosphere of 4
-    subdivisions (5,120 triangles, closed), a 500-triangle soup or the
-    12-triangle cube; points uniform around the unit cube, on the surface
-    and at the mesh's vertices (ties between the triangles that share
-    them); rays from those points in seeded unit directions, a quarter
-    along the axes (zero components: the clamped inverse)."""
+    """A tree on the card and its queries. Meshes: the bumpy icosphere of 4
+    subdivisions (5,120 triangles, closed), of 6 (81,920: a tree deeper
+    than the top levels the kernels keep in shared memory), a 500-triangle
+    soup, the 12-triangle cube, 9 random triangles (leaves of 4, 2 and 3
+    real triangles) and 1 (the root is a leaf of 1). Points: uniform around the unit
+    cube, near the middle of the mesh (the long walks of a closed mesh),
+    on the surface, at the mesh's vertices and the midpoints of its edges
+    (ties between the triangles that share them), and two far out at the
+    padding's corner (where a padding slot can win). Rays from those
+    points in seeded unit directions, a quarter along the axes (zero
+    components: the clamped inverse)."""
     from ngp_tpu_torch.data.synthetic import bumpy_sphere
     from ngp_tpu_torch.geometry.mesh import normalize_mesh, sample_surface
-    from ngp_tpu_torch.geometry.triangle_bvh import build_bvh
+    from ngp_tpu_torch.geometry.triangle_bvh import FAR, build_bvh
 
     rng = np.random.default_rng(seed)
-    if kind == "bumpy":
-        v, f = bumpy_sphere(4)
+    if kind in ("bumpy", "deep"):
+        v, f = bumpy_sphere(4 if kind == "bumpy" else 6)
         tris = v[f]
     elif kind == "soup":
         tris = rng.uniform(0.1, 0.9, (500, 3, 3)).astype(np.float32)
+    elif kind in ("padded", "root_leaf"):
+        tris = rng.uniform(0.2, 0.8, (9 if kind == "padded" else 1, 3, 3)).astype(np.float32)
     else:
         c = np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
                       [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]], np.float32)
@@ -734,24 +741,31 @@ def _bvh_case(kind: str, seed: int, n: int = 1 << 14):
                  (3, 6, 2), (3, 7, 6), (0, 4, 7), (0, 7, 3), (1, 2, 6), (1, 6, 5)]
         tris = (c * 0.25 + 0.5)[np.asarray(faces)]
     mesh = normalize_mesh(tris)
-    k = n // 4
+    k = n // 8
+    t = mesh.triangles
+    edge = rng.integers(0, 3, k)
     pts = np.concatenate([
-        rng.uniform(-0.1, 1.1, (n - 2 * k, 3)).astype(np.float32),
+        rng.uniform(-0.1, 1.1, (n - 4 * k, 3)).astype(np.float32),
+        (0.5 + rng.uniform(-0.05, 0.05, (k, 3))).astype(np.float32),
         sample_surface(mesh, rng.uniform(size=(k, 3)).astype(np.float32)),
-        mesh.triangles.reshape(-1, 3)[rng.integers(0, mesh.n_triangles * 3, k)]])
+        t.reshape(-1, 3)[rng.integers(0, mesh.n_triangles * 3, k)],
+        0.5 * (t[np.arange(k) % len(t), edge] + t[np.arange(k) % len(t), (edge + 1) % 3])])
+    pts[:2] = [[FAR] * 3, [FAR, FAR, 0.9 * FAR]]
     dirs = rng.normal(size=(n, 3))
-    dirs[:k] = np.eye(3)[rng.integers(0, 3, k)] * rng.choice([-1, 1], (k, 1))
+    dirs[:2 * k] = np.eye(3)[rng.integers(0, 3, 2 * k)] * rng.choice([-1, 1], (2 * k, 1))
     dirs = (dirs / np.linalg.norm(dirs, axis=1, keepdims=True)).astype(np.float32)
     tree = build_bvh(mesh.triangles, "cuda")
     return tree, torch.from_numpy(pts).cuda(), torch.from_numpy(dirs).cuda()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["bumpy", "soup", "cube"])
+@pytest.mark.parametrize("kind", ["bumpy", "soup", "cube", "deep", "padded", "root_leaf"])
 def test_bvh_kernels_match_twins(cuda, kind):
     """Both traversal kernels equal their plain twins on the card bit for
     bit (distances, closest points, slots; t, inf on a miss, slots), ties
-    at shared vertices included; each call counts one launch."""
+    at shared vertices and edges included, and each query processes the
+    twin's count of nodes (the kernels' optional ``visits`` output); the
+    same outputs without it. Each call counts one launch."""
     from ngp_tpu_torch.ops.bvh import (
         TRIANGLE_BVH,
         bvh_closest_point_cuda,
@@ -761,21 +775,33 @@ def test_bvh_kernels_match_twins(cuda, kind):
     )
 
     tree, pts, dirs = _bvh_case(kind, 3)
+    P = pts.shape[0]
+    stats = {}
+    want = bvh_closest_point_reference(tree, pts, stats)
+    ray_stats = {}
+    ray_want = bvh_ray_intersect_reference(tree, pts, dirs, ray_stats)
+    assert bool((want[2] >= 0).all())
+    assert bool(torch.isfinite(ray_want[0]).any()) and not bool(torch.isfinite(ray_want[0]).all())
+    if kind in ("bumpy", "deep", "root_leaf"):  # a far query's best is a padding slot
+        assert bool((tree.tri_index[want[2][:2].long()] < 0).all())
+    if kind == "deep":  # the middle of the closed mesh prunes little
+        assert tree.records.shape[0] > 1023 and int(stats["visits"].max()) > 1000
     before = dict(TRIANGLE_BVH.launches)
-    got = bvh_closest_point_cuda(tree, pts)
+    visits = torch.full((P,), -1, dtype=torch.int32, device="cuda")
+    got = bvh_closest_point_cuda(tree, pts, visits)
     torch.cuda.synchronize()
-    want = bvh_closest_point_reference(tree, pts)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
-    assert bool((got[2] >= 0).all())
-    got = bvh_ray_intersect_cuda(tree, pts, dirs)
+    assert torch.equal(visits, stats["visits"])
+    visits.fill_(-1)
+    got = bvh_ray_intersect_cuda(tree, pts, dirs, visits)
     torch.cuda.synchronize()
-    want = bvh_ray_intersect_reference(tree, pts, dirs)
-    for g, w in zip(got, want):
+    for g, w in zip(got, ray_want):
         assert g.dtype == w.dtype and torch.equal(g, w)
-    assert bool(torch.isfinite(got[0]).any()) and not bool(torch.isfinite(got[0]).all())
+    assert torch.equal(visits, ray_stats["visits"])
     assert TRIANGLE_BVH.launches["bvh_closest_point"] == before["bvh_closest_point"] + 1
     assert TRIANGLE_BVH.launches["bvh_ray_intersect"] == before["bvh_ray_intersect"] + 1
+    assert torch.equal(bvh_closest_point_cuda(tree, pts)[2], want[2])  # no visits asked
 
 
 @pytest.mark.cuda
@@ -789,9 +815,13 @@ def test_bvh_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         bvh_ray_intersect_cuda(tree, pts, dirs[:32])
     with pytest.raises(ValueError):
-        bvh_closest_point_cuda(tree._replace(node_a=tree.node_a.long()), pts)
+        bvh_closest_point_cuda(tree._replace(records=tree.records.float()), pts)
     with pytest.raises(ValueError):
         bvh_closest_point_cuda(tree._replace(triangles=tree.triangles.cpu()), pts)
+    with pytest.raises(ValueError):
+        bvh_closest_point_cuda(tree._replace(depth=64), pts)
+    with pytest.raises(ValueError):
+        bvh_closest_point_cuda(tree, pts, torch.zeros(64, dtype=torch.int64, device="cuda"))
     empty = bvh_closest_point_cuda(tree, pts[:0])
     assert [t.shape[0] for t in empty] == [0, 0, 0]
 

@@ -33,7 +33,13 @@ from ngp_tpu_torch.models import factory as pfactory
 from ngp_tpu_torch.ops import image_sampler as psampler
 from ngp_tpu_torch.train import Trainer, TrainState
 
-torch.set_num_threads(2)
+# One intra-op thread: with two, torch's CPU sqrt (MKL's vsSqrt, split across
+# the intra-op threads) now and then returned one thread's chunk ~3e-4 off
+# on an AVX-512 Xeon (torch 2.13, MKL 2024.2), never with one
+# (scripts/torch_sqrt_threads.py counts it).
+# Every port test module sets the same count, so that a pytest worker's
+# count does not depend on which module it imported last.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 1 << 12
@@ -196,31 +202,44 @@ def fitted():
 
 
 def test_fit_matches_jax(fitted):
-    """Per-step losses within 1e-4 relative (measured 2e-5); the served
-    (EMA) MLP weights within 1e-3 (measured 1.1e-4); the served table
+    """Per-step losses within 1e-4 relative (measured 2.9e-5); the served
+    (EMA) MLP weights within 1e-3 (measured 5.0e-4); the served table
     within 2e-2 everywhere and 1e-4 on all but 1% of its entries (measured
-    8.7e-3 and 0.13%: Adam scales a gradient entry near zero, whose sign
+    5.1e-3 and 0.17%: Adam scales a gradient entry near zero, whose sign
     the other package's sum order can flip, to a step of the learning rate
-    1e-2); the render of every texel within 5e-3 (measured 1.0e-3) and the
-    MSE within 1e-3 relative (measured 3e-5)."""
+    1e-2); the render of every texel within 5e-3 (measured 2.4e-3) and the
+    MSE within 1e-3 relative (measured 1.1e-5). A failure prints every
+    measured margin."""
     jeng, jstate, jlosses, peng, pstate, plosses = fitted
     assert pstate.step == int(jstate.step) == 8
     assert plosses.shape == (8,) and plosses.dtype == torch.float32
-    np.testing.assert_allclose(plosses.numpy(), jlosses, rtol=1e-4)
-    assert jlosses[-1] < 0.1 * jlosses[0]
     want = _np(jeng.trainer.inference_params(jstate))
     got = export_jax_params(pstate.inference_model())
-    for g, w in zip(got["network"]["weights"], want["network"]["weights"]):
-        np.testing.assert_allclose(g, w, rtol=0, atol=1e-3)
     d = np.abs(got["encoding"]["table"] - want["encoding"]["table"])
-    assert d.max() <= 2e-2 and (d > 1e-4).mean() <= 0.01, (d.max(), (d > 1e-4).mean())
-    np.testing.assert_allclose(peng.render(pstate).numpy(), np.asarray(jeng.render(jstate)),
-                               rtol=0, atol=5e-3)
-    np.testing.assert_allclose(peng.render(pstate, 16, 12).numpy(),
-                               np.asarray(jeng.render(jstate, 16, 12)), rtol=0, atol=5e-3)
-    for q in (False, True):
-        np.testing.assert_allclose(peng.compute_mse(pstate, q), jeng.compute_mse(jstate, q),
-                                   rtol=1e-3)
+    renders = [(peng.render(pstate, *wh).numpy(), np.asarray(jeng.render(jstate, *wh)))
+               for wh in ((), (16, 12))]
+    assert [p.shape for p, _ in renders] == [j.shape for _, j in renders] == [(48, 64, 3),
+                                                                              (12, 16, 3)]
+    # every margin is measured first, so that any failure reports them all
+    margins = {
+        "loss_rel": float(np.max(np.abs(plosses.numpy() - jlosses) / np.abs(jlosses))),
+        "loss_last_over_first": float(jlosses[-1] / jlosses[0]),
+        "weights_abs": [float(np.abs(g - w).max()) for g, w in
+                        zip(got["network"]["weights"], want["network"]["weights"])],
+        "table_max": float(d.max()), "table_share_above_1e-4": float((d > 1e-4).mean()),
+        "render_abs": float(np.abs(renders[0][0] - renders[0][1]).max()),
+        "render_16x12_abs": float(np.abs(renders[1][0] - renders[1][1]).max()),
+        "mse_rel": [abs(peng.compute_mse(pstate, q) / jeng.compute_mse(jstate, q) - 1.0)
+                    for q in (False, True)],
+    }
+    assert margins["loss_rel"] <= 1e-4, margins
+    assert margins["loss_last_over_first"] < 0.1, margins
+    assert max(margins["weights_abs"]) <= 1e-3, margins
+    assert margins["table_max"] <= 2e-2, margins
+    assert margins["table_share_above_1e-4"] <= 0.01, margins
+    assert margins["render_abs"] <= 5e-3, margins
+    assert margins["render_16x12_abs"] <= 5e-3, margins
+    assert max(margins["mse_rel"]) <= 1e-3, margins
 
 
 def test_snapshots_cross_packages(fitted, tmp_path):

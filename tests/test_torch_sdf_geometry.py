@@ -27,7 +27,13 @@ from ngp_tpu_torch.data.synthetic import bumpy_sphere, write_bumpy_sphere_mesh
 from ngp_tpu_torch.geometry import mesh as pmesh
 from ngp_tpu_torch.geometry import triangle_bvh as pbvh
 
-torch.set_num_threads(2)
+# One intra-op thread: with two, torch's CPU sqrt (MKL's vsSqrt, split across
+# the intra-op threads) now and then returned one thread's chunk ~3e-4 off
+# on an AVX-512 Xeon (torch 2.13, MKL 2024.2), never with one
+# (scripts/torch_sqrt_threads.py counts it).
+# Every port test module sets the same count, so that a pytest worker's
+# count does not depend on which module it imported last.
+torch.set_num_threads(1)
 
 N_QUERIES = 4096
 DIST_TOL = 2e-6
@@ -154,6 +160,118 @@ def test_build_refuses_a_tree_deeper_than_the_stack(monkeypatch):
     monkeypatch.setattr(pbvh, "STACK_DEPTH", 4)
     with pytest.raises(ValueError, match="depth 10 of 1280 triangles"):
         pbvh.build_bvh_arrays(MESHES["bumpy"])
+
+
+# -- the kernels' packed records
+
+
+def _small_meshes():
+    """Trees whose leaves hold 1, 2, 3 and 4 real triangles, and trees of
+    at most ``LEAF_SIZE`` triangles, whose root is a leaf."""
+    rng = np.random.default_rng(5)
+    return {f"tris{n}": rng.uniform(0.2, 0.8, (n, 3, 3)).astype(np.float32)
+            for n in (1, 3, 4, 5, 6, 7, 9, 11)}
+
+
+PACK_CASES = {**BUILD_CASES, **_small_meshes()}
+
+
+@pytest.mark.parametrize("name", sorted(PACK_CASES))
+def test_packed_records_decode_to_the_tree(name):
+    """Each internal node has one record, numbered level by level from the
+    root (record 0); walking the records from the root's reference gives
+    back ``node_min``/``node_max`` (every node but the root, whose box is
+    in no record), ``node_a``, ``node_b``, ``node_leaf`` and each leaf's
+    count of real (not padding) triangles exactly; the padding slots are
+    the ones past that count, at ``FAR``."""
+    arrays = pbvh.build_bvh_arrays(PACK_CASES[name])
+    tree = pbvh.build_bvh(PACK_CASES[name])
+    records, root = tree.records.numpy(), tree.root
+    M = len(arrays["node_leaf"])
+    assert records.dtype == np.int32 and records.shape == (int((~arrays["node_leaf"]).sum()),
+                                                           pbvh.RECORD_WORDS)
+    real = (arrays["tri_index"].reshape(-1, pbvh.LEAF_SIZE) >= 0).sum(1)
+    slot = np.arange(pbvh.LEAF_SIZE)
+    pads = arrays["tri_index"].reshape(-1, pbvh.LEAF_SIZE) < 0
+    np.testing.assert_array_equal(pads, slot >= real[:, None])
+    assert (arrays["triangles"].reshape(-1, pbvh.LEAF_SIZE, 9)[pads] == np.float32(pbvh.FAR)).all()
+    node_min, node_max = np.full((M, 3), np.nan, np.float32), np.full((M, 3), np.nan, np.float32)
+    node_a, node_b = np.zeros(M, np.int32), np.zeros(M, np.int32)
+    node_leaf, counts = np.zeros(M, bool), {}
+
+    def visit(ref, node):
+        if ref < 0:
+            leaf = ~ref >> 3
+            node_leaf[node], node_a[node] = True, leaf * pbvh.LEAF_SIZE
+            counts[int(leaf)] = ~ref & 7
+            return
+        words = records[ref]
+        boxes = words[:12].view(np.float32)
+        left, right = int(words[14]), int(words[15])
+        node_a[node], node_b[node] = left, right
+        node_min[left], node_max[left] = boxes[0:3], boxes[3:6]
+        node_min[right], node_max[right] = boxes[6:9], boxes[9:12]
+        visit(int(words[12]), left)
+        visit(int(words[13]), right)
+
+    visit(root, 0)
+    assert (root == 0) == (len(records) > 0)
+    for field, got in (("node_min", node_min), ("node_max", node_max)):
+        np.testing.assert_array_equal(got[1:], arrays[field][1:], err_msg=field)
+    np.testing.assert_array_equal(node_a, arrays["node_a"])
+    np.testing.assert_array_equal(node_b, arrays["node_b"])
+    np.testing.assert_array_equal(node_leaf, arrays["node_leaf"])
+    assert counts == {k: int(real[k]) for k in range(len(real))}
+    levels = [0] * len(records)  # level order: a record's level never falls
+    for r, words in enumerate(records):
+        for ref in words[12:14]:
+            if ref >= 0:
+                levels[ref] = levels[r] + 1
+                assert ref > r
+    assert levels == sorted(levels)
+
+
+def _packed_queries(seed, n=1024):
+    """Points around the unit cube, a few at the padding's corner (where a
+    padding slot beats every real triangle), and rays from them, a quarter
+    along the axes."""
+    rng = np.random.default_rng(seed)
+    points = rng.uniform(-0.2, 1.2, (n, 3)).astype(np.float32)
+    points[:3] = [[pbvh.FAR] * 3, [pbvh.FAR, pbvh.FAR, 0.9 * pbvh.FAR], [1e9, 1e9, 1e9]]
+    dirs = rng.normal(size=(n, 3))
+    k = n // 4
+    dirs[:k] = np.eye(3)[rng.integers(0, 3, k)] * rng.choice([-1, 1], (k, 1))
+    dirs = (dirs / np.linalg.norm(dirs, axis=1, keepdims=True)).astype(np.float32)
+    return torch.from_numpy(points), torch.from_numpy(dirs)
+
+
+@pytest.mark.parametrize("name", sorted({**MESHES, **_small_meshes()}))
+def test_packed_walk_matches_the_twins(name):
+    """The kernels' walk over the packed records (plain PyTorch,
+    ``ops/bvh.py``: the next child kept, the other pushed, a stack of
+    depth − 1, only real triangles, the padding's distance once) gives the
+    twins' outputs and each query's nodes processed exactly: the twins
+    run the JAX loop on the tree's arrays."""
+    from ngp_tpu_torch.ops import bvh as bvh_ops
+
+    tree = pbvh.build_bvh({**MESHES, **_small_meshes()}[name])
+    points, dirs = _packed_queries(11)
+    stats = {}
+    want = bvh_ops.bvh_closest_point_reference(tree, points, stats)
+    got = bvh_ops.bvh_closest_point_packed(tree, points)
+    for g, w in zip(got[:3], want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(got[3], stats["visits"])
+    assert int(stats["visits"].sum()) == stats["internal_pops"] + stats["leaf_pops"]
+    if name in ("bumpy", "soup", "tris1", "tris3"):  # the far queries meet a padded leaf
+        assert bool((tree.tri_index[got[2][:2].long()] < 0).all())  # whose padding wins
+    stats = {}
+    want = bvh_ops.bvh_ray_intersect_reference(tree, points, dirs, stats)
+    got = bvh_ops.bvh_ray_intersect_packed(tree, points, dirs)
+    for g, w in zip(got[:2], want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(got[2], stats["visits"])
+    assert bool(torch.isfinite(got[0]).any())
 
 
 # -- the queries

@@ -26,7 +26,13 @@ from ngp_tpu_torch.data import msgpack_lite
 from ngp_tpu_torch.interop import export_jax_params, load_jax_params
 from ngp_tpu_torch.utils import snapshot as psnapshot
 
-torch.set_num_threads(2)
+# One intra-op thread: with two, torch's CPU sqrt (MKL's vsSqrt, split across
+# the intra-op threads) now and then returned one thread's chunk ~3e-4 off
+# on an AVX-512 Xeon (torch 2.13, MKL 2024.2), never with one
+# (scripts/torch_sqrt_threads.py counts it).
+# Every port test module sets the same count, so that a pytest worker's
+# count does not depend on which module it imported last.
+torch.set_num_threads(1)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 GOLDEN_INGP = os.path.join(GOLDEN, "golden.ingp")

@@ -37,7 +37,13 @@ from ngp_tpu_torch.interop import export_jax_train_state, load_jax_train_state
 from ngp_tpu_torch.ops.occupancy import OccupancyGridState
 from tests.test_nerf_engine import CONFIG, _make_dataset
 
-torch.set_num_threads(2)
+# One intra-op thread: with two, torch's CPU sqrt (MKL's vsSqrt, split across
+# the intra-op threads) now and then returned one thread's chunk ~3e-4 off
+# on an AVX-512 Xeon (torch 2.13, MKL 2024.2), never with one
+# (scripts/torch_sqrt_threads.py counts it).
+# Every port test module sets the same count, so that a pytest worker's
+# count does not depend on which module it imported last.
+torch.set_num_threads(1)
 
 SMALL = copy.deepcopy(CONFIG)
 SMALL["encoding"] = {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
