@@ -3,7 +3,7 @@
 in turns, so that a change to a kernel is measured against its parent on
 the same card in the same run:
 
-    python3 chip_kernel_ab.py BEFORE AFTER [--kernels b1 b5 segsum bwd b3 bvh]
+    python3 chip_kernel_ab.py BEFORE AFTER [--kernels b1 b5 segsum bwd b3 bvh igrad]
 
 BEFORE and AFTER are repository roots, for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory, and ``.``. Each
@@ -44,6 +44,28 @@ allocation included). Kernels:
   every turn when the kernels agree bit for bit), and, printed once by
   that first process, the bound of those inputs (``chip_smoke._bvh_bound``
   from the twins' visits).
+- ``igrad``: the grid's position gradient ``hashgrid_input_grad_cuda`` on
+  four inputs, each captured once, by a first process with AFTER's package,
+  and shared by every turn: the normals frame's own (x, g, table) (the
+  largest launch of ``chip_smoke.phase_normals``' 960×540 normals frame of
+  the sphere ``chip_smoke.phase_train`` trains, "tpu" tier); the largest
+  launch of a base.json normals render (training view 0 at stride 2) of
+  ``chip_smoke.py``'s 800×800 sphere capture after ``CLI_STEPS`` steps
+  through ``Testbed``, as phase ``cli_checks`` renders it; one step's own
+  (x, g) of the sdf config on the 327,680-triangle bumpy sphere after
+  ``IGRAD_SDF_STEPS`` steps; and ``chip_smoke.image_geometry_2d_case``.
+  Timed by CUDA events: ``ms`` around 50 calls queued behind a spin kernel
+  (:func:`queued_ms`, the calls' device time), ``call_ms`` around 20 calls
+  issued one after another (host issue included); with a digest of dx
+  (equal in every turn when the kernels agree bit for bit). Every
+  checkout also prints the SASS of its input-gradient kernels:
+  instructions, and those of each loop with its global loads, and ptxas's
+  registers (``igrad_sass``), and writes their SASS to ``IGRAD_DIR``.
+  ``--igrad-variants 256x16 512x16 ...`` also times, in each AFTER turn,
+  AFTER's kernel rebuilt with other constants: ``THREADSxFLOATS`` sets
+  ``kGradThreads`` (threads a block) and ``kGradStageFloats`` (a sample's
+  cotangents a stage of the g tile) in a copy of its source
+  (:func:`igrad_variants`).
 """
 
 from __future__ import annotations
@@ -59,6 +81,9 @@ POSITIONS = os.path.join(HERE, "build", "kernel_ab_serve_positions.pt")
 STEP_INPUTS = os.path.join(HERE, "build", "kernel_ab_train_step.pt")
 BVH_MESH = os.path.join(HERE, "build", "kernel_ab_bvh", "bumpy_sphere.obj")
 BVH_INPUTS = os.path.join(HERE, "build", "kernel_ab_bvh", "queries.pt")
+IGRAD_DIR = os.path.join(HERE, "build", "kernel_ab_igrad")
+IGRAD_INPUTS = os.path.join(IGRAD_DIR, "inputs.pt")
+IGRAD_SDF_STEPS = 200
 
 
 def _helpers(root: str):
@@ -169,6 +194,195 @@ def bvh_times(helpers) -> list[dict]:
     return rows
 
 
+def _loop_paths(code: list, head: int, back: int) -> list[int]:
+    """The fewest and the most instructions on a path through one pass of
+    a SASS loop, from its first instruction at ``head`` to its branch back
+    at ``back`` (``code``: (address, text) in order), each forward branch
+    inside the loop followed both ways and an inner loop's branch back not
+    taken; a path that leaves the loop is left out."""
+    import re
+
+    at = {a: i for i, (a, _) in enumerate(code)}
+    found, todo = set(), [(head, 0)]
+    while todo and len(found) < 256:
+        pc, n = todo.pop()
+        while True:
+            text = code[at[pc]][1]
+            n += 1
+            if pc == back:
+                found.add(n)
+                break
+            target = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+            if target:
+                to = int(target.group(1), 16)
+                if not head <= to <= back:
+                    break
+                if to <= pc:  # an inner loop's branch back: once through it
+                    pc = code[at[pc] + 1][0]
+                    continue
+                if not text.startswith("@"):
+                    pc = to
+                    continue
+                todo.append((to, n))
+            if text.startswith("EXIT"):
+                break
+            pc = code[at[pc] + 1][0]
+    return [min(found), max(found)] if found else []
+
+
+def igrad_sass(helpers) -> list[dict]:
+    """The imported checkout's input-gradient kernels in SASS: for each, its
+    instructions, and each loop (a branch back to an earlier address) as
+    [instructions, global loads, the fewest and the most on a path through
+    one pass (:func:`_loop_paths`)]; with
+    ptxas's registers from the build log (``chip_smoke.ptxas_registers``)."""
+    import re
+
+    from ngp_tpu_torch.ops.cuda_build import nvcc_path
+    from ngp_tpu_torch.ops.hashgrid import HASHGRID_ENCODE
+
+    lib = HASHGRID_ENCODE.lib_path()
+    HASHGRID_ENCODE.library()
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    os.makedirs(IGRAD_DIR, exist_ok=True)
+    with open(os.path.join(IGRAD_DIR, f"{lib.stem}.sass"), "w") as f:
+        on = False
+        for line in sass.splitlines():
+            on = "hashgrid_input_grad_kernel" in line if "Function :" in line else on
+            if on:
+                f.write(line.split(";")[0].strip() + "\n")
+    registers = helpers.ptxas_registers(HASHGRID_ENCODE)
+    kernels, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            continue
+        found = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if name and "hashgrid_input_grad_kernel" in name and found:
+            kernels.setdefault(name, []).append((int(found.group(1), 16), found.group(2)))
+    rows = []
+    for name, code in kernels.items():
+        loops = []
+        for at, text in code:
+            target = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+            if target and int(target.group(1), 16) < at:
+                head = int(target.group(1), 16)
+                body = [t for a, t in code if head <= a <= at]
+                loops.append([len(body), sum("LDG" in t for t in body),
+                              *_loop_paths(code, head, at)])
+        shape = re.search(r"ILi(\d)ELi(\d)E(?:Li(\d)E)?", name)
+        rows.append({"kernel": "igrad_sass", "D": int(shape.group(1)) if shape else None,
+                     "F": int(shape.group(2)) if shape else None,
+                     "additive": shape.group(3) if shape else None,
+                     "instructions": len(code), "loops": loops,
+                     "ptxas_registers": registers.get(name)})
+    return rows
+
+
+def queued_ms(fn, iters: int = 50) -> float:
+    """Mean device milliseconds of a call of ``fn``: CUDA events around
+    ``iters`` calls queued behind a spin kernel of ~50 ms, so that the card
+    runs them back to back whatever the host's time to issue them (where a
+    call's host time exceeds its kernel's, events around calls issued one
+    after another measure the host)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def igrad_times(helpers) -> list[dict]:
+    """The imported checkout's ``hashgrid_input_grad_cuda`` on each captured
+    input: ms by CUDA events and a digest of dx."""
+    import torch
+
+    from ngp_tpu_torch.ops import hashgrid
+
+    rows = []
+    for name, (x, g, table, geo4, variant) in torch.load(IGRAD_INPUTS).items():
+        x, g, table = x.cuda(), g.cuda(), table.cuda()
+        geo = tuple(t.cuda() for t in geo4) + (variant,)
+        L, _, F = table.shape
+        fn = lambda: hashgrid.hashgrid_input_grad_cuda(x, g, table, *geo)  # noqa: E731
+        rows.append({"kernel": "igrad", "input": name, "N": x.shape[0], "D": x.shape[1],
+                     "L": L, "F": F, "hash": variant, "dx": _digest([fn()]),
+                     "ms": queued_ms(fn), "call_ms": helpers.cuda_ms(fn, iters=20)})
+        del x, g, table
+    return rows
+
+
+def igrad_variants(variants: list[str]) -> list[dict]:
+    """The imported checkout's input-gradient kernel rebuilt with other
+    constants, each ``THREADSxFLOATS`` a copy of ``csrc/hashgrid_encode.cu``
+    with ``kGradThreads`` and ``kGradStageFloats`` set (all compiled at
+    once with the package's flags), called through its C entry on each
+    captured input: ms (:func:`queued_ms`) and a digest of dx."""
+    import ctypes
+    import re
+
+    import torch
+
+    from ngp_tpu_torch.ops import hashgrid
+    from ngp_tpu_torch.ops.cuda_build import NVCC_FLAGS, launch_on, nvcc_path
+
+    src = hashgrid.HASHGRID_ENCODE.source
+    os.makedirs(IGRAD_DIR, exist_ok=True)
+    builds = {}
+    for v in variants:
+        threads, floats = (int(n) for n in v.split("x"))
+        code = re.sub(r"(constexpr int kGradThreads = )\d+", rf"\g<1>{threads}",
+                      src.read_text())
+        code = re.sub(r"(constexpr int kGradStageFloats = )\d+", rf"\g<1>{floats}", code)
+        copy = os.path.join(IGRAD_DIR, f"variant_{v}.cu")
+        with open(copy, "w") as f:
+            f.write(code)
+        lib = copy[:-3] + ".so"
+        builds[v] = (lib, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-I", str(src.parent), "-o", lib, copy],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for v, (path, proc) in builds.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {v}:\n{log}")
+        lib = ctypes.CDLL(path)
+        lib.hashgrid_input_grad.restype = ctypes.c_int
+        lib.hashgrid_input_grad.argtypes = hashgrid.HASHGRID_ENCODE.library() \
+            .hashgrid_input_grad.argtypes
+        libs[v] = lib
+    rows = []
+    for name, (x, g, table, geo4, variant) in torch.load(IGRAD_INPUTS).items():
+        x, g, table = x.cuda(), g.cuda(), table.cuda()
+        geo = hashgrid._host_geometry(*(t.cuda() for t in geo4))
+        (N, D), (L, T, F) = x.shape, table.shape
+        dx = torch.empty_like(x)
+        for v, lib in libs.items():
+            def fn(lib=lib):
+                rc = launch_on(x.device, lambda stream: lib.hashgrid_input_grad(
+                    x.data_ptr(), g.data_ptr(), table.data_ptr(), ctypes.addressof(geo),
+                    dx.data_ptr(), N, L, T, F, D, hashgrid.HASH_VARIANTS[variant], L - 1,
+                    stream))
+                if rc != 0:
+                    raise RuntimeError(f"variant {v}: launch failed ({rc})")
+                return dx
+            rows.append({"kernel": "igrad", "input": name, "design": v,
+                         "dx": _digest([fn()]), "ms": queued_ms(fn)})
+        del x, g, table, dx
+    return rows
+
+
 def step_cases(helpers, samples: list[int]):
     """(label, x, g, geometry, T) for each of ``samples`` uniform positions
     and for the captured training step."""
@@ -182,7 +396,7 @@ def step_cases(helpers, samples: list[int]):
 
 
 def turn(root: str, label: str, kernels: list[str], b1_samples: int,
-         samples: list[int]):
+         samples: list[int], variants: list[str]):
     import torch
 
     root = os.path.abspath(root)
@@ -210,6 +424,12 @@ def turn(root: str, label: str, kernels: list[str], b1_samples: int,
     if "bvh" in kernels:
         for row in bvh_times(helpers):
             helpers.emit({**base, **row})
+    if "igrad" in kernels:
+        for row in igrad_sass(helpers) + igrad_times(helpers):
+            helpers.emit({**base, **row})
+        if variants and label == "after":
+            for row in igrad_variants(variants):
+                helpers.emit({**base, **row})
     if "bwd" in kernels or "b3" in kernels:
         for positions, x, g, geo, T in step_cases(helpers, samples):
             case = {**base, "positions": positions, "N": x.shape[0]}
@@ -282,16 +502,76 @@ def capture_bvh(root: str):
                       **helpers._bvh_bound(stats, eng.bvh, *bound)})
 
 
+def capture_igrad(root: str):
+    """Capture the four inputs of the ``igrad`` set with ``root``'s package
+    (module docstring) into ``IGRAD_INPUTS``: for each, (x, g, table, the
+    geometry's four tensors, the hash variant), on the host."""
+    import torch
+
+    helpers = _helpers(os.path.abspath(root))
+    from ngp_tpu_torch.data.synthetic import write_bumpy_sphere_mesh, write_sphere_capture
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.testbed import Testbed
+
+    def largest(render):
+        kept = []
+        original = helpers._keep_largest(hashgrid_ops, "hashgrid_input_grad_cuda", kept)
+        try:
+            render()
+            torch.cuda.synchronize()
+        finally:
+            hashgrid_ops.hashgrid_input_grad_cuda = original
+        x, g, table, *geo = kept[0]
+        return x.detach(), g, table, *geo[:5]
+
+    cases = {}
+    eng, state, grid = helpers.phase_train()[:3]
+    o, d = helpers.normals_rays()
+    cases["normals_frame"] = largest(lambda: eng.render_rays(state, grid, o, d, mode="normals"))
+    del eng, state, grid
+    train_json, _ = write_sphere_capture(os.path.join(IGRAD_DIR, "capture"),
+                                         res=helpers.CAPTURE_RES, device="cuda")
+    tb = Testbed(scene=train_json)
+    tb.train(helpers.CLI_STEPS)
+    cases["normals_positions"] = largest(lambda: tb.engine.render_image(
+        tb.state, tb.grid, 0, stride=2, mode="normals"))
+    del tb
+    tb = Testbed(scene=write_bumpy_sphere_mesh(os.path.join(IGRAD_DIR, "bumpy_sphere.obj"),
+                                               helpers.SDF_SUBDIVISIONS))
+    tb.train(IGRAD_SDF_STEPS)
+    kept, backward = [], hashgrid_ops.hashgrid_backward_cuda
+    hashgrid_ops.hashgrid_backward_cuda = lambda x, g, *rest: kept.append((x, g, *rest)) or \
+        backward(x, g, *rest)
+    try:
+        tb.train(1)
+        torch.cuda.synchronize()
+    finally:
+        hashgrid_ops.hashgrid_backward_cuda = backward
+    x, g, *geo = kept[-1][:7]
+    cases["step_positions"] = (x, g, tb.state.model.encoding.table.detach(), *geo)
+    del tb
+    x, g, table, geo = helpers.image_geometry_2d_case()
+    cases["image_geometry_2d"] = (x, g, table, *geo)
+    torch.save({name: (x.cpu(), g.cpu(), t.cpu(), [v.cpu() for v in geo[:4]], geo[4])
+                for name, (x, g, t, *geo) in cases.items()}, IGRAD_INPUTS)
+    for name, (x, g, t, *geo) in cases.items():
+        helpers.emit({"turn": "capture_igrad", "input": name, "N": x.shape[0],
+                      "D": x.shape[1], "L": t.shape[0], "T": t.shape[1], "F": t.shape[2],
+                      "hash": geo[4], "level_rows": geo[2].tolist()})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("before")
     ap.add_argument("after")
     ap.add_argument("--kernels", nargs="+", default=["b1", "b5"],
-                    choices=["b1", "b5", "segsum", "bwd", "b3", "bvh"])
+                    choices=["b1", "b5", "segsum", "bwd", "b3", "bvh", "igrad"])
     ap.add_argument("--b1-samples", type=int, default=470671,
                     help="uniform positions for b1 (the serve path's mean launch)")
     ap.add_argument("--samples", type=int, nargs="+", default=[78827, 163840],
                     help="network samples for segsum, bwd and b3")
+    ap.add_argument("--igrad-variants", nargs="+", default=[],
+                    help="THREADSxFLOATS constants of AFTER's input-gradient kernel for igrad")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn == "capture":
@@ -303,12 +583,17 @@ def main():
     if args.turn == "capture_bvh":
         capture_bvh(args.after)
         return
+    if args.turn == "capture_igrad":
+        capture_igrad(args.after)
+        return
     if args.turn:
         turn(getattr(args, args.turn), args.turn, args.kernels, args.b1_samples,
-             args.samples)
+             args.samples, args.igrad_variants)
         return
     common = ["--kernels", *args.kernels, "--b1-samples", str(args.b1_samples),
               "--samples", *map(str, args.samples)]
+    if args.igrad_variants:
+        common += ["--igrad-variants", *args.igrad_variants]
     labels = ["before", "after", "after", "before"]
     if "b1" in args.kernels:
         labels.insert(0, "capture")
@@ -316,6 +601,8 @@ def main():
         labels.insert(0, "capture_step")
     if "bvh" in args.kernels:
         labels.insert(0, "capture_bvh")
+    if "igrad" in args.kernels:
+        labels.insert(0, "capture_igrad")
     for label in labels:
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), args.before, args.after,

@@ -57,7 +57,8 @@ Phases, each printing one JSON line:
    and over its pixels of opacity above ``NORMALS_OPACITY`` the median
    cosine between the rendered normal and the sphere's outward normal at
    the hit point must reach ``NORMALS_COS_MIN``. Then the input gradient
-   against its twin within the float32 order bound on the frame's own
+   against its twin, bit for bit (and so within the float32 order bound;
+   with ptxas's registers a thread), on the frame's own
    positions and cotangents and on a D = 2 case of the image geometry
    (2^18 uniform positions, T = 2^18), and the grid backward with float32
    addends on the frame's (x, g); then the positions, encoding and cost
@@ -99,7 +100,7 @@ Phases, each printing one JSON line:
    positions at those steps' mean launch and on the positions of a
    held-out render's largest launch; the fused grid backward within the
    float32 order bound at the steps' mean and on their last step's own
-   (x, g), and the input gradient within its order bound on the largest
+   (x, g), and the input gradient bit for bit with its twin on the largest
    launch of a normals render of training view 0 at stride 2 (phase
    ``kernel_cli``).
 13. image: in a fresh process (``chip_smoke.py image``), the image
@@ -430,6 +431,23 @@ def sass_atomics(library: str) -> dict:
         if op and kernel:
             ops = found.setdefault(kernel, {})
             ops[op.group(0)] = ops.get(op.group(0), 0) + 1
+    return found
+
+
+def ptxas_registers(kernel) -> dict:
+    """Registers a thread of each entry point of a ``CudaKernel``'s
+    library, by mangled name, from ptxas's report (``-Xptxas=-v``) in the
+    log its build wrote beside it."""
+    log = kernel.lib_path().with_suffix(".log")
+    found, entry = {}, None
+    for line in (log.read_text() if log.exists() else "").splitlines():
+        name = re.search(r"entry function '(\w+)'", line)
+        if name:
+            entry = name.group(1)
+        used = re.search(r"Used (\d+) registers", line)
+        if used and entry:
+            found[entry] = int(used.group(1))
+            entry = None
     return found
 
 
@@ -1255,14 +1273,47 @@ def _frame_device_ms(fn) -> float:
     return _profile_summary(prof, (), "frame", "frame")["device_busy_ms"]
 
 
+def normals_rays():
+    """Rays (o, d) on the card of phase normals' NORMALS_RES view of phase
+    train's sphere."""
+    import numpy as np
+
+    center = np.asarray(SPHERE_CENTER, np.float32)
+    eye = center + np.asarray([math.cos(0.4), math.sin(0.4), 0.3], np.float32) * 1.1
+    return _camera_rays(eye, center, NORMALS_RES, 60.0)
+
+
+def image_geometry_2d_case():
+    """The input gradient's D = 2 case on the card: the image config's
+    geometry (16 levels, F = 2, base 16, scale 2.0, XOR) at T =
+    2^INPUT_GRAD_2D_LOG2, with 2^18 uniform positions, normal cotangents
+    and a uniform table from seed 12: (x, g, table, geometry)."""
+    import torch
+
+    from ngp_tpu_torch.models.encodings import GridEncoding
+
+    enc = GridEncoding(n_input_dims=2, n_levels=16, n_features_per_level=2,
+                       log2_hashmap_size=INPUT_GRAD_2D_LOG2, base_resolution=16,
+                       per_level_scale=2.0, hash_variant="tcnn", device="cuda")
+    gen = torch.Generator().manual_seed(12)
+    L, T, F = enc.table.shape
+    x = torch.rand((1 << 18, 2), generator=gen).cuda()
+    g = torch.randn((1 << 18, L * F), generator=gen).cuda()
+    table = (torch.rand((L, T, F), generator=gen) * 2 - 1).cuda()
+    return x, g, table, (enc.level_scale, enc.level_res, enc.level_size,
+                         enc.level_hashed, "tcnn")
+
+
 def _input_grad_row(x, g, table, geo) -> dict:
     """``hashgrid_input_grad_cuda`` on (x, g, table) against its twin on the
-    card, within the float32 order bound 2·(n − 1)·2^-24·Σ|term| per
-    component (``bit_exact``: whether it gave the twin's bits); its times
+    card: it must give the twin's bits (``bit_exact``), and so lie within
+    the float32 order bound 2·(n − 1)·2^-24·Σ|term| per component, which is
+    checked too; its registers a thread (:func:`ptxas_registers`), times
     and bound. No single PyTorch call computes dx, so no library time."""
     import torch
 
     from ngp_tpu_torch.ops.hashgrid import (
+        HASHGRID_ENCODE,
         _level_corners,
         _levels,
         hashgrid_input_grad_cuda,
@@ -1284,6 +1335,10 @@ def _input_grad_row(x, g, table, geo) -> dict:
                              f"max abs err {float(err.max())}")
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("hashgrid_input_grad: non-finite dx")
+    bit_exact = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if not bit_exact:
+        raise AssertionError(f"hashgrid_input_grad: not the twin's bits, max abs err "
+                             f"{float(err.max())}")
     # the distinct table rows these positions read, each read once
     additive = geo[4] == "additive"
     rows = 0
@@ -1291,10 +1346,13 @@ def _input_grad_row(x, g, table, geo) -> dict:
         idx = torch.cat([i for i, _ in _level_corners(x, *lg, additive)])
         rows += int(torch.unique(idx).numel())
     del want, mass
+    kernel = f"hashgrid_input_grad_kernelILi{D}ELi{F}ELi{int(additive)}E"
+    registers = [n for name, n in ptxas_registers(HASHGRID_ENCODE).items() if kernel in name]
     return {
         "N": N, "D": D, "L": L, "T": T, "F": F, "hash": geo[4],
         "max_abs_err": float(err.max()), "max_abs_dx": float(got.abs().max()),
-        "bit_exact": bool(err.max() == 0), "rows_read": rows,
+        "bit_exact": bit_exact, "rows_read": rows,
+        "registers": registers[0] if registers else None,
         "ms": device_ms(run), "call_ms": cuda_ms(run, iters=20),
         "plain_ms": cuda_ms(lambda: hashgrid_input_grad_reference(x, g, table, *geo),
                             iters=3, warmup=1),
@@ -1321,7 +1379,6 @@ def phase_normals(eng, state, grid):
     import torch
 
     from ngp_tpu_torch.engines import nerf as engine_mod
-    from ngp_tpu_torch.models.encodings import GridEncoding
     from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
     from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
     from ngp_tpu_torch.ops.hashgrid import (
@@ -1331,8 +1388,7 @@ def phase_normals(eng, state, grid):
     )
 
     center = np.asarray(SPHERE_CENTER, np.float32)
-    eye = center + np.asarray([math.cos(0.4), math.sin(0.4), 0.3], np.float32) * 1.1
-    o, d = _camera_rays(eye, center, NORMALS_RES, 60.0)
+    o, d = normals_rays()
     render = lambda mode: eng.render_rays(state, grid, o, d, mode=mode)  # noqa: E731
     frames, kept = {}, []
     for mode in ("shade", "normals"):
@@ -1388,15 +1444,7 @@ def phase_normals(eng, state, grid):
     emit({"phase": "kernel_normals", "kernel": "hashgrid_input_grad",
           "shape": "normals_frame", "launches": normals_launches["hashgrid_input_grad"],
           **frame_row})
-    enc2 = GridEncoding(n_input_dims=2, n_levels=16, n_features_per_level=2,
-                        log2_hashmap_size=INPUT_GRAD_2D_LOG2, base_resolution=16,
-                        per_level_scale=2.0, hash_variant="tcnn", device="cuda")
-    gen = torch.Generator().manual_seed(12)
-    L2, T2, F2 = enc2.table.shape
-    x2 = torch.rand((1 << 18, 2), generator=gen).cuda()
-    g2 = torch.randn((1 << 18, L2 * F2), generator=gen).cuda()
-    t2 = (torch.rand((L2, T2, F2), generator=gen) * 2 - 1).cuda()
-    geo2 = (enc2.level_scale, enc2.level_res, enc2.level_size, enc2.level_hashed, "tcnn")
+    x2, g2, t2, geo2 = image_geometry_2d_case()
     emit({"phase": "kernel_normals", "kernel": "hashgrid_input_grad",
           "shape": "image_geometry_2d", **_input_grad_row(x2, g2, t2, geo2)})
     del x2, g2, t2

@@ -124,13 +124,36 @@
 // Bound on the H100: per sample it must read x (4D bytes) and g (4LF
 // bytes) and write dx (4D bytes), and read each table row it reaches once:
 // about (24 + 64) B a sample plus the rows at the "tpu" tier. Like the
-// forward it is paced by its 2^D * L row loads a sample. Design, simple
-// first: a thread a sample walks its levels and corners, so the sum over
-// levels, corners and features runs in a fixed order (no atomics, the
-// twin's order); neighbouring samples are neighbouring lanes, so on a
-// rendered frame's positions a warp's loads share lines on the coarse
-// levels. Products and sums are rounded one at a time, as in the forward,
-// so the twin in ngp_tpu_torch/ops/hashgrid.py gives the kernel's bits.
+// forward it is paced by its 2^D * L row loads a sample, each a 32-byte
+// sector where the lanes of a load do not share lines; on tables larger
+// than the L2 (base.json: 16 levels of up to 2^19 rows, 50-57 MB of level
+// rows) a row that misses costs a DRAM sector. Design (each part measured
+// against its alternatives on the card, PERF.md):
+//   - One launch; a thread a sample walks its levels in order, so one
+//     thread sums a sample's terms and no level order is left to atomics;
+//     neighbouring samples are neighbouring lanes, so on a rendered frame's
+//     positions a warp's loads share lines on the coarse levels.
+//   - The block's cotangents are staged in shared memory with 16-byte
+//     loads, kGradStageFloats a sample at a time (8 levels at F = 2), in
+//     place of a strided load a lane a level. A stage of 32 floats (16
+//     levels at once) ran up to 1.5x slower, and one of 8, 12 or 24 slower
+//     on at least three of the four inputs PERF.md measures; 512 threads a
+//     block beat 128, 192 and 256 on the three of them at D = 3.
+//   - No branch in the corner loop: a level's hashed or dense indexing and
+//     the hash variant are compile-time in the level's code (both bodies are
+//     in the loop; a warp takes one at its level).
+// Measured and dropped: level-parallel warps (a warp a level, or a pair of
+// levels, of 32 samples, the terms summed in level order in shared memory)
+// lost on a rendered frame's positions at 8 levels, where the coarse
+// levels' warps wait at the barrier for the fine ones; level passes sized
+// to the L2 (one launch a run of levels, dx carried) won on uniform
+// positions but lost on the rendered positions the paths send.
+// The sum is the twin's: per level, per corner a = sum_f g_f * row_f in
+// feature order; a times the other dimensions' weight factors in dimension
+// order, added to dfrac[d] for the upper corner and subtracted for the
+// lower; then acc = acc + t_l level after level from acc = +0.0 (not from
+// t_0: 0.0 + -0.0 is +0.0). Products and sums are rounded one at a time, so
+// the twin in ngp_tpu_torch/ops/hashgrid.py gives the kernel's bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -148,6 +171,8 @@ constexpr int kWarpSamples = 32;    // samples a warp takes, one a lane
 constexpr int kWarpLevels = 8;      // levels a forward warp encodes, at most
 constexpr int kMaxBlockWarps = 8;   // warps a forward block has at most
 constexpr int kMaxBlockSmem = 48 * 1024;
+constexpr int kGradThreads = 512;      // an input-gradient block's threads (samples)
+constexpr int kGradStageFloats = 16;   // a sample's cotangents a stage of its g tile holds
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -358,55 +383,128 @@ hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
   }
 }
 
-// Input gradient: a thread a sample, levels 0 .. levels - 1 in order, at
-// each the corners in order, at each corner the features in order.
-template <int D, int F>
-__global__ void __launch_bounds__(kThreads)
+// One level's term of the input gradient for one sample: t[d] = dfrac[d] *
+// scale_l, dfrac the gradient of the level's blend with respect to the cell
+// fractions. `Hashed` and `Add` (the hash variant) are compile-time, so the
+// corner loop carries no branch. a = sum_f g_f * row_f starts from
+// g_0 * row_0 where the twin starts from 0.0 + g_0 * row_0: the two differ at
+// most in the sign of a zero, which no dfrac keeps (dfrac starts at +0.0,
+// and +0.0 plus or minus a zero is +0.0), so the bits are the twin's.
+template <int D, int F, int Add, bool Hashed>
+__device__ __forceinline__ void input_grad_level_as(const float (&xs)[D], const float (&gl)[F],
+                                                    const float* __restrict__ table,
+                                                    const Geometry& geo, int l,
+                                                    int64_t table_rows, float (&t)[D]) {
+  constexpr int C = 1 << D;
+  uint32_t idx[C];
+  float w[C], frac[D];
+  cell_corners<D>(xs, geo.scale[l], geo.res[l], Hashed, geo.mask[l], Add, idx, w, frac);
+  float dfrac[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) dfrac[d] = 0.0f;
+  const float* rows = table + l * table_rows * F;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const Row<float, F> r = *reinterpret_cast<const Row<float, F>*>(
+        rows + static_cast<size_t>(idx[c]) * F);
+    float a = __fmul_rn(gl[0], r.v[0]);  // d(out)/d(w_c)
+#pragma unroll
+    for (int f = 1; f < F; ++f) a = __fadd_rn(a, __fmul_rn(gl[f], r.v[f]));
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      float p = a;
+#pragma unroll
+      for (int e = 0; e < D; ++e) {
+        if (e == d) continue;
+        p = __fmul_rn(p, ((c >> e) & 1) ? frac[e] : __fsub_rn(1.0f, frac[e]));
+      }
+      dfrac[d] = ((c >> d) & 1) ? __fadd_rn(dfrac[d], p) : __fsub_rn(dfrac[d], p);
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d) t[d] = __fmul_rn(dfrac[d], geo.scale[l]);
+}
+
+template <int D, int F, int Add>
+__device__ __forceinline__ void input_grad_level(const float (&xs)[D], const float (&gl)[F],
+                                                 const float* __restrict__ table,
+                                                 const Geometry& geo, int l,
+                                                 int64_t table_rows, float (&t)[D]) {
+  if (geo.hashed[l]) {
+    input_grad_level_as<D, F, Add, true>(xs, gl, table, geo, l, table_rows, t);
+  } else {
+    input_grad_level_as<D, F, Add, false>(xs, gl, table, geo, l, table_rows, t);
+  }
+}
+
+// Input gradient: a thread a sample, kGradThreads samples a block (a
+// compile-time count: the same code with blockDim.x, or with the level's
+// row pointer taken outside the level's code, compiled to markedly slower
+// code for the card), levels 0 .. levels - 1 in order from dx = +0.0. The
+// levels go in stages of kGradStageFloats / F: the block copies its
+// samples' cotangents of a stage's levels (contiguous runs of g) into
+// shared memory with 16-byte loads where the layout allows, behind a
+// barrier, in place of a strided load a lane a level; the tile of one
+// stage keeps the block's shared memory small enough not to cut the
+// number of blocks an SM holds.
+template <int D, int F, int Add>
+__global__ void __launch_bounds__(kGradThreads)
 hashgrid_input_grad_kernel(const float* __restrict__ x, const float* __restrict__ g,
                            const float* __restrict__ table,
                            const __grid_constant__ Geometry geo,
                            float* __restrict__ dx, int64_t n, int n_levels,
-                           int levels, int64_t table_rows, int additive) {
-  constexpr int C = 1 << D;
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (s >= n) return;
+                           int levels, int64_t table_rows) {
+  constexpr int kStageLevels = kGradStageFloats / F;
+  constexpr int kStride = (kStageLevels * F) | 1;  // odd: a warp's reads of a level hit 32 banks
+  __shared__ float tile[kGradThreads * kStride];
+  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * kGradThreads;
+  const int here = static_cast<int>(n - s0 < kGradThreads ? n - s0 : kGradThreads);
+  const bool live = static_cast<int>(threadIdx.x) < here;
+  const int64_t s = s0 + threadIdx.x;
+  const int64_t row = static_cast<int64_t>(n_levels) * F;
+  const bool quads = ((row & 3) == 0) && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  const float* gs = tile + threadIdx.x * kStride;
   float xs[D], acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    xs[d] = x[s * D + d];
+    xs[d] = live ? x[s * D + d] : 0.0f;
     acc[d] = 0.0f;
   }
-  for (int l = 0; l < levels; ++l) {
-    uint32_t idx[C];
-    float w[C], frac[D];
-    cell_corners<D>(xs, geo.scale[l], geo.res[l], geo.hashed[l] != 0,
-                    geo.mask[l], additive, idx, w, frac);
-    const Row<float, F> gl =
-        *reinterpret_cast<const Row<float, F>*>(g + (s * n_levels + l) * F);
-    float dfrac[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) dfrac[d] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const Row<float, F> row = *reinterpret_cast<const Row<float, F>*>(
-          table + (l * table_rows + idx[c]) * F);
-      float a = 0.0f;  // d(out)/d(w_c)
-#pragma unroll
-      for (int f = 0; f < F; ++f) a = __fadd_rn(a, __fmul_rn(gl.v[f], row.v[f]));
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        float p = a;
-#pragma unroll
-        for (int e = 0; e < D; ++e) {
-          if (e == d) continue;
-          p = __fmul_rn(p, ((c >> e) & 1) ? frac[e] : __fsub_rn(1.0f, frac[e]));
-        }
-        dfrac[d] = ((c >> d) & 1) ? __fadd_rn(dfrac[d], p) : __fsub_rn(dfrac[d], p);
+  for (int l0 = 0; l0 < levels; l0 += kStageLevels) {
+    const int stage = levels - l0 < kStageLevels ? levels - l0 : kStageLevels;
+    const int run = stage * F;
+    const float* gb = g + s0 * row + l0 * F;
+    if (l0 > 0) __syncthreads();  // every thread is done with the last stage
+    if (quads && (run & 3) == 0) {
+      const int q4 = run >> 2;
+      for (int q = threadIdx.x; q < here * q4; q += kGradThreads) {
+        const int i = q / q4;
+        const int r = (q - i * q4) << 2;
+        const float4 v = *reinterpret_cast<const float4*>(gb + i * row + r);
+        float* dst = tile + i * kStride + r;
+        dst[0] = v.x;
+        dst[1] = v.y;
+        dst[2] = v.z;
+        dst[3] = v.w;
+      }
+    } else {
+      for (int q = threadIdx.x; q < here * run; q += kGradThreads) {
+        const int i = q / run;
+        tile[i * kStride + (q - i * run)] = gb[i * row + (q - i * run)];
       }
     }
+    __syncthreads();
+    if (!live) continue;
+    for (int l = l0; l < l0 + stage; ++l) {
+      float gl[F], t[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = __fadd_rn(acc[d], __fmul_rn(dfrac[d], geo.scale[l]));
+      for (int f = 0; f < F; ++f) gl[f] = gs[(l - l0) * F + f];
+      input_grad_level<D, F, Add>(xs, gl, table, geo, l, table_rows, t);
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = __fadd_rn(acc[d], t[d]);
+    }
   }
+  if (!live) return;
 #pragma unroll
   for (int d = 0; d < D; ++d) dx[s * D + d] = acc[d];
 }
@@ -501,23 +599,29 @@ int dispatch_backward(int n_features, const Backward& a, int round_addends,
 
 // The input gradient's launch: Backward's fields, `out` being dx and
 // `table` the float32 table.
-template <int D, int F>
+template <int D, int F, int Add>
 int launch_input_grad(const Backward& a, const float* table, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((a.n + kThreads - 1) / kThreads);
-  hashgrid_input_grad_kernel<D, F><<<blocks, kThreads, 0, stream>>>(
-      a.x, a.g, table, *a.geo, a.out, a.n, a.n_levels, a.levels, a.table_rows,
-      a.additive);
+  const unsigned blocks =
+      static_cast<unsigned>((a.n + kGradThreads - 1) / kGradThreads);
+  hashgrid_input_grad_kernel<D, F, Add><<<blocks, kGradThreads, 0, stream>>>(
+      a.x, a.g, table, *a.geo, a.out, a.n, a.n_levels, a.levels, a.table_rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int F>
+int dispatch_hash(const Backward& a, const float* table, cudaStream_t stream) {
+  return a.additive ? launch_input_grad<D, F, 1>(a, table, stream)
+                    : launch_input_grad<D, F, 0>(a, table, stream);
 }
 
 template <int D>
 int dispatch_input_grad(int n_features, const Backward& a, const float* table,
                         cudaStream_t stream) {
   switch (n_features) {
-    case 1: return launch_input_grad<D, 1>(a, table, stream);
-    case 2: return launch_input_grad<D, 2>(a, table, stream);
-    case 4: return launch_input_grad<D, 4>(a, table, stream);
-    case 8: return launch_input_grad<D, 8>(a, table, stream);
+    case 1: return dispatch_hash<D, 1>(a, table, stream);
+    case 2: return dispatch_hash<D, 2>(a, table, stream);
+    case 4: return dispatch_hash<D, 4>(a, table, stream);
+    case 8: return dispatch_hash<D, 8>(a, table, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -256,8 +256,10 @@ def hashgrid_input_grad_reference(x, g, table, scale, res, size, hashed,
     per level, per corner ``a = Σ_f g·table[idx_c]`` (features in order),
     ``a`` times the other dimensions' weight factors in dimension order,
     added to dimension d's fraction gradient for the upper corner and
-    subtracted for the lower; then ``dx += dfrac · scale``, level by level.
-    Computed in the dtype of ``x`` (float32; float64 for checks)."""
+    subtracted for the lower; then ``dx += dfrac · scale``, level by level
+    from dx = +0.0 (so however a kernel spreads the levels, it keeps these
+    bits by adding the terms in level order from +0.0). Computed in the
+    dtype of ``x`` (float32; float64 for checks)."""
     additive = HASH_VARIANTS[hash_variant] == 1
     N, D = x.shape
     L, T, F = table.shape

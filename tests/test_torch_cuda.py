@@ -224,10 +224,10 @@ def test_backward_matches_twin(cuda, variant, f, d, positions):
 @pytest.mark.parametrize("variant", ["tcnn", "additive"])
 def test_input_grad_matches_twin(cuda, variant, f, d, positions):
     """The input-gradient kernel against its twin on the card, with and
-    without max_level: within the float32 order bound 2·(n − 1)·2^-24·Σ|term|
-    per component (the kernel keeps the twin's order, so it is expected to
-    give its bits); and the unrounded backward (payload float32) within the
-    order bound of its sum."""
+    without max_level: the twin's bits (the kernel keeps its order), and so
+    within the float32 order bound 2·(n − 1)·2^-24·Σ|term| per component;
+    and the unrounded backward (payload float32) within the order bound of
+    its sum."""
     seed = 200 + 10 * f + d
     if positions == "edges":
         x, table, geo = _edge_case(d, f, variant, seed)
@@ -246,10 +246,101 @@ def test_input_grad_matches_twin(cuda, variant, f, d, positions):
         mass, n = hashgrid_input_grad_mass(x, g, table, *geo, max_level)
         assert ((got - want).abs().double() <= 2.0 * (n - 1) * 2.0 ** -24 * mass).all(), \
             float((got - want).abs().max())
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
         got = hashgrid_backward(x, g, *geo, max_level, T, "float32")
         keys, vals = hashgrid_backward_addends_reference(x, g, *geo, max_level)
         want = hashgrid_backward_reference(x, g, *geo, max_level, T, "float32")
         _assert_within_order_bound(got, want, keys, vals, T, "float32")
+
+
+def _assert_input_grad_is_the_twins(x, g, table, geo, max_level):
+    """One wrapper call, one launch counted, with the twin's bits and so
+    within the order bound."""
+    before = HASHGRID_ENCODE.launches["hashgrid_input_grad"]
+    got = hashgrid_input_grad_cuda(x, g, table, *geo, max_level)
+    torch.cuda.synchronize()
+    assert HASHGRID_ENCODE.launches["hashgrid_input_grad"] == before + 1
+    want = hashgrid_input_grad_reference(x, g, table, *geo, max_level)
+    mass, n = hashgrid_input_grad_mass(x, g, table, *geo, max_level)
+    assert ((got - want).abs().double() <= 2.0 * (n - 1) * 2.0 ** -24 * mass).all(), \
+        float((got - want).abs().max())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_level", [None, 7, 8, 13])
+def test_input_grad_on_a_base_json_table(cuda, max_level):
+    """A base.json-size table (16 levels of up to 2^19 rows, the sdf
+    config's geometry: 57 MB of level rows) at N = 1,007 (not a multiple of
+    32): the kernel's two stages of 8 levels (F = 2), max_level at the end
+    of the first (7), one level into the second (8) and inside it (13); the
+    twin's bits."""
+    enc = GridEncoding(n_input_dims=3, n_levels=16, n_features_per_level=2,
+                       log2_hashmap_size=19, base_resolution=16, per_level_scale=2.0,
+                       hash_variant="tcnn", device="cuda")
+    rng = np.random.default_rng(31)
+    table = torch.from_numpy(
+        rng.uniform(-1, 1, tuple(enc.table.shape)).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.uniform(-0.05, 1.05, (1007, 3)).astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.normal(size=(1007, 32)).astype(np.float32)).cuda()
+    geo = (enc.level_scale, enc.level_res, enc.level_size, enc.level_hashed, "tcnn")
+    _assert_input_grad_is_the_twins(x, g, table, geo, max_level)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+def test_input_grad_in_stages_of_the_cotangent_tile(cuda, f, d):
+    """16 levels at F = 1, 2, 4, 8: stages of 16 / F levels, 1 to 8 of them,
+    with N = 4,091 (a partial last block) and max_level at the end of the
+    first stage, one level past it, and 11; the twin's bits."""
+    variant = "tcnn" if d == 3 else "additive"
+    x, table, geo = _case(d, f, variant, 60 + 10 * f + d, n=4091, n_levels=16)
+    g = torch.randn((4091, 16 * f), generator=torch.Generator().manual_seed(f)).cuda()
+    stage = 16 // f
+    for max_level in (None, stage - 1, stage, 11):
+        _assert_input_grad_is_the_twins(x, g, table, geo, max_level)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positions", ["uniform", "edges", "crowded"])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("f", [1, 2, 8])
+def test_input_grad_at_a_ragged_n_matches_twin_bit_for_bit(cuda, f, d, positions):
+    """Uniform, edge and crowded positions cut to N = 32·k − 5, with and
+    without max_level: the twin's bits, in one launch counted."""
+    seed = 200 + 10 * f + d
+    if positions == "edges":
+        x, table, geo = _edge_case(d, f, "tcnn", seed)
+    elif positions == "crowded":
+        x, table, geo = _crowded_case(d, f, "tcnn", seed)
+    else:
+        x, table, geo = _case(d, f, "tcnn", seed)
+    n = (x.shape[0] // 32) * 32 - 5
+    x = x[:n].contiguous()
+    L = table.shape[0]
+    g = torch.randn((n, L * f), generator=torch.Generator().manual_seed(d)).cuda()
+    for max_level in (None, 1):
+        _assert_input_grad_is_the_twins(x, g, table, geo, max_level)
+
+
+@pytest.mark.cuda
+def test_input_grad_negative_zero_first_term_gives_positive_zero(cuda):
+    """A first level whose term is −0.0 (scale −0.0, zero cotangents) gives
+    the twin's +0.0: the kernel's sum starts from +0.0; and with every
+    level, the twin's bits."""
+    x, table, geo = _case(3, 2, "tcnn", 41, n=1000)
+    scale = geo[0].clone()
+    scale[0] = -0.0
+    geo = (scale, *geo[1:])
+    L = table.shape[0]
+    g = torch.randn((1000, L * 2), generator=torch.Generator().manual_seed(41)).cuda()
+    g[:, :2] = 0.0
+    got = hashgrid_input_grad_cuda(x, g, table, *geo, 0)
+    assert not got.any() and not torch.signbit(got).any()
+    _assert_input_grad_is_the_twins(x, g, table, geo, 0)
+    _assert_input_grad_is_the_twins(x, g, table, geo, None)
 
 
 @pytest.mark.cuda

@@ -265,3 +265,58 @@ def test_only_the_gradients_asked_for_are_computed(monkeypatch):
     out = penc(x.detach(), differentiable_inputs=True)
     out.sum().backward()
     assert calls == ["hashgrid_backward"]
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("d,f,variant", [(2, 1, "tcnn"), (2, 2, "additive"),
+                                         (2, 8, "tcnn"), (3, 1, "additive"),
+                                         (3, 2, "tcnn"), (3, 8, "additive")])
+def test_twin_adds_the_level_terms_in_level_order_from_positive_zero(d, f, variant):
+    """dx with levels 0 .. k is dx with levels 0 .. k − 1 plus level k's term
+    t_k (the twin on level k alone: 0.0 + t_k), bit for bit: the twin is a
+    float32 sum of per-level terms in level order from +0.0, the contract
+    that lets the kernel take its levels in stages of its cotangent tile
+    and keep the twin's bits."""
+    _, penc = _encodings(d, f, variant, n_levels=6)
+    L, T, F = penc.table.shape
+    n = 700
+    x = torch.from_numpy(_positions(n, d, 30 + d))
+    rng = np.random.default_rng(10 * d + f)
+    table = torch.from_numpy(rng.uniform(-1, 1, (L, T, F)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(n, L * F)).astype(np.float32))
+    geo = _geo(penc)
+    prev = torch.zeros(n, d)
+    for k in range(L):
+        level = [v[k:k + 1] for v in geo[:4]]
+        t_k = hashgrid_input_grad_reference(x, g[:, k * F:(k + 1) * F], table[k:k + 1],
+                                            *level, variant)
+        got = hashgrid_input_grad_reference(x, g, table, *geo, k)
+        assert torch.equal(_bits(got), _bits(prev + t_k)), k
+        prev = got
+    assert torch.equal(_bits(prev), _bits(hashgrid_input_grad_reference(x, g, table, *geo)))
+    assert prev.abs().max() > 1.0
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_a_negative_zero_first_term_gives_positive_zero(d):
+    """The level sum starts from +0.0, not from the first level's term: a
+    level 0 whose term t_0 = dfrac · scale is −0.0 (scale −0.0, zero
+    cotangents) gives dx = +0.0 alone."""
+    _, penc = _encodings(d, 2, "tcnn")
+    L, T, F = penc.table.shape
+    scale = penc.level_scale.clone()
+    scale[0] = -0.0
+    geo = (scale, *_geo(penc)[1:])
+    x = torch.from_numpy(_positions(300, d, 7))
+    rng = np.random.default_rng(7)
+    table = torch.from_numpy(rng.uniform(-1, 1, (L, T, F)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(300, L * F)).astype(np.float32))
+    g[:, :F] = 0.0
+    dx = hashgrid_input_grad_reference(x, g, table, *geo, 0)
+    assert not dx.any() and not torch.signbit(dx).any()
+    # the term itself is -0.0: a sum started from it would keep the sign
+    frac = x * 0.0 + 0.5
+    assert torch.signbit((frac * 0.0) * scale[0]).all()
