@@ -145,6 +145,31 @@ Phases, each printing one JSON line:
 16. sdf_cli: ``python -m ngp_tpu_torch.run`` on the mesh, 300 steps with a
    snapshot and a screenshot (it must print ``IoU:``), then the snapshot
    loaded in a new process, which must print the same IoU line.
+17. volume: in a fresh process (``chip_smoke.py volume``, which also runs
+   alone), the volume primitive at the JAX Testbed's volume config
+   (``Testbed``'s default: L=16, F=2, T=2^19, XOR hash, a 64-wide MLP of 2
+   hidden layers with a ReLU output, L2, Adam 1e-4) and 2^16 slots a step
+   (16,384 episodes) on the JAX package's procedural cloud at 512³ (537 MB
+   of float32 density on the card), written as a NanoVDB file by the
+   port's writer into ``build/volume_smoke/`` and loaded through
+   ``Testbed`` (seconds to make, write, read back and load; bytes): 1,000
+   steps (ms a step, samples/s, the fill share, peak memory), the
+   correlation of the served model's density with the targets at a
+   held-out step's recorded vertices (gate ``VOLUME_VERTEX_CORR_MIN``)
+   and with the jittered ground truth at 4,096 uniform points (gate
+   ``VOLUME_UNIFORM_CORR_MIN``), a learned and a ground-truth 960×540 frame (wall and device ms, the learned frame's rounds and
+   network evaluations; centre opacity above ``VOLUME_CENTRE_MIN``, the
+   corner's below ``VOLUME_CORNER_MAX``, in both), and a snapshot reloaded
+   to the same learned frame, bit for bit. Then (phase
+   ``volume_kernels``) both walk kernels bit for bit against their twins:
+   the training walk on a step's own 16,384 episodes, the render walk on
+   the ground-truth frame's 518,400 rays and on the first round of the
+   learned frame (walk lengths, idle lanes a warp, bound), and B1 and the
+   fused backward on a step's own (x, g); then (``volume_profile``) 16
+   steps under ``torch.profiler``: the busy share and device ms by stage.
+18. volume_cli: ``python -m ngp_tpu_torch.run`` on the written cloud, 300
+   steps with a snapshot and a screenshot, then the snapshot loaded in a
+   new process with another screenshot, which must be the same pixels.
 Then the ``kernels`` line, the card's ``name, power.limit``, and last the
 ``{"ok": true, ...}`` line.
 
@@ -2574,6 +2599,478 @@ def phase_sdf_all():
     emit({"phase": "sdf_launches", "launches": {k: launches[k] + cli[k] for k in launches}})
 
 
+# the volume phases: instant-ngp's volume config (Testbed's default) on the
+# JAX package's procedural cloud at 512³ (a 537 MB float32 density on the card)
+VOLUME_RES = 512
+VOLUME_STEPS = 1000
+VOLUME_CALL_STEPS = 100
+VOLUME_PROFILE_STEPS = 16
+VOLUME_CORR_SAMPLES = 4096
+# the gates on the served density: its correlation with the targets at the
+# recorded vertices of a step no run reaches (the distribution training
+# sees: 4 events within ~0.01 of where an episode enters the occupied
+# cells, as the mean free path is 0.01 / majorant) above 0.5, and its
+# correlation with the jittered ground truth at uniform points of the box
+# above 0 (noise reads 0). tests/test_volume.py's 0.5 at uniform points
+# holds at that test's small config; at this one the JAX package's own fit
+# reads 0.075-0.154 there (scripts/volume_fit_spread.py on the CPU, 250
+# steps at 2^16 slots or 1,000 at 2^12; PERF.md §6): no vertex supervises
+# the cloud's core or the empty space
+VOLUME_VERTEX_CORR_MIN = 0.5
+VOLUME_UNIFORM_CORR_MIN = 0.0
+VOLUME_HELDOUT_STEP = 10_000_000
+VOLUME_FRAME = (960, 540)
+VOLUME_CENTRE_MIN, VOLUME_CORNER_MAX = 0.5, 0.1  # tests/test_volume.py's opacity gates
+VOLUME_CLI_STEPS = 300
+# float32 operations of one walk iteration, for the walk kernels' bound: two
+# bit-cell lookups (3 products, 3 sums, 3 floors, 6 tests each), the flight
+# (the polynomial log, ~25, a difference, a maximum, a product) or the skip
+# (3 axes of a product, floor, sum, product, difference, test and division,
+# 2 minima, a clamp, a division and a sum), the new position (3 products,
+# 3 sums), the box test (6) and the flight's uniform (a conversion, a
+# product); events' density lookups are not counted (a floor)
+WALK_ITER_OPS = 80
+BITGRID_BYTES = 128 ** 3
+
+
+def _walk_stats(steps, warp: int = 32) -> dict:
+    """Walk lengths (iterations a thread ran) and the share of lanes idle in
+    a warp: 1 − Σ iterations / Σ over warps of 32 × the warp's longest."""
+    import torch
+
+    n = steps.shape[0]
+    pad = torch.zeros((-n) % warp, dtype=steps.dtype, device=steps.device)
+    w = torch.cat([steps, pad]).view(-1, warp).double()
+    total = float(w.sum())
+    return {"walk_mean": total / max(n, 1), "walk_max": int(steps.max()) if n else 0,
+            "iterations": total,
+            "idle_lane_share": 1.0 - total / max(float(w.amax(1).sum()) * warp, 1.0)}
+
+
+def _walk_row(name: str, run, twin, n: int, io_bytes: int, steps) -> dict:
+    """A walk kernel (``run()``, its outputs) against its twin (``twin()``)
+    on the card, bit for bit; ``ms`` by CUDA events around 20 back-to-back
+    calls (as the BVH rows: the kernel runs long enough to hide its
+    wrapper), the twin once by events (``plain_ms``), the walk lengths from
+    ``steps`` and the bound: the rays' ``io_bytes`` and the bitgrid read
+    once, the iterations walked at ``WALK_ITER_OPS`` float32 operations
+    each. No PyTorch call computes a walk: no library time."""
+    import torch
+
+    got = run()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = twin()
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = max(float((g.double() - w.double()).abs().nan_to_num(0.0).max()) if g.numel() else 0.0
+              for g, w in zip(got, want))
+    if not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name} differs from its twin, max abs err {err}")
+    call_ms = cuda_ms(run, iters=20)
+    stats = _walk_stats(steps)
+    return {"N": n, "max_abs_err": err, "bit_exact": True, "ms": call_ms,
+            "ms_source": "cuda_events", "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": None, **stats,
+            "us_per_iteration_of_longest": call_ms * 1e3 / max(stats["walk_max"], 1),
+            **_bound(io_bytes + BITGRID_BYTES, stats["iterations"] * WALK_ITER_OPS)}
+
+
+def _volume_frame(eng, state, o, d, gt: bool):
+    """One frame through ``render_rays``: its opacity, wall and device-busy
+    ms, the launches it added and, for the learned frame, its rounds and
+    network evaluations."""
+    import torch
+
+    import ngp_tpu_torch.engines.volume as engine_module
+    from ngp_tpu_torch.ops.cuda_build import launch_counts
+
+    counts = {"rounds": 0, "network_evaluations": 0}
+    walk = engine_module.volume_render_walk
+
+    def counted_walk(*args, **kwargs):
+        counts["rounds"] += 1
+        return walk(*args, **kwargs)
+
+    def counted_network(model, pos):
+        counts["network_evaluations"] += pos.shape[0]
+        return type(eng)._network(eng, model, pos)
+
+    before = launch_counts()
+    engine_module.volume_render_walk, eng._network = counted_walk, counted_network
+    try:
+        t0 = time.perf_counter()
+        col, opa = eng.render_rays(state, o, d, gt)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        engine_module.volume_render_walk = walk
+        del eng._network
+    launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+    if not bool(torch.isfinite(col).all()):
+        raise AssertionError(f"volume frame (gt={gt}): non-finite values")
+    row = {"wall_ms": wall_ms, "launches": launches,
+           "device_ms": _frame_device_ms(lambda: eng.render_rays(state, o, d, gt)),
+           "mean_opacity": float(opa.mean()), "mean_rgb": float(col.mean())}
+    if not gt:
+        row.update(counts)
+    W, H = VOLUME_FRAME
+    opa = opa.reshape(H, W)
+    row["centre_opacity"], row["corner_opacity"] = float(opa[H // 2, W // 2]), float(opa[0, 0])
+    return col, opa, row
+
+
+def phase_volume():
+    """In a fresh process (``chip_smoke.py volume``): the volume primitive at
+    the JAX Testbed's volume config (``Testbed``'s default: L=16, F=2,
+    T=2^19, XOR hash, a 64-wide MLP of 2 hidden layers with a ReLU output,
+    L2, Ema 0.95 over ExponentialDecay over Adam at 1e-4) and
+    ``VolumeEngine``'s batch of 2^16 slots (16,384 episodes), on the JAX
+    package's procedural cloud at ``VOLUME_RES``³ written as a NanoVDB file
+    into ``build/volume_smoke/`` by the port's writer and loaded through
+    ``Testbed``. ``VOLUME_STEPS`` steps in calls of ``VOLUME_CALL_STEPS``;
+    the correlation of the served model's density with the targets at the
+    recorded vertices of step ``VOLUME_HELDOUT_STEP`` (gate
+    ``VOLUME_VERTEX_CORR_MIN``) and with the jittered ground truth at
+    ``VOLUME_CORR_SAMPLES`` uniform points (gate
+    ``VOLUME_UNIFORM_CORR_MIN``; also reported over those of the points in
+    occupied bit cells); a learned and a
+    ground-truth 960×540 frame from the Testbed's camera, each with the
+    centre's opacity above ``VOLUME_CENTRE_MIN`` and the corner's below
+    ``VOLUME_CORNER_MAX``; a snapshot saved and loaded, whose learned frame
+    must be the same bits.
+    Returns what the later phases use."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.data.nanovdb_codec import read_nanovdb_dense, write_nanovdb
+    from ngp_tpu_torch.data.volume import procedural_cloud_density
+    from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
+    from ngp_tpu_torch.ops.volume_walk import bit_occupied, density_at
+    from ngp_tpu_torch.testbed import VOLUME_EYE, VOLUME_LOOKAT, Testbed
+
+    out = os.path.join(ROOT, "build", "volume_smoke")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "cloud.nvdb")
+    t0 = time.perf_counter()
+    density = procedural_cloud_density(VOLUME_RES)
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_nanovdb(path, density)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not np.array_equal(read_nanovdb_dense(path), density):
+        raise AssertionError("the written cloud reads back different")
+    read_s = time.perf_counter() - t0
+    del density
+    t0 = time.perf_counter()
+    tb = Testbed(scene=path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    eng = tb.engine
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    step_ms, losses = [], []
+    t_start = time.perf_counter()
+    for _ in range(VOLUME_STEPS // VOLUME_CALL_STEPS):
+        t0 = time.perf_counter()
+        tb.state, loss = eng.train(tb.state, VOLUME_CALL_STEPS)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / VOLUME_CALL_STEPS)
+        losses.append(loss)
+    wall_s = time.perf_counter() - t_start
+    train_launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.cat(losses).cpu().numpy()
+    median_ms = float(np.median(step_ms[1:]))
+    state = tb.state
+
+    def corr(a, b):
+        return float(np.corrcoef(a.cpu().numpy(), b.cpu().numpy())[0, 1])
+
+    pos, targets, valid = eng.generate_training_data(VOLUME_HELDOUT_STEP)
+    fill = float(valid.float().mean())
+    with torch.no_grad():
+        vertex_corr = corr(state.inference_model()(pos[valid])[:, 3], targets[valid, 3])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    pts = eng.aabb_min + torch.rand((VOLUME_CORR_SAMPLES, 3), generator=gen, device="cuda") * (
+        eng.aabb_max - eng.aabb_min)
+    with torch.no_grad():
+        pred = state.inference_model()(pts)[:, 3]
+    truth = density_at(eng.walk, pts, torch.rand((VOLUME_CORR_SAMPLES, 3), generator=gen,
+                                                 device="cuda"))
+    uniform_corr = corr(pred, truth)
+    occupied = bit_occupied(eng.walk, pts)
+    occupied_corr = corr(pred[occupied], truth[occupied])
+
+    o, d = (torch.from_numpy(a).cuda() for a in
+            eng.camera_rays(VOLUME_EYE, VOLUME_LOOKAT, VOLUME_FRAME, 50.0))
+    reset_launches()
+    col, opa, learned = _volume_frame(eng, state, o, d, False)
+    _, opa_gt, truth = _volume_frame(eng, state, o, d, True)
+    frame_launches = launch_counts()
+
+    snapshot = os.path.join(out, "volume.msgpack")
+    t0 = time.perf_counter()
+    tb.save_snapshot(snapshot)
+    tb.load_snapshot(snapshot)
+    snapshot_s = time.perf_counter() - t0
+    again, _ = eng.render_rays(tb.state, o, d, False)
+    result = {
+        "phase": "volume", "config": "Testbed default (the JAX Testbed's volume config)",
+        "volume": {"res": VOLUME_RES, "make_s": make_s, "nvdb_write_s": write_s,
+                   "nvdb_read_s": read_s, "nvdb_bytes": os.path.getsize(path),
+                   "testbed_load_s": load_s,
+                   "density_bytes": eng.walk.density.numel() * 4,
+                   "majorant": eng.walk.majorant,
+                   "occupied_bit_cells": int(eng.walk.bitgrid.sum())},
+        "table": list(state.model.encoding.table.shape), "batch": eng.batch_size,
+        "steps": VOLUME_STEPS, "wall_s": wall_s, "ms_per_step_by_call": step_ms,
+        "median_ms_per_step": median_ms,
+        "samples_per_s": eng.batch_size / (median_ms / 1e3), "fill_share": fill,
+        "loss_first_last": [float(losses[0]), float(losses[-1])],
+        "losses_finite": bool(np.isfinite(losses).all()), "peak_mem_gb": peak_gb,
+        "train_launches": train_launches,
+        "vertex_density_correlation": vertex_corr, "vertices": int(valid.sum()),
+        "vertex_correlation_gate": VOLUME_VERTEX_CORR_MIN,
+        "uniform_density_correlation": uniform_corr,
+        "uniform_correlation_gate": VOLUME_UNIFORM_CORR_MIN,
+        "occupied_density_correlation": occupied_corr, "occupied_points": int(occupied.sum()),
+        "frame": list(VOLUME_FRAME), "learned_frame": learned, "gt_frame": truth,
+        "mean_abs_opacity_difference": float((opa - opa_gt).abs().mean()),
+        "frame_launches": frame_launches,
+        "snapshot_s": snapshot_s, "snapshot_bytes": os.path.getsize(snapshot),
+        "reloaded_frame_equal": bool(torch.equal(again, col)),
+    }
+    emit(result)
+    if not result["losses_finite"]:
+        raise AssertionError("volume training loss is not finite")
+    if not vertex_corr > VOLUME_VERTEX_CORR_MIN:
+        raise AssertionError(f"volume density correlation at held-out vertices {vertex_corr} "
+                             f"<= {VOLUME_VERTEX_CORR_MIN}")
+    if not uniform_corr > VOLUME_UNIFORM_CORR_MIN:
+        raise AssertionError(f"volume density correlation at uniform points {uniform_corr} "
+                             f"<= {VOLUME_UNIFORM_CORR_MIN}")
+    for name, row in (("learned", learned), ("ground truth", truth)):
+        if not (row["centre_opacity"] > VOLUME_CENTRE_MIN
+                and row["corner_opacity"] < VOLUME_CORNER_MAX):
+            raise AssertionError(f"{name} frame: centre opacity {row['centre_opacity']}, "
+                                 f"corner {row['corner_opacity']}")
+    if not result["reloaded_frame_equal"]:
+        raise AssertionError("the reloaded snapshot renders another learned frame")
+    for name in ("hashgrid_encode", "hashgrid_backward", "volume_train_walk"):
+        if train_launches[name] == 0:
+            raise AssertionError(f"volume training launched {name} no time")
+    if learned["launches"].get("volume_render_walk", 0) != learned["rounds"] or \
+            truth["launches"].get("volume_render_walk", 0) != 1:
+        raise AssertionError(f"frame launches {learned['launches']}, {truth['launches']}")
+    launches = {k: train_launches[k] + frame_launches[k] for k in train_launches}
+    return tb, path, (o, d), launches, median_ms
+
+
+def phase_volume_kernels(eng, state, rays) -> dict:
+    """The kernels of the volume path against their twins on the card, at
+    the path's shapes: the training walk on one step's own 16,384
+    episodes, the render walk on the ground-truth frame's 518,400 rays and
+    on the first round of the learned frame, then B1 and the fused grid
+    backward on that step's own (x, g). Returns the rows by kernel."""
+    import torch
+
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.ops import volume_walk as vw
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
+
+    walk = eng.walk
+    kept = {}
+    train_cuda, render_cuda = vw.volume_train_walk_cuda, vw.volume_render_walk_cuda
+    backward = hashgrid_ops.hashgrid_backward_cuda
+
+    def keep_train(vol, pos, dirs, alive, key, *args):
+        kept["train"] = (pos, dirs, alive, key)
+        return train_cuda(vol, pos, dirs, alive, key, *args)
+
+    def keep_render(vol, pos, dirs, alive, key, gt, iters=None, ids=None, **kw):
+        name = "gt" if gt else "round"
+        if name not in kept:
+            kept[name] = (pos.clone(), dirs, alive.clone(), key,
+                          None if gt else iters.clone(), ids)
+        return render_cuda(vol, pos, dirs, alive, key, gt, iters, ids, **kw)
+
+    def keep_backward(x, g, *geo_and_rows):
+        kept["backward"] = (x, g, *geo_and_rows)
+        return backward(x, g, *geo_and_rows)
+
+    vw.volume_train_walk_cuda, vw.volume_render_walk_cuda = keep_train, keep_render
+    hashgrid_ops.hashgrid_backward_cuda = keep_backward
+    try:
+        eng.train(state, 1)
+        o, d = rays
+        eng.render_rays(state, o, d, True)
+        eng.render_rays(state, o, d, False)
+        torch.cuda.synchronize()
+    finally:
+        vw.volume_train_walk_cuda, vw.volume_render_walk_cuda = train_cuda, render_cuda
+        hashgrid_ops.hashgrid_backward_cuda = backward
+    rows = {}
+    pos, dirs, alive, key = kept["train"]
+    E = pos.shape[0]
+    steps = torch.zeros((E,), dtype=torch.int32, device="cuda")
+    vw.volume_train_walk_cuda(walk, pos, dirs, alive, key, eng.albedo, eng.scattering, steps)
+    rows["volume_train_walk"] = _walk_row(
+        "volume_train_walk",
+        lambda: vw.volume_train_walk_cuda(walk, pos, dirs, alive, key, eng.albedo,
+                                          eng.scattering),
+        lambda: vw.training_walk(walk, pos, dirs, alive, vw.HashDraws(key), eng.albedo,
+                                 eng.scattering)[:5],
+        E, E * (12 + 12 + 1) + E * (48 + 16 + 4 + 12 + 4), steps)
+    emit({"phase": "volume_kernels", "kernel": "volume_train_walk", "shape": "step_episodes",
+          **rows["volume_train_walk"]})
+
+    pos, dirs, alive, key, _, _ = kept["gt"]
+    B = pos.shape[0]
+    steps = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    vw.volume_render_walk_cuda(walk, pos, dirs, alive, key, True, steps=steps)
+    rows["volume_render_walk"] = _walk_row(
+        "volume_render_walk",
+        lambda: vw.volume_render_walk_cuda(walk, pos, dirs, alive, key, True),
+        lambda: vw.render_walk(walk, pos, dirs, alive, vw.HashDraws(key), True)[:2],
+        B, B * (12 + 12 + 1) + B * (12 + 4), steps)
+    emit({"phase": "volume_kernels", "kernel": "volume_render_walk", "shape": "gt_frame_rays",
+          **rows["volume_render_walk"]})
+
+    pos, dirs, alive, key, iters, ids = kept["round"]
+    n = pos.shape[0]
+    # each timed call advances fresh copies (the kernel works in place)
+    inputs = [(pos.clone(), alive.clone(), iters.clone()) for _ in range(24)]
+
+    def one_round():
+        p, a, it = inputs.pop() if inputs else (pos.clone(), alive.clone(), iters.clone())
+        return vw.volume_render_walk_cuda(walk, p, dirs, a, key, False, it, ids)
+
+    got = one_round()
+    rows["volume_render_round"] = _walk_row(
+        "volume_render_walk (learned round)", one_round,
+        lambda: vw.render_walk(walk, pos, dirs, alive, vw.HashDraws(key), False, iters, ids),
+        n, n * (12 + 12 + 1 + 4 + 8) + n * (12 + 1 + 4 + 1), got[2] - iters)
+    emit({"phase": "volume_kernels", "kernel": "volume_render_walk", "shape": "learned_round",
+          **rows["volume_render_round"]})
+
+    x, g, scale, res, size, hashed, variant, _, n_rows = kept["backward"][:9]
+    geo = (scale, res, size, hashed, variant)
+    enc = state.model.encoding
+    keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
+    L, T = scale.shape[0], n_rows
+    rows_read = int(torch.unique(keys.long() + torch.arange(L, device="cuda")[:, None] * T
+                                 ).numel())
+    rows["hashgrid_encode"] = _kernel_case("volume", torch.float32,
+                                           torch.Generator().manual_seed(17), x=x, enc=enc,
+                                           rows_read=rows_read)
+    emit({"phase": "volume_kernels", "kernel": "hashgrid_encode", "shape": "step_positions",
+          **rows["hashgrid_encode"]})
+    rows["hashgrid_backward"] = _backward_row(x, g, geo, T, keys, vals)
+    emit({"phase": "volume_kernels", "kernel": "hashgrid_backward", "shape": "step_positions",
+          "N": x.shape[0], "L": L, "T": T, "F": vals.shape[2], "hash": variant,
+          **rows["hashgrid_backward"]})
+    return rows
+
+
+def phase_volume_profile(eng, state, median_ms: float):
+    """``VOLUME_PROFILE_STEPS`` steps under torch.profiler, the backward on
+    the calling thread: the device busy share of a step and the device ms
+    by stage (the walk and its targets, forward and loss, backward, grid
+    backward, optimizer)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ngp_tpu_torch.engines import volume as volume_engine
+    from ngp_tpu_torch.models import encodings
+
+    eng.generate_training_data = _ranged("walk", eng.generate_training_data)
+    eng.loss = _ranged("forward", eng.loss)
+    apply = volume_engine.apply_grads
+    volume_engine.apply_grads = _ranged("optimizer", apply)
+    grid_bwd = encodings._GridEncode.backward
+    encodings._GridEncode.backward = staticmethod(_ranged("grid_backward", grid_bwd))
+    tensor_backward = torch.Tensor.backward
+    torch.Tensor.backward = _ranged("backward", tensor_backward)
+    n = VOLUME_PROFILE_STEPS
+    try:
+        first = state.step
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                torch.autograd.set_multithreading_enabled(False):
+            t0 = time.perf_counter()
+            with record_function("steps"):
+                state, _ = eng.train(state, n)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.Tensor.backward = tensor_backward
+        encodings._GridEncode.backward = staticmethod(grid_bwd)
+        volume_engine.apply_grads = apply
+        del eng.generate_training_data, eng.loss
+    summary = _profile_summary(prof, ("walk", "forward", "backward", "grid_backward",
+                                      "optimizer"), "steps", "other_in_step")
+    busy_ms = summary["device_busy_ms"] / n
+    emit({"phase": "volume_profile", "steps": [first, state.step - 1],
+          "wall_ms_per_step": wall_ms / n, "device_busy_ms_per_step": busy_ms,
+          "busy_share_of_profiled_wall": busy_ms / (wall_ms / n),
+          "busy_share_of_unprofiled_median": busy_ms / median_ms,
+          "device_ops_per_step": summary["device_ops"] / n,
+          "stage_device_ms_per_step": {k: v / n for k, v in summary["stage_device_ms"].items()},
+          "top_device_ms": summary["top_device_ms"]})
+
+
+def phase_volume_cli(path: str) -> dict:
+    """``python -m ngp_tpu_torch.run`` on the written cloud in fresh
+    processes: ``VOLUME_CLI_STEPS`` steps with a snapshot and a screenshot,
+    then the snapshot loaded with no steps and another screenshot, which
+    must equal the first. Returns the two runs' kernel launches, summed."""
+    from ngp_tpu_torch.data.png import read_png
+
+    out = os.path.dirname(path)
+    snapshot = os.path.join(out, "cli.msgpack")
+    shots = [os.path.join(out, "cli.png"), os.path.join(out, "cli_reloaded.png")]
+    run1 = _cli([path, "--n_steps", str(VOLUME_CLI_STEPS), "--save_snapshot", snapshot,
+                 "--screenshot", shots[0]])
+    run2 = _cli([path, "--n_steps", "0", "--load_snapshot", snapshot, "--screenshot", shots[1]])
+    images = [read_png(p) for p in shots]
+    runs = (run1, run2)
+    result = {
+        "phase": "volume_cli", "steps": VOLUME_CLI_STEPS,
+        "trained": _cli_line(run1, "trained ")[1], "screenshot": list(images[0].shape),
+        "screenshots_equal": bool((images[0] == images[1]).all()),
+        "mean_pixel": float(images[0].mean()),
+        "run_s": [r[-1][0] for r in runs],
+        "launches": {k: sum(_cli_launches(r)[k] for r in runs) for k in _cli_launches(run1)},
+    }
+    emit(result)
+    if not result["screenshots_equal"]:
+        raise AssertionError("the reloaded snapshot's screenshot differs")
+    if result["screenshot"] != [512, 512, 3]:
+        raise AssertionError(f"screenshot {result['screenshot']}")
+    for name in ("hashgrid_encode", "hashgrid_backward", "volume_train_walk",
+                 "volume_render_walk"):
+        if result["launches"][name] == 0:
+            raise AssertionError(f"the volume CLI launched {name} no time")
+    return result["launches"]
+
+
+def phase_volume_all():
+    """``chip_smoke.py volume``: phases volume, volume_kernels,
+    volume_profile (the profiler's training window last) and volume_cli;
+    then the launches of the path (phase volume and the CLI runs) on one
+    line."""
+    tb, path, rays, launches, median_ms = phase_volume()
+    phase_volume_kernels(tb.engine, tb.state, rays)
+    phase_volume_profile(tb.engine, tb.state, median_ms)
+    del tb
+    cli = phase_volume_cli(path)
+    emit({"phase": "volume_launches", "launches": {k: launches[k] + cli[k] for k in launches}})
+
+
 def main():
     phase_env()
     import torch
@@ -2618,8 +3115,13 @@ def main():
     sdf_rows = {line["kernel"]: line for line in sdf_lines if line.get("phase") == "sdf_kernels"}
     sdf_launches = next(line for line in sdf_lines
                         if line.get("phase") == "sdf_launches")["launches"]
+    volume_lines = _child("volume")
+    volume_rows = {(line["kernel"], line["shape"]): line for line in volume_lines
+                   if line.get("phase") == "volume_kernels"}
+    volume_launches = next(line for line in volume_lines
+                           if line.get("phase") == "volume_launches")["launches"]
     later = {k: cli_launches[k] + image_launches[k] + image_cli_launches[k] + sdf_launches[k]
-             for k in cli_launches}
+             + volume_launches[k] for k in cli_launches}
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2678,6 +3180,16 @@ def main():
                         "source": "ngp_tpu_torch/csrc/triangle_bvh.cu",
                         "replaces": f"ngp_tpu/geometry/triangle_bvh.py:{line}",
                         "launches": later[name], **{k: sdf_rows[name][k] for k in keys}})
+    # the delta-tracking walks have no TPU kernel: the JAX package runs them
+    # as lax.fori_loops; their rows come from phase volume_kernels (the
+    # render walk's on the ground-truth frame's rays)
+    for name, shape, line in (("volume_train_walk", "step_episodes", 182),
+                              ("volume_render_walk", "gt_frame_rays", 288)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "ngp_tpu_torch/csrc/volume_walk.cu",
+                        "replaces": f"ngp_tpu/engines/volume.py:{line}",
+                        "launches": later[name],
+                        **{k: volume_rows[(name, shape)][k] for k in keys}})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2692,5 +3204,7 @@ if __name__ == "__main__":
         phase_image()
     elif sys.argv[1:] == ["sdf"]:
         phase_sdf_all()
+    elif sys.argv[1:] == ["volume"]:
+        phase_volume_all()
     else:
         main()

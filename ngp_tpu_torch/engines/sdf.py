@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ngp_tpu_torch.device import resolve_device
+from ngp_tpu_torch.geometry.camera import lookat_rays
 from ngp_tpu_torch.geometry.mesh import Mesh, load_mesh
 from ngp_tpu_torch.geometry.triangle_bvh import (
     build_bvh,
@@ -426,21 +427,9 @@ class SdfEngine:
 
     def camera_rays(self, eye, lookat, resolution=(256, 256), fov_deg: float = 45.0):
         """Pinhole rays (origins, unit dirs) (H·W, 3) float32 on the host,
-        row-major, y down, ``fov_deg`` across the width, as the JAX
-        engine's ``render_image`` makes them."""
-        W, H = resolution
-        eye = np.asarray(eye, np.float32)
-        fwd = np.asarray(lookat, np.float32) - eye
-        fwd /= np.linalg.norm(fwd)
-        up = np.asarray([0, 1, 0], np.float32)
-        right = np.cross(fwd, up)
-        right /= np.linalg.norm(right)
-        down = np.cross(fwd, right)
-        f = 0.5 / math.tan(0.5 * math.radians(fov_deg))
-        px, py = np.meshgrid((np.arange(W) + 0.5) / W - 0.5, (np.arange(H) + 0.5) / H - 0.5)
-        d = (px[..., None] * right + py[..., None] * down + f * fwd).reshape(-1, 3)
-        d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        return np.repeat(eye[None], len(d), axis=0), d.astype(np.float32)
+        as the JAX engine's ``render_image`` makes them
+        (``geometry/camera.lookat_rays``)."""
+        return lookat_rays(eye, lookat, resolution, fov_deg)
 
     def render_image(self, state: TrainState, eye, lookat, resolution=(256, 256),
                      fov_deg: float = 45.0, gt_bvh: bool = False, mode: str = "headlight",

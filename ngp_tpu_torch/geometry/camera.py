@@ -35,6 +35,26 @@ class Lens(NamedTuple):
     params: tuple = (0.0,) * 7
 
 
+def lookat_rays(eye, lookat, resolution, fov_deg: float):
+    """Pinhole rays (origins, unit dirs) (H·W, 3) float32 numpy, row-major,
+    y down, ``fov_deg`` across the width, from ``eye`` toward ``lookat``
+    with world up +y: the JAX SDF and volume engines' ``render_image``
+    cameras."""
+    W, H = resolution
+    eye = np.asarray(eye, np.float32)
+    fwd = np.asarray(lookat, np.float32) - eye
+    fwd /= np.linalg.norm(fwd)
+    up = np.asarray([0, 1, 0], np.float32)
+    right = np.cross(fwd, up)
+    right /= np.linalg.norm(right)
+    down = np.cross(fwd, right)
+    f = 0.5 / math.tan(0.5 * math.radians(fov_deg))
+    px, py = np.meshgrid((np.arange(W) + 0.5) / W - 0.5, (np.arange(H) + 0.5) / H - 0.5)
+    d = (px[..., None] * right + py[..., None] * down + f * fwd).reshape(-1, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return np.repeat(eye[None], len(d), axis=0), d.astype(np.float32)
+
+
 def fov_to_focal_length(resolution_px: float, degrees: float) -> float:
     return 0.5 * resolution_px / np.tan(0.5 * np.radians(degrees))
 

@@ -128,7 +128,8 @@ def launch_on(dev: torch.device, launch):
 
 
 KERNEL_MODULES = ("ngp_tpu_torch.ops.hashgrid", "ngp_tpu_torch.ops.segsum",
-                  "ngp_tpu_torch.ops.sort", "ngp_tpu_torch.ops.bvh")
+                  "ngp_tpu_torch.ops.sort", "ngp_tpu_torch.ops.bvh",
+                  "ngp_tpu_torch.ops.volume_walk")
 
 
 def _register_all():

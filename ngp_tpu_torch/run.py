@@ -1,16 +1,18 @@
-"""Train, evaluate and export a NeRF scene, an SDF or an image fit from the
-command line, the port of ``scripts/run.py`` in nerf, sdf and image modes
-(the reference's ``scripts/run.py``). NeRF: train on a capture, score a
-training view and held-out views, take a screenshot, export a
-marching-cubes mesh, render a camera path as video frames, and save and
-load snapshots. SDF (an ASCII ``.obj`` or binary ``.stl`` mesh): fit it,
+"""Train, evaluate and export a NeRF scene, an SDF, an image fit or a
+volume from the command line, the port of ``scripts/run.py`` in nerf, sdf,
+image and volume modes (the reference's ``scripts/run.py``). NeRF: train
+on a capture, score a training view and held-out views, take a
+screenshot, export a marching-cubes mesh, render a camera path as video
+frames, and save and load snapshots. SDF (an ASCII ``.obj`` or binary ``.stl`` mesh): fit it,
 print its IoU, take a screenshot (``--render_mode`` headlight, the
 default, or shade, ao, normals, positions, cost), export the learned
 surface, and save and load snapshots. Image (a ``.png``, ``.exr`` or
 ``.bin`` scene): fit it, print its MSE and PSNR over every texel, take a
 screenshot at ``--screenshot_w`` × ``--screenshot_h``, and save and load
-snapshots. The NeRF-only flags raise or are ignored as the JAX package's
-CLI treats them.
+snapshots. Volume (an ``.nvdb`` or ``.npy`` density volume): fit it (no
+score line, as in the JAX CLI), take a screenshot of the learned field
+from the default camera, and save and load snapshots. The NeRF-only
+flags raise or are ignored as the JAX package's CLI treats them.
 
 Examples:
 
@@ -23,6 +25,7 @@ Examples:
     python -m ngp_tpu_torch.run image.bin --n_steps 1000 --screenshot out/fit.png
     python -m ngp_tpu_torch.run mesh.obj --n_steps 1000 --save_mesh out/mesh.obj \\
         --screenshot out/normals.png --render_mode normals
+    python -m ngp_tpu_torch.run cloud.nvdb --n_steps 1000 --screenshot out/cloud.png
 
 It runs on the card unless ``--device cpu`` is given. It differs from the
 JAX package's CLI in these: ``--device`` takes the place of the JAX
@@ -84,7 +87,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("scene", nargs="?", default="",
                    help="scene path: a transforms.json or a directory of them "
-                        "(NeRF), an obj/stl mesh (SDF), or an image file (image)")
+                        "(NeRF), an obj/stl mesh (SDF), an image file (image), or an "
+                        "nvdb/npy density volume (volume)")
     p.add_argument("--mode", default=None, choices=["nerf", "sdf", "image", "volume"])
     p.add_argument("--network", default=None, help="network config json")
     p.add_argument("--n_steps", type=int, default=2000)
@@ -150,7 +154,7 @@ def _train(tb, args) -> None:
     """``n_steps`` steps; under ``--profile`` the first 16 outside the trace
     (warm-up), the next 8 traced, the rest after."""
     eng = tb.engine
-    if tb.mode in ("image", "sdf"):
+    if tb.mode in ("image", "sdf", "volume"):
         train = tb.train
     else:
         def train(n):
@@ -236,7 +240,7 @@ def main(argv=None) -> None:
               f"evaluating on {len(test_idx)}", flush=True)
     tb = Testbed(mode=args.mode, scene=args.scene or None, config=args.network, **kw)
 
-    if args.metrics_file and tb.mode in ("image", "sdf"):
+    if args.metrics_file and tb.mode in ("image", "sdf", "volume"):
         raise ValueError(f"--metrics_file records NeRF training meters; {tb.mode} mode "
                          "has none")
 
@@ -259,7 +263,7 @@ def main(argv=None) -> None:
         print(f"MSE: {mse:.6f}  PSNR: {-10 * math.log10(max(mse, 1e-12)):.2f} dB", flush=True)
     elif tb.mode == "sdf":
         print(f"IoU: {tb.calculate_iou():.4f}", flush=True)
-    elif tb.engine is not None:
+    elif tb.mode == "nerf" and tb.engine is not None:
         psnr = tb.psnr(args.test_view, stride=args.eval_stride)
         print(f"PSNR (train view {args.test_view}): {psnr:.2f} dB", flush=True)
 
@@ -286,7 +290,8 @@ def main(argv=None) -> None:
 
     if args.screenshot:
         os.makedirs(os.path.dirname(args.screenshot) or ".", exist_ok=True)
-        if tb.mode == "image" or (tb.mode == "sdf" and args.render_mode in (None, "headlight")):
+        if tb.mode in ("image", "volume") or (tb.mode == "sdf"
+                                              and args.render_mode in (None, "headlight")):
             img = tb.render(args.screenshot_w, args.screenshot_h)
         elif tb.mode == "sdf":
             img = tb.engine.render_image(

@@ -1,21 +1,24 @@
-"""The ``Testbed`` orchestrator for NeRF, SDFs and images, the port of
+"""The ``Testbed`` orchestrator for NeRF, SDFs, images and volumes, the port of
 ``ngp_tpu/testbed.py`` (the reference's ``Testbed`` class and ``pyngp``
 surface, ``src/testbed.cu``, ``src/python_api.cu:266-696``).
 
 The mode comes from the scene path as in ``mode_from_scene``
 (``src/common.cu:144-173``): a directory or ``transforms.json`` is NeRF,
 ``.obj``/``.stl`` SDF, ``.nvdb``/``.npy`` a volume, image files an image.
-NeRF, SDF and image modes are ported; the volume mode raises. In NeRF
-mode ``Testbed`` loads a capture, trains, renders, evaluates, exports a
-mesh and saves and loads snapshots through ``engines/nerf.py:NerfEngine``;
+All four modes are ported. In NeRF mode ``Testbed`` loads a capture,
+trains, renders, evaluates, exports a mesh and saves and loads snapshots
+through ``engines/nerf.py:NerfEngine``;
 in SDF mode it loads an ASCII ``.obj`` or binary ``.stl`` mesh, trains,
 scores the IoU, renders, exports a mesh and saves and loads snapshots
 through ``engines/sdf.py:SdfEngine``; in image mode it loads a ``.png``,
 ``.exr`` or ``.bin`` image, trains, renders, scores and saves and loads
-snapshots through ``engines/image.py:ImageEngine``. All run on the card
-unless built with ``device="cpu"``.
+snapshots through ``engines/image.py:ImageEngine``; in volume mode it
+loads an ``.nvdb`` (uncompressed FloatGrid) or ``.npy`` density volume,
+trains, renders and saves and loads snapshots through
+``engines/volume.py:VolumeEngine``. All run on the card unless built with
+``device="cpu"``.
 
-Not yet ported, and refused: the volume mode (ROADMAP A10), JPEG images
+Not yet ported, and refused: JPEG images
 (A2), ``frame()`` (the viewer's heartbeat, A11), rolling-shutter renders
 (``render(end_matrix=...)``, A5), the render crop box (``render_aabb``,
 A6) and a scene's geometry prior (a ``<name>.obj`` or ``<name>.xyz``
@@ -39,11 +42,12 @@ MODES = ("nerf", "sdf", "image", "volume")
 # the SDF camera of render() when no eye or lookat is given, and its field
 # of view, as the JAX package's Testbed places it
 SDF_EYE, SDF_LOOKAT, SDF_FOV_DEG = (0.5, 0.5, 2.0), (0.5, 0.5, 0.5), 50.0
-# the ROADMAP item that ports each mode not yet ported
-_MODE_ITEMS = {"volume": "A10"}
+# the volume camera of render() when no eye or lookat is given
+VOLUME_EYE, VOLUME_LOOKAT = (0.5, 0.5, 2.2), (0.5, 0.5, 0.5)
 
 # instant-ngp's configs/nerf/base.json, configs/sdf/base.json and
-# configs/image/base.json, as the JAX package's Testbed holds them
+# configs/image/base.json, and the volume config, as the JAX package's
+# Testbed holds them
 _DEFAULT_CONFIGS = {
     "nerf": {
         "loss": {"otype": "Huber"},
@@ -106,6 +110,24 @@ _DEFAULT_CONFIGS = {
                     "output_activation": "None", "n_neurons": 64,
                     "n_hidden_layers": 2},
     },
+    "volume": {
+        "loss": {"otype": "L2"},
+        "optimizer": {
+            "otype": "Ema", "decay": 0.95,
+            "nested": {
+                "otype": "ExponentialDecay", "decay_start": 10000,
+                "decay_interval": 5000, "decay_base": 0.33,
+                "nested": {"otype": "Adam", "learning_rate": 1e-4, "beta1": 0.9,
+                           "beta2": 0.99, "epsilon": 1e-15, "l2_reg": 1e-6},
+            },
+        },
+        "encoding": {"otype": "HashGrid", "n_levels": 16,
+                     "n_features_per_level": 2, "log2_hashmap_size": 19,
+                     "base_resolution": 16},
+        "network": {"otype": "FullyFusedMLP", "activation": "ReLU",
+                    "output_activation": "ReLU", "n_neurons": 64,
+                    "n_hidden_layers": 2},
+    },
 }
 
 
@@ -130,8 +152,6 @@ def mode_from_scene(path: str) -> str | None:
 
 
 def _check_mode(mode: str) -> None:
-    if mode in _MODE_ITEMS:
-        raise not_ported(f"the {mode} mode", _MODE_ITEMS[mode])
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
 
@@ -145,9 +165,9 @@ class Testbed:
     """``Testbed(mode=None, scene=None, config=None, **engine_kwargs)``.
 
     ``engine_kwargs`` go to the mode's engine (``NerfEngine``,
-    ``SdfEngine``, ``ImageEngine``) where it has such a field (``device``, ``seed``,
-    ``batch_size``, ...); ``frame_subset`` trains on those views of a
-    NeRF scene only. Methods mirror the pyngp surface:
+    ``SdfEngine``, ``ImageEngine``, ``VolumeEngine``) where it has such a
+    field (``device``, ``seed``, ``batch_size``, ...); ``frame_subset``
+    trains on those views of a NeRF scene only. Methods mirror the pyngp surface:
     ``load_training_data``, ``reload_network_from_json``, ``train``,
     ``render``, ``psnr`` (NeRF), ``calculate_iou`` and
     ``override_sdf_training_data`` (SDF), ``compute_image_mse`` (image),
@@ -222,6 +242,15 @@ class Testbed:
                                               **self._engine_fields(SdfEngine))
             self.state = self.engine.init_state()
             return
+        if self.mode == "volume":
+            from ngp_tpu_torch.data.volume import load_volume
+            from ngp_tpu_torch.engines.volume import VolumeEngine
+
+            fields = self._engine_fields(VolumeEngine)
+            volume = load_volume(self.scene, fields.get("device", "cuda"))
+            self.engine = VolumeEngine(copy.deepcopy(cfg), volume, **fields)
+            self.state = self.engine.init_state()
+            return
         from ngp_tpu_torch.data.nerf_loader import load_nerf
         from ngp_tpu_torch.engines.nerf import NerfEngine
 
@@ -241,7 +270,7 @@ class Testbed:
         return int(self.state.step) if self.state is not None else 0
 
     def train(self, n_steps: int) -> None:
-        if self.mode in ("image", "sdf"):
+        if self.mode in ("image", "sdf", "volume"):
             self.state, losses = self.engine.train(self.state, n_steps)
             if len(losses):
                 self.loss = float(losses[-1])
@@ -322,13 +351,22 @@ class Testbed:
         ``spp``, ``eye`` and ``lookat`` do not apply, as in the JAX package.
         SDF: the headlight shade from ``eye`` (default [0.5, 0.5, 2.0])
         toward ``lookat`` (default [0.5, 0.5, 0.5]) with a horizontal field
-        of view of ``fov_deg``. Image: the fitted image at width × height
-        texel centres, linear colours; the camera arguments do not apply."""
+        of view of ``fov_deg``. Volume: the learned field from ``eye``
+        (default [0.5, 0.5, 2.2]) toward ``lookat`` (default [0.5, 0.5,
+        0.5]), ``fov_deg`` across the width. Image: the fitted image at
+        width × height texel centres, linear colours; the camera arguments
+        do not apply."""
         if self.mode == "image":
             return self.engine.render(self.state, width, height).cpu().numpy()
         if self.mode == "sdf":
             eye = SDF_EYE if eye is None else eye
             lookat = SDF_LOOKAT if lookat is None else lookat
+            img, _ = self.engine.render_image(self.state, eye, lookat,
+                                              resolution=(width, height), fov_deg=fov_deg)
+            return img.cpu().numpy()
+        if self.mode == "volume":
+            eye = VOLUME_EYE if eye is None else eye
+            lookat = VOLUME_LOOKAT if lookat is None else lookat
             img, _ = self.engine.render_image(self.state, eye, lookat,
                                               resolution=(width, height), fov_deg=fov_deg)
             return img.cpu().numpy()
@@ -403,13 +441,13 @@ class Testbed:
         return self.engine.compute_marching_cubes_mesh(self.state, resolution, thresh)
 
     def save_snapshot(self, path: str) -> None:
-        if self.mode in ("image", "sdf"):
+        if self.mode in ("image", "sdf", "volume"):
             self.engine.save_snapshot(path, self.state)
         else:
             self.engine.save_snapshot(path, self.state, self.grid)
 
     def load_snapshot(self, path: str) -> None:
-        if self.mode in ("image", "sdf"):
+        if self.mode in ("image", "sdf", "volume"):
             self.state = self.engine.load_snapshot(path)
         else:
             self.state, self.grid = self.engine.load_snapshot(path)

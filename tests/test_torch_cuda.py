@@ -964,3 +964,201 @@ def test_sdf_on_card(cuda, tmp_path):
     tb.train(4)
     tb.load_snapshot(str(tmp_path / "s.ingp"))
     assert tb.calculate_iou(1 << 16) == iou
+
+
+def _volume_case(seed: int, n: int = 1 << 13):
+    """A non-cubic volume on the card (48 × 32 × 24: two dense blobs with an
+    empty slab of bit cells between them, one of density up to 8 so that
+    episodes are absorbed early) and its rays: starts on a sphere of
+    radius 2 toward points of the box, a quarter along the axes (zero
+    components: the +1e-12 rule), an eighth pointing away (they miss the
+    box)."""
+    from ngp_tpu_torch.data.volume import DenseVolume
+    from ngp_tpu_torch.ops.marching import ray_aabb_range
+
+    rng = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(*[np.arange(s) / s for s in (48, 32, 24)], indexing="ij"), -1)
+    blob = lambda c, r: np.clip(1.0 - np.linalg.norm((g - c) / r, axis=-1), 0.0, 1.0)
+    density = (2.0 * blob([0.25, 0.5, 0.5], 0.22) + 8.0 * blob([0.8, 0.5, 0.5], 0.15)
+               * rng.uniform(0.5, 1.0, g.shape[:3])).astype(np.float32)
+    density[20:26] = 0.0
+    density[density < 0.05] = 0.0
+    vol = DenseVolume.from_dense(density, "cuda")
+    lo, hi = vol.aabb_min, vol.aabb_max
+    d1 = rng.normal(size=(n, 3))
+    start = d1 / np.linalg.norm(d1, axis=1, keepdims=True) * 2.0 + 0.5
+    dirs = lo + rng.uniform(size=(n, 3)) * (hi - lo) - start
+    k = n // 4
+    axis = rng.integers(0, 3, k)
+    start[:k] = 0.5 + rng.uniform(-0.2, 0.2, (k, 3))
+    start[np.arange(k), axis] = rng.choice([-1.5, 2.5], k)
+    dirs[:k] = 0.0
+    dirs[np.arange(k), axis] = np.sign(0.5 - start[np.arange(k), axis])
+    dirs[k:k + n // 8] *= -1.0
+    dirs = (dirs / np.linalg.norm(dirs, axis=1, keepdims=True)).astype(np.float32)
+    o, d = (torch.from_numpy(a.astype(np.float32)).cuda() for a in (start, dirs))
+    aabb = [torch.from_numpy(a).cuda() for a in (lo, hi)]
+    tmin, tmax = ray_aabb_range(o, d, *aabb)
+    pos = (o + d * (tmin + 1e-6)[:, None]).contiguous()
+    return vol, pos, d.contiguous(), tmin <= tmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("albedo,scattering", [(0.95, 0.0), (0.3, 0.6)])
+def test_volume_train_walk_matches_twin(cuda, albedo, scattering):
+    """The training walk kernel equals its twin bit for bit: vertices,
+    densities, slots filled, final directions, throughputs and iterations
+    walked, on episodes that miss the box, run along its axes, cross an
+    empty slab of bit cells and are absorbed early (albedo 0.3)."""
+    from ngp_tpu_torch.ops.volume_walk import (
+        VOLUME_WALK,
+        HashDraws,
+        WalkVolume,
+        draw_key,
+        training_walk,
+        volume_train_walk_cuda,
+    )
+
+    vol, pos, dirs, alive = _volume_case(5)
+    walk = WalkVolume.of(vol, 0.01, "cuda")
+    key = draw_key(1337 ^ 0x701, 3)
+    want = training_walk(walk, pos, dirs, alive, HashDraws(key), albedo, scattering)
+    before = VOLUME_WALK.launches["volume_train_walk"]
+    steps = torch.full(alive.shape, -1, dtype=torch.int32, device="cuda")
+    got = volume_train_walk_cuda(walk, pos, dirs, alive, key, albedo, scattering, steps)
+    torch.cuda.synchronize()
+    for g, w in zip((*got, steps), want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert VOLUME_WALK.launches["volume_train_walk"] == before + 1
+    assert not bool(alive.all()) and bool((want[2] == 4).any()) and bool((want[2] == 0).any())
+    assert bool((want[4] == 0).any()) and int(steps.max()) > 1
+    if albedo < 0.5:
+        assert float((want[4] == 0).float().mean()) > 0.1
+
+
+@pytest.mark.cuda
+def test_volume_render_walk_matches_twin(cuda):
+    """The render walk kernel equals its twin bit for bit: the ground truth
+    walk's col, opa and iterations; then learned rounds, each the kernel's
+    positions, alive flags, iteration counters and event flags against the
+    twin's, the rays at an event kept alive or stopped by a seeded rule in
+    place of the model's composite."""
+    from ngp_tpu_torch.ops.volume_walk import (
+        MAX_WALK_ITERS,
+        VOLUME_WALK,
+        HashDraws,
+        WalkVolume,
+        draw_key,
+        render_walk,
+        volume_render_walk_cuda,
+    )
+
+    vol, pos, dirs, alive = _volume_case(6)
+    walk = WalkVolume.of(vol, 0.01, "cuda")
+    key = draw_key(7, 0)
+    col, opa, steps = render_walk(walk, pos, dirs, alive, HashDraws(key), True)
+    got_steps = torch.full(alive.shape, -1, dtype=torch.int32, device="cuda")
+    got = volume_render_walk_cuda(walk, pos, dirs, alive, key, True, steps=got_steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], col) and torch.equal(got[1], opa)
+    assert torch.equal(got_steps, steps)
+    assert bool((opa > 0.99).any()) and bool((opa == 0).any())
+
+    ids = torch.arange(pos.shape[0], device="cuda")
+    iters = torch.zeros(ids.shape, dtype=torch.int32, device="cuda")
+    p, a, it = pos.clone(), alive.clone(), iters
+    before = VOLUME_WALK.launches["volume_render_walk"]
+    rng = torch.Generator(device="cuda").manual_seed(1)
+    for rnd in range(64):
+        want = render_walk(walk, p, dirs, a, HashDraws(key), False, it, ids)
+        got = volume_render_walk_cuda(walk, p.clone(), dirs, a.clone(), key, False, it.clone(),
+                                      ids)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), rnd
+        p, a, it, event = want
+        if not bool(a.any()):
+            break
+        a = a & (torch.rand(a.shape, generator=rng, device="cuda") < 0.9)
+    assert VOLUME_WALK.launches["volume_render_walk"] == before + rnd + 1
+    assert rnd > 4 and int(it.max()) <= MAX_WALK_ITERS
+
+
+@pytest.mark.cuda
+def test_volume_on_card(cuda, tmp_path, monkeypatch):
+    """The volume primitive on the card at a small size: a step launches the
+    training walk once, B1 and the fused backward; a ground-truth frame
+    launches the render walk once, a learned frame once a round; a snapshot
+    reloads to the same learned frame."""
+    import ngp_tpu_torch.engines.volume as engine_module
+    from ngp_tpu_torch.data.nanovdb_codec import write_nanovdb
+    from ngp_tpu_torch.data.volume import procedural_cloud_density
+    from ngp_tpu_torch.ops.cuda_build import reset_launches
+    from ngp_tpu_torch.testbed import Testbed
+
+    cfg = {"loss": {"otype": "L2"},
+           "optimizer": {"otype": "Ema", "decay": 0.95, "nested": {
+               "otype": "Adam", "learning_rate": 1e-2, "beta1": 0.9, "beta2": 0.99,
+               "epsilon": 1e-15, "l2_reg": 1e-6}},
+           "encoding": {"otype": "HashGrid", "n_levels": 8, "n_features_per_level": 2,
+                        "log2_hashmap_size": 16, "base_resolution": 8},
+           "network": {"otype": "FullyFusedMLP", "activation": "ReLU",
+                       "output_activation": "ReLU", "n_neurons": 64, "n_hidden_layers": 2}}
+    path = str(tmp_path / "cloud.nvdb")
+    write_nanovdb(path, procedural_cloud_density(64))
+    tb = Testbed(scene=path, config=cfg, batch_size=1 << 14)
+    reset_launches()
+    tb.train(32)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    assert launched["volume_train_walk"] == 32 and launched["hashgrid_backward"] == 32
+    eng = tb.engine
+    reset_launches()
+    _, opa_gt = eng.render_image(tb.state, (0.5, 0.5, 2.2), (0.5, 0.5, 0.5), (64, 48), gt=True)
+    assert launch_counts()["volume_render_walk"] == 1
+    rounds, walk = [0], engine_module.volume_render_walk
+
+    def counted_walk(*args, **kwargs):
+        rounds[0] += 1
+        return walk(*args, **kwargs)
+
+    monkeypatch.setattr(engine_module, "volume_render_walk", counted_walk)
+    reset_launches()
+    img, opa = eng.render_image(tb.state, (0.5, 0.5, 2.2), (0.5, 0.5, 0.5), (64, 48))
+    monkeypatch.undo()
+    assert launch_counts()["volume_render_walk"] == rounds[0] > 1
+    assert bool(torch.isfinite(img).all()) and float(opa_gt[24, 32]) > 0.5
+    tb.save_snapshot(str(tmp_path / "v.ingp"))
+    tb.train(4)
+    tb.load_snapshot(str(tmp_path / "v.ingp"))
+    again, _ = eng.render_image(tb.state, (0.5, 0.5, 2.2), (0.5, 0.5, 0.5), (64, 48))
+    assert torch.equal(again, img)
+
+
+@pytest.mark.cuda
+def test_volume_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from ngp_tpu_torch.ops.volume_walk import (
+        WalkVolume,
+        volume_render_walk,
+        volume_render_walk_cuda,
+        volume_train_walk_cuda,
+    )
+
+    vol, pos, dirs, alive = _volume_case(7, n=64)
+    walk = WalkVolume.of(vol, 0.01, "cuda")
+    for bad in (pos.cpu(), pos.double(), pos[:, :2].contiguous()):
+        with pytest.raises(ValueError):
+            volume_train_walk_cuda(walk, bad, dirs, alive, 1, 0.95, 0.0)
+    with pytest.raises(ValueError):
+        volume_train_walk_cuda(walk, pos, dirs[:32], alive, 1, 0.95, 0.0)
+    with pytest.raises(ValueError):
+        volume_train_walk_cuda(walk._replace(density=vol.density.double()), pos, dirs, alive,
+                               1, 0.95, 0.0)
+    with pytest.raises(ValueError):
+        volume_render_walk_cuda(walk, pos, dirs, alive, 1, False,
+                                torch.zeros(64, dtype=torch.int64, device="cuda"),
+                                torch.arange(64, device="cuda"))
+    with pytest.raises(ValueError):
+        volume_render_walk(walk, pos, dirs, alive, 1, True, draws=object())
+    empty = volume_train_walk_cuda(walk, pos[:0], dirs[:0], alive[:0], 1, 0.95, 0.0)
+    assert [t.shape[0] for t in empty] == [0] * 5

@@ -406,12 +406,11 @@ def test_refusals(scene, testbeds, tmp_path, capsys, small_engines):
     from ngp_tpu_torch.testbed import Testbed, default_config
 
     ptb, _ = testbeds
-    with pytest.raises(NotImplementedError, match="not yet ported \\(ROADMAP A10\\)"):
-        Testbed(mode="volume")
-    with pytest.raises(NotImplementedError, match="A10"):
-        default_config("volume")
-    with pytest.raises(NotImplementedError, match="A10"):
-        Testbed(scene=str(tmp_path / "volume.nvdb"))
+    # the volume mode is ported (tests/test_torch_volume.py): only a missing
+    # file is refused
+    assert Testbed(mode="volume").mode == "volume" and default_config("volume")["encoding"]
+    with pytest.raises(FileNotFoundError):
+        Testbed(scene=str(tmp_path / "volume.nvdb"), device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         ptb.frame()
     m = ptb.engine.xforms[0].numpy()
