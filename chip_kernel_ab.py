@@ -3,7 +3,7 @@
 in turns, so that a change to a kernel is measured against its parent on
 the same card in the same run:
 
-    python3 chip_kernel_ab.py BEFORE AFTER [--kernels b1 b5 segsum bwd b3 bvh igrad]
+    python3 chip_kernel_ab.py BEFORE AFTER [--kernels b1 b5 segsum bwd b3 bvh igrad walk]
 
 BEFORE and AFTER are repository roots, for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory, and ``.``. Each
@@ -55,7 +55,7 @@ allocation included). Kernels:
   (x, g) of the sdf config on the 327,680-triangle bumpy sphere after
   ``IGRAD_SDF_STEPS`` steps; and ``chip_smoke.image_geometry_2d_case``.
   Timed by CUDA events: ``ms`` around 50 calls queued behind a spin kernel
-  (:func:`queued_ms`, the calls' device time), ``call_ms`` around 20 calls
+  (``chip_smoke.queued_ms``, the calls' device time), ``call_ms`` around 20 calls
   issued one after another (host issue included); with a digest of dx
   (equal in every turn when the kernels agree bit for bit). Every
   checkout also prints the SASS of its input-gradient kernels:
@@ -66,6 +66,32 @@ allocation included). Kernels:
   ``kGradThreads`` (threads a block) and ``kGradStageFloats`` (a sample's
   cotangents a stage of the g tile) in a copy of its source
   (:func:`igrad_variants`).
+- ``walk``: the volume engine's delta-tracking walks on the 512³
+  procedural cloud at the Testbed's volume config, on inputs captured
+  once, by a first process with AFTER's package, into ``WALK_DIR``: a
+  step's training data (``VolumeEngine.generate_training_data`` of one
+  step's key, 16,384 episodes: before the fused kernel, the starts'
+  launches, then the walk kernel, then the targets; after it, one
+  launch), and ``volume_render_walk_cuda`` on the 960×540 ground-truth
+  frame's 518,400 rays and on the learned frame's first round (413,556
+  rays; the first round does not depend on the model). Each checkout
+  builds the cloud and its own ``WalkVolume``. ``ms`` is CUDA events
+  around calls queued behind a spin kernel (``chip_smoke.queued_ms``),
+  ``call_ms`` around 20 calls issued one after another, with a digest of
+  the outputs (equal in every turn when the walks agree bit for bit).
+  Then, on the host's clock, what the walks' users wait for: ms a
+  training step and ms a learned 960×540 frame of the seeded initial
+  model (:func:`walk_end_to_end`).
+  Every checkout also prints its walk kernels' SASS (``walk_sass``:
+  instructions, each loop's instructions and global loads, whether the
+  loads of one pass are in flight together) and ptxas's registers.
+  ``--walk-variants T64 nocarry packed nobricks ...`` also times, in each
+  AFTER turn, AFTER's kernels rebuilt with the ``WALK_*`` macros of
+  ``csrc/volume_walk.cu`` set (``T<n>`` the block size; an element's
+  name, ``carry``, ``packed``, ``overlap`` or ``bricks``, forces design
+  element (a)-(d) on in every kernel, ``no`` before it off; ``+`` joins
+  them, e.g. ``nocarry+nopacked+nooverlap+nobricks``), called through
+  AFTER's wrappers.
 """
 
 from __future__ import annotations
@@ -84,6 +110,11 @@ BVH_INPUTS = os.path.join(HERE, "build", "kernel_ab_bvh", "queries.pt")
 IGRAD_DIR = os.path.join(HERE, "build", "kernel_ab_igrad")
 IGRAD_INPUTS = os.path.join(IGRAD_DIR, "inputs.pt")
 IGRAD_SDF_STEPS = 200
+WALK_DIR = os.path.join(HERE, "build", "kernel_ab_walk")
+WALK_INPUTS = os.path.join(WALK_DIR, "inputs.pt")
+WALK_STEP = 1000  # the training data's step: its key
+WALK_E2E_FRAMES, WALK_E2E_CALLS, WALK_E2E_STEPS = 3, 5, 20
+WALK_ELEMENTS = ("carry", "packed", "overlap", "bricks")  # csrc/volume_walk.cu (a)-(d)
 
 
 def _helpers(root: str):
@@ -281,28 +312,6 @@ def igrad_sass(helpers) -> list[dict]:
     return rows
 
 
-def queued_ms(fn, iters: int = 50) -> float:
-    """Mean device milliseconds of a call of ``fn``: CUDA events around
-    ``iters`` calls queued behind a spin kernel of ~50 ms, so that the card
-    runs them back to back whatever the host's time to issue them (where a
-    call's host time exceeds its kernel's, events around calls issued one
-    after another measure the host)."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def igrad_times(helpers) -> list[dict]:
     """The imported checkout's ``hashgrid_input_grad_cuda`` on each captured
     input: ms by CUDA events and a digest of dx."""
@@ -318,7 +327,7 @@ def igrad_times(helpers) -> list[dict]:
         fn = lambda: hashgrid.hashgrid_input_grad_cuda(x, g, table, *geo)  # noqa: E731
         rows.append({"kernel": "igrad", "input": name, "N": x.shape[0], "D": x.shape[1],
                      "L": L, "F": F, "hash": variant, "dx": _digest([fn()]),
-                     "ms": queued_ms(fn), "call_ms": helpers.cuda_ms(fn, iters=20)})
+                     "ms": helpers.queued_ms(fn), "call_ms": helpers.cuda_ms(fn, iters=20)})
         del x, g, table
     return rows
 
@@ -328,7 +337,7 @@ def igrad_variants(variants: list[str]) -> list[dict]:
     constants, each ``THREADSxFLOATS`` a copy of ``csrc/hashgrid_encode.cu``
     with ``kGradThreads`` and ``kGradStageFloats`` set (all compiled at
     once with the package's flags), called through its C entry on each
-    captured input: ms (:func:`queued_ms`) and a digest of dx."""
+    captured input: ms (``chip_smoke.queued_ms``) and a digest of dx."""
     import ctypes
     import re
 
@@ -378,9 +387,218 @@ def igrad_variants(variants: list[str]) -> list[dict]:
                     raise RuntimeError(f"variant {v}: launch failed ({rc})")
                 return dx
             rows.append({"kernel": "igrad", "input": name, "design": v,
-                         "dx": _digest([fn()]), "ms": queued_ms(fn)})
+                         "dx": _digest([fn()]), "ms": helpers.queued_ms(fn)})
         del x, g, table, dx
     return rows
+
+
+def _walk_engine(helpers):
+    """The imported checkout's ``VolumeEngine`` at the Testbed's volume
+    config on ``chip_smoke.VOLUME_RES``³ procedural cloud, on the card."""
+    from ngp_tpu_torch.data.volume import procedural_cloud
+    from ngp_tpu_torch.engines.volume import VolumeEngine
+    from ngp_tpu_torch.testbed import _DEFAULT_CONFIGS
+
+    return VolumeEngine(_DEFAULT_CONFIGS["volume"], procedural_cloud(helpers.VOLUME_RES))
+
+
+def _sass_loops(code: list) -> list:
+    """Each loop of a kernel's SASS (``code``: (address, text) in order):
+    [instructions, global loads, the fewest and the most on a path through
+    one pass (:func:`_loop_paths`), and, for each two successive global
+    loads of the loop, whether the second issues before any instruction
+    reads the first's result (both in flight together)]."""
+    import re
+
+    loops = []
+    for at, text in code:
+        target = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if not (target and int(target.group(1), 16) < at):
+            continue
+        head = int(target.group(1), 16)
+        body = [t for a, t in code if head <= a <= at]
+        loads = [i for i, t in enumerate(body) if "LDG" in t]
+        together = []
+        for i, j in zip(loads, loads[1:]):
+            dest = re.search(r"LDG\S*\s+(R\d+)", body[i])
+            reg = dest.group(1) if dest else None
+            used = reg and any(re.search(rf"\b{reg}\b", t.split(None, 2)[-1])
+                               for t in body[i + 1:j])
+            together.append(not used)
+        loops.append([len(body), len(loads), *_loop_paths(code, head, at), together])
+    return loops
+
+
+def walk_sass(helpers) -> list[dict]:
+    """The imported checkout's walk kernels in SASS: instructions, each
+    loop (:func:`_sass_loops`), ptxas's registers; the SASS is written to
+    ``WALK_DIR``."""
+    import re
+
+    from ngp_tpu_torch.ops.cuda_build import nvcc_path
+    from ngp_tpu_torch.ops.volume_walk import VOLUME_WALK
+
+    VOLUME_WALK.library()
+    lib = VOLUME_WALK.lib_path()
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    os.makedirs(WALK_DIR, exist_ok=True)
+    with open(os.path.join(WALK_DIR, f"{lib.stem}.sass"), "w") as f:
+        f.write(sass)
+    registers = helpers.ptxas_registers(VOLUME_WALK)
+    kernels, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            continue
+        found = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if name and found:
+            kernels.setdefault(name, []).append((int(found.group(1), 16), found.group(2)))
+    return [{"kernel": "walk_sass",
+             "name": re.search(r"(\w+_kernel)", name).group(1),
+             "instructions": len(code), "loops": _sass_loops(code),
+             "ptxas_registers": registers.get(name)} for name, code in kernels.items()]
+
+
+def _walk_variant_libs(variants: list[str]) -> dict:
+    """AFTER's ``csrc/volume_walk.cu`` built once a variant with its
+    ``WALK_*`` macros set (all compiled at once), loaded with the
+    wrappers' signatures."""
+    import ctypes
+    import re
+
+    from ngp_tpu_torch.ops.cuda_build import NVCC_FLAGS, nvcc_path
+    from ngp_tpu_torch.ops.volume_walk import VOLUME_WALK
+
+    os.makedirs(WALK_DIR, exist_ok=True)
+    builds = {}
+    for v in variants:
+        defs = []
+        for part in v.split("+"):
+            if part.startswith("T"):
+                defs.append(f"-DWALK_THREADS={part[1:]}")
+            else:
+                on = part in WALK_ELEMENTS
+                name = part if on else part.removeprefix("no")
+                if name not in WALK_ELEMENTS:
+                    raise ValueError(f"unknown walk variant part {part!r}")
+                defs.append(f"-DWALK_{name.upper()}={int(on)}")
+        lib = os.path.join(WALK_DIR, f"variant_{v.replace('+', '_')}.so")
+        builds[v] = (lib, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, *VOLUME_WALK.flags, *defs, "-o", lib,
+             str(VOLUME_WALK.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for v, (path, proc) in builds.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {v}:\n{log}")
+        lib = ctypes.CDLL(path)
+        for fn, (restype, argtypes) in VOLUME_WALK.signatures.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        registers, entry = {}, None
+        for line in log.splitlines():
+            name = re.search(r"entry function '\w*?(train_walk|render_gt|render_round)_kernel",
+                             line)
+            entry = name.group(1) if name else entry
+            used = re.search(r"Used (\d+) registers", line)
+            if used and entry:
+                registers[entry] = int(used.group(1))
+        libs[v] = (lib, registers)
+    return libs
+
+
+def walk_times(helpers, variants: dict) -> list[dict]:
+    """The imported checkout's walks on the captured inputs (module
+    docstring): ms, call_ms and a digest of the outputs of each; then,
+    for each of ``variants`` ({name: (library, registers)}), the same
+    through the wrappers with that library in place of the package's."""
+    import torch
+
+    from ngp_tpu_torch.ops import volume_walk as vw
+
+    eng = _walk_engine(helpers)
+    cap = torch.load(WALK_INPUTS)
+    gt = [t.cuda() for t in cap["gt"]]
+    rnd = [t.cuda() for t in cap["round"]]
+    copies = []
+
+    def one_round():
+        if not copies:
+            copies.extend((rnd[0].clone(), rnd[2].clone(), rnd[3].clone()) for _ in range(80))
+        p, a, it = copies.pop()
+        return vw.volume_render_walk_cuda(eng.walk, p, rnd[1], a, cap["frame_key"], False,
+                                          it, rnd[4])
+
+    cases = (("train_data", lambda: eng.generate_training_data(WALK_STEP), cap["episodes"],
+              400_000_000),
+             ("gt_frame", lambda: vw.volume_render_walk_cuda(eng.walk, *gt, cap["frame_key"],
+                                                             True),
+              gt[0].shape[0], 100_000_000),
+             ("learned_round", one_round, rnd[0].shape[0], 100_000_000))
+    rows = []
+    for design, (lib, registers) in {"package": (None, None), **variants}.items():
+        saved = vw.VOLUME_WALK._lib
+        if lib is not None:
+            vw.VOLUME_WALK._lib = lib
+        try:
+            for name, fn, n, spin in cases:
+                out = fn()
+                row = {"kernel": "walk", "input": name, "N": n, "design": design,
+                       "outputs": _digest(out), "ms": helpers.queued_ms(fn, 20, spin),
+                       "call_ms": helpers.cuda_ms(fn, iters=20)}
+                if name == "train_data":
+                    # positions, valid flags and densities; the sky apart
+                    # (capture_walk: the engine once computed it otherwise on
+                    # the card)
+                    row["outputs"] = _digest([out[0], out[2], out[1][:, 3]])
+                    row["sky"] = _digest([out[1][:, :3]])
+                    # a call that synchronises the host cannot queue: the
+                    # profiler's sum of the call's kernels and copies
+                    row["device_ms"] = helpers.device_ms(fn)
+                rows.append({**row, **({"registers": registers} if registers else {})})
+                copies.clear()
+        finally:
+            vw.VOLUME_WALK._lib = saved
+    return rows + walk_end_to_end(eng, cap)
+
+
+def walk_end_to_end(eng, cap) -> list[dict]:
+    """What the walks' users wait for, on the host's clock with the card
+    synchronised: ms a training step (``WALK_E2E_CALLS`` calls of
+    ``WALK_E2E_STEPS`` steps after as many warm-up steps; the median and
+    each call's) and ms a learned 960×540 frame (``WALK_E2E_FRAMES``
+    frames of the seeded initial model; the median and each), with a digest
+    of the frame."""
+    import statistics
+    import time
+
+    import torch
+
+    state = eng.init_state()
+    o, d = (t.cuda() for t in cap["rays"])
+    frame = eng.render_rays(state, o, d, False)
+    torch.cuda.synchronize()
+    frames = []
+    for _ in range(WALK_E2E_FRAMES):
+        t0 = time.perf_counter()
+        eng.render_rays(state, o, d, False)
+        torch.cuda.synchronize()
+        frames.append((time.perf_counter() - t0) * 1e3)
+    eng.train(state, WALK_E2E_STEPS)
+    torch.cuda.synchronize()
+    steps = []
+    for _ in range(WALK_E2E_CALLS):
+        t0 = time.perf_counter()
+        eng.train(state, WALK_E2E_STEPS)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3 / WALK_E2E_STEPS)
+    return [{"kernel": "walk", "input": "learned_frame_wall", "design": "package",
+             "outputs": _digest(frame), "ms": statistics.median(frames), "each_ms": frames},
+            {"kernel": "walk", "input": "train_step_wall", "design": "package",
+             "ms": statistics.median(steps), "each_ms": steps}]
 
 
 def step_cases(helpers, samples: list[int]):
@@ -396,7 +614,7 @@ def step_cases(helpers, samples: list[int]):
 
 
 def turn(root: str, label: str, kernels: list[str], b1_samples: int,
-         samples: list[int], variants: list[str]):
+         samples: list[int], variants: list[str], walk_variants: list[str]):
     import torch
 
     root = os.path.abspath(root)
@@ -430,6 +648,10 @@ def turn(root: str, label: str, kernels: list[str], b1_samples: int,
         if variants and label == "after":
             for row in igrad_variants(variants):
                 helpers.emit({**base, **row})
+    if "walk" in kernels:
+        libs = _walk_variant_libs(walk_variants) if walk_variants and label == "after" else {}
+        for row in walk_sass(helpers) + walk_times(helpers, libs):
+            helpers.emit({**base, **row})
     if "bwd" in kernels or "b3" in kernels:
         for positions, x, g, geo, T in step_cases(helpers, samples):
             case = {**base, "positions": positions, "N": x.shape[0]}
@@ -560,18 +782,98 @@ def capture_igrad(root: str):
                       "hash": geo[4], "level_rows": geo[2].tolist()})
 
 
+def capture_walk(root: str):
+    """Capture the ``walk`` set's inputs with ``root``'s package into
+    ``WALK_INPUTS``: the training data's key and episodes, and the
+    ground-truth frame's and the learned frame's first round's walk
+    inputs, on the host; prints AFTER's walk lengths of each."""
+    import torch
+
+    helpers = _helpers(os.path.abspath(root))
+    from ngp_tpu_torch.ops import volume_walk as vw
+    from ngp_tpu_torch.testbed import VOLUME_EYE, VOLUME_LOOKAT
+
+    eng = _walk_engine(helpers)
+    state = eng.init_state()
+    kept, launch = {}, vw.volume_render_walk_cuda
+
+    def keep(vol, pos, dirs, alive, key, gt, iters=None, ids=None, **kw):
+        name = "gt" if gt else "round"
+        if name not in kept:
+            kept[name] = ((pos, dirs, alive) if gt else
+                          (pos.clone(), dirs, alive.clone(), iters.clone(), ids))
+            kept["frame_key"] = key
+        return launch(vol, pos, dirs, alive, key, gt, iters, ids, **kw)
+
+    o, d = (torch.from_numpy(a).cuda() for a in
+            eng.camera_rays(VOLUME_EYE, VOLUME_LOOKAT, helpers.VOLUME_FRAME, 50.0))
+    vw.volume_render_walk_cuda = keep
+    try:
+        eng.render_rays(state, o, d, True)
+        eng.render_rays(state, o, d, False)
+        torch.cuda.synchronize()
+    finally:
+        vw.volume_render_walk_cuda = launch
+    E = eng.batch_size // vw.MAX_TRAIN_VERTICES
+    os.makedirs(WALK_DIR, exist_ok=True)
+    torch.save({"episodes": E, "frame_key": kept["frame_key"], "rays": [o.cpu(), d.cpu()],
+                "gt": [t.cpu() for t in kept["gt"]],
+                "round": [t.cpu() for t in kept["round"]]}, WALK_INPUTS)
+    key = vw.draw_key(eng.seed ^ 0x701, WALK_STEP)
+    steps = torch.zeros((E,), dtype=torch.int32, device="cuda")
+    vw.volume_train_walk_cuda(eng.walk, key, E, eng.albedo, eng.scattering, eng.envmap, steps)
+    pos, dirs, alive = kept["gt"]
+    gt_steps = torch.zeros(alive.shape, dtype=torch.int32, device="cuda")
+    vw.volume_render_walk_cuda(eng.walk, pos, dirs, alive, kept["frame_key"], True,
+                               steps=gt_steps)
+    p, d, a, it, ids = kept["round"]
+    after = vw.volume_render_walk_cuda(eng.walk, p.clone(), d, a.clone(), kept["frame_key"],
+                                       False, it.clone(), ids)[2]
+    for name, n in (("train_data", steps), ("gt_frame", gt_steps), ("learned_round", after - it)):
+        helpers.emit({"turn": "capture_walk", "input": name, "N": n.shape[0],
+                      **helpers._walk_stats(n)})
+    # the sky of the step's final directions as the twin computes it and as
+    # the engine did on the card before the fused kernel (torch.sum, and
+    # / 255.0, which PyTorch takes as a product with the reciprocal on a
+    # CUDA tensor)
+    d1, ut = vw.start_draws(key, E, "cuda")
+    origin = vw.normalize(d1) * 2.0 + 0.5
+    lo, hi = eng.walk.aabb_min, eng.walk.aabb_max
+    dirs = vw.normalize(lo + ut * (hi - lo) - origin)
+    tmin, tmax = vw.ray_aabb_range(origin, dirs, lo, hi)
+    walked = vw.training_walk(eng.walk, origin + dirs * (tmin + 1e-6)[:, None], dirs,
+                              tmin <= tmax, vw.HashDraws(key), eng.albedo, eng.scattering)
+    final = walked[3]
+    up, sun, sky = (torch.tensor(v, dtype=torch.float32, device="cuda") for v in eng.envmap)
+    sunam = torch.clamp_min(torch.sum(final * sun, -1), 0.0)
+    for _ in range(6):
+        sunam = sunam * sunam
+    sun_col = torch.tensor([255.0, 215.0, 195.0], device="cuda") / 255.0
+    earlier = (sky[None, :] * (torch.sum(final * up, -1) * 0.5 + 0.5)[:, None]
+            + sun_col[None, :] * (20.0 * sunam)[:, None])
+    now = vw.proc_envmap(final, *eng.envmap)
+    helpers.emit({"turn": "capture_walk", "input": "train_data_sky",
+                  "values_differing_from_earlier_route": int((now != earlier).sum()),
+                  "max_abs_difference": float((now - earlier).abs().max()),
+                  "sun_colour_differing": int((sun_col.cpu() != torch.tensor(
+                      vw._SUN_COL)).sum())})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("before")
     ap.add_argument("after")
     ap.add_argument("--kernels", nargs="+", default=["b1", "b5"],
-                    choices=["b1", "b5", "segsum", "bwd", "b3", "bvh", "igrad"])
+                    choices=["b1", "b5", "segsum", "bwd", "b3", "bvh", "igrad", "walk"])
     ap.add_argument("--b1-samples", type=int, default=470671,
                     help="uniform positions for b1 (the serve path's mean launch)")
     ap.add_argument("--samples", type=int, nargs="+", default=[78827, 163840],
                     help="network samples for segsum, bwd and b3")
     ap.add_argument("--igrad-variants", nargs="+", default=[],
                     help="THREADSxFLOATS constants of AFTER's input-gradient kernel for igrad")
+    ap.add_argument("--walk-variants", nargs="+", default=[],
+                    help="WALK_* macro sets of AFTER's walk kernels for walk (T<threads>, "
+                         "[no]carry, [no]packed, [no]overlap, [no]bricks, joined by +)")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn == "capture":
@@ -586,14 +888,19 @@ def main():
     if args.turn == "capture_igrad":
         capture_igrad(args.after)
         return
+    if args.turn == "capture_walk":
+        capture_walk(args.after)
+        return
     if args.turn:
         turn(getattr(args, args.turn), args.turn, args.kernels, args.b1_samples,
-             args.samples, args.igrad_variants)
+             args.samples, args.igrad_variants, args.walk_variants)
         return
     common = ["--kernels", *args.kernels, "--b1-samples", str(args.b1_samples),
               "--samples", *map(str, args.samples)]
     if args.igrad_variants:
         common += ["--igrad-variants", *args.igrad_variants]
+    if args.walk_variants:
+        common += ["--walk-variants", *args.walk_variants]
     labels = ["before", "after", "after", "before"]
     if "b1" in args.kernels:
         labels.insert(0, "capture")
@@ -603,6 +910,8 @@ def main():
         labels.insert(0, "capture_bvh")
     if "igrad" in args.kernels:
         labels.insert(0, "capture_igrad")
+    if "walk" in args.kernels:
+        labels.insert(0, "capture_walk")
     for label in labels:
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), args.before, args.after,

@@ -157,28 +157,48 @@ Phases, each printing one JSON line:
    correlation of the served model's density with the targets at a
    held-out step's recorded vertices (gate ``VOLUME_VERTEX_CORR_MIN``)
    and with the jittered ground truth at 4,096 uniform points (gate
-   ``VOLUME_UNIFORM_CORR_MIN``), a learned and a ground-truth 960×540 frame (wall and device ms, the learned frame's rounds and
+   ``VOLUME_UNIFORM_CORR_MIN``), a learned and a ground-truth 960×540
+   frame (wall and device ms, the learned frame's rounds and
    network evaluations; centre opacity above ``VOLUME_CENTRE_MIN``, the
    corner's below ``VOLUME_CORNER_MAX``, in both), and a snapshot reloaded
    to the same learned frame, bit for bit. Then (phase
    ``volume_kernels``) both walk kernels bit for bit against their twins:
-   the training walk on a step's own 16,384 episodes, the render walk on
-   the ground-truth frame's 518,400 rays and on the first round of the
-   learned frame (walk lengths, idle lanes a warp, bound), and B1 and the
-   fused backward on a step's own (x, g); then (``volume_profile``) 16
+   the training walk (starts, walks and targets in one launch) on a
+   step's own key and 16,384 episodes against the twin's composition on
+   CUDA tensors, the render walk on the ground-truth frame's 518,400 rays
+   and on the first round of the learned frame (``ms`` behind a spin
+   kernel, walk lengths, idle lanes a warp, registers, bound), and B1 and
+   the fused backward on a step's own (x, g); then (``volume_profile``) 16
    steps under ``torch.profiler``: the busy share and device ms by stage.
 18. volume_cli: ``python -m ngp_tpu_torch.run`` on the written cloud, 300
    steps with a snapshot and a screenshot, then the snapshot loaded in a
    new process with another screenshot, which must be the same pixels.
 Then the ``kernels`` line, the card's ``name, power.limit``, and last the
-``{"ok": true, ...}`` line.
+``{"ok": true, ...}`` line. ``python3 chip_smoke.py profiler_probe`` runs
+no phase above: it counts how :func:`device_ms`'s profiler windows lose
+records (:func:`phase_profiler_probe`).
 
 Each kernel has two times: ``ms``, the device time of one call (the
 kernels and the zero-fill of its output that the call puts on the card,
-from ``torch.profiler`` over 20 calls), and ``call_ms``, what a caller pays
-per call (CUDA events around 20 back-to-back calls of the Python wrapper,
-which host issue may bound). The library yardstick's ``library_ms`` is
-timed as ``ms`` is, its zeroed output made inside the timed call.
+from ``torch.profiler`` over 20 calls; the BVH rows by CUDA events, the
+walk rows by CUDA events around calls queued behind a spin kernel, each
+row's ``ms_source`` says), and ``call_ms``, what a caller pays per call
+(CUDA events around 20 back-to-back calls of the Python wrapper, which
+host issue may bound). The library yardstick's ``library_ms`` is timed as
+``ms`` is, its zeroed output made inside the timed call. Every profiler
+window opens with launches that take the profiler's loss of a window's
+first four device records, seen in some processes: ``PROFILER_LEAD_CALLS``
+untimed calls in :func:`device_ms`, spin kernels elsewhere
+(:func:`_lead_in`). A profiler
+window whose ``device_ms`` annotation span lacks records that the window
+holds is counted from the whole window and reported
+(``profiler_span_short``); one that lacks them outright is profiled
+again (``profiler_retry``, with the host's launch records beside the
+device's). After three such windows the time comes from CUDA events
+around calls queued behind a spin kernel
+(``profiler_fallback``), and the row marks that field's source
+(``ms_source``, ``library_ms_source``: "cuda_events_queued", or
+"cuda_events" for a call that waits on the card itself).
 
 Any failure raises and ends the run with a non-zero exit; so does a host
 without CUDA. The script imports torch, numpy and ``ngp_tpu_torch`` only.
@@ -206,9 +226,15 @@ GOLDEN_TOL = 1e-3
 TRAIN_STEPS = 400
 TRAIN_PROFILE_STEPS = 16  # one cycle of the stride-residue occupancy updates
 # host sleep between a profiler window's edges and the calls it times, and
-# the untimed calls between those edges and the timed ones
+# the untimed calls between those edges and the timed ones: before them
+# more than the profiler loses (it keeps no device record of a window's
+# first four launches in some processes), after them two
 PROFILER_PAD_S = 0.05
+PROFILER_LEAD_CALLS = 8
 PROFILER_EDGE_CALLS = 2
+# the spin kernels that open every other profiler window, in their own range
+PROFILER_LEAD = "profiler_lead"
+PROFILER_LEAD_LAUNCHES = 8
 # The JAX package's test_train_sphere_to_psnr asks for 20 dB; two sound card
 # runs of this configuration read 51.4 and 53.0 dB, so the gate sits well
 # above 20 dB to catch a table gradient that is badly wrong.
@@ -294,8 +320,42 @@ BOX_RAY_OPS = 25
 RAY_TRIANGLE_OPS = 58
 
 
+class EventMs(float):
+    """A :func:`device_ms` time that the profiler could not give (it kept
+    too few device records in every window) and CUDA events did: around
+    calls queued behind a spin kernel (``source`` "cuda_events_queued",
+    :func:`queued_ms`), or, for a call that waits on the card itself,
+    around calls issued one after another ("cuda_events", :func:`cuda_ms`).
+    :func:`emit` writes ``<field>_source`` beside it."""
+
+    def __new__(cls, value: float, source: str):
+        ms = super().__new__(cls, value)
+        ms.source = source
+        return ms
+
+
+class SpinTooShort(AssertionError):
+    """The spin kernel of :func:`queued_ms` ended before the host had
+    queued every call: the card may have waited for the host."""
+
+
+def _sourced(obj):
+    """``obj`` with ``<key>_source`` beside every :class:`EventMs` value
+    of its dicts, at any depth."""
+    if isinstance(obj, dict):
+        out = {}
+        for key, value in obj.items():
+            out[key] = _sourced(value)
+            if isinstance(value, EventMs):
+                out[f"{key}_source"] = value.source
+        return out
+    if isinstance(obj, (list, tuple)):
+        return [_sourced(value) for value in obj]
+    return obj
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    print(json.dumps(_sourced(obj)), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -306,23 +366,30 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 2, windows: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 2, windows: int = 3,
+              fallback: bool = True) -> float:
     """Mean device milliseconds per call of ``fn``: the summed durations of
     the kernels and copies that ``iters`` calls put on the card, read from
     ``torch.profiler`` after warm-up. The host's time between them (Python,
     checks, launch issue) is not in it; :func:`cuda_ms` measures that.
 
-    The trace may lack records: 19 of 20 launches of one kernel, and 16 of
-    20 in a process's first window, on an H100; two of 20 of one kernel in
-    six windows in a row, once earlier phases had profiled. The profiler
-    keeps the device records that fall inside its window, whose edges it
-    takes on the host's clock, so the calls run ``PROFILER_PAD_S`` of host
-    sleep away from both edges, and ``PROFILER_EDGE_CALLS`` more calls run
-    before and after the timed ones inside the window: only the device
-    records within the timed calls' range (its span on the device
-    timeline) count. A window whose range lacks more than one record of an
-    operation is reported (phase ``profiler_retry``) and profiled again, up
-    to ``windows`` times; then the run fails."""
+    The calls run ``PROFILER_PAD_S`` of host sleep away from both edges of
+    the profiler's window, and ``PROFILER_LEAD_CALLS`` more calls run
+    before the timed ones inside the window (the profiler may keep no
+    device record of the window's first four launches), and
+    ``PROFILER_EDGE_CALLS`` after them. The timed calls'
+    records are those within the ``device_ms`` annotation's span on the
+    device timeline. An operation whose span lacks records that the whole
+    window holds (a whole number a call, edge calls included) lost them to
+    the span, not to the profiler: it counts from the whole window, and
+    the window is reported with where its records lay (phase
+    ``profiler_span_short``). An operation short in both (records the
+    profiler did not keep; one short is tolerated) is reported (phase
+    ``profiler_retry``, with the window's host launch records and device
+    records) and profiled again, up to ``windows`` times. Then the time
+    comes from CUDA events as an :class:`EventMs` (phase
+    ``profiler_fallback``), or, with ``fallback=False``, the call
+    raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -330,10 +397,12 @@ def device_ms(fn, iters: int = 20, warmup: int = 2, windows: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    n_window = iters + PROFILER_LEAD_CALLS + PROFILER_EDGE_CALLS
+    short = {}
     for window in range(windows):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILER_PAD_S)
-            for _ in range(PROFILER_EDGE_CALLS):
+            for _ in range(PROFILER_LEAD_CALLS):
                 fn()
             with record_function("device_ms"):
                 for _ in range(iters):
@@ -343,31 +412,102 @@ def device_ms(fn, iters: int = 20, warmup: int = 2, windows: int = 3) -> float:
             torch.cuda.synchronize()
             time.sleep(PROFILER_PAD_S)
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        # the timed range's device span; a trace without one counts every
-        # record of the window, edge calls included
-        timed = [(e.time_range.start, e.time_range.end) for e in events
+        spans = [(e.time_range.start, e.time_range.end) for e in events
                  if e.is_user_annotation and e.name == "device_ms"]
-        n_calls = iters if timed else iters + 2 * PROFILER_EDGE_CALLS
-        timed = timed or [(float("-inf"), float("inf"))]
-        by_name = {}
+        whole, in_span = {}, {}
         for e in events:
-            if not e.is_user_annotation and any(a <= e.time_range.start and e.time_range.end <= b
-                                                for a, b in timed):
-                by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
-        # Each operation counts as its mean time times its records per
-        # call, rounded; one record short is tolerated.
-        us, short = 0.0, {}
-        for name, spans in by_name.items():
-            per_call = max(1, round(len(spans) / n_calls))
-            if abs(len(spans) - per_call * n_calls) > 1:
-                short[name[:90]] = len(spans)
-            us += sum(spans) / len(spans) * per_call
+            if e.is_user_annotation:
+                continue
+            t = (e.time_range.start, e.time_range.end)
+            whole.setdefault(e.name, []).append(t)
+            if any(a <= t[0] and t[1] <= b for a, b in spans):
+                in_span.setdefault(e.name, []).append(t)
+
+        def per_call(records, n_calls):
+            """Records a call, rounded, or None where more than one is missing."""
+            k = max(1, round(len(records) / n_calls))
+            return k if abs(len(records) - k * n_calls) <= 1 else None
+
+        # Each operation counts as its mean time times its records per call.
+        us, short, span_short = 0.0, {}, {}
+        for name, records in whole.items():
+            got = in_span.get(name, [])
+            k = per_call(got, iters) if spans else None
+            if k is None:
+                k = per_call(records, n_window)
+                if k is None:
+                    short[name[:90]] = [len(got), len(records)]
+                    continue
+                if spans:
+                    left = sum(t[1] <= min(a for a, _ in spans) for t in records)
+                    span_short[name[:90]] = {"in_span": len(got), "window": len(records),
+                                             "before_span": left,
+                                             "after_span": len(records) - len(got) - left}
+                got = records
+            us += sum(b - a for a, b in got) / len(got) * k
+        if span_short:
+            emit({"phase": "profiler_span_short", "window": window, "calls": iters,
+                  "window_calls": n_window, "spans": len(spans), "records": span_short,
+                  **_lost_launches(prof)})
         if not short and us > 0:
             return us / 1e3
-        emit({"phase": "profiler_retry", "window": window, "calls": n_calls,
-              "records": short or "none"})
-    raise AssertionError(f"in {windows} windows of {iters} calls the profiler kept "
-                         f"no whole number of device records a call: {short or 'none'}")
+        emit({"phase": "profiler_retry", "window": window, "calls": iters,
+              "window_calls": n_window, "records_in_span_and_window": short or "none",
+              **_lost_launches(prof)})
+    message = (f"in {windows} windows of {iters} calls the profiler kept "
+               f"no whole number of device records a call: {short or 'none'}")
+    if not fallback:
+        raise AssertionError(message)
+    try:
+        ms = EventMs(queued_ms(fn), "cuda_events_queued")
+    except SpinTooShort:
+        ms = EventMs(cuda_ms(fn, iters), "cuda_events")
+    emit({"phase": "profiler_fallback", "calls": iters, "windows": windows,
+          "records_in_span_and_window": short or "none", "ms": ms})
+    return ms
+
+
+def _lead_in():
+    """Open a profiler window: ``PROFILER_LEAD_LAUNCHES`` spin kernels of
+    one cycle in a ``PROFILER_LEAD`` range, then a synchronize. In some
+    processes the profiler keeps no device record of a window's first four
+    launches while it keeps their host launch records (PERF.md §7); these
+    launches take that loss, and the readers of the window skip what it
+    kept of them (:func:`_outside_lead`)."""
+    import torch
+    from torch.profiler import record_function
+
+    with record_function(PROFILER_LEAD):
+        for _ in range(PROFILER_LEAD_LAUNCHES):
+            torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def _outside_lead(prof):
+    """A test of a device interval (start, end) of ``prof``'s window: True
+    unless it lies in the window's :func:`_lead_in` range."""
+    from torch.autograd import DeviceType
+
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and e.is_user_annotation
+             and e.name == PROFILER_LEAD]
+    return lambda a, b: not any(s <= a and b <= t for s, t in spans)
+
+
+def _lost_launches(prof) -> dict:
+    """Of a profiler window: its kernel launches on the host, its device
+    records, and the places (in launch order) of the launches whose
+    correlation id no device record carries; None where no record
+    carries a launch's id."""
+    from torch.autograd import DeviceType
+
+    launches = sorted((e.time_range.start, e.id) for e in prof.events()
+                      if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name)
+    kept = {e.id for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+    lost = [i for i, (_, cid) in enumerate(launches) if cid not in kept]
+    return {"host_launch_records": len(launches), "device_records": len(kept),
+            "lost_launch_places": lost if len(lost) < len(launches) else None}
 
 
 def _kernel_name(signature: str) -> str:
@@ -379,8 +519,9 @@ def _kernel_name(signature: str) -> str:
 def launch_sequence_ms(fn, launches: int, windows: int = 3) -> list:
     """Device milliseconds of each kernel one call of ``fn`` launches, in
     launch order, as ``[name, ms]`` pairs: one call under ``torch.profiler``
-    padded as in :func:`device_ms`, profiled again (up to ``windows`` times)
-    when the trace does not hold ``launches`` records."""
+    padded as in :func:`device_ms` after a :func:`_lead_in`, profiled again (up to ``windows`` times)
+    when the trace does not hold ``launches`` records; None (phase
+    ``profiler_fallback``) when no window held them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -390,18 +531,22 @@ def launch_sequence_ms(fn, launches: int, windows: int = 3) -> list:
     for window in range(windows):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILER_PAD_S)
+            _lead_in()
             fn()
             torch.cuda.synchronize()
             time.sleep(PROFILER_PAD_S)
+        outside = _outside_lead(prof)
         records = sorted(
             (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and outside(e.time_range.start, e.time_range.end))
         if len(records) == launches:
             return [[_kernel_name(name), (b - a) / 1e3] for a, b, name in records]
         emit({"phase": "profiler_retry", "window": window, "calls": 1,
               "records": len(records)})
-    raise AssertionError(f"in {windows} windows the profiler kept no {launches} "
-                         "device records of one call")
+    emit({"phase": "profiler_fallback", "calls": 1, "windows": windows,
+          "launches": launches, "launch_ms": None})
+    return None
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -421,6 +566,37 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int = 50, spin: int = 100_000_000) -> float:
+    """Mean device milliseconds of a call of ``fn``: CUDA events around
+    ``iters`` calls queued behind a spin kernel of ``spin`` cycles (~50 ms
+    by default; longer where a call issues many launches), so that the
+    card runs them back to back whatever the host's time to issue them
+    (where a call's host time exceeds its kernel's, events around calls
+    issued one after another measure the host). Where the spin ended
+    before the host had queued every call, the calls are queued again
+    behind a spin four times as long, twice; then :class:`SpinTooShort`
+    (a call that waits on the card itself can never be queued so)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(iters):
+            fn()
+        queued = not start.query()
+        end.record()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        spin *= 4
+    raise SpinTooShort(f"a spin of {spin // 4} cycles ended before {iters} calls were queued")
 
 
 def phase_env():
@@ -718,28 +894,34 @@ def _profile_summary(prof, stages: tuple, outer: str, outer_default: str) -> dic
     ranges that hold ``stages`` ranges: a kernel belongs to the shortest
     range whose device span holds it; kernels in an ``outer`` range and in
     no stage count as ``outer_default``, kernels outside every range as
-    "other". Also the device's busy time (union of kernel and copy
-    intervals) and the eight kernels with the most device time. The
+    "other"; with each stage's count of kernels and copies. Also the
+    device's busy time (union of kernel and copy intervals) and the eight
+    kernels with the most device time. The
     profiler puts each range on the device timeline as an annotation span;
-    those spans only attribute kernels to stages."""
+    those spans only attribute kernels to stages. The window's
+    :func:`_lead_in` kernels are left out."""
     from torch.autograd import DeviceType
 
     names = set(stages) | {outer}
     spans = []
     ops = []
+    outside = _outside_lead(prof)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         if e.name in names:
             spans.append((e.time_range.start, e.time_range.end, e.name))
-        elif not e.is_user_annotation:
+        elif not e.is_user_annotation and outside(e.time_range.start, e.time_range.end):
             ops.append((e.time_range.start, e.time_range.end, e.name))
 
     stage_us = dict.fromkeys((*stages, outer_default, "other"), 0.0)
+    stage_ops = dict.fromkeys(stage_us, 0)
     for a, b, _ in ops:
         held = [(t - s, n) for s, t, n in spans if s <= a and b <= t]
         name = min(held)[1] if held else "other"
-        stage_us[outer_default if name == outer else name] += b - a
+        stage = outer_default if name == outer else name
+        stage_us[stage] += b - a
+        stage_ops[stage] += 1
     busy_us, end = 0.0, float("-inf")
     for a, b, _ in sorted(ops):
         busy_us += max(0.0, b - max(a, end))
@@ -751,6 +933,7 @@ def _profile_summary(prof, stages: tuple, outer: str, outer_default: str) -> dic
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {
         "stage_device_ms": {k: v / 1e3 for k, v in stage_us.items()},
+        "stage_device_ops": stage_ops,
         "device_busy_ms": busy_us / 1e3, "device_ops": len(ops),
         "top_device_ms": [[name[:90], ms, n] for name, (ms, n) in top],
     }
@@ -837,6 +1020,7 @@ def phase_serve():
     encode = _keep_largest(hashgrid_ops, "hashgrid_encode_cuda", largest)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _lead_in()
             t0 = time.perf_counter()
             eng.render_image(state, grid, 0)
             torch.cuda.synchronize()
@@ -1208,6 +1392,7 @@ def _profile_steps(eng, state, grid, n_steps: int, threaded: bool):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
             torch.autograd.set_multithreading_enabled(threaded):
+        _lead_in()
         t0 = time.perf_counter()
         for _ in range(n_steps):
             with record_function("step"):
@@ -1286,12 +1471,14 @@ def _camera_rays(eye, center, res, hfov_deg: float):
 
 def _frame_device_ms(fn) -> float:
     """The device's busy ms (union of kernel and copy intervals) over one
-    call of ``fn`` under torch.profiler, padded as in :func:`device_ms`."""
+    call of ``fn`` under torch.profiler, padded as in :func:`device_ms`,
+    after a :func:`_lead_in`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILER_PAD_S)
+        _lead_in()
         fn()
         torch.cuda.synchronize()
         time.sleep(PROFILER_PAD_S)
@@ -2101,6 +2288,7 @@ def phase_image():
         first = state.step
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
                 torch.autograd.set_multithreading_enabled(False):
+            _lead_in()
             t0 = time.perf_counter()
             for _ in range(n):
                 with record_function("step"):
@@ -2532,6 +2720,7 @@ def phase_sdf_profile(eng, state, median_ms: float):
         first = state.step
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
                 torch.autograd.set_multithreading_enabled(False):
+            _lead_in()
             t0 = time.perf_counter()
             with record_function("steps"):
                 state, _ = eng.train(state, n)
@@ -2622,15 +2811,20 @@ VOLUME_HELDOUT_STEP = 10_000_000
 VOLUME_FRAME = (960, 540)
 VOLUME_CENTRE_MIN, VOLUME_CORNER_MAX = 0.5, 0.1  # tests/test_volume.py's opacity gates
 VOLUME_CLI_STEPS = 300
-# float32 operations of one walk iteration, for the walk kernels' bound: two
-# bit-cell lookups (3 products, 3 sums, 3 floors, 6 tests each), the flight
-# (the polynomial log, ~25, a difference, a maximum, a product) or the skip
-# (3 axes of a product, floor, sum, product, difference, test and division,
-# 2 minima, a clamp, a division and a sum), the new position (3 products,
-# 3 sums), the box test (6) and the flight's uniform (a conversion, a
+# float32 operations of one walk iteration, for the walk kernels' bound: a
+# bit-cell lookup (3 products, 3 sums, 3 floors, 6 tests), the flight (the
+# polynomial log, ~25, a difference, a maximum, a product) or the skip (3
+# axes of a product, floor, sum, product, difference, test and division, 2
+# minima, a clamp, a division and a sum), the new position (3 products, 3
+# sums), the box test (6) and the flight's uniform (a conversion, a
 # product); events' density lookups are not counted (a floor)
-WALK_ITER_OPS = 80
-BITGRID_BYTES = 128 ** 3
+WALK_ITER_OPS = 65
+# and of an episode's start and targets: the Box-Muller normal (two
+# logarithms and square roots, a sine and a cosine polynomial, ~110), three
+# uniforms, two normalisations (18), the origin and target (15), the slab
+# test (26), the entry (7) and the sky (~33)
+WALK_START_OPS = 220
+PACKED_BITGRID_BYTES = 128 ** 3 // 8
 
 
 def _walk_stats(steps, warp: int = 32) -> dict:
@@ -2647,14 +2841,17 @@ def _walk_stats(steps, warp: int = 32) -> dict:
             "idle_lane_share": 1.0 - total / max(float(w.amax(1).sum()) * warp, 1.0)}
 
 
-def _walk_row(name: str, run, twin, n: int, io_bytes: int, steps) -> dict:
+def _walk_row(name: str, run, twin, n: int, io_bytes: int, steps, start_ops: int = 0,
+              registers=None) -> dict:
     """A walk kernel (``run()``, its outputs) against its twin (``twin()``)
-    on the card, bit for bit; ``ms`` by CUDA events around 20 back-to-back
-    calls (as the BVH rows: the kernel runs long enough to hide its
-    wrapper), the twin once by events (``plain_ms``), the walk lengths from
-    ``steps`` and the bound: the rays' ``io_bytes`` and the bitgrid read
-    once, the iterations walked at ``WALK_ITER_OPS`` float32 operations
-    each. No PyTorch call computes a walk: no library time."""
+    on the card, bit for bit; ``ms`` by CUDA events around 50 calls queued
+    behind a spin kernel (:func:`queued_ms`, the device's time), ``call_ms``
+    by events around 20 calls issued one after another (what a caller
+    pays), the twin once by events (``plain_ms``), the walk lengths from
+    ``steps``, ptxas's ``registers`` a thread, and the bound: the rays'
+    ``io_bytes`` and the packed bitgrid read once, the iterations walked at
+    ``WALK_ITER_OPS`` float32 operations each plus ``start_ops``. No
+    PyTorch call computes a walk: no library time."""
     import torch
 
     got = run()
@@ -2669,13 +2866,14 @@ def _walk_row(name: str, run, twin, n: int, io_bytes: int, steps) -> dict:
               for g, w in zip(got, want))
     if not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(f"{name} differs from its twin, max abs err {err}")
-    call_ms = cuda_ms(run, iters=20)
     stats = _walk_stats(steps)
-    return {"N": n, "max_abs_err": err, "bit_exact": True, "ms": call_ms,
-            "ms_source": "cuda_events", "call_ms": call_ms, "plain_ms": plain_ms,
-            "library_ms": None, **stats,
-            "us_per_iteration_of_longest": call_ms * 1e3 / max(stats["walk_max"], 1),
-            **_bound(io_bytes + BITGRID_BYTES, stats["iterations"] * WALK_ITER_OPS)}
+    ms = queued_ms(run)
+    return {"N": n, "max_abs_err": err, "bit_exact": True, "ms": ms,
+            "ms_source": "cuda_events_queued", "call_ms": cuda_ms(run, iters=20),
+            "plain_ms": plain_ms, "library_ms": None, "registers": registers, **stats,
+            "us_per_iteration_of_longest": ms * 1e3 / max(stats["walk_max"], 1),
+            **_bound(io_bytes + PACKED_BITGRID_BYTES,
+                     stats["iterations"] * WALK_ITER_OPS + start_ops)}
 
 
 def _volume_frame(eng, state, o, d, gt: bool):
@@ -2873,10 +3071,13 @@ def phase_volume():
 
 def phase_volume_kernels(eng, state, rays) -> dict:
     """The kernels of the volume path against their twins on the card, at
-    the path's shapes: the training walk on one step's own 16,384
-    episodes, the render walk on the ground-truth frame's 518,400 rays and
-    on the first round of the learned frame, then B1 and the fused grid
-    backward on that step's own (x, g). Returns the rows by kernel."""
+    the path's shapes: the training walk (starts, walks and targets in one
+    launch) on one step's own key and 16,384 episodes against the twin's
+    composition (``training_data``: the starts' draws, the slab test, the
+    lockstep walk, the sky targets) on CUDA tensors; the render walk on the
+    ground-truth frame's 518,400 rays and on the first round of the learned
+    frame; then B1 and the fused grid backward on that step's own (x, g).
+    Returns the rows by kernel."""
     import torch
 
     from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
@@ -2887,10 +3088,12 @@ def phase_volume_kernels(eng, state, rays) -> dict:
     kept = {}
     train_cuda, render_cuda = vw.volume_train_walk_cuda, vw.volume_render_walk_cuda
     backward = hashgrid_ops.hashgrid_backward_cuda
+    registers = {re.search(r"(train_walk|render_gt|render_round)_kernel", k).group(1): v
+                 for k, v in ptxas_registers(vw.VOLUME_WALK).items()}
 
-    def keep_train(vol, pos, dirs, alive, key, *args):
-        kept["train"] = (pos, dirs, alive, key)
-        return train_cuda(vol, pos, dirs, alive, key, *args)
+    def keep_train(vol, key, n, albedo, scattering, envmap, *args):
+        kept["train"] = (key, n, albedo, scattering, envmap)
+        return train_cuda(vol, key, n, albedo, scattering, envmap, *args)
 
     def keep_render(vol, pos, dirs, alive, key, gt, iters=None, ids=None, **kw):
         name = "gt" if gt else "round"
@@ -2915,17 +3118,15 @@ def phase_volume_kernels(eng, state, rays) -> dict:
         vw.volume_train_walk_cuda, vw.volume_render_walk_cuda = train_cuda, render_cuda
         hashgrid_ops.hashgrid_backward_cuda = backward
     rows = {}
-    pos, dirs, alive, key = kept["train"]
-    E = pos.shape[0]
+    key, E, albedo, scattering, envmap = kept["train"]
     steps = torch.zeros((E,), dtype=torch.int32, device="cuda")
-    vw.volume_train_walk_cuda(walk, pos, dirs, alive, key, eng.albedo, eng.scattering, steps)
+    vw.volume_train_walk_cuda(walk, key, E, albedo, scattering, envmap, steps)
     rows["volume_train_walk"] = _walk_row(
         "volume_train_walk",
-        lambda: vw.volume_train_walk_cuda(walk, pos, dirs, alive, key, eng.albedo,
-                                          eng.scattering),
-        lambda: vw.training_walk(walk, pos, dirs, alive, vw.HashDraws(key), eng.albedo,
-                                 eng.scattering)[:5],
-        E, E * (12 + 12 + 1) + E * (48 + 16 + 4 + 12 + 4), steps)
+        lambda: vw.volume_train_walk_cuda(walk, key, E, albedo, scattering, envmap),
+        lambda: vw.training_data(walk, key, E, albedo, scattering, envmap)[:3],
+        E, E * vw.MAX_TRAIN_VERTICES * (12 + 16 + 1), steps, E * WALK_START_OPS,
+        registers.get("train_walk"))
     emit({"phase": "volume_kernels", "kernel": "volume_train_walk", "shape": "step_episodes",
           **rows["volume_train_walk"]})
 
@@ -2937,14 +3138,14 @@ def phase_volume_kernels(eng, state, rays) -> dict:
         "volume_render_walk",
         lambda: vw.volume_render_walk_cuda(walk, pos, dirs, alive, key, True),
         lambda: vw.render_walk(walk, pos, dirs, alive, vw.HashDraws(key), True)[:2],
-        B, B * (12 + 12 + 1) + B * (12 + 4), steps)
+        B, B * (12 + 12 + 1) + B * (12 + 4), steps, registers=registers.get("render_gt"))
     emit({"phase": "volume_kernels", "kernel": "volume_render_walk", "shape": "gt_frame_rays",
           **rows["volume_render_walk"]})
 
     pos, dirs, alive, key, iters, ids = kept["round"]
     n = pos.shape[0]
     # each timed call advances fresh copies (the kernel works in place)
-    inputs = [(pos.clone(), alive.clone(), iters.clone()) for _ in range(24)]
+    inputs = [(pos.clone(), alive.clone(), iters.clone()) for _ in range(80)]
 
     def one_round():
         p, a, it = inputs.pop() if inputs else (pos.clone(), alive.clone(), iters.clone())
@@ -2954,7 +3155,8 @@ def phase_volume_kernels(eng, state, rays) -> dict:
     rows["volume_render_round"] = _walk_row(
         "volume_render_walk (learned round)", one_round,
         lambda: vw.render_walk(walk, pos, dirs, alive, vw.HashDraws(key), False, iters, ids),
-        n, n * (12 + 12 + 1 + 4 + 8) + n * (12 + 1 + 4 + 1), got[2] - iters)
+        n, n * (12 + 12 + 1 + 4 + 8) + n * (12 + 1 + 4 + 1), got[2] - iters,
+        registers=registers.get("render_round"))
     emit({"phase": "volume_kernels", "kernel": "volume_render_walk", "shape": "learned_round",
           **rows["volume_render_round"]})
 
@@ -2983,6 +3185,7 @@ def phase_volume_profile(eng, state, median_ms: float):
     by stage (the walk and its targets, forward and loss, backward, grid
     backward, optimizer)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from ngp_tpu_torch.engines import volume as volume_engine
@@ -3001,6 +3204,7 @@ def phase_volume_profile(eng, state, median_ms: float):
         first = state.step
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
                 torch.autograd.set_multithreading_enabled(False):
+            _lead_in()
             t0 = time.perf_counter()
             with record_function("steps"):
                 state, _ = eng.train(state, n)
@@ -3014,7 +3218,14 @@ def phase_volume_profile(eng, state, median_ms: float):
     summary = _profile_summary(prof, ("walk", "forward", "backward", "grid_backward",
                                       "optimizer"), "steps", "other_in_step")
     busy_ms = summary["device_busy_ms"] / n
+    # the window launched the walk kernel once a step: its records show
+    # whether the profiler kept every one
+    walk_records = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                       and "train_walk_kernel" in e.name)
     emit({"phase": "volume_profile", "steps": [first, state.step - 1],
+          "walk_kernel_records": walk_records, "walk_kernel_launches": n,
+          "stage_device_ops_per_step": {k: v / n for k, v in
+                                        summary["stage_device_ops"].items()},
           "wall_ms_per_step": wall_ms / n, "device_busy_ms_per_step": busy_ms,
           "busy_share_of_profiled_wall": busy_ms / (wall_ms / n),
           "busy_share_of_unprofiled_median": busy_ms / median_ms,
@@ -3071,6 +3282,60 @@ def phase_volume_all():
     emit({"phase": "volume_launches", "launches": {k: launches[k] + cli[k] for k in launches}})
 
 
+PROBE_WINDOWS = 80
+
+
+def phase_profiler_probe():
+    """``chip_smoke.py profiler_probe``: ``PROBE_WINDOWS`` profiler windows
+    of :func:`device_ms` (one window each, no retry) on B1 ("tpu" tier,
+    2^20 uniform positions, bf16 table) and as many on the render walk
+    (the ground-truth walk of 2^19 rays through the 128³ procedural cloud):
+    how many windows held every record in the annotation's span, how many
+    lost records to the span only (``profiler_span_short``: the window
+    held them), and how many lost them from the window itself (the
+    profiler's own loss). One JSON line a kernel."""
+    import torch
+
+    from ngp_tpu_torch.data.volume import procedural_cloud
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_encode_cuda
+    from ngp_tpu_torch.ops.volume_walk import WalkVolume, volume_render_walk_cuda
+
+    enc = _encoding("tpu")
+    x = torch.rand((N_KERNEL, 3), generator=torch.Generator().manual_seed(2)).cuda()
+    table = enc.table.detach().to(torch.bfloat16)
+    geo = (enc.level_scale, enc.level_res, enc.level_size, enc.level_hashed, enc.hash_variant)
+    walk = WalkVolume.of(procedural_cloud(128), 0.01, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    pos = torch.rand((1 << 19, 3), generator=gen, device="cuda") * 0.5 + 0.25
+    dirs = torch.nn.functional.normalize(torch.randn((1 << 19, 3), generator=gen,
+                                                     device="cuda"), dim=-1)
+    alive = torch.ones((1 << 19,), dtype=torch.bool, device="cuda")
+    seen = []
+    global emit
+    printing = emit
+    emit = seen.append
+    try:
+        for name, fn in (("hashgrid_encode", lambda: hashgrid_encode_cuda(x, table, *geo)),
+                         ("volume_render_walk",
+                          lambda: volume_render_walk_cuda(walk, pos, dirs, alive, 1, True))):
+            counts = {"whole": 0, "span_short": 0, "window_short": 0}
+            for _ in range(PROBE_WINDOWS):
+                before = len(seen)
+                try:
+                    device_ms(fn, windows=1, fallback=False)
+                except AssertionError:
+                    counts["window_short"] += 1
+                    continue
+                short = [e for e in seen[before:] if e["phase"] == "profiler_span_short"]
+                counts["span_short" if short else "whole"] += 1
+            span_lines = [e for e in seen if e["phase"] == "profiler_span_short"]
+            printing({"phase": "profiler_probe", "kernel": name, "windows": PROBE_WINDOWS,
+                      **counts, "span_short_examples": span_lines[:3]})
+            seen.clear()
+    finally:
+        emit = printing
+
+
 def main():
     phase_env()
     import torch
@@ -3125,13 +3390,20 @@ def main():
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+
+    def fields(row):
+        """The kernels line's keys of ``row``, with its times' sources
+        where the row names them (CUDA events rather than the profiler)."""
+        return {**{k: row[k] for k in keys},
+                **{k: row[k] for k in ("ms_source", "library_ms_source") if k in row}}
+
     kernels = [{
         "name": "hashgrid_encode_cuda", "route": "cuda",
         "source": "ngp_tpu_torch/csrc/hashgrid_encode.cu",
         "replaces": "ngp_tpu/ops/pallas/hashgrid.py:66",
         "launches": (launches["hashgrid_encode"] + train_launches["hashgrid_encode"]
                      + capture_launches["hashgrid_encode"] + later["hashgrid_encode"]),
-        **{k: main_case[k] for k in keys},
+        **fields(main_case),
     }]
     for name, source, replaces, launched in (
         ("hashgrid_backward", "hashgrid_encode.cu",
@@ -3154,7 +3426,7 @@ def main():
                         "source": f"ngp_tpu_torch/csrc/{source}",
                         "replaces": replaces,
                         "launches": launched + capture_launches[name] + later[name],
-                        **{k: train_rows[name][k] for k in keys}})
+                        **fields(train_rows[name])})
     # the position gradient has no TPU kernel: the JAX package runs XLA
     # autodiff of its differentiable gather (ngp_tpu/models/encodings.py:824)
     kernels.append({"name": "hashgrid_input_grad", "route": "cuda",
@@ -3162,7 +3434,7 @@ def main():
                     "replaces": "ngp_tpu/models/encodings.py:824",
                     "launches": normals_launches["hashgrid_input_grad"]
                     + later["hashgrid_input_grad"],
-                    **{k: input_grad_row[k] for k in keys}})
+                    **fields(input_grad_row)})
     # B5 is on no path of either package (ngp_tpu/ops/pallas/sort.py:24-31):
     # its launches on the serve, train and capture paths are counted all the same
     kernels.append({"name": "bitonic_sort_pos", "route": "cuda",
@@ -3172,14 +3444,14 @@ def main():
                     + train_launches["bitonic_sort_pos"]
                     + capture_launches["bitonic_sort_pos"]
                     + later["bitonic_sort_pos"],
-                    **{k: sort_row[k] for k in keys}})
+                    **fields(sort_row)})
     # the BVH traversals have no TPU kernel: the JAX package runs them as
     # lax.while_loops; their rows come from phase sdf_kernels
     for name, line in (("bvh_closest_point", 190), ("bvh_ray_intersect", 291)):
         kernels.append({"name": name, "route": "cuda",
                         "source": "ngp_tpu_torch/csrc/triangle_bvh.cu",
                         "replaces": f"ngp_tpu/geometry/triangle_bvh.py:{line}",
-                        "launches": later[name], **{k: sdf_rows[name][k] for k in keys}})
+                        "launches": later[name], **fields(sdf_rows[name])})
     # the delta-tracking walks have no TPU kernel: the JAX package runs them
     # as lax.fori_loops; their rows come from phase volume_kernels (the
     # render walk's on the ground-truth frame's rays)
@@ -3189,7 +3461,7 @@ def main():
                         "source": "ngp_tpu_torch/csrc/volume_walk.cu",
                         "replaces": f"ngp_tpu/engines/volume.py:{line}",
                         "launches": later[name],
-                        **{k: volume_rows[(name, shape)][k] for k in keys}})
+                        **fields(volume_rows[(name, shape)])})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -3206,5 +3478,8 @@ if __name__ == "__main__":
         phase_sdf_all()
     elif sys.argv[1:] == ["volume"]:
         phase_volume_all()
+    elif sys.argv[1:] == ["profiler_probe"]:
+        phase_env()
+        phase_profiler_probe()
     else:
         main()

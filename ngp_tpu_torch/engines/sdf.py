@@ -213,11 +213,15 @@ class SdfEngine:
 
     # -- training (train_sdf + training_prep_sdf)
 
-    def train(self, state: TrainState, n_steps: int) -> tuple[TrainState, torch.Tensor]:
+    def train(self, state: TrainState, n_steps: int,
+              log_every: int = 0) -> tuple[TrainState, torch.Tensor]:
         """``n_steps`` steps on ``state`` (in place): a new batch at the
         call's first step and every ``data_refresh_interval`` steps, each
         step's rows in a new order. Returns ``state`` and the steps' losses
-        (n_steps,) on the device; the meters read the last once."""
+        (n_steps,) on the device; the meters read the last once.
+        ``log_every`` prints the JAX engine's line ``sdf step {step}:
+        loss={loss:.6f}`` at each step divisible by it (a host
+        synchronisation there; none when 0)."""
         pos = dist = None
         losses = []
         t0 = time.monotonic()
@@ -228,6 +232,8 @@ class SdfEngine:
                 pos, dist = self.training_batch(step)
             perm = self.step_permutation(step, pos.shape[0])
             losses.append(self.trainer.training_step(state, pos[perm], dist[perm][:, None]))
+            if log_every and step % log_every == 0:
+                print(f"sdf step {step}: loss={float(losses[-1]):.6f}")
         if not losses:
             return state, torch.zeros((0,), dtype=torch.float32, device=self.device)
         losses = torch.stack(losses)

@@ -15,8 +15,9 @@ the filled mask, summed, over the filled count, over 4. A frame
 delta-tracks the learned field, or the volume itself (``gt``), and adds
 the sky behind what is left of each ray's transmittance.
 
-The walks run in ``ops/volume_walk.py``: the training walk as one kernel
-launch a step; a ground-truth frame as one launch; a learned frame as
+The walks run in ``ops/volume_walk.py``: a step's training data (the
+episodes' starts, their walks and the sky targets) as one kernel launch;
+a ground-truth frame as one launch; a learned frame as
 rounds of an event wavefront, each one kernel launch that advances every
 live ray to its next event, then the network at the events only and the
 composite, the live rays gathered every ``RENDER_CHECK_EVERY`` rounds.
@@ -53,9 +54,7 @@ from ngp_tpu_torch.ops.volume_walk import (
     WalkVolume,
     draw_key,
     extinction,
-    normalize,
     proc_envmap,
-    start_draws,
     volume_render_walk,
     volume_train_walk,
 )
@@ -106,8 +105,13 @@ class VolumeEngine:
         net.reset_parameters(torch.Generator().manual_seed(self.seed))
         return TrainState.create(net)
 
+    @property
+    def envmap(self) -> tuple:
+        """The procedural sky's parameters: (up, sun direction, sky colour)."""
+        return self.up_dir, self.sun_dir, self.sky_color
+
     def _sky(self, dirs: torch.Tensor) -> torch.Tensor:
-        return proc_envmap(dirs, self.up_dir, self.sun_dir, self.sky_color)
+        return proc_envmap(dirs, *self.envmap)
 
     # -- training data (volume_generate_training_data_kernel)
 
@@ -115,26 +119,14 @@ class VolumeEngine:
                                start=None):
         """Path-trace ``n_episodes`` (``batch_size / 4`` by default) with the
         draws of ``step``: (positions (E·4, 3), targets (E·4, 4) [rgb,
-        density], valid (E·4,) bool). ``start`` (normal (E, 3), uniform
-        (E, 3)) replaces the starts' draws and ``draws``
-        (``ops/volume_walk.ArrayDraws``, CPU only) the walk's."""
+        density], valid (E·4,) bool); on the card one launch of the
+        training walk kernel. ``start`` (normal (E, 3), uniform (E, 3))
+        replaces the starts' draws and ``draws``
+        (``ops/volume_walk.ArrayDraws``) the walk's, both on the CPU only."""
         E = n_episodes if n_episodes is not None else self.batch_size // MAX_TRAIN_VERTICES
         key = draw_key(self.seed ^ _DATA_STREAM, step)
-        d1, ut = start if start is not None else start_draws(key, E, self.device)
-        origin = normalize(d1) * 2.0 + 0.5
-        target = self.aabb_min + ut * (self.aabb_max - self.aabb_min)
-        dirs = normalize(target - origin)
-        tmin, tmax = ray_aabb_range(origin, dirs, self.aabb_min, self.aabb_max)
-        pos = origin + dirs * (tmin + 1e-6)[:, None]
-        out_pos, out_den, cursor, dirs, thr = volume_train_walk(
-            self.walk, pos.contiguous(), dirs.contiguous(), tmin <= tmax, key, self.albedo,
-            self.scattering, draws)
-        sky = self._sky(dirs) * thr[:, None]
-        valid = (torch.arange(MAX_TRAIN_VERTICES, device=self.device)[None, :]
-                 < cursor[:, None]).reshape(-1)
-        targets = torch.cat([sky[:, None, :].expand(E, MAX_TRAIN_VERTICES, 3).reshape(-1, 3),
-                             out_den.reshape(-1, 1)], dim=-1)
-        return out_pos.reshape(-1, 3), targets, valid
+        return volume_train_walk(self.walk, key, E, self.albedo, self.scattering, self.envmap,
+                                 start, draws)
 
     # -- training
 
@@ -157,12 +149,20 @@ class VolumeEngine:
         model.zero_grad(set_to_none=True)  # a table's d(table) is table-sized
         return loss.detach()
 
-    def train(self, state: TrainState, n_steps: int) -> tuple[TrainState, torch.Tensor]:
+    def train(self, state: TrainState, n_steps: int,
+              log_every: int = 0) -> tuple[TrainState, torch.Tensor]:
         """``n_steps`` steps on ``state`` (in place). Returns ``state`` and
         the steps' losses (n_steps,) on the device; the meters read the
-        last once."""
+        last once. ``log_every`` prints the JAX engine's line
+        ``volume step {step}: loss={loss:.5f}`` at each step divisible by
+        it (a host synchronisation there; none when 0)."""
         t0 = time.monotonic()
-        losses = [self.training_step(state) for _ in range(n_steps)]
+        losses = []
+        for _ in range(n_steps):
+            step = state.step
+            losses.append(self.training_step(state))
+            if log_every and step % log_every == 0:
+                print(f"volume step {step}: loss={float(losses[-1]):.5f}")
         if not losses:
             return state, torch.zeros((0,), dtype=torch.float32, device=self.device)
         losses = torch.stack(losses)

@@ -1,6 +1,6 @@
 """Delta tracking through a density volume: the CUDA kernels' wrappers
 (:func:`volume_train_walk_cuda`, :func:`volume_render_walk_cuda`), their
-plain PyTorch twins (:func:`training_walk`, :func:`render_walk`) and the
+plain PyTorch twins (:func:`training_data`, :func:`render_walk`) and the
 pieces both are made of.
 
 The JAX package has no TPU kernel here: its volume engine runs the two
@@ -12,8 +12,17 @@ occupied, else a skip to the next bitgrid cell; an event is a landing in an
 occupied cell from an occupied cell. The kernels
 (``ngp_tpu_torch/csrc/volume_walk.cu``) run a thread an episode or a ray
 and stop where the lockstep loop leaves a lane frozen (a dead episode or
-ray changes nothing in later iterations). The twins run the lockstep loop
-on tensors, gathering the live rows every ``CHECK_EVERY`` iterations.
+ray changes nothing in later iterations); the training kernel also draws
+each episode's start and writes its targets, so that a step's training
+data is one launch. The twins run the lockstep loop on tensors, gathering
+the live rows every ``CHECK_EVERY`` iterations.
+
+The training kernel reads the bitgrid packed to one bit a cell in tiles
+of ``PACKED_TILE`` cells, one 128-byte line each (:func:`pack_bitgrid`),
+and the density in bricks of ``BRICK``³ voxels (:func:`brick_density`),
+both built once by :meth:`WalkVolume.of` (:func:`packed_bit` and
+:func:`brick_index` address them as the kernel does); the render kernels
+and the twins read the 128³ uint8 grid and the (X, Y, Z) density.
 
 Random draws: the kernels and the twins draw from one counter-based
 stream, a 32-bit integer hash of (seed, step, row, iteration, stream)
@@ -27,8 +36,8 @@ The twins also take explicit per-iteration arrays (:class:`ArrayDraws`),
 which the tests fill from the JAX engine's key schedule.
 
 :func:`volume_train_walk` and :func:`volume_render_walk` pick by the
-device of the positions: the twin for CPU tensors, the kernel for CUDA
-tensors, which launches or raises.
+device of the volume or the positions: the twin for CPU tensors, the
+kernel for CUDA tensors, which launches or raises.
 """
 
 from __future__ import annotations
@@ -41,10 +50,13 @@ import torch
 
 from ngp_tpu_torch.ops.bvh import dot3
 from ngp_tpu_torch.ops.cuda_build import CudaKernel, launch_on
+from ngp_tpu_torch.ops.marching import ray_aabb_range
 
 MAX_TRAIN_VERTICES = 4  # testbed_volume.cu:85
 MAX_WALK_ITERS = 512  # the JAX engine's lockstep bound
 BITGRID_RES = 128
+PACKED_TILE = (8, 8, 16)  # bit cells (x, y, z) of one 32-word tile of the packed bitgrid
+BRICK = 4  # voxels a side of a brick of the training kernel's density
 CHECK_EVERY = 16  # twin iterations between gathers of the live rows
 START_ITERATION = MAX_WALK_ITERS  # the draws of an episode's start
 _U32 = 0xFFFFFFFF
@@ -65,15 +77,20 @@ _SIN_C = tuple(_f32(c) for c in (-1 / 6, 1 / 120, -1 / 5040, 1 / 362880, -1 / 39
 _COS_C = tuple(_f32(c) for c in (-1 / 2, 1 / 24, -1 / 720, 1 / 40320, -1 / 3628800))
 _EPS = _f32(1e-12)
 _DT_MIN, _DT_PAD, _OPAQUE = _f32(1e-3), _f32(1e-5), _f32(0.99)
+_ENTRY = _f32(1e-6)  # how far past the slab test's entry a walk starts
+# the sun's colour, (255, 215, 195) / 255 in float32 (the JAX package's
+# float32 division; PyTorch would multiply a CUDA tensor by 1/255)
+_SUN_COL = tuple(float(np.float32(c) / np.float32(255.0)) for c in (255.0, 215.0, 195.0))
 
 _vp, _i, _ll, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
-_VOLUME = [_vp, _vp, _ll, _ll, _ll, _vp, _u]  # bits, density, X, Y, Z, params, key
+# bits, packed bits, density, bricks, X, Y, Z, params, key
+_VOLUME = [_vp, _vp, _vp, _vp, _ll, _ll, _ll, _vp, _u]
 N_PARAMS = 14
+N_ENVMAP = 12
 VOLUME_WALK = CudaKernel(
     "volume_walk.cu",
     {
-        "volume_train_walk": (_i, _VOLUME + [_vp, _vp, _vp, _ll, _vp, _vp, _vp, _vp, _vp,
-                                             _vp, _vp]),
+        "volume_train_walk": (_i, _VOLUME + [_vp, _ll, _vp, _vp, _vp, _vp, _vp]),
         "volume_render_walk": (_i, _VOLUME + [_i, _vp, _vp, _vp, _vp, _vp, _ll, _vp, _vp,
                                               _vp, _vp, _vp]),
         "volume_walk_error_string": (ctypes.c_char_p, [_i]),
@@ -85,9 +102,13 @@ VOLUME_WALK = CudaKernel(
 
 class WalkVolume(NamedTuple):
     """What a walk reads of a ``data/volume.DenseVolume``, on one device:
-    the bitgrid (128³ uint8), the density (X, Y, Z float32), the AABB
-    (3,) float32 tensors, the world→index scale and offset, the global
-    majorant, and the free-flight scale (distance scale over majorant)."""
+    the bitgrid (128³ uint8) and its packed copy (:func:`pack_bitgrid`),
+    the density (X, Y, Z float32) and its copy in bricks
+    (:func:`brick_density`), the AABB (3,) float32 tensors, the
+    world→index scale and offset, the global majorant, the free-flight
+    scale (distance scale over majorant), and ``box``: the kernels' first
+    12 parameters as Python floats (:meth:`params`), so that a launch reads
+    no device tensor."""
 
     bitgrid: torch.Tensor
     density: torch.Tensor
@@ -97,23 +118,87 @@ class WalkVolume(NamedTuple):
     w2i_offset: torch.Tensor
     majorant: float
     flight_scale: float
+    packed: torch.Tensor
+    bricks: torch.Tensor
+    box: tuple
 
     @staticmethod
     def of(volume, distance_scale: float, device) -> "WalkVolume":
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        def f32(a):
+            return np.asarray(a, np.float32)
 
-        return WalkVolume(volume.bitgrid.to(device), volume.density.to(device),
-                          t(volume.aabb_min), t(volume.aabb_max),
-                          _f32(volume.world2index_scale), t(volume.world2index_offset),
-                          _f32(volume.global_majorant),
-                          _f32(distance_scale / volume.global_majorant))
+        def t(a):
+            return torch.as_tensor(f32(a), device=device)
+
+        scale, majorant = _f32(volume.world2index_scale), _f32(volume.global_majorant)
+        flight = _f32(distance_scale / volume.global_majorant)
+        box = tuple(float(x) for a in (volume.aabb_min, volume.aabb_max,
+                                       volume.world2index_offset) for x in f32(a))
+        bitgrid, density = volume.bitgrid.to(device), volume.density.to(device)
+        return WalkVolume(bitgrid, density, t(volume.aabb_min), t(volume.aabb_max), scale,
+                          t(volume.world2index_offset), majorant, flight,
+                          pack_bitgrid(bitgrid), brick_density(density),
+                          box + (scale, majorant, flight))
 
     def params(self, albedo: float = 0.0, scattering: float = 0.0) -> list:
-        """The kernels' float parameters, in their order."""
-        return [*self.aabb_min.tolist(), *self.aabb_max.tolist(),
-                *self.w2i_offset.tolist(), self.w2i_scale, self.majorant,
-                self.flight_scale, _f32(albedo), _f32(scattering)]
+        """The kernels' float parameters, in their order: the AABB's min and
+        max, the world→index offset, scale, the majorant, the flight scale,
+        the albedo and the scattering, each a float32 value."""
+        return [*self.box, _f32(albedo), _f32(scattering)]
+
+
+def pack_bitgrid(bitgrid: torch.Tensor) -> torch.Tensor:
+    """The 128³ bitgrid at one bit a cell, as the kernels read it:
+    ``PACKED_TILE`` = 8 × 8 × 16 cells a tile of 32 int32 words (128 bytes,
+    one cache line), tiles in (x, y, z) order, and in a tile the cell
+    (x % 8, y % 8, z % 16) at bit ((x % 8)·8 + y % 8)·16 + z % 16, word by
+    word from the lowest bit. Returns (65,536,) int32 on the grid's
+    device."""
+    R = BITGRID_RES
+    tx, ty, tz = PACKED_TILE
+    b = (bitgrid != 0).reshape(R // tx, tx, R // ty, ty, R // tz, tz)
+    b = b.permute(0, 2, 4, 1, 3, 5).reshape(-1, 32, 32).long()
+    words = (b << torch.arange(32, device=b.device)).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32).reshape(-1)
+
+
+def packed_bit(packed: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
+    """The bits of integer ``cells`` (n, 3) in [0, 128) of a packed bitgrid,
+    addressed as the kernels address them (``bit_occupied``)."""
+    x, y, z = cells.long().unbind(-1)
+    tile = ((x // 8) * 16 + y // 8) * 8 + z // 16
+    bit = ((x % 8) * 8 + y % 8) * 16 + z % 16
+    word = packed[tile * 32 + bit // 32].long() & _U32
+    return ((word >> (bit % 32)) & 1) == 1
+
+
+def brick_density(density: torch.Tensor) -> torch.Tensor:
+    """The (X, Y, Z) density in bricks of ``BRICK``³ voxels, as the
+    training kernel reads it: each axis padded with zeros to a multiple of
+    ``BRICK``, bricks in (x, y, z) order and the voxels of a brick too.
+    Returns a flat float32 tensor on the density's device."""
+    B = BRICK
+    X, Y, Z = density.shape
+    padded = torch.nn.functional.pad(density, (0, -Z % B, 0, -Y % B, 0, -X % B))
+    b = padded.reshape(-(-X // B), B, -(-Y // B), B, -(-Z // B), B)
+    return b.permute(0, 2, 4, 1, 3, 5).reshape(-1).contiguous()
+
+
+def brick_index(cells: torch.Tensor, shape) -> torch.Tensor:
+    """The indices into :func:`brick_density`'s output of integer voxel
+    ``cells`` (n, 3) of a density of ``shape`` (X, Y, Z), as the training
+    kernel computes them (``density_at``)."""
+    B = BRICK
+    _, Y, Z = shape
+    x, y, z = cells.long().unbind(-1)
+    brick = ((x // B) * -(-Y // B) + y // B) * -(-Z // B) + z // B
+    return ((brick * B + x % B) * B + y % B) * B + z % B
+
+
+def envmap_params(up_dir, sun_dir, sky_col) -> list:
+    """The training kernel's sky parameters: up, sun direction, sky
+    colour and the sun's colour, each a float32 value."""
+    return [_f32(c) for v in (up_dir, sun_dir, sky_col) for c in v] + list(_SUN_COL)
 
 
 # -- the random stream
@@ -291,17 +376,18 @@ def normalize(v):
 
 def proc_envmap(dirs, up_dir, sun_dir, sky_col):
     """Procedural sun and sky (``proc_envmap``, ``testbed_volume.cu:46-60``;
-    the JAX package's ``proc_envmap``): (n, 3) radiance of unit ``dirs``.
-    The sun's power 64 is six squarings, as ``x ** 64`` is in JAX."""
-    dev = dirs.device
-    up, sun, sky = (torch.as_tensor(v, dtype=torch.float32, device=dev)
-                    for v in (up_dir, sun_dir, sky_col))
-    skyam = torch.sum(dirs * up, -1) * 0.5 + 0.5
-    sunam = torch.clamp_min(torch.sum(dirs * sun, -1), 0.0)
+    the JAX package's ``proc_envmap``): (n, 3) radiance of unit ``dirs``,
+    in the training kernel's order: dot products as ``dot3`` sums them,
+    the sun's power 64 as six squarings (as ``x ** 64`` is in JAX), the
+    parameters and the sun's colour float32 scalars."""
+    up, sun, sky = (tuple(_f32(c) for c in v) for v in (up_dir, sun_dir, sky_col))
+    skyam = (dirs[:, 0] * up[0] + dirs[:, 1] * up[1] + dirs[:, 2] * up[2]) * 0.5 + 0.5
+    sunam = torch.clamp_min(dirs[:, 0] * sun[0] + dirs[:, 1] * sun[1] + dirs[:, 2] * sun[2],
+                            0.0)
     for _ in range(6):
         sunam = sunam * sunam
-    sun_col = torch.tensor([255.0, 215.0, 195.0], device=dev) / 255.0
-    return sky[None, :] * skyam[:, None] + sun_col[None, :] * (20.0 * sunam)[:, None]
+    sun_power = 20.0 * sunam
+    return torch.stack([skyam * sky[c] + sun_power * _SUN_COL[c] for c in range(3)], dim=-1)
 
 
 def extinction(vol: WalkVolume, density: torch.Tensor) -> torch.Tensor:
@@ -421,6 +507,37 @@ def training_walk(vol: WalkVolume, pos, dirs, alive, draws, albedo: float, scatt
     return out_pos, out_den, cursor.to(torch.int32), dirs, thr, steps
 
 
+def training_data(vol: WalkVolume, key: int, n: int, albedo: float, scattering: float,
+                  envmap, start=None, draws=None):
+    """Plain PyTorch twin of ``volume_train_walk``: a step's training data
+    as the JAX engine's ``generate_training_data`` makes it
+    (``engines/volume.py:128-205``), for ``n`` episodes of stream ``key``.
+    Each episode starts on the sphere of radius 2 about the box's centre
+    (a normal draw, normalised) toward a uniform point of the box
+    (:func:`start_draws`, or ``start`` = (normal (n, 3), uniform (n, 3))),
+    enters 1e-6 past the slab test's entry, walks (:func:`training_walk`,
+    drawing from ``draws`` if given) and supervises its vertices with the
+    sky (``envmap`` = (up, sun direction, sky colour), :func:`proc_envmap`)
+    along its final direction times its throughput. Returns (positions
+    (n·4, 3), targets (n·4, 4) [rgb, density], valid (n·4,) bool,
+    iterations walked (n,) int32)."""
+    dev = vol.density.device
+    d1, ut = start if start is not None else start_draws(key, n, dev)
+    origin = normalize(d1) * 2.0 + 0.5
+    target = vol.aabb_min + ut * (vol.aabb_max - vol.aabb_min)
+    dirs = normalize(target - origin)
+    tmin, tmax = ray_aabb_range(origin, dirs, vol.aabb_min, vol.aabb_max)
+    pos = origin + dirs * (tmin + _ENTRY)[:, None]
+    out_pos, out_den, cursor, dirs, thr, steps = training_walk(
+        vol, pos, dirs, tmin <= tmax, draws or HashDraws(key), albedo, scattering)
+    sky = proc_envmap(dirs, *envmap) * thr[:, None]
+    V = MAX_TRAIN_VERTICES
+    valid = (torch.arange(V, device=dev)[None, :] < cursor[:, None]).reshape(-1)
+    targets = torch.cat([sky[:, None, :].expand(n, V, 3).reshape(-1, 3),
+                         out_den.reshape(-1, 1)], dim=-1)
+    return out_pos.reshape(-1, 3), targets, valid, steps
+
+
 def render_walk(vol: WalkVolume, pos, dirs, alive, draws, gt: bool, iters=None, ids=None):
     """Plain PyTorch twin of ``volume_render_walk``.
 
@@ -486,18 +603,18 @@ def render_walk(vol: WalkVolume, pos, dirs, alive, draws, gt: bool, iters=None, 
 # -- dispatch by device
 
 
-def volume_train_walk(vol: WalkVolume, pos, dirs, alive, key: int, albedo: float,
-                      scattering: float, draws=None):
-    """The training walk (see :func:`training_walk`) of stream ``key``: the
-    twin on the CPU (``draws`` replaces the stream), the kernel on the
-    card. Returns the twin's first five outputs."""
-    if pos.device.type == "cpu":
-        return training_walk(vol, pos, dirs, alive, draws or HashDraws(key), albedo,
-                             scattering)[:5]
-    if draws is not None:
+def volume_train_walk(vol: WalkVolume, key: int, n: int, albedo: float, scattering: float,
+                      envmap, start=None, draws=None):
+    """A step's training data (see :func:`training_data`) of ``n``
+    episodes of stream ``key``: the twin where the volume lies on the CPU
+    (``start`` and ``draws`` replace the stream's starts and walk draws),
+    the kernel on the card. Returns (positions, targets, valid)."""
+    if vol.density.device.type == "cpu":
+        return training_data(vol, key, n, albedo, scattering, envmap, start, draws)[:3]
+    if start is not None or draws is not None:
         raise ValueError("the volume_train_walk kernel draws from its key; explicit draws "
-                         "are for the CPU twin")
-    return volume_train_walk_cuda(vol, pos, dirs, alive, key, albedo, scattering)
+                         "and starts are for the CPU twin")
+    return volume_train_walk_cuda(vol, key, n, albedo, scattering, envmap)
 
 
 def volume_render_walk(vol: WalkVolume, pos, dirs, alive, key: int, gt: bool, iters=None,
@@ -523,14 +640,20 @@ def _check(cond: bool, msg: str, fn: str):
 
 
 def _check_volume(fn: str, vol: WalkVolume, dev):
-    _check(dev.type == "cuda", f"positions must be CUDA tensors, got {dev}", fn)
+    _check(dev.type == "cuda", f"the walk's tensors must lie on a CUDA device, got {dev}", fn)
     R = BITGRID_RES
-    for name, t, dtype in (("bitgrid", vol.bitgrid, torch.uint8),
-                           ("density", vol.density, torch.float32)):
-        _check(t.dtype == dtype and t.dim() == 3, f"{name} must be 3-D {dtype}", fn)
+    for name, t, dtype, dims in (("bitgrid", vol.bitgrid, torch.uint8, 3),
+                                 ("packed", vol.packed, torch.int32, 1),
+                                 ("density", vol.density, torch.float32, 3)):
+        _check(t.dtype == dtype and t.dim() == dims, f"{name} must be {dims}-D {dtype}", fn)
         _check(t.device == dev and t.is_contiguous(),
                f"{name} must be contiguous on {dev}", fn)
     _check(tuple(vol.bitgrid.shape) == (R, R, R), f"bitgrid must be {R}³", fn)
+    _check(vol.packed.numel() == R ** 3 // 32, f"packed must hold {R ** 3 // 32} words", fn)
+    bricks = int(np.prod([-(-n // BRICK) * BRICK for n in vol.density.shape]))
+    _check(vol.bricks.dtype == torch.float32 and vol.bricks.device == dev
+           and vol.bricks.is_contiguous() and vol.bricks.numel() == bricks,
+           f"bricks must be {bricks} contiguous float32 on {dev}", fn)
 
 
 def _check_rows(fn: str, dev, n: int, **tensors):
@@ -543,9 +666,12 @@ def _check_rows(fn: str, dev, n: int, **tensors):
 
 
 def _volume_args(vol: WalkVolume, key: int, albedo: float = 0.0, scattering: float = 0.0):
+    """The kernels' volume arguments, from host values only (no device
+    read, so no synchronisation)."""
     X, Y, Z = vol.density.shape
     params = (ctypes.c_float * N_PARAMS)(*vol.params(albedo, scattering))
-    return (vol.bitgrid.data_ptr(), vol.density.data_ptr(), X, Y, Z, params, key & _U32)
+    return (vol.bitgrid.data_ptr(), vol.packed.data_ptr(), vol.density.data_ptr(),
+            vol.bricks.data_ptr(), X, Y, Z, params, key & _U32)
 
 
 def _ptr(t) -> int:
@@ -558,37 +684,35 @@ def _raise_on(lib, rc: int, fn: str):
         raise RuntimeError(f"{fn} launch failed: {msg} ({rc})")
 
 
-def volume_train_walk_cuda(vol: WalkVolume, pos, dirs, alive, key: int, albedo: float,
-                           scattering: float, steps=None):
+def volume_train_walk_cuda(vol: WalkVolume, key: int, n: int, albedo: float,
+                           scattering: float, envmap, steps=None):
     """Launch ``volume_train_walk`` of ``csrc/volume_walk.cu`` on the
-    current stream: a thread an episode; the twin's outputs (vertices,
-    densities, slots filled, final directions, throughput). ``steps``, an
-    (E,) int32 tensor, receives each episode's iterations (measurements;
-    no path asks for it). Raises on any input the kernel does not take and
-    on a refused launch."""
+    current stream: a thread an episode draws its start, walks and writes
+    its 4 slots' training data; returns the twin's (positions (n·4, 3),
+    targets (n·4, 4), valid (n·4,) bool), on the volume's device.
+    ``steps``, an (n,) int32 tensor, receives each episode's iterations
+    (measurements; no path asks for it). Raises on any input the kernel
+    does not take and on a refused launch."""
     fn = "volume_train_walk_cuda"
-    dev = pos.device
+    dev = vol.density.device
     _check_volume(fn, vol, dev)
-    E = pos.shape[0]
-    _check_rows(fn, dev, E, pos=(pos, torch.float32, 3), dirs=(dirs, torch.float32, 3),
-                alive=(alive, torch.bool, None))
+    _check(n >= 0, f"episodes must be >= 0, got {n}", fn)
     if steps is not None:
-        _check_rows(fn, dev, E, steps=(steps, torch.int32, None))
-    out_pos = torch.empty((E, MAX_TRAIN_VERTICES, 3), dtype=torch.float32, device=dev)
-    out_den = torch.empty((E, MAX_TRAIN_VERTICES), dtype=torch.float32, device=dev)
-    cursor = torch.empty((E,), dtype=torch.int32, device=dev)
-    dirs_out = torch.empty((E, 3), dtype=torch.float32, device=dev)
-    thr = torch.empty((E,), dtype=torch.float32, device=dev)
-    if E == 0:
-        return out_pos, out_den, cursor, dirs_out, thr
+        _check_rows(fn, dev, n, steps=(steps, torch.int32, None))
+    V = MAX_TRAIN_VERTICES
+    positions = torch.empty((n * V, 3), dtype=torch.float32, device=dev)
+    targets = torch.empty((n * V, 4), dtype=torch.float32, device=dev)
+    valid = torch.empty((n * V,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return positions, targets, valid
     lib = VOLUME_WALK.library()
+    env = (ctypes.c_float * N_ENVMAP)(*envmap_params(*envmap))
     rc = launch_on(dev, lambda stream: lib.volume_train_walk(
-        *_volume_args(vol, key, albedo, scattering), pos.data_ptr(), dirs.data_ptr(),
-        alive.data_ptr(), E, out_pos.data_ptr(), out_den.data_ptr(), cursor.data_ptr(),
-        dirs_out.data_ptr(), thr.data_ptr(), _ptr(steps), stream))
+        *_volume_args(vol, key, albedo, scattering), env, n, positions.data_ptr(),
+        targets.data_ptr(), valid.data_ptr(), _ptr(steps), stream))
     _raise_on(lib, rc, "volume_train_walk")
     VOLUME_WALK.launches["volume_train_walk"] += 1
-    return out_pos, out_den, cursor, dirs_out, thr
+    return positions, targets, valid
 
 
 def volume_render_walk_cuda(vol: WalkVolume, pos, dirs, alive, key: int, gt: bool,

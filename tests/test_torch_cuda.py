@@ -1003,37 +1003,88 @@ def _volume_case(seed: int, n: int = 1 << 13):
     return vol, pos, d.contiguous(), tmin <= tmax
 
 
+# up, sun direction, sky colour: every term of the sky's radiance nonzero
+_ENVMAP = ((0.0, 0.0, 1.0), (0.3, 0.8, 0.52), (0.1, 0.2, 0.3))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("albedo,scattering", [(0.95, 0.0), (0.3, 0.6)])
 def test_volume_train_walk_matches_twin(cuda, albedo, scattering):
-    """The training walk kernel equals its twin bit for bit: vertices,
-    densities, slots filled, final directions, throughputs and iterations
-    walked, on episodes that miss the box, run along its axes, cross an
-    empty slab of bit cells and are absorbed early (albedo 0.3)."""
+    """The training walk kernel (starts, walks and targets in one launch)
+    equals its twin, the composition ``training_data`` on CUDA tensors, bit
+    for bit: positions, targets, valid flags and iterations walked, on
+    episodes that cross an empty slab of bit cells, fill all 4 slots or
+    none, and are absorbed early (albedo 0.3)."""
     from ngp_tpu_torch.ops.volume_walk import (
         VOLUME_WALK,
-        HashDraws,
         WalkVolume,
         draw_key,
-        training_walk,
+        training_data,
         volume_train_walk_cuda,
     )
 
-    vol, pos, dirs, alive = _volume_case(5)
+    vol = _volume_case(5)[0]
     walk = WalkVolume.of(vol, 0.01, "cuda")
     key = draw_key(1337 ^ 0x701, 3)
-    want = training_walk(walk, pos, dirs, alive, HashDraws(key), albedo, scattering)
+    E = 1 << 13
+    want = training_data(walk, key, E, albedo, scattering, _ENVMAP)
     before = VOLUME_WALK.launches["volume_train_walk"]
-    steps = torch.full(alive.shape, -1, dtype=torch.int32, device="cuda")
-    got = volume_train_walk_cuda(walk, pos, dirs, alive, key, albedo, scattering, steps)
+    steps = torch.full((E,), -1, dtype=torch.int32, device="cuda")
+    got = volume_train_walk_cuda(walk, key, E, albedo, scattering, _ENVMAP, steps)
     torch.cuda.synchronize()
     for g, w in zip((*got, steps), want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert VOLUME_WALK.launches["volume_train_walk"] == before + 1
-    assert not bool(alive.all()) and bool((want[2] == 4).any()) and bool((want[2] == 0).any())
-    assert bool((want[4] == 0).any()) and int(steps.max()) > 1
+    filled = want[2].view(E, 4).sum(1)
+    assert bool((filled == 4).any()) and bool((filled == 0).any()) and int(steps.max()) > 1
+    absorbed = (want[1][::4, :3] == 0).all(1)
+    assert bool(absorbed.any()) and bool((want[1][:, :3] > 0).any())
     if albedo < 0.5:
-        assert float((want[4] == 0).float().mean()) > 0.1
+        assert float(absorbed.float().mean()) > 0.1
+
+
+@pytest.mark.cuda
+def test_volume_engine_training_data_is_one_launch(cuda):
+    """On the card ``generate_training_data`` is one launch of the training
+    walk kernel and equals the twin's composition on the same stream."""
+    from ngp_tpu_torch.engines.volume import VolumeEngine
+    from ngp_tpu_torch.ops.volume_walk import VOLUME_WALK, draw_key, training_data
+
+    cfg = {"loss": {"otype": "L2"},
+           "optimizer": {"otype": "Adam", "learning_rate": 1e-2},
+           "encoding": {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
+                        "log2_hashmap_size": 12, "base_resolution": 8},
+           "network": {"otype": "FullyFusedMLP", "activation": "ReLU",
+                       "output_activation": "ReLU", "n_neurons": 64, "n_hidden_layers": 2}}
+    eng = VolumeEngine(cfg, _volume_case(8, n=64)[0], batch_size=1 << 12, seed=9,
+                       sky_color=(0.2, 0.1, 0.0))
+    launched = dict(VOLUME_WALK.launches)
+    got = eng.generate_training_data(4)
+    torch.cuda.synchronize()
+    assert VOLUME_WALK.launches["volume_train_walk"] == launched["volume_train_walk"] + 1
+    want = training_data(eng.walk, draw_key(9 ^ 0x701, 4), 1 << 10, eng.albedo, eng.scattering,
+                         eng.envmap)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="explicit draws"):
+        eng.generate_training_data(4, start=want[:2])
+
+
+@pytest.mark.cuda
+def test_volume_packed_bitgrid_on_card(cuda):
+    """The packed bitgrid and the density bricks built on the card equal
+    the CPU's, and the packed grid's reader equals the uint8 grid at every
+    cell."""
+    from ngp_tpu_torch.ops.volume_walk import brick_density, pack_bitgrid, packed_bit
+
+    vol = _volume_case(9, n=64)[0]
+    packed = pack_bitgrid(vol.bitgrid)
+    assert packed.is_cuda and torch.equal(packed.cpu(), pack_bitgrid(vol.bitgrid.cpu()))
+    bricks = brick_density(vol.density)
+    assert bricks.is_cuda and torch.equal(bricks.cpu(), brick_density(vol.density.cpu()))
+    cells = torch.stack(torch.meshgrid(*[torch.arange(128, device="cuda")] * 3, indexing="ij"),
+                        -1).reshape(-1, 3)
+    assert torch.equal(packed_bit(packed, cells), vol.bitgrid.reshape(-1) != 0)
 
 
 @pytest.mark.cuda
@@ -1146,19 +1197,28 @@ def test_volume_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
     vol, pos, dirs, alive = _volume_case(7, n=64)
     walk = WalkVolume.of(vol, 0.01, "cuda")
+    for bad in (walk._replace(density=vol.density.double()),
+                walk._replace(packed=walk.packed.long()),
+                walk._replace(packed=walk.packed[:100]),
+                walk._replace(bricks=walk.bricks[:-1]),
+                walk._replace(density=vol.density.cpu())):
+        with pytest.raises(ValueError):
+            volume_train_walk_cuda(bad, 1, 64, 0.95, 0.0, _ENVMAP)
+    with pytest.raises(ValueError):
+        volume_train_walk_cuda(walk, 1, -1, 0.95, 0.0, _ENVMAP)
+    with pytest.raises(ValueError):
+        volume_train_walk_cuda(walk, 1, 64, 0.95, 0.0, _ENVMAP,
+                               torch.zeros(32, dtype=torch.int32, device="cuda"))
     for bad in (pos.cpu(), pos.double(), pos[:, :2].contiguous()):
         with pytest.raises(ValueError):
-            volume_train_walk_cuda(walk, bad, dirs, alive, 1, 0.95, 0.0)
+            volume_render_walk_cuda(walk, bad, dirs, alive, 1, True)
     with pytest.raises(ValueError):
-        volume_train_walk_cuda(walk, pos, dirs[:32], alive, 1, 0.95, 0.0)
-    with pytest.raises(ValueError):
-        volume_train_walk_cuda(walk._replace(density=vol.density.double()), pos, dirs, alive,
-                               1, 0.95, 0.0)
+        volume_render_walk_cuda(walk, pos, dirs[:32], alive, 1, True)
     with pytest.raises(ValueError):
         volume_render_walk_cuda(walk, pos, dirs, alive, 1, False,
                                 torch.zeros(64, dtype=torch.int64, device="cuda"),
                                 torch.arange(64, device="cuda"))
     with pytest.raises(ValueError):
         volume_render_walk(walk, pos, dirs, alive, 1, True, draws=object())
-    empty = volume_train_walk_cuda(walk, pos[:0], dirs[:0], alive[:0], 1, 0.95, 0.0)
-    assert [t.shape[0] for t in empty] == [0] * 5
+    empty = volume_train_walk_cuda(walk, 1, 0, 0.95, 0.0, _ENVMAP)
+    assert [t.shape[0] for t in empty] == [0] * 3

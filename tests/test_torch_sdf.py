@@ -552,3 +552,33 @@ def test_sign_modes_give_the_watertight_samples_on_a_closed_mesh(sign_mode):
     firm = want.abs() > 1e-6
     assert torch.equal(got.abs(), want.abs())
     assert torch.equal(torch.sign(got[firm]), torch.sign(want[firm]))
+
+
+def test_train_log_every_prints_the_jax_lines(capsys):
+    """``SdfEngine.train(log_every=)`` prints the JAX engine's lines, ``sdf
+    step {step}: loss={loss:.6f}``, at the same steps, the port fed the
+    JAX engine's batches and permutations (its loss within 1e-3 relative
+    of JAX's, ``test_fit_matches_jax``'s bound; measured 8e-6 at step 3),
+    and nothing when 0."""
+    jeng, peng = _engines(CONFIG)
+    jstate = jeng.init_state()
+    pstate = TrainState.create(load_jax_params(peng._new_network(), _np(jstate.params)))
+    key = jax.random.PRNGKey(SEED ^ 0xD15)
+    peng.training_batch = lambda step: tuple(torch.from_numpy(np.array(a)) for a in
+                                             jeng.generate_training_samples(
+                                                 jax.random.fold_in(key, 10_000_000 + step),
+                                                 BATCH))
+    peng.step_permutation = lambda step, n: torch.from_numpy(np.asarray(
+        jax.random.permutation(jax.random.fold_in(key, step), n)).astype(np.int64))
+    line = re.compile(r"sdf step (\d+): loss=(\d+\.\d{6})")
+    jeng.train(jstate, 4, log_every=3)
+    jlines = capsys.readouterr().out.splitlines()
+    _, losses = peng.train(pstate, 4, log_every=3)
+    plines = capsys.readouterr().out.splitlines()
+    jfound, pfound = ([line.fullmatch(s) for s in lines] for lines in (jlines, plines))
+    assert [m.group(1) for m in jfound] == [m.group(1) for m in pfound] == ["0", "3"]
+    assert plines == [f"sdf step {s}: loss={float(losses[s]):.6f}" for s in (0, 3)]
+    for j, p in zip(jfound, pfound):
+        np.testing.assert_allclose(float(p.group(2)), float(j.group(2)), rtol=1e-3)
+    peng.train(pstate, 2)
+    assert capsys.readouterr().out == ""

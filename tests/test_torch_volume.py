@@ -545,10 +545,11 @@ def test_volume_refuses_the_card_without_one(files):
     from ngp_tpu_torch import run
     from ngp_tpu_torch.testbed import Testbed
 
-    with pytest.raises(ValueError, match="explicit draws"):
-        vw.volume_train_walk(vw.WalkVolume.of(procedural_cloud(32, device="cpu"), 0.01, "cpu"),
-                             torch.zeros((1, 3), device="meta"), None, None, 0, 0.95, 0.0,
-                             draws=object())
+    walk = vw.WalkVolume.of(procedural_cloud(32, device="cpu"), 0.01, "cpu")
+    off_cpu = walk._replace(density=torch.zeros((1, 1, 1), device="meta"))
+    for kw in ({"draws": object()}, {"start": object()}):
+        with pytest.raises(ValueError, match="explicit draws"):
+            vw.volume_train_walk(off_cpu, 0, 1, 0.95, 0.0, ((0, 1, 0),) * 3, **kw)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for call in (lambda: VolumeEngine(CONFIG, procedural_cloud(32, device="cpu")),
@@ -557,3 +558,21 @@ def test_volume_refuses_the_card_without_one(files):
                  lambda: run.main([files["nvdb"], "--n_steps", "0"])):
         with pytest.raises(RuntimeError, match="device 'cuda' requested"):
             call()
+
+
+def test_train_log_every_prints_the_jax_lines(engines, capsys):
+    """``VolumeEngine.train(log_every=)`` prints the JAX engine's lines,
+    ``volume step {step}: loss={loss:.5f}``, at the same steps (each
+    package its own loss: the draws differ), and nothing when 0."""
+    jeng, peng = engines
+    line = re.compile(r"volume step (\d+): loss=(\d+\.\d{5})")
+    jeng.train(jeng.init_state(), 3, log_every=2)
+    jlines = capsys.readouterr().out.splitlines()
+    pstate = peng.init_state()
+    _, losses = peng.train(pstate, 3, log_every=2)
+    plines = capsys.readouterr().out.splitlines()
+    assert [line.fullmatch(s).group(1) for s in jlines] == ["0", "2"]
+    assert [line.fullmatch(s).group(1) for s in plines] == ["0", "2"]
+    assert plines == [f"volume step {s}: loss={float(losses[s]):.5f}" for s in (0, 2)]
+    peng.train(pstate, 2)
+    assert capsys.readouterr().out == ""
