@@ -173,6 +173,24 @@ Phases, each printing one JSON line:
 18. volume_cli: ``python -m ngp_tpu_torch.run`` on the written cloud, 300
    steps with a snapshot and a screenshot, then the snapshot loaded in a
    new process with another screenshot, which must be the same pixels.
+19. camera: in a fresh process (``chip_smoke.py camera``, which also runs
+   alone), camera refinement through ``Testbed`` at its NeRF config
+   (instant-ngp's base.json: L=16, F=2, T=2^19, XOR hash, 64-wide MLPs,
+   2^18 sample slots a step) on the capture of phase 11 (written again
+   when absent), its training poses moved by seeded noise (positions σ
+   0.01, rotations σ 0.2°) through ``set_camera_extrinsics``: 500 steps
+   with refinement off and 500 with extrinsics, exposure, focal length and
+   distortion refined, each scored on the held-out views (gates: the
+   refined position offsets moved, the frozen camera group exactly 0, the
+   refined loss below 1.2× the frozen one on one batch; the refined run launches
+   ``hashgrid_input_grad`` and the float32-addend backward), a timing run
+   with exposure alone, and 200 steps on a motion-blurred copy of the
+   capture to a falling loss, with ``render(end_matrix=start)`` equal to
+   the still render bit for bit. Then (``camera_kernels``) the position
+   gradient bit for bit and the float32-addend backward within the float32
+   order bound on one refined step's own (x, g), beside the bf16-addend
+   backward on the same (x, g), and (``camera_profile``) 16 refined steps
+   under ``torch.profiler``: the busy share and device ms by stage.
 Then the ``kernels`` line, the card's ``name, power.limit``, and last the
 ``{"ok": true, ...}`` line. ``python3 chip_smoke.py profiler_probe`` runs
 no phase above: it counts how :func:`device_ms`'s profiler windows lose
@@ -1121,11 +1139,12 @@ def backward_levels(x, g, geo, keys, T: int) -> list:
     return out
 
 
-def _backward_row(x, g, geo, T: int, keys, vals) -> dict:
-    """The fused grid backward, (x, g) → d(table) with bf16 addends summed
-    in float32, against its twin within the float32 order bound (``keys``
-    and ``vals``: the twin's corner keys and addends); its times and
-    bound."""
+def _backward_row(x, g, geo, T: int, keys, vals, payload: str = "bfloat16") -> dict:
+    """The fused grid backward, (x, g) → d(table) with addends rounded to
+    ``payload`` (bf16 on the training path, float32 where the positions are
+    differentiable) summed in float32, against its twin within the float32
+    order bound (``keys`` and ``vals``: the twin's corner keys and
+    addends); its times and bound."""
     import torch
 
     from ngp_tpu_torch.ops import segsum
@@ -1133,15 +1152,16 @@ def _backward_row(x, g, geo, T: int, keys, vals) -> dict:
 
     (n_samples, D), L, F = x.shape, vals.shape[0], vals.shape[2]
     C = 1 << D
-    bwd = lambda: hashgrid_backward_cuda(x, g, *geo, None, T)  # noqa: E731
+    bwd = lambda: hashgrid_backward_cuda(x, g, *geo, None, T, payload)  # noqa: E731
     got = bwd()
     torch.cuda.synchronize()
     err = _sum_error("hashgrid_backward", got,
-                     segsum.segment_sum_reference(keys, vals, T), keys, vals, T)
+                     segsum.segment_sum_reference(keys, vals, T, payload), keys, vals, T,
+                     payload)
     del got
     return {
         "max_abs_err": err, "ms": device_ms(bwd), "call_ms": cuda_ms(bwd, iters=20),
-        "plain_ms": cuda_ms(lambda: hashgrid_backward_reference(x, g, *geo, None, T),
+        "plain_ms": cuda_ms(lambda: hashgrid_backward_reference(x, g, *geo, None, T, payload),
                             iters=3, warmup=1),
         "library_ms": None,
         # positions and cotangents read once, d(table) written once;
@@ -2313,11 +2333,14 @@ def phase_image():
 
 def _child(phase: str) -> list:
     """Run ``chip_smoke.py phase`` in a fresh process, echo its lines and
-    return them parsed; a non-zero exit fails the run."""
+    its wall seconds, and return its lines parsed; a non-zero exit fails
+    the run."""
+    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), phase], cwd=ROOT,
                           stdout=subprocess.PIPE, text=True)
     for line in proc.stdout.splitlines():
         print(line, flush=True)
+    emit({"phase": "child_seconds", "child": phase, "seconds": time.perf_counter() - t0})
     if proc.returncode != 0:
         raise AssertionError(f"chip_smoke.py {phase} exited {proc.returncode}")
     return [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
@@ -3282,6 +3305,401 @@ def phase_volume_all():
     emit({"phase": "volume_launches", "launches": {k: launches[k] + cli[k] for k in launches}})
 
 
+# phase camera: camera refinement on the capture of phase capture at the
+# Testbed's NeRF config (instant-ngp's base.json), as the JAX package's
+# test_camera_refinement_recovers_pose_noise gates it. 500 steps a run
+# (1,000 took 40 and 75 ms a step, and the phase 276 s alone, on an H100)
+CAMERA_STEPS = 500
+CAMERA_TIMED = (200, 300)  # steps of the runs' timing window (median ms)
+CAMERA_EXPOSURE_STEPS = 150  # a timing run with exposure refinement alone,
+CAMERA_EXPOSURE_TIMED = (100, 150)  # timed against the frozen run's same steps
+CAMERA_POS_SIGMA = 0.01  # NGP units
+CAMERA_ROT_SIGMA_DEG = 0.2
+CAMERA_MOVED_MIN = 1e-4
+CAMERA_LOSS_RATIO_MAX = 1.2
+CAMERA_PROFILE_STEPS = 8
+CAMERA_BLUR_STEPS = 100
+CAMERA_BLUR_RAD = 0.02
+CAMERA_BLUR_WINDOW = 20  # steps averaged at each end of the blur run
+CAMERA_FRAME = (320, 180)
+CAMERA_FLAGS = dict(optimize_extrinsics=True, optimize_exposure=True,
+                    optimize_focal_length=True, optimize_distortion=True)
+
+
+def _capture_jsons():
+    """The capture of phase capture, written again where it is absent (the
+    phase run alone)."""
+    from ngp_tpu_torch.data.synthetic import write_sphere_capture
+
+    out = os.path.join(ROOT, "build", "capture_smoke")
+    paths = tuple(os.path.join(out, f"transforms_{s}.json") for s in ("train", "test"))
+    if not all(os.path.exists(p) for p in paths):
+        paths = write_sphere_capture(out, res=CAPTURE_RES, device="cuda")
+    return paths
+
+
+def _rotation(rotvec):
+    """Rodrigues in float64 numpy."""
+    import numpy as np
+
+    angle = float(np.linalg.norm(rotvec))
+    if angle == 0.0:
+        return np.eye(3)
+    k = np.asarray(rotvec, np.float64) / angle
+    K = np.asarray([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + math.sin(angle) * K + (1 - math.cos(angle)) * K @ K
+
+
+def _camera_noise(n_images: int):
+    """Pose noise from numpy seed 0: positions N(0, ``CAMERA_POS_SIGMA``)
+    per axis, rotation vectors of angle N(0, ``CAMERA_ROT_SIGMA_DEG``)
+    about uniform random axes; (n, 3) each, NGP space."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    pos = rng.normal(0.0, CAMERA_POS_SIGMA, (n_images, 3))
+    axes = rng.normal(size=(n_images, 3))
+    axes /= np.linalg.norm(axes, axis=-1, keepdims=True)
+    angles = rng.normal(0.0, math.radians(CAMERA_ROT_SIGMA_DEG), n_images)
+    return pos, axes * angles[:, None]
+
+
+def _noisy_testbed(train_json: str, noise, **flags):
+    """``Testbed`` on the capture (its default NeRF config) with every
+    training pose moved by ``noise`` through ``set_camera_extrinsics``: the
+    camera rotated about its centre, then shifted."""
+    import numpy as np
+
+    from ngp_tpu_torch.testbed import Testbed
+
+    tb = Testbed(scene=train_json, device="cuda", **flags)
+    pos, rot = noise
+    for i in range(tb.n_images):
+        m = tb.get_camera_extrinsics(i, convert_to_nerf=False).astype(np.float64)
+        m[:, :3] = _rotation(rot[i]) @ m[:, :3]
+        m[:, 3] += pos[i]
+        tb.set_camera_extrinsics(i, m.astype(np.float32), convert_to_ngp=False)
+    return tb
+
+
+def _camera_run(tb, n_steps: int):
+    """``n_steps`` steps of ``tb``, one ``Testbed.train`` call each (it reads
+    the step's loss on the host); returns (ms a step, losses)."""
+    import torch
+
+    step_ms, losses = [], []
+    torch.cuda.synchronize()
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        tb.train(1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(tb.loss)
+    return step_ms, losses
+
+
+def _blur_json(train_json: str) -> str:
+    """The capture's training transforms with each frame's end pose turned
+    ``CAMERA_BLUR_RAD`` about the scene centre's vertical (NeRF z) axis and
+    pure motion blur (``rolling_shutter`` (0, 0, 0, 1)), written beside the
+    frames' directory into ``build/camera_smoke/``."""
+    import numpy as np
+
+    with open(train_json) as f:
+        doc = json.load(f)
+    base = os.path.dirname(os.path.abspath(train_json))
+    turn = np.eye(4)
+    turn[:3, :3] = _rotation([0.0, 0.0, CAMERA_BLUR_RAD])
+    for fr in doc["frames"]:
+        m = np.asarray(fr.pop("transform_matrix"), np.float64)
+        fr["transform_matrix_start"] = m.tolist()
+        fr["transform_matrix_end"] = (turn @ m).tolist()
+        fr["file_path"] = os.path.join(base, fr["file_path"])
+    doc["rolling_shutter"] = [0.0, 0.0, 0.0, 1.0]
+    out = os.path.join(ROOT, "build", "camera_smoke")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "transforms_blur.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def phase_camera():
+    """In a fresh process (``chip_smoke.py camera``, which also runs alone):
+    camera refinement through ``Testbed`` at its NeRF config (instant-ngp's
+    base.json: L=16, F=2, T=2^19, XOR hash, 64-wide MLPs; 2^18 sample slots
+    a step) on the 800×800 capture of phase capture (written again when
+    absent), its training poses moved by :func:`_camera_noise`. Two runs of
+    ``CAMERA_STEPS`` steps from the same seed: refinement off, and all four
+    flags on (extrinsics, exposure, focal length, distortion), each scored
+    on the 4 held-out views, each run's median ms a step over the steps
+    ``CAMERA_TIMED``; then a timing run of ``CAMERA_EXPOSURE_STEPS`` with
+    exposure refinement alone, its median over ``CAMERA_EXPOSURE_TIMED``
+    against the frozen run's over the same steps.
+    Gates (the JAX package's ``test_camera_refinement_recovers_pose_noise``):
+    the refined position offsets moved by more than ``CAMERA_MOVED_MIN``,
+    the frozen run's camera group and its EMA exactly 0, the refined loss
+    below ``CAMERA_LOSS_RATIO_MAX`` × the frozen one on one batch
+    (``engines.nerf.losses_on_one_batch``), both runs' final losses
+    finite, and the refined run launched ``hashgrid_input_grad`` and the float32-addend
+    ``hashgrid_backward``. Then a motion-blurred copy of the capture
+    (:func:`_blur_json`): ``CAMERA_BLUR_STEPS`` steps to a finite, falling
+    loss (the mean of the last ``CAMERA_BLUR_WINDOW`` steps below the
+    first's), and ``Testbed.render`` with an end pose equal to the start
+    equal to the still render, bit for bit. The line gives the seconds of
+    each part. Returns the refined Testbed, its median ms a step and the
+    launches of the phase's runs."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.data.nerf_loader import load_nerf
+    from ngp_tpu_torch.engines.nerf import losses_on_one_batch
+    from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
+    from ngp_tpu_torch.testbed import Testbed
+
+    train_json, test_json = _capture_jsons()
+    test = load_nerf(test_json)
+    with open(train_json) as f:
+        n_images = len(json.load(f)["frames"])
+    noise = _camera_noise(n_images)
+
+    reset_launches()
+    runs, launches, seconds = {}, {}, {}
+    for name, flags, n_steps, (a, b) in (
+            ("frozen", {}, CAMERA_STEPS, CAMERA_TIMED),
+            ("refined", CAMERA_FLAGS, CAMERA_STEPS, CAMERA_TIMED),
+            ("exposure", {"optimize_exposure": True}, CAMERA_EXPOSURE_STEPS,
+             CAMERA_EXPOSURE_TIMED)):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        tb = _noisy_testbed(train_json, noise, **flags)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        step_ms, losses = _camera_run(tb, n_steps)
+        launches[name] = {k: v - before[k] for k, v in launch_counts().items()}
+        run = {"load_s": load_s, "steps": n_steps, "timed_steps": [a, b],
+               "median_ms_per_step_after_timing_start": float(np.median(step_ms[a:])),
+               "median_ms_per_step_timed": float(np.median(step_ms[a:b])),
+               "final_loss": losses[-1], "mean_loss_last_100": float(np.mean(losses[-100:])),
+               "k_and_rays": list(tb.engine.batch_geometry)}
+        cam = tb.state.camera
+        run["camera_max_abs"] = {k: float(getattr(cam, k).detach().abs().max())
+                                 for k in cam.NAMES}
+        if name != "exposure":
+            scores = tb.engine.eval_test_transforms(tb.state, tb.grid, test)
+            run["psnr"] = scores["psnr"]
+            run["per_view_psnr"] = [v["psnr"] for v in scores["per_view"]]
+        if name == "frozen":
+            a, b = CAMERA_EXPOSURE_TIMED
+            run["median_ms_per_step_exposure_window"] = float(np.median(step_ms[a:b]))
+            run["camera_all_zero"] = not any(
+                bool(p.any()) for c in (tb.state.camera, tb.state.camera_ema)
+                for p in c.parameters())
+        if name == "refined":
+            pos = cam.pos.detach().cpu().numpy().astype(np.float64)
+            rot = cam.rot.detach().cpu().numpy().astype(np.float64)
+
+            def corr(a, b):
+                a, b = a.ravel() - a.mean(), b.ravel() - b.mean()
+                return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+            run["pos_corr_with_minus_noise"] = corr(pos, -noise[0])
+            run["rot_corr_with_minus_noise"] = corr(rot, -noise[1])
+            refined = tb
+            paired = tuple(losses_on_one_batch(
+                [(t.engine, t.state, t.grid) for t in (refined, frozen)]))
+            del frozen
+        runs[name] = run
+        if name == "frozen":
+            frozen = tb
+        elif name == "exposure":
+            del tb
+        seconds[name] = time.perf_counter() - t0
+    ratio = (runs["refined"]["median_ms_per_step_timed"]
+             / runs["frozen"]["median_ms_per_step_timed"])
+    exposure_ratio = (runs["exposure"]["median_ms_per_step_timed"]
+                      / runs["frozen"]["median_ms_per_step_exposure_window"])
+
+    # motion blur on the capture, then still and shuttered renders
+    t0 = time.perf_counter()
+    before = launch_counts()
+    blur = Testbed(scene=_blur_json(train_json), device="cuda")
+    if blur.engine.xforms_end is None:
+        raise AssertionError("the motion-blurred capture kept no end poses")
+    blur_ms, blur_losses = _camera_run(blur, CAMERA_BLUR_STEPS)
+    w = CAMERA_BLUR_WINDOW
+    first, last = float(np.mean(blur_losses[:w])), float(np.mean(blur_losses[-w:]))
+    m0 = blur.engine.xforms[0].cpu().numpy()
+    m1 = blur.engine.xforms_end[0].cpu().numpy()
+    W, H = CAMERA_FRAME
+    still = blur.render(W, H, camera_matrix=m0)
+    same = blur.render(W, H, camera_matrix=m0, end_matrix=m0.copy(), shutter_fraction=0.5)
+    shuttered = blur.render(W, H, camera_matrix=m0, end_matrix=m1, shutter_fraction=1.0)
+    launches["blur"] = {k: v - before[k] for k, v in launch_counts().items()}
+    del blur
+    seconds["blur"] = time.perf_counter() - t0
+    total = launch_counts()
+    result = {
+        "phase": "camera", "res": CAPTURE_RES, "train_views": n_images,
+        "test_views": test.n_images, "config": "Testbed nerf default (base.json)",
+        "noise": {"pos_sigma": CAMERA_POS_SIGMA, "rot_sigma_deg": CAMERA_ROT_SIGMA_DEG,
+                  "seed": 0},
+        "runs": runs, "paired_final_loss": {"refined": paired[0], "frozen": paired[1]},
+        "timed_steps": list(CAMERA_TIMED), "refined_over_frozen_ms": ratio,
+        "exposure_over_frozen_ms": exposure_ratio,
+        "launches": launches,
+        "blur": {"steps": CAMERA_BLUR_STEPS, "median_ms_per_step": float(np.median(blur_ms[w:])),
+                 "mean_loss_first": first, "mean_loss_last": last,
+                 "end_matrix_equal_start_bit_exact": bool(np.array_equal(same, still)),
+                 "shuttered_max_abs_diff_from_still": float(np.abs(shuttered - still).max()),
+                 "shuttered_finite": bool(np.isfinite(shuttered).all())},
+        "gates": {"moved_min": CAMERA_MOVED_MIN, "loss_ratio_max": CAMERA_LOSS_RATIO_MAX},
+        "seconds": seconds,
+    }
+    emit(result)
+    fro, ref = runs["frozen"], runs["refined"]
+    if not (math.isfinite(fro["final_loss"]) and math.isfinite(ref["final_loss"])):
+        raise AssertionError(f"camera: non-finite loss {fro['final_loss']}, {ref['final_loss']}")
+    if not ref["camera_max_abs"]["pos"] > CAMERA_MOVED_MIN:
+        raise AssertionError(f"camera: the refined position offsets moved "
+                             f"{ref['camera_max_abs']['pos']} <= {CAMERA_MOVED_MIN}")
+    if not fro["camera_all_zero"]:
+        raise AssertionError("camera: the frozen run's camera group is not zero")
+    if not paired[0] < CAMERA_LOSS_RATIO_MAX * paired[1]:
+        raise AssertionError(f"camera: refined loss {paired[0]} >= "
+                             f"{CAMERA_LOSS_RATIO_MAX} x frozen {paired[1]} on one batch")
+    for name in ("hashgrid_encode", "hashgrid_backward", "hashgrid_input_grad"):
+        if launches["refined"][name] == 0:
+            raise AssertionError(f"camera: the refined run launched {name} no time")
+    if launches["frozen"]["hashgrid_input_grad"] != 0:
+        raise AssertionError("camera: the frozen run launched hashgrid_input_grad")
+    if not (math.isfinite(last) and last < first):
+        raise AssertionError(f"camera: the blurred run's loss went {first} -> {last}")
+    if not result["blur"]["end_matrix_equal_start_bit_exact"]:
+        raise AssertionError("camera: render(end_matrix=start) differs from the still render")
+    if not (result["blur"]["shuttered_finite"]
+            and result["blur"]["shuttered_max_abs_diff_from_still"] > 0):
+        raise AssertionError("camera: the shuttered render is not finite or did not move")
+    return refined, runs["refined"]["median_ms_per_step_timed"], total
+
+
+def phase_camera_kernels(tb) -> None:
+    """The position gradient and the float32-addend grid backward on one
+    refined step's own positions and cotangents (the largest call of each;
+    the table as the step leaves it), against their twins: the position
+    gradient bit for bit, the backward within the float32 order bound; each
+    with its times and bound; and the bf16-addend backward of a frozen step
+    on the same (x, g)."""
+    import torch
+
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
+
+    kept_dx, kept_bwd = [], []
+    input_grad = _keep_largest(hashgrid_ops, "hashgrid_input_grad_cuda", kept_dx)
+    backward = _keep_largest(hashgrid_ops, "hashgrid_backward_cuda", kept_bwd)
+    try:
+        tb.train(1)
+        torch.cuda.synchronize()
+    finally:
+        hashgrid_ops.hashgrid_input_grad_cuda = input_grad
+        hashgrid_ops.hashgrid_backward_cuda = backward
+    x, g, table, *geo = kept_dx[0]
+    x, geo = x.detach(), tuple(geo[:5])
+    row = _input_grad_row(x, g, table.detach(), geo)
+    emit({"phase": "camera_kernels", "kernel": "hashgrid_input_grad",
+          "shape": "refined_step", **row})
+    xb, gb, *rest = kept_bwd[0]
+    payload = rest[7] if len(rest) > 7 else "bfloat16"
+    if payload != "float32" or not torch.equal(xb, x):
+        raise AssertionError(f"camera: the refined step's table gradient took {payload} "
+                             "addends or other positions than the position gradient")
+    T = rest[6]
+    keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
+    # the float32-addend backward the refined step runs, then the bf16 one
+    # of a frozen step on the same (x, g), for the cost of the addends
+    for payload in ("float32", "bfloat16"):
+        emit({"phase": "camera_kernels", "kernel": "hashgrid_backward", "payload": payload,
+              "shape": "refined_step", "N": x.shape[0], "L": table.shape[0], "T": T,
+              "F": table.shape[2], "hash": geo[4],
+              **_backward_row(x, g, geo, T, keys, vals, payload)})
+    del keys, vals
+
+
+def phase_camera_profile(tb, median_ms: float) -> None:
+    """Two windows of ``CAMERA_PROFILE_STEPS`` refined steps under
+    torch.profiler (:func:`_profile_steps`), each stage in a record_function
+    range: the first as phase camera times them, for the device's busy
+    share; the second with the backward on the calling thread, for the
+    device ms per stage (march, the refined rays, network forward, loss,
+    backward, the position gradient, the grid backward, optimizer, grid
+    update)."""
+    import torch
+
+    from ngp_tpu_torch.engines import nerf as engine_mod
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+
+    eng = tb.engine
+    march, loss = engine_mod.march_rays, engine_mod.nerf_training_loss
+    input_grad = hashgrid_ops.hashgrid_input_grad_cuda
+    grid_bwd = hashgrid_ops.hashgrid_backward_cuda
+    backward = torch.Tensor.backward
+    engine_mod.march_rays = _ranged("march", march)
+    engine_mod.nerf_training_loss = _ranged("loss", loss)
+    hashgrid_ops.hashgrid_input_grad_cuda = _ranged("input_grad", input_grad)
+    hashgrid_ops.hashgrid_backward_cuda = _ranged("grid_backward", grid_bwd)
+    torch.Tensor.backward = _ranged("backward", backward)
+    for attr, stage in (("_adjusted_rays", "camera_rays"),
+                        ("_network_on_samples", "network_forward"),
+                        ("apply_grads", "optimizer"), ("update_grid", "grid_update")):
+        setattr(eng, attr, _ranged(stage, getattr(eng, attr)))
+    stages = ("march", "camera_rays", "network_forward", "loss", "backward", "input_grad",
+              "grid_backward", "optimizer", "grid_update")
+    n = CAMERA_PROFILE_STEPS
+    state, grid = tb.state, tb.grid
+    try:
+        for window, threaded in (("as_timed", True), ("backward_on_caller", False)):
+            first = state.step
+            grid, prof, wall_ms = _profile_steps(eng, state, grid, n, threaded)
+            summary = _profile_summary(prof, stages, "step", "step_other")
+            busy_ms = summary["device_busy_ms"] / n
+            emit({"phase": "camera_profile", "window": window,
+                  "autograd_multithreading": threaded, "steps": [first, state.step - 1],
+                  "wall_ms_per_step": wall_ms / n, "device_busy_ms_per_step": busy_ms,
+                  "busy_share_of_profiled_wall": busy_ms / (wall_ms / n),
+                  "busy_share_of_unprofiled_median": busy_ms / median_ms,
+                  "device_ops_per_step": summary["device_ops"] / n,
+                  "stage_device_ms_per_step": {
+                      k: v / n for k, v in summary["stage_device_ms"].items()},
+                  "stage_device_ops_per_step": {
+                      k: v / n for k, v in summary["stage_device_ops"].items()},
+                  "top_device_ms": summary["top_device_ms"]})
+    finally:
+        torch.Tensor.backward = backward
+        engine_mod.march_rays, engine_mod.nerf_training_loss = march, loss
+        hashgrid_ops.hashgrid_input_grad_cuda = input_grad
+        hashgrid_ops.hashgrid_backward_cuda = grid_bwd
+        for attr in ("_adjusted_rays", "_network_on_samples", "apply_grads", "update_grid"):
+            delattr(eng, attr)
+    tb.grid = grid
+
+
+def phase_camera_all():
+    """``chip_smoke.py camera``: phases camera (its launches read at its
+    end), camera_kernels and camera_profile; then the launches on one
+    line."""
+    t0 = time.perf_counter()
+    tb, median_ms, launches = phase_camera()
+    t1 = time.perf_counter()
+    phase_camera_kernels(tb)
+    t2 = time.perf_counter()
+    phase_camera_profile(tb, median_ms)
+    t3 = time.perf_counter()
+    emit({"phase": "camera_launches", "launches": launches,
+          "seconds": {"camera": t1 - t0, "camera_kernels": t2 - t1,
+                      "camera_profile": t3 - t2}})
+
+
 PROBE_WINDOWS = 80
 
 
@@ -3385,8 +3803,10 @@ def main():
                    if line.get("phase") == "volume_kernels"}
     volume_launches = next(line for line in volume_lines
                            if line.get("phase") == "volume_launches")["launches"]
+    camera_launches = next(line for line in _child("camera")
+                           if line.get("phase") == "camera_launches")["launches"]
     later = {k: cli_launches[k] + image_launches[k] + image_cli_launches[k] + sdf_launches[k]
-             + volume_launches[k] for k in cli_launches}
+             + volume_launches[k] + camera_launches[k] for k in cli_launches}
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3478,6 +3898,8 @@ if __name__ == "__main__":
         phase_sdf_all()
     elif sys.argv[1:] == ["volume"]:
         phase_volume_all()
+    elif sys.argv[1:] == ["camera"]:
+        phase_camera_all()
     elif sys.argv[1:] == ["profiler_probe"]:
         phase_env()
         phase_profiler_probe()

@@ -2,14 +2,29 @@
 (training step and loop, occupancy maintenance, error-map importance
 sampling, rendering).
 
-A training step: ray batch (pinhole cameras, error-map CDFs) → gated
-exponential-lattice march over the cascaded occupancy bitfield
-(``ops/marching.py``) → k-major sample compaction to the step's sample
-budget (``ops/compaction.py``) → ``NerfNetwork`` (hash-grid CUDA kernel,
-density MLP, SH, rgb MLP) → composite and loss (``ops/composite.py``) →
-backward, whose grid half runs the backward-addends and segment-sum CUDA
-kernels → sparse Adam on the tables, Adam + L2 on the MLPs, EMA
-(``optim.py``). The loop interleaves occupancy updates on the reference's
+A training step: ray batch (every lens, error-map CDFs; with rolling
+shutter or motion blur each ray's pose lerped between the start and end
+poses) → gated exponential-lattice march over the cascaded occupancy
+bitfield (``ops/marching.py``) → k-major sample compaction to the step's
+sample budget (``ops/compaction.py``) → ``NerfNetwork`` (hash-grid CUDA
+kernel, density MLP, SH, rgb MLP) → composite and loss
+(``ops/composite.py``) → backward, whose grid half is the fused grid
+backward kernel → sparse Adam on the tables, Adam + L2 on the MLPs, EMA
+(``optim.py``).
+
+Camera refinement (``optimize_extrinsics``, ``optimize_exposure``,
+``optimize_focal_length``, ``optimize_distortion``) trains the state's
+camera group (``train.CameraParams``) with the model: the march runs on
+the batch's rays, as in the JAX engine, and the network sees each ray
+rebuilt from the refined focal length, distortion grid and pose
+(``_adjusted_rays``), differentiable in its positions, so that the grid
+backward gives d(positions) (the ``hashgrid_input_grad`` kernel) and
+d(table) with float32 addends; exposure scales the target's linear
+colour. The camera group takes its own decayed Adam with L2
+(``optim.CameraOptimizerConfig``). One deliberate difference from the
+JAX engine: under a rolling shutter the refined ray starts from the pose
+the batch was marched with, where the JAX engine rebuilds it from the
+start pose (ROADMAP C.ref 10). The loop interleaves occupancy updates on the reference's
 cadence (all cells while warming up, then stride residues) and adapts the
 (rays × samples) batch geometry from the measured samples per ray.
 
@@ -38,12 +53,11 @@ a marching-cubes mesh of the density field
 (``compute_marching_cubes_mesh``). Training keeps loss and throughput
 meters (``self.meters``), optionally logged as JSONL.
 
-Not yet ported, and refused when asked for: camera, exposure, focal and
-distortion refinement (also in a loaded snapshot), trainable envmap, depth
+Not yet ported, and refused when asked for: trainable envmap, depth
 supervision, latent codes in training, supplied per-pixel rays, a
-dataset's envmap background, rolling shutter, the render crop box
-(``render_aabb``), overlays, the decoupled occupancy schedule,
-probe-sampled grid updates and mesh vertex optimisation.
+dataset's envmap background, the render crop box (``render_aabb``),
+overlays, the decoupled occupancy schedule, probe-sampled grid updates and
+mesh vertex optimisation.
 """
 
 from __future__ import annotations
@@ -61,8 +75,14 @@ from ngp_tpu_torch.data import ingp_snapshot
 from ngp_tpu_torch.data.nerf_loader import NerfDataset
 from ngp_tpu_torch.device import resolve_device
 from ngp_tpu_torch.geometry.aabb import AABB
-from ngp_tpu_torch.geometry.camera import Lens, pixel_dirs_cam, square2disk_shirley
+from ngp_tpu_torch.geometry.camera import (
+    Lens,
+    grid_at_lerp,
+    pixel_dirs_cam,
+    square2disk_shirley,
+)
 from ngp_tpu_torch.interop import (
+    export_camera_params,
     export_jax_params,
     export_jax_train_state,
     load_jax_params,
@@ -92,8 +112,8 @@ from ngp_tpu_torch.ops.marching import (
     warp_direction,
 )
 from ngp_tpu_torch.ops.tonemap import linear_to_srgb, srgb_to_linear
-from ngp_tpu_torch.optim import OptimizerConfig
-from ngp_tpu_torch.train import TrainState, apply_grads, parameters_frozen
+from ngp_tpu_torch.optim import CameraOptimizerConfig, OptimizerConfig, camera_schedule
+from ngp_tpu_torch.train import CameraParams, TrainState, apply_grads, parameters_frozen
 from ngp_tpu_torch.utils import metrics
 from ngp_tpu_torch.utils.meters import MetricsLogger, TrainMeters
 
@@ -111,9 +131,6 @@ ERROR_MAP_RES = 16  # testbed.h:674
 RENDER_MODES = ("shade", "depth", "ao", "normals", "positions", "encoding", "cost")
 # march steps a ray of the cost mode reaches at full heat
 COST_STEPS = 128.0
-# the JAX engine's camera group: per-image pose, exposure and latent
-# parameters, a focal multiplier and a distortion map (testbed.h:713)
-DISTORTION_RESOLUTION = (32, 32)
 MIN_PDF = 0.01
 
 
@@ -124,6 +141,73 @@ class RayBatch(NamedTuple):
     n0: torch.Tensor  # (N,) jittered stepping-space march start
     img: torch.Tensor  # (N,) source image index
     uv: torch.Tensor  # (N, 2) pixel uv
+    # (N, 3, 4) each ray's camera pose (lerped to its shutter time under a
+    # rolling shutter); None: the start pose of its image
+    xforms: torch.Tensor | None = None
+
+
+def _mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Batched (..., 3, 3) rotations → (..., 4) unit quaternions (w, x, y,
+    z), the JAX engine's branch-free Shepperd construction: all four
+    candidate forms, each with a finite pivot, and the one of the largest
+    pivot picked."""
+    m00, m11, m22 = m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]
+    qw2 = torch.clamp_min(1.0 + m00 + m11 + m22, 0.0)
+    qx2 = torch.clamp_min(1.0 + m00 - m11 - m22, 0.0)
+    qy2 = torch.clamp_min(1.0 - m00 + m11 - m22, 0.0)
+    qz2 = torch.clamp_min(1.0 - m00 - m11 + m22, 0.0)
+    pick = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], -1), dim=-1)
+    s_w = 0.5 / torch.sqrt(torch.clamp_min(qw2, 1e-12))
+    s_x = 0.5 / torch.sqrt(torch.clamp_min(qx2, 1e-12))
+    s_y = 0.5 / torch.sqrt(torch.clamp_min(qy2, 1e-12))
+    s_z = 0.5 / torch.sqrt(torch.clamp_min(qz2, 1e-12))
+    q_w = torch.stack([0.25 / s_w, (m[..., 2, 1] - m[..., 1, 2]) * s_w,
+                       (m[..., 0, 2] - m[..., 2, 0]) * s_w,
+                       (m[..., 1, 0] - m[..., 0, 1]) * s_w], -1)
+    q_x = torch.stack([(m[..., 2, 1] - m[..., 1, 2]) * s_x, 0.25 / s_x,
+                       (m[..., 0, 1] + m[..., 1, 0]) * s_x,
+                       (m[..., 0, 2] + m[..., 2, 0]) * s_x], -1)
+    q_y = torch.stack([(m[..., 0, 2] - m[..., 2, 0]) * s_y,
+                       (m[..., 0, 1] + m[..., 1, 0]) * s_y, 0.25 / s_y,
+                       (m[..., 1, 2] + m[..., 2, 1]) * s_y], -1)
+    q_z = torch.stack([(m[..., 1, 0] - m[..., 0, 1]) * s_z,
+                       (m[..., 0, 2] + m[..., 2, 0]) * s_z,
+                       (m[..., 1, 2] + m[..., 2, 1]) * s_z, 0.25 / s_z], -1)
+    cands = torch.stack([q_w, q_x, q_y, q_z], -2)
+    q = torch.gather(cands, -2, pick[..., None, None].expand(*pick.shape, 1, 4))[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def _quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def _lerp_xforms(xf_a: torch.Tensor, xf_b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Per-ray poses (N, 3, 4) at shutter times ``t`` (N,) between ``xf_a``
+    and ``xf_b`` (N, 3, 4): the translation lerped, the rotation slerped
+    along the shorter arc, nlerp where the arc's sine is below 1e-4
+    (``get_xform_given_rolling_shutter``, common_device.cuh:401-408)."""
+    pos = xf_a[:, :, 3] + (xf_b[:, :, 3] - xf_a[:, :, 3]) * t[:, None]
+    qa = _mat_to_quat(xf_a[:, :, :3])
+    qb = _mat_to_quat(xf_b[:, :, :3])
+    dot = torch.sum(qa * qb, dim=-1, keepdim=True)
+    qb = torch.where(dot < 0, -qb, qb)
+    dot = torch.abs(dot)
+    theta = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    sin_t = torch.sin(theta)
+    small = sin_t < 1e-4
+    safe_sin = torch.where(small, torch.ones_like(sin_t), sin_t)
+    tt = t[:, None]
+    wa = torch.where(small, 1.0 - tt, torch.sin((1.0 - tt) * theta) / safe_sin)
+    wb = torch.where(small, tt, torch.sin(tt * theta) / safe_sin)
+    q = wa * qa + wb * qb
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return torch.cat([_quat_to_mat(q), pos[:, :, None]], dim=-1)
 
 
 class ErrorMapState(NamedTuple):
@@ -186,12 +270,22 @@ class NerfEngine:
     near_distance: float = 0.1  # testbed.h:740
     min_transmittance_render: float = 0.01
     background_color: tuple = (0.0, 0.0, 0.0)
-    # Options of the JAX engine that are not yet ported: setting any of
-    # them raises.
+    # Camera refinement (testbed.h:708-727): per-image pose and exposure
+    # offsets, a log-scale focal multiplier and a lens-distortion grid of
+    # camera-space direction offsets ((H, W), testbed.h:713), trained by the
+    # camera group's own Adam at extrinsic_learning_rate with L2 toward zero.
     optimize_extrinsics: bool = False
     optimize_exposure: bool = False
     optimize_focal_length: bool = False
     optimize_distortion: bool = False
+    distortion_resolution: tuple = (32, 32)
+    extrinsic_learning_rate: float = 1e-3
+    extrinsic_l2_reg: float = 1e-4
+    # Accepted and ignored, as the JAX engine does: the camera group's L2 is
+    # extrinsic_l2_reg on every leaf, exposure included.
+    exposure_l2_reg: float = 0.0
+    # Options of the JAX engine that are not yet ported: setting any of
+    # them raises.
     train_envmap: bool = False
     depth_supervision_lambda: float = 0.0
     device: str = "cuda"
@@ -199,9 +293,7 @@ class NerfEngine:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.config = copy.deepcopy(self.config)
-        for name in ("optimize_extrinsics", "optimize_exposure",
-                     "optimize_focal_length", "optimize_distortion",
-                     "train_envmap", "depth_supervision_lambda"):
+        for name in ("train_envmap", "depth_supervision_lambda"):
             if getattr(self, name):
                 raise ValueError(f"{name} is not yet ported")
         ds = self.dataset
@@ -211,10 +303,6 @@ class NerfEngine:
             raise ValueError("a dataset's envmap background is not yet ported")
         if ds.render_aabb is not None:
             raise ValueError("the render crop box (render_aabb) is not yet ported")
-        if ds.xforms.shape[1] > 1 and (any(abs(v) > 0 for v in ds.rolling_shutter)
-                                       or bool(np.any(ds.xforms[:, 1] != ds.xforms[:, 0]))):
-            raise ValueError("rolling shutter and motion blur (start and end "
-                             "matrices) are not yet ported")
         aabb_scale = min(int(ds.aabb_scale), 1 << (occ.NERF_CASCADES - 1))
         if aabb_scale & (aabb_scale - 1):
             raise ValueError("aabb_scale must be a power of two")
@@ -246,8 +334,24 @@ class NerfEngine:
         # render-only configs may carry no optimizer block: plain Adam then
         self.opt_cfg = OptimizerConfig.from_json(
             self.config.get("optimizer", {"otype": "Adam"}))
+        # the network sees rays rebuilt from refined intrinsics or poses
+        self._refined_rays = (self.optimize_extrinsics or self.optimize_focal_length
+                              or self.optimize_distortion)
+        self.camera_opt = None  # the camera group's rule; None: frozen
+        if self._refined_rays or self.optimize_exposure:
+            self.camera_opt = CameraOptimizerConfig(
+                float(self.extrinsic_l2_reg),
+                camera_schedule(self.extrinsic_learning_rate, self.opt_cfg.schedule))
         f32 = dict(dtype=torch.float32, device=self.device)
         self.xforms = torch.as_tensor(np.asarray(ds.xforms[:, 0]), **f32)
+        # Rolling shutter and motion blur: the end poses are kept only where
+        # they move something (get_xform_given_rolling_shutter,
+        # common_device.cuh:401); the shutter vector as float32 values.
+        self.rolling_shutter = tuple(float(np.float32(v)) for v in ds.rolling_shutter)
+        self.xforms_end = None
+        if ds.xforms.shape[1] > 1 and (any(abs(v) > 0 for v in ds.rolling_shutter)
+                                       or bool(np.any(ds.xforms[:, 1] != ds.xforms[:, 0]))):
+            self.xforms_end = torch.as_tensor(np.asarray(ds.xforms[:, 1]), **f32)
         self.focals = torch.as_tensor(np.asarray(ds.focal_lengths), **f32)
         self.pps = torch.as_tensor(np.asarray(ds.principal_points), **f32)
         self.images = torch.as_tensor(np.asarray(ds.images), device=self.device)
@@ -329,14 +433,22 @@ class NerfEngine:
             self.config, n_extra_dims=self.n_extra_dims, device=self.device
         )
 
+    def _new_camera(self) -> CameraParams:
+        """A zero camera group at the JAX engine's shapes."""
+        return CameraParams(self.images.shape[0], tuple(self.distortion_resolution),
+                            max(self.n_extra_dims, 1), self.device)
+
     # -- model and grid state
 
     def init_state(self) -> TrainState:
         """Step 0: a model with parameters drawn from a CPU
-        ``torch.Generator`` seeded with ``self.seed``, zero Adam moments."""
+        ``torch.Generator`` seeded with ``self.seed``, a zero camera group,
+        zero Adam moments."""
         net = self._new_network()
         net.reset_parameters(torch.Generator().manual_seed(self.seed))
-        return TrainState.create(net)
+        state = TrainState.create(net, camera=self._new_camera())
+        state.camera_still = True  # zero, as its EMA will start
+        return state
 
     def init_grid(self) -> occ.OccupancyGridState:
         """Camera-frustum culling: cells no training camera sees are −1
@@ -375,7 +487,8 @@ class NerfEngine:
         density = ingp_snapshot.density_grid_from_reference(
             snap["density_grid_binary"], self.grid_cfg.n_cascades, self.grid_size
         )
-        state = TrainState.create(net, int(snap.get("training_step", 0)))
+        state = TrainState.create(net, int(snap.get("training_step", 0)),
+                                  camera=self._new_camera())
         return state, self.grid_from_density(torch.from_numpy(density))
 
     def save_reference_snapshot(self, path: str, state: TrainState,
@@ -404,18 +517,10 @@ class NerfEngine:
 
     # -- native snapshots (the JAX package's format)
 
-    def _camera_group(self) -> dict:
-        """The JAX engine's ``camera`` parameter group at its shapes, zero:
-        the port trains no camera parameter, and a JAX engine that loads
-        the snapshot trains on from there."""
-        n = self.images.shape[0]
-        shapes = {"distortion": (*DISTORTION_RESOLUTION, 2), "exposure": (n, 3), "focal": (2,),
-                  "latents": (n, max(self.n_extra_dims, 1)), "pos": (n, 3), "rot": (n, 3)}
-        return {k: np.zeros(shape, np.float32) for k, shape in shapes.items()}
-
-    def _jax_param_tree(self, model: NerfNetwork) -> dict:
-        """The JAX engine's parameter tree of ``model``: keys sorted, as
-        the JAX package's tree maps leave them."""
+    def _jax_param_tree(self, model: NerfNetwork, camera: CameraParams) -> dict:
+        """The JAX engine's parameter tree of ``model`` and ``camera`` (its
+        ``latents`` zero): keys sorted, as the JAX package's tree maps leave
+        them."""
         def ordered(tree):
             if isinstance(tree, dict):
                 return {k: ordered(tree[k]) for k in sorted(tree)}
@@ -423,24 +528,25 @@ class NerfEngine:
                 return [ordered(v) for v in tree]
             return tree
 
-        return ordered({"camera": self._camera_group(), "model": export_jax_params(model)})
+        group = {**export_camera_params(camera),
+                 "latents": camera.latents.cpu().numpy().copy()}
+        return ordered({"camera": group, "model": export_jax_params(model)})
 
     def _check_camera(self, params: dict) -> None:
         if "envmap" in params:
-            raise ValueError("a trainable envmap is not yet ported (ROADMAP A5)")
-        for name, value in params.get("camera", {}).items():
-            if name == "latents" and self.n_extra_dims == 0:
-                continue  # unused without extra dims; the JAX engine draws them
-            if np.any(np.asarray(value) != 0):
-                raise ValueError("camera refinement is not yet ported (ROADMAP A5): "
-                                 f"the snapshot's camera.{name} is not zero")
+            raise ValueError("a trainable envmap is not yet ported (ROADMAP A5c)")
+        latents = params.get("camera", {}).get("latents")
+        if self.n_extra_dims > 0 and latents is not None and np.any(np.asarray(latents) != 0):
+            # unused without extra dims, where the JAX engine draws them
+            raise ValueError("training latent codes is not yet ported (ROADMAP A5c): "
+                             "the snapshot's camera.latents is not zero")
 
     def save_snapshot(self, path: str, state: TrainState, grid: occ.OccupancyGridState,
                       include_optimizer: bool = False) -> None:
         """Write a native snapshot (``utils/snapshot.py``; zlib-compressed
         for ``.ingp``) with the JAX engine's keys and dtypes: training step
         (int32), parameters and EMA parameters as the JAX engine's trees
-        (its zero ``camera`` group included), the density grid (float16)
+        (the ``camera`` group included), the density grid (float16)
         and its mean (float32), ``aabb_scale`` and the loss EMA. With
         ``include_optimizer`` also ``opt_state``, in the port's own layout
         (``interop.export_jax_train_state``'s ``"opt"`` tree)."""
@@ -448,8 +554,9 @@ class NerfEngine:
 
         snap = {
             "training_step": np.asarray(state.step, np.int32),
-            "params": self._jax_param_tree(state.model),
-            "ema_params": self._jax_param_tree(state.inference_model()),
+            "params": self._jax_param_tree(state.model, state.camera),
+            "ema_params": self._jax_param_tree(state.inference_model(),
+                                               state.inference_camera()),
             "density_grid": grid.density.cpu().numpy().astype(np.float16),
             "density_grid_mean": np.asarray(grid.mean_density.cpu().numpy(), np.float32),
             "aabb_scale": self.aabb_scale,
@@ -467,26 +574,33 @@ class NerfEngine:
         the stored (float16) densities and mean. Optimizer moments are
         restored where the snapshot holds them in the port's layout; else
         (none, or the JAX package's optax tree) they start at zero, as the
-        JAX package's ``load_snapshot`` starts them. A snapshot with
-        camera parameters that are not zero (latents aside, while the
-        network has no extra dims) is refused: camera refinement is not
-        yet ported."""
+        JAX package's ``load_snapshot`` starts them. The camera group and
+        its EMA come from the snapshot's ``camera`` trees; their latents
+        stay zero (a snapshot whose latents are not zero while the network
+        has extra dims is refused: training latents is not yet ported, nor
+        is an envmap)."""
         from ngp_tpu_torch.utils.snapshot import load_snapshot
 
         snap = load_snapshot(path)["snapshot"]
         for tree in ("params", "ema_params"):
             self._check_camera(snap[tree])
         step = int(snap["training_step"])
-        ema_tree = snap["ema_params"]["model"] if self.opt_cfg.ema_decay is not None else None
-        net = self._new_network()
+        has_ema = self.opt_cfg.ema_decay is not None
+        cam = snap["params"]["camera"]
+        # the snapshot's shapes, as the JAX engine keeps them (a snapshot of
+        # another view count loads; only refinement indexes the group)
+        camera = CameraParams(np.shape(cam["pos"])[0], np.shape(cam["distortion"])[:2],
+                              max(self.n_extra_dims, 1), self.device)
+        tree = {"step": step, "params": snap["params"]["model"],
+                "ema": snap["ema_params"]["model"] if has_ema else None,
+                "camera": cam,
+                "camera_ema": snap["ema_params"]["camera"] if has_ema else None}
         opt = snap.get("opt_state")
-        if isinstance(opt, dict) and set(opt) == {"dense", "grid"}:
-            state = load_jax_train_state(net, {"step": step, "params": snap["params"]["model"],
-                                               "opt": opt, "ema": ema_tree})
-        else:
-            state = TrainState.create(load_jax_params(net, snap["params"]["model"]), step)
-            if ema_tree is not None:
-                state.ema = load_jax_params(copy.deepcopy(net), ema_tree).requires_grad_(False)
+        # the port's layout; none, or the JAX package's optax tree: zero moments
+        port_layout = isinstance(opt, dict) and set(opt) in ({"dense", "grid"},
+                                                             {"dense", "grid", "camera"})
+        tree["opt"] = opt if port_layout else {}
+        state = load_jax_train_state(self._new_network(), tree, camera=camera)
         density = torch.as_tensor(snap["density_grid"].astype(np.float32), device=self.device)
         mean = torch.as_tensor(snap["density_grid_mean"], dtype=torch.float32,
                                device=self.device)
@@ -530,11 +644,31 @@ class NerfEngine:
     def rebuild_error_map(self, emap: ErrorMapState) -> ErrorMapState:
         return ErrorMapState(emap.data, *build_cdfs(emap.data), True)
 
+    def _camera_rays(self, img: torch.Tensor, uv: torch.Tensor,
+                     tblur: torch.Tensor | None = None):
+        """World rays through ``uv`` (n, 2) of dataset views ``img`` (n,):
+        (origins, unit dirs, poses (n, 3, 4)). Under a rolling shutter or
+        motion blur each ray's pose is lerped from its view's start to its
+        end pose at the shutter time rs0 + rs1·u + rs2·v + rs3·``tblur``
+        (``tblur`` (n,) uniform in [0, 1); the JAX engine's
+        ``_sample_ray_batch``)."""
+        xf = self.xforms[img]
+        if self.xforms_end is not None:
+            rs = self.rolling_shutter
+            t = rs[0] + rs[1] * uv[:, 0] + rs[2] * uv[:, 1] + rs[3] * tblur
+            xf = _lerp_xforms(xf, self.xforms_end[img], t)
+        dir_cam = pixel_dirs_cam(self.lens, self.resolution, uv, self.focals[img],
+                                 self.pps[img])
+        d = torch.einsum("nij,nj->ni", xf[:, :, :3], dir_cam)
+        d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        return xf[:, :, 3], d, xf
+
     def _sample_ray_batch(self, n: int, emap: ErrorMapState | None = None):
         """(RayBatch, background (n, 3)): ``n`` (image, pixel) pairs, from
         the error-map CDFs once they are built, else uniform; world rays
-        through the pixel centers and their targets; the jittered march
-        start; a uniform random training background per ray. Draws from
+        through the pixel centers (each at its own shutter time under a
+        rolling shutter) and their targets; the jittered march start; a
+        uniform random training background per ray. Draws from
         ``self.generator``."""
         W, H = self.resolution
         gen, dev = self.generator, self.device
@@ -558,24 +692,68 @@ class NerfEngine:
         rgba = self.images[img, px[:, 1], px[:, 0]].to(torch.float32)
         if self.images.dtype == torch.uint8:
             rgba = rgba / 255.0
-        dir_cam = pixel_dirs_cam(self.lens, self.resolution, uv,
-                                 self.focals[img], self.pps[img])
-        xf = self.xforms[img]
-        d = torch.einsum("nij,nj->ni", xf[:, :, :3], dir_cam)
-        d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-        o = xf[:, :, 3]
+        tblur = None
+        if self.xforms_end is not None:
+            tblur = torch.rand((n,), generator=gen, device=dev)
+        o, d, xf = self._camera_rays(img, uv, tblur)
         tmin, _ = ray_aabb_range(o, d, self.aabb.min, self.aabb.max)
         n0 = self.stepping.to_steps(tmin) + torch.rand((n,), generator=gen, device=dev)
         bg = torch.rand((n, 3), generator=gen, device=dev)
-        return RayBatch(o, d, rgba, n0, img, uv), bg
+        return RayBatch(o, d, rgba, n0, img, uv, xf), bg
 
     # -- training: the step
 
+    @staticmethod
+    def _rodrigues(rotvec: torch.Tensor) -> torch.Tensor:
+        """Batched rotation vectors (..., 3) → rotation matrices (..., 3, 3)
+        (the reference's RotationAdamOptimizer composition,
+        ``adam_optimizer.h``): I + a·K + b·K², a = sin θ/θ, b = (1 − cos θ)/θ²,
+        their Taylor forms below θ² = 1e-8; both branches finite, so that the
+        gradient is finite at the zero rotation."""
+        t2 = torch.sum(rotvec * rotvec, dim=-1, keepdim=True)  # θ²
+        small = t2 < 1e-8
+        t2s = torch.clamp_min(t2, 1e-8)
+        theta = torch.sqrt(t2s)
+        a = torch.where(small, 1.0 - t2 / 6.0, torch.sin(theta) / theta)
+        b = torch.where(small, 0.5 - t2 / 24.0, (1.0 - torch.cos(theta)) / t2s)
+        vx, vy, vz = rotvec[..., 0], rotvec[..., 1], rotvec[..., 2]
+        zeros = torch.zeros_like(vx)
+        K = torch.stack([torch.stack([zeros, -vz, vy], -1),
+                         torch.stack([vz, zeros, -vx], -1),
+                         torch.stack([-vy, vx, zeros], -1)], -2)
+        eye = torch.eye(3, dtype=rotvec.dtype, device=rotvec.device).expand(K.shape)
+        return eye + a[..., None] * K + b[..., None] * (K @ K)
+
+    def _adjusted_rays(self, camera: CameraParams, batch: RayBatch):
+        """The batch's rays rebuilt from the refined camera (differentiable
+        in ``camera``): the focal length times exp(``focal``), the lens,
+        ``distortion`` bilinear at uv added to the camera-space direction's
+        xy (where refined), the pose rotated by Rodrigues(``rot``) and
+        moved by ``pos``. The pose is the one the batch was marched with:
+        the JAX engine's ``_adjusted_rays`` takes the start pose even under
+        a rolling shutter (ROADMAP C.ref 10). Returns (origins, unit
+        dirs)."""
+        img, uv = batch.img, batch.uv
+        focal = self.focals[img] * torch.exp(camera.focal)[None, :]
+        dir_cam = pixel_dirs_cam(self.lens, self.resolution, uv, focal, self.pps[img])
+        if self.optimize_distortion:
+            # dir.xy += distortion.at_lerp(uv) (common_device.cuh:492)
+            dir_cam = torch.cat([dir_cam[:, :2] + grid_at_lerp(camera.distortion, uv),
+                                 dir_cam[:, 2:]], dim=-1)
+        xf = batch.xforms if batch.xforms is not None else self.xforms[img]
+        rot = self._rodrigues(camera.rot[img]) @ xf[:, :, :3]
+        d = torch.einsum("nij,nj->ni", rot, dir_cam)
+        d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        return xf[:, :, 3] + camera.pos[img], d
+
     def _network_on_samples(self, model: NerfNetwork, origins, dirs,
-                            marched: MarchedRays, plan: CompactionPlan):
+                            marched: MarchedRays, plan: CompactionPlan,
+                            differentiable_inputs: bool = False):
         """Raw network output (N, K, 4) at the marched slots: positions laid
         out k-major, compacted to the plan's rows, evaluated in chunks of
-        ``NETWORK_CHUNK`` and expanded back (0 at slots not kept)."""
+        ``NETWORK_CHUNK`` and expanded back (0 at slots not kept).
+        ``differentiable_inputs``: gradients reach ``origins`` and ``dirs``
+        through the grid's position gradient and the direction encoding."""
         N, K = marched.t.shape
         pos = origins[:, None, :] + dirs[:, None, :] * marched.t[..., None]
         pos_km = self.aabb.relative_pos(pos).transpose(0, 1).reshape(K * N, 3)
@@ -587,23 +765,29 @@ class NerfEngine:
             extra = None
             if self.n_extra_dims > 0:
                 extra = torch.zeros((e - s, self.n_extra_dims), device=origins.device)
-            outs.append(model(pos_c[s:e], dir_c[s:e], extra=extra))
+            outs.append(model(pos_c[s:e], dir_c[s:e], extra=extra,
+                              differentiable_inputs=differentiable_inputs))
         raw = torch.cat(outs) if outs else pos_c.new_zeros((0, 4))
         return expand_rows(raw, plan).reshape(K, N, 4).transpose(0, 1)
 
     def batch_loss_and_grads(self, model: NerfNetwork, grid: occ.OccupancyGridState,
                              batch: RayBatch, bg: torch.Tensor, k: int,
-                             emap: ErrorMapState | None = None):
+                             emap: ErrorMapState | None = None,
+                             camera: CameraParams | None = None):
         """March ``batch`` with ``k`` samples per ray, run the network on
         the step's sample budget, and backpropagate the training loss into
-        ``model``'s ``.grad`` (cleared first). ``bg`` (N, 3) is the training
-        background. Returns (loss, metrics, emap with this batch's per-ray
-        losses deposited, or None). Metrics: device tensors ``loss`` (color
-        loss / 3), ``measured_samples`` (samples composited),
-        ``mean_total``, ``seg_total``; host ints ``n_rays`` and
-        ``network_samples``."""
+        ``model``'s ``.grad`` (cleared first), and into ``camera``'s (the
+        state's camera group, needed while refinement is on) through the
+        refined rays and the exposure of the targets. ``bg`` (N, 3) is the
+        training background. Returns (loss, metrics, emap with this batch's
+        per-ray losses deposited, or None). Metrics: device tensors
+        ``loss`` (color loss / 3), ``measured_samples`` (samples
+        composited), ``mean_total``, ``seg_total``; host ints ``n_rays``
+        and ``network_samples``."""
         if self.n_extra_dims > 0:
             raise ValueError("training latent codes (extra learnable dims) is not yet ported")
+        if self.camera_opt is not None and camera is None:
+            raise ValueError("camera refinement trains the state's camera group: pass camera=")
         n_rays = batch.origins.shape[0]
         gate = occ.build_coarse_gate(grid.bitfield) if self._march_gate_eligible else None
         marched = march_rays(
@@ -617,10 +801,21 @@ class NerfEngine:
         plan = compaction_plan(marched.valid.t().reshape(-1), budget)
         valid_eff = marched.valid & plan.keep.reshape(k, n_rays).t()
 
-        a = batch.target_rgba[:, 3:4]
-        target = batch.target_rgba[:, :3] * a + (1.0 - a) * bg
         model.zero_grad(set_to_none=True)
-        raw = self._network_on_samples(model, batch.origins, batch.dirs, marched, plan)
+        o, d = batch.origins, batch.dirs
+        rgb_t = batch.target_rgba[:, :3]
+        if camera is not None:
+            camera.zero_grad(set_to_none=True)
+            if self._refined_rays:
+                o, d = self._adjusted_rays(camera, batch)
+            if self.optimize_exposure:
+                # the target's linear colour times 2^exposure, re-encoded
+                scale = torch.exp2(camera.exposure[batch.img])
+                rgb_t = linear_to_srgb(srgb_to_linear(rgb_t) * scale)
+        a = batch.target_rgba[:, 3:4]
+        target = rgb_t * a + (1.0 - a) * bg
+        raw = self._network_on_samples(model, o, d, marched, plan,
+                                       differentiable_inputs=self._refined_rays)
         out = nerf_training_loss(
             raw, marched.dt, marched.t, valid_eff, marched.complete, bg, target,
             self.loss_fn, self.rgb_act, self.density_act, grid.mean_density,
@@ -656,9 +851,10 @@ class NerfEngine:
 
     def apply_grads(self, state: TrainState) -> None:
         """One optimizer step from the ``.grad`` of ``state.model``: sparse
-        Adam on the tables, Adam + L2 on the rest, then the EMA; in place
-        (``train.apply_grads``, the generic trainer's step)."""
-        apply_grads(state, self.opt_cfg)
+        Adam on the tables, Adam + L2 on the rest, the camera group's rule
+        while refinement is on (else it stays as it is), then the EMA; in
+        place (``train.apply_grads``, the generic trainer's step)."""
+        apply_grads(state, self.opt_cfg, self.camera_opt)
 
     def train_step(self, state: TrainState, grid: occ.OccupancyGridState,
                    emap: ErrorMapState | None = None):
@@ -666,7 +862,8 @@ class NerfEngine:
         (emap, metrics)."""
         k, n_rays = self._k, self._n_rays
         batch, bg = self._sample_ray_batch(n_rays, emap)
-        _, metrics, emap = self.batch_loss_and_grads(state.model, grid, batch, bg, k, emap)
+        _, metrics, emap = self.batch_loss_and_grads(state.model, grid, batch, bg, k, emap,
+                                                     camera=state.camera)
         self.apply_grads(state)
         return emap, metrics
 
@@ -789,6 +986,12 @@ class NerfEngine:
         if self._emap is None:
             self._emap = self.init_error_map()
         step0 = state.step
+        if self.camera_opt is None and not state.camera_still:
+            # a frozen group (a loaded one, say): its EMA update is skipped
+            # once it and its EMA are found zero (one device sync)
+            cams = [state.camera] + ([state.camera_ema] if state.camera_ema is not None else [])
+            state.camera_still = not bool(
+                torch.stack([p.any() for c in cams for p in c.parameters()]).any())
         for step in range(step0, step0 + n_steps):
             interval = min(max(step // 16, 1), 16)
             if step % interval == 0:
@@ -970,10 +1173,13 @@ class NerfEngine:
         ]
         return tuple(torch.cat([o[i] for o in outs], 0) for i in range(3))
 
-    def view_rays(self, image_index: int, stride: int = 1):
+    def view_rays(self, image_index: int, stride: int = 1,
+                  distortion: torch.Tensor | None = None):
         """Origins and unit directions (H'·W', 3) through the pixel centers
         of dataset view ``image_index``, every ``stride``-th pixel, row by
-        row; returns (origins, dirs, (H', W'))."""
+        row, with the (H, W, 2) lens-distortion grid ``distortion`` added
+        to the camera-space directions' xy where given; returns (origins,
+        dirs, (H', W'))."""
         W, H = self.resolution
         xs = np.arange(0, W, stride)
         ys = np.arange(0, H, stride)
@@ -986,6 +1192,9 @@ class NerfEngine:
         focal = self.focals[image_index].expand(n, 2)
         pp = self.pps[image_index].expand(n, 2)
         dir_cam = pixel_dirs_cam(self.lens, self.resolution, uv, focal, pp)
+        if distortion is not None:
+            dir_cam = torch.cat([dir_cam[:, :2] + grid_at_lerp(distortion, uv),
+                                 dir_cam[:, 2:]], dim=-1)
         xf = self.xforms[image_index]
         d = dir_cam @ xf[:, :3].T
         d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
@@ -996,10 +1205,17 @@ class NerfEngine:
                      overlay: str | None = None):
         """Render the dataset view ``image_index``, every ``stride``-th
         pixel, in render ``mode``; returns (H', W', 3) on the engine's
-        device. Overlays are not yet ported."""
+        device. While distortion is refined the view goes through the
+        served (EMA) distortion grid, as the reference renders with its
+        lens distortion by default (testbed_nerf.cu:2776-2779); learned
+        poses, exposures and focal lengths reach no render, as in the JAX
+        engine. Overlays are not yet ported."""
         if overlay is not None:
             raise NotImplementedError(f"overlay {overlay!r} is not yet ported (ROADMAP A6)")
-        o, d, hw = self.view_rays(image_index, stride)
+        distortion = None
+        if self.optimize_distortion:
+            distortion = state.inference_camera().distortion.detach()
+        o, d, hw = self.view_rays(image_index, stride, distortion)
         rgb, _, _ = self.render_rays(state, grid, o, d, mode=mode)
         return rgb.reshape(*hw, 3)
 
@@ -1126,3 +1342,22 @@ class NerfEngine:
         if compute_flip:
             res["flip"] = float(np.mean([e["flip"] for e in per_view]))
         return res
+
+
+def losses_on_one_batch(runs) -> list[float]:
+    """The training loss of each trained ``(engine, state, grid)`` of
+    ``runs`` on one batch, drawn by the first engine at its batch geometry;
+    the gradients it leaves are cleared. Two runs whose engines draw from
+    streams of their own take their last steps on different rays, so their
+    last-step losses are not a comparison of the two models; these are."""
+    eng = runs[0][0]
+    k, n_rays = eng.batch_geometry
+    batch, bg = eng._sample_ray_batch(n_rays)
+    losses = []
+    for engine, state, grid in runs:
+        loss = engine.batch_loss_and_grads(state.model, grid, batch, bg, k,
+                                           camera=state.camera)[0]
+        losses.append(float(loss))
+        state.model.zero_grad(set_to_none=True)
+        state.camera.zero_grad(set_to_none=True)
+    return losses

@@ -26,6 +26,16 @@ A training state is the tree::
 where a group's ``mu``/``nu`` trees hold that group's leaves only (the
 tables for ``"grid"``, the MLP weights for ``"dense"``), laid out as in
 the model tree: the JAX package's optax states restricted to the model.
+A NeRF state's camera group adds::
+
+     "camera": <camera tree>, "camera_ema": <camera tree> or None,
+     "opt": {..., "camera": {"count": int, "mu": <camera tree>,
+                             "nu": <camera tree>}}
+
+where a camera tree is the JAX engine's ``params["camera"]`` without its
+``latents`` (``{"distortion", "exposure", "focal", "pos", "rot"}``), and
+the count is the camera Adam's and its schedule's (the JAX engine steps
+both once an update).
 """
 
 from __future__ import annotations
@@ -38,8 +48,8 @@ import torch
 from ngp_tpu_torch.models.encodings import CompositeEncoding, GridEncoding
 from ngp_tpu_torch.models.factory import NetworkWithInputEncoding
 from ngp_tpu_torch.models.mlp import MLP
-from ngp_tpu_torch.optim import GROUPS, AdamState, param_groups
-from ngp_tpu_torch.train import TrainState
+from ngp_tpu_torch.optim import GROUPS, AdamState, adam_init, param_groups
+from ngp_tpu_torch.train import CameraParams, TrainState
 
 
 def _copy(param: torch.Tensor, value, name: str):
@@ -145,25 +155,60 @@ def _tensor_like(param: torch.Tensor, value, name: str) -> torch.Tensor:
     return t
 
 
-def load_jax_train_state(network, tree: dict) -> TrainState:
+def load_camera_params(camera: CameraParams, tree: dict) -> CameraParams:
+    """Fill ``camera`` from a camera tree (its ``latents``, if any, are
+    left out: the port holds them at zero). Returns ``camera``."""
+    for name in CameraParams.NAMES:
+        _copy(getattr(camera, name), tree[name], f"camera.{name}")
+    return camera
+
+
+def export_camera_params(camera: CameraParams) -> dict:
+    """The camera tree of ``camera`` (numpy float32, keys sorted)."""
+    return {name: getattr(camera, name).detach().cpu().numpy().copy()
+            for name in CameraParams.NAMES}
+
+
+def load_jax_train_state(network, tree: dict,
+                         camera: CameraParams | None = None) -> TrainState:
     """A ``TrainState`` of ``network`` (a port network, filled
-    in place) from a training-state tree (module docstring)."""
+    in place) from a training-state tree (module docstring); a group the
+    tree's ``opt`` lacks starts with zero moments. With
+    ``camera`` (filled in place) the state has a camera group: the tree's
+    camera parameters, EMA and Adam state where it holds them, else zero
+    parameters and moments, and an EMA copy of the parameters beside the
+    model's."""
     load_jax_params(network, tree["params"])
     groups = param_groups(network)
     opt = {}
     for g in GROUPS:
-        st = tree["opt"][g]
-        opt[g] = AdamState(
-            int(st["count"]),
-            [_tensor_like(p, _tree_get(st["mu"], n), f"opt.{g}.mu.{n}")
-             for n, p in groups[g]],
-            [_tensor_like(p, _tree_get(st["nu"], n), f"opt.{g}.nu.{n}")
-             for n, p in groups[g]],
-        )
+        opt[g] = _adam_state(tree["opt"].get(g), groups[g], f"opt.{g}")
     ema = None
     if tree.get("ema") is not None:
         ema = load_jax_params(copy.deepcopy(network), tree["ema"]).requires_grad_(False)
-    return TrainState(int(tree["step"]), network, opt, ema)
+    state = TrainState(int(tree["step"]), network, opt, ema)
+    if camera is not None:
+        if tree.get("camera") is not None:
+            load_camera_params(camera, tree["camera"])
+        names = [(n, getattr(camera, n)) for n in CameraParams.NAMES]
+        opt["camera"] = _adam_state(tree["opt"].get("camera"), names, "opt.camera")
+        state.camera = camera
+        if ema is not None:
+            state.camera_ema = copy.deepcopy(camera).requires_grad_(False)
+            if tree.get("camera_ema") is not None:
+                load_camera_params(state.camera_ema, tree["camera_ema"])
+    return state
+
+
+def _adam_state(st: dict | None, named_params, where: str) -> AdamState:
+    """A group's Adam state from its tree; zero moments where None."""
+    if st is None:
+        return adam_init([p for _, p in named_params])
+    return AdamState(
+        int(st["count"]),
+        [_tensor_like(p, _tree_get(st["mu"], n), f"{where}.mu.{n}") for n, p in named_params],
+        [_tensor_like(p, _tree_get(st["nu"], n), f"{where}.nu.{n}") for n, p in named_params],
+    )
 
 
 def export_jax_train_state(state: TrainState) -> dict:
@@ -173,15 +218,24 @@ def export_jax_train_state(state: TrainState) -> dict:
     groups = param_groups(state.model)
     opt = {}
     for g in GROUPS:
-        st = state.opt_state[g]
-        mu, nu = {}, {}
-        for (name, _), m, v in zip(groups[g], st.mu, st.nu):
-            _tree_set(mu, name, m.detach().cpu().numpy().copy())
-            _tree_set(nu, name, v.detach().cpu().numpy().copy())
-        opt[g] = {"count": st.count, "mu": mu, "nu": nu}
-    return {
+        opt[g] = _export_adam(state.opt_state[g], groups[g])
+    tree = {
         "step": state.step,
         "params": export_jax_params(state.model),
         "opt": opt,
         "ema": export_jax_params(state.inference_model()),
     }
+    if state.camera is not None:
+        names = [(n, getattr(state.camera, n)) for n in CameraParams.NAMES]
+        opt["camera"] = _export_adam(state.opt_state["camera"], names)
+        tree["camera"] = export_camera_params(state.camera)
+        tree["camera_ema"] = export_camera_params(state.inference_camera())
+    return tree
+
+
+def _export_adam(st: AdamState, named_params) -> dict:
+    mu, nu = {}, {}
+    for (name, _), m, v in zip(named_params, st.mu, st.nu):
+        _tree_set(mu, name, m.detach().cpu().numpy().copy())
+        _tree_set(nu, name, v.detach().cpu().numpy().copy())
+    return {"count": st.count, "mu": mu, "nu": nu}

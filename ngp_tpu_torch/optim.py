@@ -10,6 +10,11 @@ then ``add_decayed_weights(l2_reg)``, then the learning rate. That is not
 ``torch.optim.Adam``: its weight decay enters the gradient before the
 moments. The EMA copy warms up: decay min(d, (1 + step)/(10 + step)).
 
+The NeRF engine's camera group (``train.CameraParams``) has a rule of
+its own, the JAX engine's ``camera_tx``: ``scale_by_adam(0.9, 0.99,
+1e-8)``, then ``add_decayed_weights(extrinsic_l2_reg)``, then the
+learning rate of :func:`camera_schedule` (:class:`CameraOptimizerConfig`).
+
 Scalars that depend on the step (bias corrections, learning rate, EMA
 decay) are rounded to float32 as the JAX package computes them.
 """
@@ -17,7 +22,7 @@ decay) are rounded to float32 as the JAX package computes them.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Callable, ClassVar
 
 import numpy as np
 import torch
@@ -81,6 +86,36 @@ class OptimizerConfig:
             schedule=schedule,
             ema_decay=ema_decay,
         )
+
+
+def camera_schedule(extrinsic_learning_rate: float,
+                    lr_schedule: Callable[[int], float]) -> Callable[[int], float]:
+    """The camera group's learning rate at update ``count``, in float32:
+    max(extrinsic_learning_rate/16 · 0.33^(count // 2048),
+    lr_schedule(count)/1000). The reference steps its camera Adam once every
+    16 training steps at ``extrinsic_learning_rate``, decayed ×0.33 every
+    128 of its steps; this rule steps every training step (JAX engine
+    ``cam_schedule``)."""
+    base = np.float32(extrinsic_learning_rate / 16.0)
+
+    def schedule(count: int) -> float:
+        decayed = base * np.float32(0.33) ** np.float32(count // 2048)
+        floor = np.float32(lr_schedule(count)) / np.float32(1000.0)
+        return float(max(np.float32(decayed), floor))
+
+    return schedule
+
+
+@dataclass(frozen=True)
+class CameraOptimizerConfig:
+    """The camera group's rule: Adam (``b1``, ``b2``, ``eps``: the JAX
+    engine's constants), then ``l2_reg``·p, then ``schedule(count)``."""
+
+    l2_reg: float
+    schedule: Callable[[int], float]
+    b1: ClassVar[float] = 0.9
+    b2: ClassVar[float] = 0.99
+    eps: ClassVar[float] = 1e-8
 
 
 @dataclass

@@ -19,11 +19,10 @@ trains, renders and saves and loads snapshots through
 ``device="cpu"``.
 
 Not yet ported, and refused: JPEG images
-(A2), ``frame()`` (the viewer's heartbeat, A11), rolling-shutter renders
-(``render(end_matrix=...)``, A5), the render crop box (``render_aabb``,
-A6) and a scene's geometry prior (a ``<name>.obj`` or ``<name>.xyz``
-beside the capture, which the JAX package seeds the density grid from;
-A5).
+(A2), ``frame()`` (the viewer's heartbeat, A11), the render crop box
+(``render_aabb``, A6), depth maps in ``set_image`` (A5) and a scene's
+geometry prior (a ``<name>.obj`` or ``<name>.xyz`` beside the capture,
+which the JAX package seeds the density grid from; A5).
 """
 
 from __future__ import annotations
@@ -347,7 +346,10 @@ class Testbed:
         """Render (H, W, 3) float32, ``pyngp.Testbed.render``. NeRF: the
         dataset view ``training_view`` at its own resolution, or a pinhole
         camera ``camera_matrix`` (NGP space; default ``start_matrix``, else
-        training view 0) with a vertical field of view of ``fov_deg``;
+        training view 0) with a vertical field of view of ``fov_deg``; with
+        an ``end_matrix`` that differs from it, a rolling shutter: pixel
+        row y (its center v = (y + 0.5)/H) sees the pose lerped to time
+        v·``shutter_fraction`` (the JAX package's ``_lerp_xforms``);
         ``spp``, ``eye`` and ``lookat`` do not apply, as in the JAX package.
         SDF: the headlight shade from ``eye`` (default [0.5, 0.5, 2.0])
         toward ``lookat`` (default [0.5, 0.5, 0.5]) with a horizontal field
@@ -370,8 +372,6 @@ class Testbed:
             img, _ = self.engine.render_image(self.state, eye, lookat,
                                               resolution=(width, height), fov_deg=fov_deg)
             return img.cpu().numpy()
-        if end_matrix is not None:
-            raise not_ported("rolling shutter (render(end_matrix=...))", "A5")
         if training_view is not None:
             return self.engine.render_image(self.state, self.grid, training_view).cpu().numpy()
         if camera_matrix is None:
@@ -384,12 +384,25 @@ class Testbed:
         y = (py - 0.5) * H / f
         dc = np.stack([x, y, np.ones_like(x)], -1).reshape(-1, 3)
         m = np.asarray(camera_matrix, np.float32)[:3, :4]
-        d = dc @ m[:, :3].T
-        d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        o = np.broadcast_to(m[:, 3], d.shape)
-        rgb, _, _ = self.engine.render_rays(
-            self.state, self.grid, torch.as_tensor(o.astype(np.float32)),
-            torch.as_tensor(d.astype(np.float32)))
+        me = None if end_matrix is None else np.asarray(end_matrix, np.float32)[:3, :4]
+        if me is not None and not np.array_equal(me, m):
+            from ngp_tpu_torch.engines.nerf import _lerp_xforms
+
+            dev, n = self.engine.device, dc.shape[0]
+            t = torch.as_tensor((py.reshape(-1) * float(shutter_fraction)).astype(np.float32),
+                                device=dev)
+            xf = _lerp_xforms(torch.tensor(m, device=dev).expand(n, 3, 4),
+                              torch.tensor(me, device=dev).expand(n, 3, 4), t)
+            d = torch.einsum("nij,nj->ni", xf[:, :, :3],
+                             torch.as_tensor(dc.astype(np.float32), device=dev))
+            d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+            o = xf[:, :, 3]
+        else:  # a still camera (an end pose equal to the start moves nothing)
+            d = dc @ m[:, :3].T
+            d /= np.linalg.norm(d, axis=-1, keepdims=True)
+            o = torch.as_tensor(np.broadcast_to(m[:, 3], d.shape).astype(np.float32))
+            d = torch.as_tensor(d.astype(np.float32))
+        rgb, _, _ = self.engine.render_rays(self.state, self.grid, o, d)
         return rgb.cpu().numpy().reshape(H, W, 3)
 
     @property

@@ -16,6 +16,7 @@ from torch import nn
 from ngp_tpu_torch.optim import (
     GROUPS,
     AdamState,
+    CameraOptimizerConfig,
     OptimizerConfig,
     adam_init,
     adam_skip_zero_step,
@@ -25,37 +26,82 @@ from ngp_tpu_torch.optim import (
 )
 
 
+class CameraParams(nn.Module):
+    """The NeRF engine's camera group, the JAX engine's ``params["camera"]``:
+    per-image position offsets ``pos`` (I, 3) and rotation vectors ``rot``
+    (I, 3) applied to the dataset's poses, per-image exposures ``exposure``
+    (I, 3) in stops, a log-scale focal multiplier ``focal`` (2,) and a
+    lens-distortion grid ``distortion`` (H, W, 2) of camera-space direction
+    offsets; all zero at the start. ``latents`` (I, E) is a buffer held at
+    zero: training latent codes is not yet ported (ROADMAP A5c)."""
+
+    NAMES = ("distortion", "exposure", "focal", "pos", "rot")
+
+    def __init__(self, n_images: int, distortion_resolution=(32, 32),
+                 n_latents: int = 1, device="cuda"):
+        super().__init__()
+        f32 = dict(dtype=torch.float32, device=device)
+        shapes = {"distortion": (*distortion_resolution, 2), "exposure": (n_images, 3),
+                  "focal": (2,), "pos": (n_images, 3), "rot": (n_images, 3)}
+        for name in self.NAMES:
+            setattr(self, name, nn.Parameter(torch.zeros(shapes[name], **f32)))
+        self.register_buffer("latents", torch.zeros((n_images, n_latents), **f32))
+
+
 @dataclass
 class TrainState:
     """The training step, the model (parameters being trained), the Adam
-    state of each group (``"dense"``, ``"grid"``; see ``optim.py``) and
-    the EMA copy of the model served for inference. The engine updates all
-    of them in place; ``step`` counts the updates applied.
+    state of each group (``"dense"``, ``"grid"``; see ``optim.py``; and
+    ``"camera"`` where there is a camera group) and the EMA copy of the
+    model served for inference. The engine updates all of them in place;
+    ``step`` counts the updates applied.
 
     ``ema`` is None until the first update copies the model into it (the
     JAX package's ``ema_init`` at the parameters the first update starts
     from) and stays None without an ``Ema`` optimizer; until then the
-    model itself is served."""
+    model itself is served.
+
+    ``camera`` is the NeRF engine's :class:`CameraParams` (None for the
+    other engines) and ``camera_ema`` its EMA copy, which the JAX
+    package's EMA covers as it covers the whole parameter tree.
+    ``camera_still`` is set where the camera group is frozen and it and its
+    EMA are zero, so that the EMA update cannot move them and is skipped;
+    a step of the camera group clears it, as must any other write to
+    either."""
 
     step: int
     model: nn.Module
     opt_state: dict[str, AdamState]
     ema: nn.Module | None
+    camera: nn.Module | None = None
+    camera_ema: nn.Module | None = None
+    camera_still: bool = False
 
     @staticmethod
-    def create(model: nn.Module, step: int = 0) -> "TrainState":
+    def create(model: nn.Module, step: int = 0,
+               camera: nn.Module | None = None) -> "TrainState":
         """Zero moments and no EMA copy yet."""
         groups = param_groups(model)
         opt = {g: adam_init([p for _, p in groups[g]]) for g in GROUPS}
-        return TrainState(step, model, opt, None)
+        if camera is not None:
+            opt["camera"] = adam_init(list(camera.parameters()))
+        return TrainState(step, model, opt, None, camera)
 
     def start_ema(self):
-        """Copy the model into ``ema`` (before the first update)."""
+        """Copy the model (and the camera group) into the EMA (before the
+        first update)."""
         self.ema = copy.deepcopy(self.model).requires_grad_(False)
+        if self.camera is not None:
+            self.camera_ema = copy.deepcopy(self.camera).requires_grad_(False)
 
     def inference_model(self) -> nn.Module:
         """The EMA-averaged model where there is one, else the model."""
         return self.ema if self.ema is not None else self.model
+
+    def inference_camera(self) -> nn.Module | None:
+        """The EMA-averaged camera group where there is one, else the
+        camera group."""
+        return self.camera_ema if self.camera_ema is not None else self.camera
 
 
 class Trainer:
@@ -94,28 +140,43 @@ class Trainer:
         apply_grads(state, self.opt_cfg)
 
 
-def apply_grads(state: TrainState, cfg: OptimizerConfig) -> None:
+def apply_grads(state: TrainState, cfg: OptimizerConfig,
+                camera_cfg: CameraOptimizerConfig | None = None) -> None:
     """One step of ``cfg``'s optimizer stack from the ``.grad`` of
     ``state.model``: sparse Adam on the tables, Adam + L2 on the rest, then
     the EMA; in place. The step of every engine (``Trainer``, the NeRF
-    engine)."""
+    engine). With ``camera_cfg`` the camera group takes its own step too
+    (the NeRF engine while refinement is on); a camera group without one
+    stays as it is. The EMA covers the camera group where there is one,
+    unless ``state.camera_still``."""
     if cfg.ema_decay is not None and state.ema is None:
         state.start_ema()
     groups = param_groups(state.model)
     for name in GROUPS:
         params = [p for _, p in groups[name]]
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
         opt = state.opt_state[name]
         lr = cfg.schedule(opt.count)
         if name == "grid":
-            adam_skip_zero_step(params, grads, opt, lr, cfg.b1, cfg.b2, cfg.eps)
+            adam_skip_zero_step(params, _grads(params), opt, lr, cfg.b1, cfg.b2, cfg.eps)
         else:
-            adam_step(params, grads, opt, lr, cfg.b1, cfg.b2, cfg.eps, cfg.l2_reg)
+            adam_step(params, _grads(params), opt, lr, cfg.b1, cfg.b2, cfg.eps, cfg.l2_reg)
+    if camera_cfg is not None:
+        params = list(state.camera.parameters())
+        opt = state.opt_state["camera"]
+        adam_step(params, _grads(params), opt, camera_cfg.schedule(opt.count), camera_cfg.b1,
+                  camera_cfg.b2, camera_cfg.eps, camera_cfg.l2_reg)
+        state.camera_still = False
     if state.ema is not None:
         ema_update(list(state.ema.parameters()), list(state.model.parameters()),
                    cfg.ema_decay, state.step)
+        if state.camera_ema is not None and not state.camera_still:
+            ema_update(list(state.camera_ema.parameters()), list(state.camera.parameters()),
+                       cfg.ema_decay, state.step)
     state.step += 1
+
+
+def _grads(params) -> list:
+    return [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
 
 
 @contextlib.contextmanager

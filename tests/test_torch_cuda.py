@@ -386,6 +386,34 @@ def test_normals_render_launches_the_input_gradient_and_no_table_gradient(cuda):
     assert all(p.requires_grad for p in state.model.parameters())
 
 
+@pytest.mark.cuda
+def test_camera_refinement_trains_on_the_card(cuda):
+    """Every camera refinement flag on, on the card: training launches the
+    position gradient and the table gradient, the loss stays finite and the
+    camera group and its EMA move off zero."""
+    import math
+
+    from ngp_tpu_torch.config import default_config
+    from ngp_tpu_torch.data.synthetic import tiny_sphere_dataset
+    from ngp_tpu_torch.engines.nerf import NerfEngine
+    from ngp_tpu_torch.ops.cuda_build import reset_launches
+
+    eng = NerfEngine(default_config("tpu"), tiny_sphere_dataset(4, 32), batch_size=1 << 14,
+                     grid_size=32, optimize_extrinsics=True, optimize_exposure=True,
+                     optimize_focal_length=True, optimize_distortion=True)
+    state, grid = eng.init_state(), eng.init_grid()
+    reset_launches()
+    state, grid, metrics = eng.train(state, grid, 8)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    assert launched["hashgrid_input_grad"] > 0 and launched["hashgrid_backward"] > 0
+    assert math.isfinite(float(metrics["loss"]))
+    assert state.opt_state["camera"].count == 8
+    for cam in (state.camera, state.camera_ema):
+        assert float(cam.pos.detach().abs().max()) > 0
+        assert bool(torch.isfinite(cam.distortion).all())
+
+
 def _keys_and_vals(kind, L, M, T, F, seed):
     rng = np.random.default_rng(seed)
     keys = rng.integers(0, T, (L, M))

@@ -2,8 +2,9 @@
 the metrics (``ngp_tpu_torch/utils/metrics.py``), the sRGB curves
 (``ops/tonemap.py``), ``NerfEngine.render_view`` and
 ``eval_test_transforms`` on the golden snapshot, the engine's guards for
-what a loaded capture may carry that the port does not yet run, and (slow)
-training on a loaded PNG capture to a held-out score.
+what a loaded capture may carry that the port does not yet run, training
+on captures with motion blur or a rolling shutter, and (slow) training on
+a loaded PNG capture to a held-out score.
 
 Tolerances: metrics 1e-6 relative (the same numpy formulas); the sRGB
 curves 1e-6; ``render_view`` 1e-4 on the image, depth and opacity (the
@@ -11,6 +12,7 @@ golden render's own bound is 2e-4); ``eval_test_transforms`` PSNR 0.01 dB.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -141,13 +143,9 @@ def test_engine_refuses_what_a_capture_may_carry_but_the_port_does_not_run():
     base = dict(images=jd.images, xforms=jd.xforms, focal_lengths=jd.focal_lengths,
                 principal_points=jd.principal_points, lens=Lens(),
                 resolution=jd.resolution)
-    moved = jd.xforms.copy()
-    moved[:, 1, 0, 3] += 0.01
     for extra, what in (
         ({"envmap": np.zeros((4, 8, 4), np.float32)}, "envmap"),
         ({"render_aabb": (np.zeros(3), np.ones(3))}, "render_aabb"),
-        ({"rolling_shutter": (0.0, 0.1, 0.0, 0.0)}, "rolling shutter"),
-        ({"xforms": moved}, "rolling shutter"),
         ({"rays": np.zeros((2, 48, 48, 6), np.float32)}, "rays"),
     ):
         with pytest.raises(ValueError, match=what):
@@ -156,6 +154,37 @@ def test_engine_refuses_what_a_capture_may_carry_but_the_port_does_not_run():
     # the JAX package
     depths = np.ones((2, 48, 48), np.float32)
     NerfEngine(dict(CONFIG), NerfDataset(**base, depths=depths), device="cpu")
+
+
+@pytest.mark.parametrize("shutter", ["motion_blur", "rolling"])
+def test_shuttered_capture_trains(shutter):
+    """A capture with end poses (each camera turned 0.02 rad about the
+    scene's centre) and pure motion blur, or a rolling shutter across the
+    rows: the engine keeps the end poses, and 60 steps (the JAX package's
+    ``test_rolling_shutter_smoke_and_motion_blur_xform_use``) give a finite
+    loss that falls below the first window's and below 0.05."""
+    from test_nerf_engine import CONFIG, SPHERE_C, _lookat_xform, _make_dataset
+
+    jd = _make_dataset(6)
+    xf = jd.xforms.copy()
+    c, s = math.cos(0.02), math.sin(0.02)
+    rot_z = np.asarray([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    for i in range(xf.shape[0]):
+        eye = SPHERE_C + rot_z @ (xf[i, 0, :, 3] - SPHERE_C)
+        xf[i, 1] = _lookat_xform(eye.astype(np.float32), SPHERE_C)
+    rs = (0.0, 0.0, 0.0, 1.0) if shutter == "motion_blur" else (0.0, 0.0, 1.0, 0.0)
+    ds = NerfDataset(images=jd.images, xforms=xf, focal_lengths=jd.focal_lengths,
+                     principal_points=jd.principal_points, lens=Lens(),
+                     resolution=jd.resolution, aabb_scale=1, rolling_shutter=rs)
+    eng = NerfEngine(dict(CONFIG), ds, batch_size=1 << 12, grid_size=16,
+                     n_steps_per_unit=128, density_grid_decay=0.8, seed=17,
+                     adapt_every=4, device="cpu")
+    assert eng.xforms_end is not None
+    state, grid = eng.init_state(), eng.init_grid()
+    state, grid, m0 = eng.train(state, grid, 4)
+    state, grid, m = eng.train(state, grid, 56)
+    assert math.isfinite(float(m["loss"]))
+    assert float(m["loss"]) < float(m0["loss"]) and float(m["loss"]) < 0.05
 
 
 @pytest.mark.slow

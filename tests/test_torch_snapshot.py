@@ -1,7 +1,8 @@
 """Snapshots across packages, on the CPU: the port's msgpack writer against
 ``msgpack``, the write half of the reference ``.ingp`` codec and the native
 snapshot format against the JAX package's, each package loading what the
-other wrote, and the refusals.
+other wrote, camera groups that are not zero crossing both ways, and the
+refusals.
 
 Tolerances: bytes, parameters, moments and grids exact (both packages
 write the same float16 and float32 values); renders of a crossed snapshot
@@ -265,11 +266,23 @@ def test_native_snapshot_from_jax_loads_in_port(golden, tmp_path):
 
 
 def test_native_snapshot_round_trip_with_optimizer(tmp_path, capsys):
-    """A trained port state (moments and EMA moved off the parameters)
-    saved with its optimizer and loaded: step, parameters, EMA, moments and
-    counts bit for bit; the grid from its float16 densities and stored
+    """A trained port state with refinement off (moments and EMA moved off
+    the parameters) saved with its optimizer and loaded: step, parameters,
+    EMA, moments and counts bit for bit, the frozen camera group, its EMA
+    and its moments zero; the grid from its float16 densities and stored
     mean; the loss EMA; a second save byte-identical. (Training prints the
     JAX engine's ``log_every`` lines.)"""
+    _round_trip_with_optimizer(tmp_path, capsys, refined=False)
+
+
+def test_native_snapshot_round_trip_with_camera_optimizer(tmp_path, capsys):
+    """As :func:`test_native_snapshot_round_trip_with_optimizer` with every
+    camera refinement flag on, so that the camera group, its EMA and its
+    moments move and round-trip bit for bit too."""
+    _round_trip_with_optimizer(tmp_path, capsys, refined=True)
+
+
+def _round_trip_with_optimizer(tmp_path, capsys, refined: bool):
     from ngp_tpu_torch.config import default_config
     from ngp_tpu_torch.data.synthetic import tiny_sphere_dataset
     from ngp_tpu_torch.engines.nerf import NerfEngine
@@ -277,8 +290,10 @@ def test_native_snapshot_round_trip_with_optimizer(tmp_path, capsys):
     cfg = default_config("tpu")
     cfg["encoding"].update(n_levels=4, log2_hashmap_size=12)
     cfg["network"]["n_neurons"] = cfg["rgb_network"]["n_neurons"] = 16
+    flags = dict(optimize_extrinsics=refined, optimize_exposure=refined,
+                 optimize_focal_length=refined, optimize_distortion=refined)
     eng = NerfEngine(cfg, tiny_sphere_dataset(4, 16), batch_size=1 << 12, grid_size=16,
-                     device="cpu")
+                     device="cpu", **flags)
     state, grid = eng.init_state(), eng.init_grid()
     state, grid, _ = eng.train(state, grid, 40, log_every=16)  # the meters read window 1
     logged = capsys.readouterr().out.splitlines()
@@ -290,14 +305,19 @@ def test_native_snapshot_round_trip_with_optimizer(tmp_path, capsys):
     eng.save_snapshot(first, state, grid, include_optimizer=True)
     state2, grid2 = eng.load_snapshot(first)
     assert state2.step == state.step == 40
-    for a, b in ((state.model, state2.model), (state.ema, state2.ema)):
+    for a, b in ((state.model, state2.model), (state.ema, state2.ema),
+                 (state.camera, state2.camera), (state.camera_ema, state2.camera_ema)):
         for p, q in zip(a.parameters(), b.parameters()):
             assert torch.equal(p, q)
+    for cam in (state.camera, state.camera_ema):
+        assert any(bool(p.any()) for p in cam.parameters()) == refined
+    assert state.opt_state["camera"].count == (40 if refined else 0)
     for g in state.opt_state:
         assert state2.opt_state[g].count == state.opt_state[g].count
         for m, n in zip(state.opt_state[g].mu + state.opt_state[g].nu,
                         state2.opt_state[g].mu + state2.opt_state[g].nu):
-            assert torch.equal(m, n) and m.any()
+            # the frozen camera group's moments stay zero
+            assert torch.equal(m, n) and bool(m.any()) == (refined or g != "camera")
     assert torch.equal(grid2.density, grid.density.half().float())
     assert torch.equal(grid2.mean_density, grid.mean_density)
     assert eng.meters.loss_ema == loss_ema > 0
@@ -308,25 +328,78 @@ def test_native_snapshot_round_trip_with_optimizer(tmp_path, capsys):
                                eng.render_image(state, grid, 0, stride=4), rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["pos", "rot", "exposure", "focal", "distortion", "envmap"])
+@pytest.fixture(scope="module")
+def refining():
+    """Both engines at the golden settings with every camera refinement
+    flag on, and the JAX engine's state of the golden snapshot."""
+    from golden.make_golden import build_engine
+
+    from ngp_tpu.engines.nerf import NerfEngine as JaxNerfEngine
+
+    flags = dict(optimize_extrinsics=True, optimize_exposure=True,
+                 optimize_focal_length=True, optimize_distortion=True)
+    jeng = JaxNerfEngine(dict(build_engine().config), build_engine().dataset,
+                         batch_size=1 << 12, grid_size=16, n_steps_per_unit=128,
+                         density_grid_decay=0.8, seed=11, **flags)
+    return _port_golden_engine(**flags), jeng, jeng.load_reference_snapshot(GOLDEN_INGP)
+
+
+def _without_latents(tree):
+    return {k: ({n: v for n, v in tree[k].items() if n != "latents"} if k == "camera"
+                else tree[k]) for k in tree}
+
+
+@pytest.mark.parametrize("name", ["pos", "rot", "exposure", "focal", "distortion"])
+def test_snapshot_with_camera_parameters_crosses(refining, tmp_path, name):
+    """A JAX native snapshot whose camera leaf ``name`` is not zero (one
+    value in the parameters, another in the EMA) loads into the port with
+    both, array for array; the port renders view 0 within the golden bound
+    of the JAX engine's render of that snapshot (the EMA distortion grid
+    reaches the render, pose, exposure and focal reach none, as in the JAX
+    engine); and the port's save of it loads back into the JAX engine array
+    for array, the latents aside (the port holds them at zero)."""
+    peng, jeng, (jstate, jgrid) = refining
+    rng = np.random.default_rng(len(name))
+    shape = np.asarray(jstate.params["camera"][name]).shape
+    value, ema_value = (rng.normal(0, 0.05, shape).astype(np.float32) for _ in range(2))
+    params = {**jstate.params, "camera": {**jstate.params["camera"], name: value}}
+    ema = {**jstate.ema.params, "camera": {**jstate.ema.params["camera"], name: ema_value}}
+    jstate = jstate._replace(params=params, ema=jstate.ema._replace(params=ema))
+    path, back = str(tmp_path / "jax.msgpack"), str(tmp_path / "port.msgpack")
+    jeng.save_snapshot(path, jstate, jgrid)
+    jstate, jgrid = jeng.load_snapshot(path)
+    pstate, pgrid = peng.load_snapshot(path)
+    np.testing.assert_array_equal(getattr(pstate.camera, name).detach().numpy(), value)
+    np.testing.assert_array_equal(getattr(pstate.camera_ema, name).numpy(), ema_value)
+    want = np.asarray(jeng.render_image(jstate, jgrid, 0, stride=4))
+    np.testing.assert_allclose(peng.render_image(pstate, pgrid, 0, stride=4).numpy(), want,
+                               rtol=GOLDEN_TOL, atol=GOLDEN_TOL)
+    moved = np.abs(want - _golden_render()).max()
+    assert (moved > 1e-2) == (name == "distortion"), moved
+    peng.save_snapshot(back, pstate, pgrid)
+    jstate2, _ = jeng.load_snapshot(back)
+    for tree in ("params", "ema"):
+        a = getattr(jstate, tree) if tree == "params" else jstate.ema.params
+        b = getattr(jstate2, tree) if tree == "params" else jstate2.ema.params
+        _assert_trees_equal(_jax_tree(_without_latents(b)), _jax_tree(_without_latents(a)))
+
+
+@pytest.mark.parametrize("name", ["envmap"])
 def test_snapshot_with_camera_parameters_is_refused(golden, tmp_path, name):
-    """Camera refinement is not yet ported: a snapshot whose camera group
-    is not zero (or that carries an envmap) is refused. Latents are the
-    exception while the network has no extra dims."""
+    """A snapshot that carries an envmap is refused: the trainable envmap
+    is not yet ported (ROADMAP A5c). Latents that are not zero are
+    accepted while the network has no extra dims, and a camera group that
+    is not zero crosses (:func:`test_snapshot_with_camera_parameters_crosses`)."""
     peng, pstate, pgrid = golden[:3]
     path = str(tmp_path / "s.msgpack")
     peng.save_snapshot(path, pstate, pgrid)
     doc = psnapshot.load_snapshot(path)
     del doc["version"]
     doc["snapshot"]["params"]["camera"]["latents"] += 0.5
-    peng.load_snapshot(_write(path, doc))  # latents alone: accepted
-    if name == "envmap":
-        doc["snapshot"]["ema_params"]["envmap"] = {"image": np.ones((4, 8, 3), np.float32)}
-        match = "envmap is not yet ported"
-    else:
-        doc["snapshot"]["ema_params"]["camera"][name].flat[0] = 1e-3
-        match = "camera refinement is not yet ported"
-    with pytest.raises(ValueError, match=match):
+    doc["snapshot"]["params"]["camera"]["pos"].flat[0] = 1e-3
+    peng.load_snapshot(_write(path, doc))  # latents and a pose offset: accepted
+    doc["snapshot"]["ema_params"][name] = {"image": np.ones((4, 8, 3), np.float32)}
+    with pytest.raises(ValueError, match="envmap is not yet ported"):
         peng.load_snapshot(_write(path, doc))
 
 

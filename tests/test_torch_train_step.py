@@ -292,11 +292,11 @@ def test_decay_grid_matches_jax(engines):
 
 
 def test_not_yet_ported_options_raise():
+    """The trainable envmap and depth supervision (ROADMAP A5c); camera
+    refinement is ported (``tests/test_torch_camera.py``)."""
     ds = _port_dataset(_make_dataset(n_views=2))
-    for opt in ("optimize_extrinsics", "optimize_exposure", "optimize_focal_length",
-                "optimize_distortion", "train_envmap"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            NerfEngine(copy.deepcopy(SMALL), ds, device="cpu", **{opt: True})
+    with pytest.raises(ValueError, match="not yet ported"):
+        NerfEngine(copy.deepcopy(SMALL), ds, device="cpu", train_envmap=True)
     with pytest.raises(ValueError, match="not yet ported"):
         NerfEngine(copy.deepcopy(SMALL), ds, device="cpu", depth_supervision_lambda=0.1)
 
