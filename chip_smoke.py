@@ -107,7 +107,7 @@ Phases, each printing one JSON line:
    primitive at instant-ngp's configs/image/base.json width (``Testbed``'s
    default: D=2, L=16, F=2, T=2^24, XOR hash; levels 0-8 dense, level 8 of
    exactly 2^24 rows), fitting the 104.9 MP procedural image of
-   ``scripts/bench_gigapixel.py`` made on the card in float16: 2,048 steps
+   ``scripts/bench_gigapixel.py`` made on the card in float16: 1,024 steps
    of 2^18 Stratified positions through ``ImageEngine.train`` in calls of
    128; ms a step (median after step 512), samples/s, peak memory, the
    PSNR of the stride-16 texel subsample (gate ``IMAGE_PSNR_MIN``), the
@@ -118,7 +118,7 @@ Phases, each printing one JSON line:
    by stage (positions and targets, forward, backward, grid backward,
    optimizer).
 14. image_cli: ``python -m ngp_tpu_torch.run`` in subprocesses on a
-   written 2048² ``.bin`` image: the default config 1,000 steps with a
+   written 2048² ``.bin`` image: the default config 500 steps with a
    screenshot (gate ``IMAGE_CLI_PSNR_MIN`` on the printed PSNR), then a
    T=2^18 ``--network`` file trained, saved, and loaded in a new process,
    whose MSE line must equal the saved run's.
@@ -178,19 +178,38 @@ Phases, each printing one JSON line:
    (instant-ngp's base.json: L=16, F=2, T=2^19, XOR hash, 64-wide MLPs,
    2^18 sample slots a step) on the capture of phase 11 (written again
    when absent), its training poses moved by seeded noise (positions σ
-   0.01, rotations σ 0.2°) through ``set_camera_extrinsics``: 500 steps
-   with refinement off and 500 with extrinsics, exposure, focal length and
+   0.01, rotations σ 0.2°) through ``set_camera_extrinsics``: ``CAMERA_STEPS``
+   steps with refinement off and as many with extrinsics, exposure, focal length and
    distortion refined, each scored on the held-out views (gates: the
    refined position offsets moved, the frozen camera group exactly 0, the
    refined loss below 1.2× the frozen one on one batch; the refined run launches
    ``hashgrid_input_grad`` and the float32-addend backward), a timing run
-   with exposure alone, and 200 steps on a motion-blurred copy of the
+   with exposure alone, and 100 steps on a motion-blurred copy of the
    capture to a falling loss, with ``render(end_matrix=start)`` equal to
    the still render bit for bit. Then (``camera_kernels``) the position
    gradient bit for bit and the float32-addend backward within the float32
    order bound on one refined step's own (x, g), beside the bf16-addend
-   backward on the same (x, g), and (``camera_profile``) 16 refined steps
-   under ``torch.profiler``: the busy share and device ms by stage.
+   backward on the same (x, g), and (``camera_profile``) two windows of 8
+   refined steps under ``torch.profiler``: the busy share and device ms by
+   stage.
+20. supervision: in a fresh process (``chip_smoke.py supervision``, which
+   also runs alone), ROADMAP A5c's options through ``Testbed`` at its NeRF
+   config on four 800×800 captures of the sphere written into
+   ``build/supervision_smoke/`` (depth maps and supplied rays; an opaque
+   sky; an envmap behind a transparent background; per-view brightness
+   with 8 extra dims), 250 steps a run: depth supervision (gate: the
+   held-out median depth error below 0.05 NGP units, beside the
+   unsupervised run's), supplied rays (gates: the held-out PSNR within 1
+   dB of the camera rays', no culled cell), a trained envmap on the sky
+   (gate: its mean sRGB error at seen directions below 0.08), a dataset's
+   envmap (gates: unchanged bit for bit, a render's miss pixels equal to
+   its lookup within 1e-3), latents (gates: they move, the loss finite, a
+   zero-latent render finite; the loss beside a run without them), and
+   every option at once, timed against the plain run. Then
+   (``supervision_kernels``) B1 bit for bit and the fused backward within
+   the float32 order bound on one every-option step's own (x, g), and
+   (``supervision_profile``) two windows of 8 such steps under
+   ``torch.profiler``, the envmap's read and deposit a stage of their own.
 Then the ``kernels`` line, the card's ``name, power.limit``, and last the
 ``{"ok": true, ...}`` line. ``python3 chip_smoke.py profiler_probe`` runs
 no phase above: it counts how :func:`device_ms`'s profiler windows lose
@@ -296,7 +315,7 @@ CLI_KEPT_STEPS = 16
 # 128 (ms a step: the median of the calls after the first 512 steps), the
 # profiled steps, the stride of the PSNR's texel subsample and its gate
 IMAGE_SIDE = 10240
-IMAGE_STEPS = 2048
+IMAGE_STEPS = 1024  # 2,048 before the supervision phase took the time
 IMAGE_CALL_STEPS = 128
 IMAGE_TIMED_FROM = 512
 IMAGE_PROFILE_STEPS = 16
@@ -305,7 +324,7 @@ IMAGE_PSNR_MIN = 25.0
 # phase image_cli: the written .bin image's side, the default config's
 # steps and gate; the snapshot round trip's table size and steps
 IMAGE_CLI_SIDE = 2048
-IMAGE_CLI_STEPS = 1000
+IMAGE_CLI_STEPS = 500  # 1,000 before the supervision phase took the time
 IMAGE_CLI_PSNR_MIN = 25.0
 IMAGE_SNAPSHOT_LOG2 = 18
 IMAGE_SNAPSHOT_STEPS = 200
@@ -3307,9 +3326,10 @@ def phase_volume_all():
 
 # phase camera: camera refinement on the capture of phase capture at the
 # Testbed's NeRF config (instant-ngp's base.json), as the JAX package's
-# test_camera_refinement_recovers_pose_noise gates it. 500 steps a run
-# (1,000 took 40 and 75 ms a step, and the phase 276 s alone, on an H100)
-CAMERA_STEPS = 500
+# test_camera_refinement_recovers_pose_noise gates it (after 250 steps).
+# 300 steps a run (1,000 took 40 and 75 ms a step, and the phase 276 s
+# alone, on an H100; 500 until the supervision phase took the time)
+CAMERA_STEPS = 300
 CAMERA_TIMED = (200, 300)  # steps of the runs' timing window (median ms)
 CAMERA_EXPOSURE_STEPS = 150  # a timing run with exposure refinement alone,
 CAMERA_EXPOSURE_TIMED = (100, 150)  # timed against the frozen run's same steps
@@ -3700,6 +3720,493 @@ def phase_camera_all():
                       "camera_profile": t3 - t2}})
 
 
+# phase supervision: latents, environment maps, depth supervision and
+# supplied rays (ROADMAP A5c) through Testbed at its NeRF config
+# (instant-ngp's base.json) on 800×800 captures of phase capture's sphere
+SUPERVISION_STEPS = 250  # as the JAX package's depth test trains
+SUPERVISION_TIMED = (100, 250)  # steps of the runs' timing window (median ms)
+SUPERVISION_ALL_STEPS = 150  # a run with every option on, timed against the
+SUPERVISION_ALL_TIMED = (100, 150)  # plain run's same steps
+SUPERVISION_DEPTH_LAMBDA = 0.5
+SUPERVISION_DEPTH_OPACITY = 0.5
+SUPERVISION_DEPTH_ERR_MAX = 0.05  # NGP units, tests/test_depth_and_shutter.py:108
+SUPERVISION_RAYS_DB = 1.0
+SUPERVISION_SKY_ERR_MAX = 0.08  # mean sRGB error, tests/test_envmap.py:140
+SUPERVISION_SKY_PROBES = 4096
+SUPERVISION_SKY_ENVMAP = (32, 64)  # (H, W), as the JAX package's test trains it
+SUPERVISION_MISS_TOL = 1e-3
+SUPERVISION_LATENTS = 8
+SUPERVISION_MOVED_MIN = 1e-5  # tests/test_nerf_engine.py:224
+SUPERVISION_PROFILE_STEPS = 8
+SUPERVISION_FRAME = (320, 180)
+
+
+def _supervision_captures() -> dict:
+    """The phase's four captures (``write_sphere_capture`` at
+    ``CAPTURE_RES``, written into ``build/supervision_smoke/``): depth maps
+    and supplied rays; an opaque sky; a transparent background with an
+    envmap; per-view brightness with ``SUPERVISION_LATENTS`` extra dims.
+    The sky's capture has ``aabb_scale`` 1 and its cameras 3 units from
+    the centre, so that most of its sky pixels' rays miss the scene box:
+    density in the box explains the sky seen through it as well as the
+    envmap does (the JAX package's sky test trains its grid's decay at
+    0.41 for that), and at the other captures' 1.2 units every ray
+    crosses the box.
+    Returns {name: (train json, test json)}."""
+    from ngp_tpu_torch.data.synthetic import write_sphere_capture
+
+    root = os.path.join(ROOT, "build", "supervision_smoke")
+    return {name: write_sphere_capture(os.path.join(root, name), res=CAPTURE_RES,
+                                       device="cuda", **kw)
+            for name, kw in (("depth_rays", dict(depth=True, rays=True)),
+                             ("sky", dict(sky=True, aabb_scale=1, distance=3.0)),
+                             ("envmap", dict(envmap=True)),
+                             ("appearance", dict(brightness_seed=0,
+                                                 n_extra_learnable_dims=SUPERVISION_LATENTS)))}
+
+
+def _json_variant(path: str, name: str, **keys) -> str:
+    """A copy of the transforms json ``path`` beside it, named ``name``,
+    with top-level ``keys`` set (a value of None removes the key)."""
+    with open(path) as f:
+        doc = json.load(f)
+    for k, v in keys.items():
+        if v is None:
+            doc.pop(k, None)
+        else:
+            doc[k] = v
+    out = os.path.join(os.path.dirname(path), name)
+    with open(out, "w") as f:
+        json.dump(doc, f)
+    return out
+
+
+def _heldout_depth_error(tb, test) -> dict:
+    """Each held-out view of ``test`` rendered by ``render_view`` at the
+    capture's resolution (pixel centres, min transmittance 1e-4): the
+    median |rendered depth − the analytic distance to the sphere| over the
+    pixels of opacity > ``SUPERVISION_DEPTH_OPACITY`` (the ground truth 0
+    where the pixel's ray misses it), over all views."""
+    import torch
+
+    from ngp_tpu_torch.data.synthetic import capture_view
+
+    W, H = test.resolution
+    errs, misses = [], 0
+    for i in range(test.n_images):
+        _, depth, opacity = tb.engine.render_view(
+            tb.state, tb.grid, test.xforms[i, 0], test.focal_lengths[i],
+            test.principal_points[i], width=W, height=H, lens=test.lens,
+            min_transmittance=1e-4)
+        gt = torch.from_numpy(capture_view(test.xforms[i, 0], W, test.focal_lengths[i],
+                                           test.principal_points[i], test.lens,
+                                           device="cuda")["distance"]).cuda()
+        m = opacity > SUPERVISION_DEPTH_OPACITY
+        errs.append((depth - gt)[m].abs())
+        misses += int((m & (gt == 0)).sum())
+    err = torch.cat(errs)
+    return {"median_abs_err": float(err.median()), "mean_abs_err": float(err.mean()),
+            "pixels": int(err.numel()), "pixels_whose_ray_misses_the_sphere": misses}
+
+
+def _sky_error(tb) -> dict:
+    """The served envmap's mean sRGB error against the analytic sky at
+    ``SUPERVISION_SKY_PROBES`` directions the training views saw it along
+    (their pixels whose rays miss the sphere, a numpy seed's pick): the
+    JAX package's ``test_envmap_learns_synthetic_sky`` measure."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.data.synthetic import capture_view, sky_srgb
+    from ngp_tpu_torch.ops.envmap import read_envmap
+    from ngp_tpu_torch.ops.tonemap import linear_to_srgb
+
+    eng, ds = tb.engine, tb.engine.dataset
+    dirs = []
+    for i in range(0, ds.n_images, 3):
+        view = capture_view(eng.xforms[i].cpu().numpy(), ds.resolution[0],
+                            ds.focal_lengths[i], ds.principal_points[i], ds.lens,
+                            device="cuda")
+        d = view["dirs"][view["distance"] == 0]
+        dirs.append(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    dirs = np.concatenate(dirs)
+    pick = np.random.default_rng(0).choice(dirs.shape[0], SUPERVISION_SKY_PROBES, replace=False)
+    d = torch.from_numpy(dirs[pick].astype(np.float32)).cuda()
+    with torch.no_grad():
+        env = read_envmap(tb.state.inference_envmap().image, d)
+        got = linear_to_srgb(torch.clamp_min(env[:, :3], 0.0))
+    err = (got - sky_srgb(d)).abs()
+    return {"mean_srgb_err": float(err.mean()), "max_srgb_err": float(err.max()),
+            "probes": SUPERVISION_SKY_PROBES}
+
+
+def _supervision_run(json_path: str, n_steps: int, test_json: str | None = None, **flags):
+    """``Testbed`` on ``json_path`` with engine keywords ``flags``,
+    ``n_steps`` steps (:func:`_camera_run`); returns (Testbed, record)."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.data.nerf_loader import load_nerf
+    from ngp_tpu_torch.testbed import Testbed
+
+    t0 = time.perf_counter()
+    tb = Testbed(scene=json_path, device="cuda", **flags)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    step_ms, losses = _camera_run(tb, n_steps)
+    run = {"load_s": load_s, "steps": n_steps, "step_ms": step_ms,
+           "final_loss": losses[-1], "mean_loss_last_100": float(np.mean(losses[-100:])),
+           "losses_finite": bool(np.isfinite(losses).all()),
+           "k_and_rays": list(tb.engine.batch_geometry)}
+    if test_json is not None:
+        test = load_nerf(test_json)
+        scores = tb.engine.eval_test_transforms(tb.state, tb.grid, test)
+        run["psnr"] = scores["psnr"]
+        run["per_view_psnr"] = [v["psnr"] for v in scores["per_view"]]
+    return tb, run
+
+
+def phase_supervision():
+    """In a fresh process (``chip_smoke.py supervision``, which also runs
+    alone): ROADMAP A5c's options through ``Testbed`` at its NeRF config
+    (instant-ngp's base.json: L=16, F=2, T=2^19, XOR hash, 64-wide MLPs;
+    2^18 sample slots a step) on 800×800 captures of the sphere
+    (:func:`_supervision_captures`), ``SUPERVISION_STEPS`` steps a run:
+
+    - depth: depth maps, λ = ``SUPERVISION_DEPTH_LAMBDA``, camera rays;
+      gate: the held-out median depth error (:func:`_heldout_depth_error`)
+      below ``SUPERVISION_DEPTH_ERR_MAX``; the same error of the plain run
+      (λ = 0, the same capture and steps) reported beside it;
+    - supplied rays: the capture's ``rays_*.dat``; gates: the held-out
+      PSNR (camera-model test views) within ``SUPERVISION_RAYS_DB`` of the
+      plain run's, and no culled cell in ``init_grid``'s grid;
+    - a trained envmap of ``SUPERVISION_SKY_ENVMAP`` on the sky capture
+      (no random background and the occupancy decay 0.41, as the JAX test
+      trains it); gate: the learned sky's mean sRGB error
+      (:func:`_sky_error`) below ``SUPERVISION_SKY_ERR_MAX``;
+    - a dataset's envmap: gates: the envmap bit for bit unchanged after
+      training, and the miss pixels (opacity 0) of a ``SUPERVISION_FRAME``
+      render from 4 units away within ``SUPERVISION_MISS_TOL`` of the
+      dataset envmap's lookup;
+    - latents (E = ``SUPERVISION_LATENTS``) on the appearance capture;
+      gates: the latents moved by more than ``SUPERVISION_MOVED_MIN``, the
+      loss finite, a zero-latent render finite; the last-100-step mean
+      loss reported beside a run without latents;
+    - every option at once (latents, a trained envmap, depth supervision
+      on supplied rays), ``SUPERVISION_ALL_STEPS`` steps, its median ms a
+      step over ``SUPERVISION_ALL_TIMED`` against the plain run's same
+      steps.
+
+    Every run's losses finite; the phase launched B1 and the fused grid
+    backward. Returns the every-option Testbed, its median ms a step and
+    the launches of the phase's runs."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.data.nerf_loader import load_nerf
+    from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
+    from ngp_tpu_torch.ops.envmap import read_envmap
+    from ngp_tpu_torch.ops.tonemap import linear_to_srgb
+
+    t0 = time.perf_counter()
+    caps = _supervision_captures()
+    seconds = {"write_captures": time.perf_counter() - t0}
+    dr_train, dr_test = caps["depth_rays"]
+    camera_json = _json_variant(dr_train, "transforms_camera_rays.json",
+                                enable_ray_loading=False)
+    all_json = _json_variant(dr_train, "transforms_all.json",
+                             n_extra_learnable_dims=SUPERVISION_LATENTS)
+    app_train, _ = caps["appearance"]
+    plain_app_json = _json_variant(app_train, "transforms_no_latents.json",
+                                   n_extra_learnable_dims=None)
+    test = load_nerf(dr_test)
+    a, b = SUPERVISION_TIMED
+    reset_launches()
+    runs, gates = {}, {}
+
+    def timed(run, lo, hi):
+        ms = run.pop("step_ms")
+        run["median_ms_per_step_timed"] = float(np.median(ms[lo:hi]))
+        run["timed_steps"] = [lo, hi]
+        return ms
+
+    def clock(name, t):
+        seconds[name] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    tb, run = _supervision_run(camera_json, SUPERVISION_STEPS, dr_test)
+    plain_ms = timed(run, a, b)
+    run["depth"] = _heldout_depth_error(tb, test)
+    runs["plain"] = run
+    del tb
+    clock("plain", t)
+
+    t = time.perf_counter()
+    tb, run = _supervision_run(camera_json, SUPERVISION_STEPS,
+                               depth_supervision_lambda=SUPERVISION_DEPTH_LAMBDA)
+    timed(run, a, b)
+    run["depth"] = _heldout_depth_error(tb, test)
+    runs["depth"] = run
+    gates["depth"] = run["depth"]["median_abs_err"] < SUPERVISION_DEPTH_ERR_MAX
+    del tb
+    clock("depth", t)
+
+    t = time.perf_counter()
+    tb, run = _supervision_run(dr_train, SUPERVISION_STEPS, dr_test)
+    timed(run, a, b)
+    run["culled_cells_at_init"] = int((tb.engine.init_grid().density < 0).sum())
+    run["supplied_rays"] = tb.engine.rays is not None
+    run["psnr_minus_camera_rays_db"] = run["psnr"] - runs["plain"]["psnr"]
+    runs["rays"] = run
+    gates["rays"] = (run["supplied_rays"] and run["culled_cells_at_init"] == 0
+                     and abs(run["psnr_minus_camera_rays_db"]) <= SUPERVISION_RAYS_DB)
+    del tb
+    clock("rays", t)
+
+    t = time.perf_counter()
+    sky_train, _ = caps["sky"]
+    tb, run = _supervision_run(sky_train, SUPERVISION_STEPS, train_envmap=True,
+                               envmap_resolution=SUPERVISION_SKY_ENVMAP,
+                               train_with_random_bg=False, density_grid_decay=0.41)
+    timed(run, a, b)
+    run["sky"] = _sky_error(tb)
+    run["envmap_shape"] = list(tb.state.envmap.image.shape)
+    runs["sky"] = run
+    gates["sky"] = run["sky"]["mean_srgb_err"] < SUPERVISION_SKY_ERR_MAX
+    del tb
+    clock("sky", t)
+
+    t = time.perf_counter()
+    env_train, _ = caps["envmap"]
+    tb, run = _supervision_run(env_train, SUPERVISION_STEPS)
+    timed(run, a, b)
+    image = torch.as_tensor(tb.engine.dataset.envmap, device="cuda")
+    unchanged = torch.equal(tb.state.envmap.image.detach(), image)
+    # 4 units from the centre: the frame's edges miss the scene box
+    eye = 0.5 + 4.0 * np.asarray([0.8, 0.45, 0.4]) / np.linalg.norm([0.8, 0.45, 0.4])
+    o, d = _camera_rays(eye, np.full(3, 0.5), SUPERVISION_FRAME, 60.0)
+    rgb, _, opacity = tb.engine.render_rays(tb.state, tb.grid, o, d)
+    miss = opacity == 0
+    with torch.no_grad():
+        want = linear_to_srgb(torch.clamp_min(read_envmap(image, d[miss])[:, :3], 0.0))
+    miss_err = float((rgb[miss] - want).abs().max()) if bool(miss.any()) else float("nan")
+    run.update(envmap_bit_exact_after_training=unchanged, miss_pixels=int(miss.sum()),
+               hit_pixels=int((opacity > 0.5).sum()), miss_pixels_max_abs_err=miss_err,
+               envmap_adam_count=tb.state.opt_state["envmap"].count)
+    runs["dataset_envmap"] = run
+    gates["dataset_envmap"] = (unchanged and run["miss_pixels"] > 0
+                               and miss_err <= SUPERVISION_MISS_TOL)
+    del tb
+    clock("dataset_envmap", t)
+
+    t = time.perf_counter()
+    for name, path in (("no_latents", plain_app_json), ("latents", app_train)):
+        tb, run = _supervision_run(path, SUPERVISION_STEPS)
+        timed(run, a, b)
+        if name == "latents":
+            lat0 = tb.engine.init_state().camera.latents.detach()
+            run["latents_max_abs_moved"] = float((tb.state.camera.latents.detach()
+                                                  - lat0).abs().max())
+            frame = tb.engine.render_image(tb.state, tb.grid, 0, stride=4)
+            run["zero_latent_render_finite"] = bool(torch.isfinite(frame).all())
+            run["latents_shape"] = list(tb.state.camera.latents.shape)
+            gates["latents"] = (run["latents_max_abs_moved"] > SUPERVISION_MOVED_MIN
+                                and run["zero_latent_render_finite"])
+        runs[name] = run
+        del tb
+    runs["latents"]["mean_loss_last_100_over_no_latents"] = (
+        runs["latents"]["mean_loss_last_100"] / runs["no_latents"]["mean_loss_last_100"])
+    clock("latents", t)
+
+    t = time.perf_counter()
+    lo, hi = SUPERVISION_ALL_TIMED
+    tb, run = _supervision_run(all_json, SUPERVISION_ALL_STEPS, train_envmap=True,
+                               depth_supervision_lambda=SUPERVISION_DEPTH_LAMBDA)
+    timed(run, lo, hi)
+    run["plain_median_ms_same_steps"] = float(np.median(plain_ms[lo:hi]))
+    run["over_plain_ms"] = run["median_ms_per_step_timed"] / run["plain_median_ms_same_steps"]
+    runs["all"] = run
+    clock("all", t)
+
+    launches = launch_counts()
+    result = {"phase": "supervision", "res": CAPTURE_RES,
+              "config": "Testbed nerf default (base.json)", "runs": runs,
+              "gates": {"depth_median_err_max": SUPERVISION_DEPTH_ERR_MAX,
+                        "rays_db": SUPERVISION_RAYS_DB, "sky_err_max": SUPERVISION_SKY_ERR_MAX,
+                        "miss_tol": SUPERVISION_MISS_TOL, "moved_min": SUPERVISION_MOVED_MIN,
+                        "passed": gates},
+              "launches": launches, "seconds": seconds}
+    emit(result)
+    for name, run in runs.items():
+        if not run["losses_finite"]:
+            raise AssertionError(f"supervision: run {name}'s loss is not finite")
+    for name, ok in gates.items():
+        if not ok:
+            raise AssertionError(f"supervision: gate {name} failed ({runs[name] if name in runs else ''})")
+    for name in ("hashgrid_encode", "hashgrid_backward"):
+        if launches[name] == 0:
+            raise AssertionError(f"supervision: the phase launched {name} no time")
+    return tb, run["median_ms_per_step_timed"], launches
+
+
+class _EnvmapRanges:
+    """``ops/envmap.read_envmap`` with its forward and its backward (the
+    4-corner deposit) each in a record_function range named "envmap": the
+    backward's range opens in an identity autograd Function on the read's
+    output (its backward runs when the output's gradient is complete) and
+    closes in one on the image (its backward runs once the read's nodes
+    have). Autograd runs the ready node of the highest sequence number
+    first, so no node created outside the read runs between the two."""
+
+    def __init__(self, read):
+        import torch
+        from torch.profiler import record_function
+
+        ranges = []
+
+        class Open(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, g):
+                r = record_function("envmap")
+                r.__enter__()
+                ranges.append(r)
+                return g
+
+        class Close(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, g):
+                if ranges:
+                    ranges.pop().__exit__(None, None, None)
+                return g
+
+        self.read, self.open, self.close = read, Open, Close
+        self.record_function = record_function
+
+    def __call__(self, image, dirs):
+        with self.record_function("envmap"):
+            if not image.requires_grad:
+                return self.read(image, dirs)
+            return self.open.apply(self.read(self.close.apply(image), dirs))
+
+
+def phase_supervision_kernels(tb) -> None:
+    """B1 and the fused grid backward on one every-option step's own
+    positions and cotangents (the backward's largest call; B1 on its
+    positions with a random table, as the other phases hold it), against
+    their twins: B1 bit for bit, the backward within the float32 order
+    bound, each with its times and bound."""
+    import torch
+
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
+
+    kept = []
+    backward = _keep_largest(hashgrid_ops, "hashgrid_backward_cuda", kept)
+    try:
+        tb.train(1)
+        torch.cuda.synchronize()
+    finally:
+        hashgrid_ops.hashgrid_backward_cuda = backward
+    x, g, scale, res, size, hashed, variant, _, n_rows = kept[0][:9]  # then the payload
+    payload = kept[0][9] if len(kept[0]) > 9 else "bfloat16"
+    geo = (scale, res, size, hashed, variant)
+    keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
+    L, T = scale.shape[0], n_rows
+    rows_read = int(torch.unique(keys.long() + torch.arange(L, device="cuda")[:, None] * T
+                                 ).numel())
+    enc = tb.state.model.pos_encoding
+    dtype = torch.bfloat16 if enc.bf16_reads else torch.float32
+    b1 = _kernel_case("base.json", dtype, torch.Generator().manual_seed(18), x=x.detach(),
+                      enc=enc, rows_read=rows_read)
+    emit({"phase": "supervision_kernels", "kernel": "hashgrid_encode", "shape": "step_positions",
+          **b1})
+    emit({"phase": "supervision_kernels", "kernel": "hashgrid_backward", "payload": payload,
+          "shape": "step_positions", "N": x.shape[0], "L": L, "T": T, "F": vals.shape[2],
+          "hash": variant, **_backward_row(x, g, geo, T, keys, vals, payload)})
+    del keys, vals, kept
+
+
+def phase_supervision_profile(tb, median_ms: float) -> None:
+    """Two windows of ``SUPERVISION_PROFILE_STEPS`` every-option steps under
+    torch.profiler (:func:`_profile_steps`), each stage in a
+    record_function range: the first as phase supervision times them, for
+    the device's busy share; the second with the backward on the calling
+    thread, for the device ms per stage (march, the envmap's read and
+    deposit, network forward, loss, backward, the grid backward, optimizer,
+    grid update)."""
+    import torch
+
+    from ngp_tpu_torch.engines import nerf as engine_mod
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+
+    eng = tb.engine
+    march, loss = engine_mod.march_rays, engine_mod.nerf_training_loss
+    read = engine_mod.read_envmap
+    grid_bwd = hashgrid_ops.hashgrid_backward_cuda
+    backward = torch.Tensor.backward
+    engine_mod.march_rays = _ranged("march", march)
+    engine_mod.nerf_training_loss = _ranged("loss", loss)
+    engine_mod.read_envmap = _EnvmapRanges(read)
+    hashgrid_ops.hashgrid_backward_cuda = _ranged("grid_backward", grid_bwd)
+    torch.Tensor.backward = _ranged("backward", backward)
+    for attr, stage in (("_network_on_samples", "network_forward"),
+                        ("apply_grads", "optimizer"), ("update_grid", "grid_update")):
+        setattr(eng, attr, _ranged(stage, getattr(eng, attr)))
+    stages = ("march", "envmap", "network_forward", "loss", "backward", "grid_backward",
+              "optimizer", "grid_update")
+    n = SUPERVISION_PROFILE_STEPS
+    state, grid = tb.state, tb.grid
+    try:
+        for window, threaded in (("as_timed", True), ("backward_on_caller", False)):
+            first = state.step
+            grid, prof, wall_ms = _profile_steps(eng, state, grid, n, threaded)
+            summary = _profile_summary(prof, stages, "step", "step_other")
+            busy_ms = summary["device_busy_ms"] / n
+            emit({"phase": "supervision_profile", "window": window,
+                  "autograd_multithreading": threaded, "steps": [first, state.step - 1],
+                  "wall_ms_per_step": wall_ms / n, "device_busy_ms_per_step": busy_ms,
+                  "busy_share_of_profiled_wall": busy_ms / (wall_ms / n),
+                  "busy_share_of_unprofiled_median": busy_ms / median_ms,
+                  "device_ops_per_step": summary["device_ops"] / n,
+                  "stage_device_ms_per_step": {
+                      k: v / n for k, v in summary["stage_device_ms"].items()},
+                  "stage_device_ops_per_step": {
+                      k: v / n for k, v in summary["stage_device_ops"].items()},
+                  "top_device_ms": summary["top_device_ms"]})
+    finally:
+        torch.Tensor.backward = backward
+        engine_mod.march_rays, engine_mod.nerf_training_loss = march, loss
+        engine_mod.read_envmap = read
+        hashgrid_ops.hashgrid_backward_cuda = grid_bwd
+        for attr in ("_network_on_samples", "apply_grads", "update_grid"):
+            delattr(eng, attr)
+    tb.grid = grid
+
+
+def phase_supervision_all():
+    """``chip_smoke.py supervision``: phases supervision (its launches read
+    at its end), supervision_kernels and supervision_profile; then the
+    launches on one line."""
+    t0 = time.perf_counter()
+    tb, median_ms, launches = phase_supervision()
+    t1 = time.perf_counter()
+    phase_supervision_kernels(tb)
+    t2 = time.perf_counter()
+    phase_supervision_profile(tb, median_ms)
+    t3 = time.perf_counter()
+    emit({"phase": "supervision_launches", "launches": launches,
+          "seconds": {"supervision": t1 - t0, "supervision_kernels": t2 - t1,
+                      "supervision_profile": t3 - t2}})
+
+
 PROBE_WINDOWS = 80
 
 
@@ -3805,8 +4312,11 @@ def main():
                            if line.get("phase") == "volume_launches")["launches"]
     camera_launches = next(line for line in _child("camera")
                            if line.get("phase") == "camera_launches")["launches"]
+    supervision_launches = next(line for line in _child("supervision")
+                                if line.get("phase") == "supervision_launches")["launches"]
     later = {k: cli_launches[k] + image_launches[k] + image_cli_launches[k] + sdf_launches[k]
-             + volume_launches[k] + camera_launches[k] for k in cli_launches}
+             + volume_launches[k] + camera_launches[k] + supervision_launches[k]
+             for k in cli_launches}
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3900,6 +4410,8 @@ if __name__ == "__main__":
         phase_volume_all()
     elif sys.argv[1:] == ["camera"]:
         phase_camera_all()
+    elif sys.argv[1:] == ["supervision"]:
+        phase_supervision_all()
     elif sys.argv[1:] == ["profiler_probe"]:
         phase_env()
         phase_profiler_probe()

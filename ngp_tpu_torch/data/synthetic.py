@@ -2,8 +2,9 @@
 the scene center, color (0.9, 0.3, 0.2), seen by a ring of pinhole cameras
 (the port's copy of the JAX package's ``__graft_entry__._tiny_sphere_dataset``,
 the bench's fallback scene when no capture is present), a written sphere
-capture, a procedural gigapixel image (the formula of
-``scripts/bench_gigapixel.py``) and a written bumpy-sphere mesh for SDF
+capture (with depth maps, supplied rays, a sky, an environment map or
+per-view brightness on request), a procedural gigapixel image (the formula
+of ``scripts/bench_gigapixel.py``) and a written bumpy-sphere mesh for SDF
 mode."""
 
 from __future__ import annotations
@@ -98,21 +99,41 @@ def _capture_eyes(n: int, heights, distance: float, phase: float) -> list:
     return eyes
 
 
-def _render_capture_view(xform: np.ndarray, res: int, focal, pp_uv, lens: Lens,
-                        device="cpu") -> np.ndarray:
-    """(res, res, 4) uint8 sRGB + alpha of the capture's sphere, seen by
-    camera ``xform`` (NGP, 3 × 4) through ``lens`` at the pixel centers, by
-    the port's ``uv_to_ray``: albedo where the ray hits, transparent black
-    elsewhere."""
-    import torch
+# the depth PNGs' unit: NeRF units a 16-bit step (the loader multiplies by
+# integer_depth_scale, then the scene scale)
+CAPTURE_DEPTH_SCALE = 1e-4
+# the envmap PNG's resolution (H, W)
+CAPTURE_ENVMAP_RES = (64, 128)
 
+
+def sky_srgb(d):
+    """The analytic sky's sRGB colour (..., 3) along unit NGP directions
+    ``d`` (..., 3), numpy or torch: a gradient in the height d_z (the JAX
+    package's ``tests/test_envmap.py:_sky_srgb``)."""
+    t = (d[..., 2] + 1.0) * 0.5
+    lib = np if isinstance(d, np.ndarray) else torch
+    return lib.stack([0.2 + 0.6 * t, 0.4 + 0.2 * t, 0.8 - 0.5 * t], -1)
+
+
+def capture_view(xform: np.ndarray, res: int, focal, pp_uv, lens: Lens, device="cpu",
+                 sky: bool = False, brightness: float = 1.0) -> dict:
+    """The capture's sphere seen by camera ``xform`` (NGP, 3 × 4) through
+    ``lens`` at the pixel centers, by the port's ``uv_to_ray``:
+    ``"rgba"`` (res, res, 4) uint8 sRGB + alpha, the albedo times
+    ``brightness`` where the ray hits and transparent black elsewhere (the
+    analytic sky, opaque, with ``sky``); ``"distance"`` (res, res) float32
+    along the unit ray to the hit and ``"z"`` its camera-space z-depth, 0
+    where the ray misses; ``"origins"`` and ``"dirs"`` (res, res, 3) the
+    rays in NGP space, the directions as ``uv_to_ray`` gives them
+    (camera-space z = 1)."""
     from ngp_tpu_torch.geometry.camera import uv_to_ray
 
     u = (torch.arange(res, dtype=torch.float32, device=device) + 0.5) / res
     uv = torch.stack(torch.meshgrid(u, u, indexing="xy"), -1).reshape(-1, 2)
-    o, d = uv_to_ray(uv, (res, res), focal, torch.as_tensor(xform, device=device),
-                     pp_uv, lens)
-    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    o, d_cam = uv_to_ray(uv, (res, res), focal, torch.as_tensor(xform, device=device),
+                         pp_uv, lens)
+    norm = torch.linalg.norm(d_cam, dim=-1, keepdim=True)
+    d = d_cam / norm
     oc = o - torch.as_tensor(CAPTURE_CENTER, device=device)
     b = (d * oc).sum(-1)
     disc = b * b - ((oc * oc).sum(-1) - CAPTURE_RADIUS ** 2)
@@ -122,12 +143,47 @@ def _render_capture_view(xform: np.ndarray, res: int, focal, pp_uv, lens: Lens,
     axes = torch.as_tensor(_ALBEDO_AXES, device=device)
     phases = torch.as_tensor(_ALBEDO_PHASES, device=device)
     rgb = 0.5 + 0.4 * torch.sin(3.0 * normal @ axes.T + phases)
+    if brightness != 1.0:
+        rgb = rgb * brightness
     rgba = torch.cat([rgb, torch.ones_like(rgb[:, :1])], -1) * hit[:, None]
+    if sky:
+        sky_rgba = torch.cat([sky_srgb(d), torch.ones_like(rgb[:, :1])], -1)
+        rgba = torch.where(hit[:, None], rgba, sky_rgba)
     img = (torch.clamp(rgba, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
-    return img.reshape(res, res, 4).cpu().numpy()
+    dist = torch.where(hit, t, 0.0)
+    host = lambda x, c: x.reshape(res, res, c).squeeze(-1).cpu().numpy()  # noqa: E731
+    return {"rgba": host(img, 4), "distance": host(dist, 1),
+            "z": host(dist / norm[:, 0], 1), "origins": host(o.expand_as(d_cam), 3),
+            "dirs": host(d_cam, 3)}
 
 
-def write_sphere_capture(out_dir: str, res: int = 800, device="cpu") -> tuple[str, str]:
+def _render_capture_view(xform: np.ndarray, res: int, focal, pp_uv, lens: Lens,
+                         device="cpu") -> np.ndarray:
+    """(res, res, 4) uint8 of :func:`capture_view`."""
+    return capture_view(xform, res, focal, pp_uv, lens, device)["rgba"]
+
+
+def envmap_image(H: int, W: int) -> np.ndarray:
+    """(H, W, 4) float32 lat-long map of the analytic sky in linear light,
+    alpha 1: texel (y, x) holds the sky along the direction
+    ``ops/envmap.read_envmap`` reads there (theta = y/(H−1), phi =
+    x/(W−1))."""
+    from ngp_tpu_torch.ops.tonemap import srgb_to_linear
+
+    theta = np.pi * np.arange(H, dtype=np.float64) / max(H - 1, 1)
+    phi = 2.0 * np.pi * (np.arange(W, dtype=np.float64) / max(W - 1, 1) - 0.5)
+    th, ph = np.meshgrid(theta, phi, indexing="ij")
+    # the inverse of dir_to_latlong_uv's (z, -x, y) swizzle
+    d = np.stack([-np.sin(th) * np.sin(ph), np.cos(th), np.sin(th) * np.cos(ph)], -1)
+    rgb = srgb_to_linear(torch.from_numpy(sky_srgb(d).astype(np.float32))).numpy()
+    return np.concatenate([rgb, np.ones((H, W, 1), np.float32)], -1)
+
+
+def write_sphere_capture(out_dir: str, res: int = 800, device="cpu", depth: bool = False,
+                         rays: bool = False, sky: bool = False, envmap: bool = False,
+                         brightness_seed: int | None = None,
+                         n_extra_learnable_dims: int = 0, aabb_scale: int = 2,
+                         distance: float = 1.2) -> tuple[str, str]:
     """Write a capture of the textured sphere in the transforms dialect of
     instant-ngp's fox scene, with PNG frames: ``transforms_train.json`` and
     ``transforms_test.json`` in ``out_dir``, frames ``train/r_<i>.png`` and
@@ -137,11 +193,25 @@ def write_sphere_capture(out_dir: str, res: int = 800, device="cpu") -> tuple[st
 
     Top-level keys: ``fl_x``, ``fl_y``, an off-center ``cx``/``cy``, the
     OpenCV lens ``k1 = -0.1, k2 = 0.02, p1 = 1e-3, p2 = -1e-3``,
-    ``aabb_scale`` 2; the default scale 0.33 and offset 0.5 map the NeRF
+    ``aabb_scale`` (2: the cameras inside the scene box; at 1 outside
+    it); the default scale 0.33 and offset 0.5 map the NeRF
     matrices to NGP space. Train eyes lie on two rings (heights 0.35 and
-    −0.15 before normalizing, distance 1.2 from the center), half of them
+    −0.15 before normalizing, ``distance`` from the center), half of them
     on each; test eyes lie halfway between train eyes in angle, at the
-    middle height. Returns the two json paths."""
+    middle height.
+
+    Options: ``depth`` writes a 16-bit z-depth PNG a frame
+    (``<split>/depth_<i>.png``, ``depth_path``, ``integer_depth_scale``
+    ``CAPTURE_DEPTH_SCALE``; 0 where the ray misses); ``rays`` writes
+    ``rays_r_<i>.dat`` beside each frame, the camera model's rays at the
+    pixel centres in NeRF space (float32 origin and direction a pixel, the
+    inverse of the loader's ``nerf_ray_to_ngp``); ``sky`` puts the opaque
+    analytic sky (:func:`sky_srgb`) behind the sphere; ``envmap`` writes
+    ``envmap.png`` (:func:`envmap_image` at ``CAPTURE_ENVMAP_RES``, 8-bit)
+    and names it in the json; ``brightness_seed`` scales each frame's
+    albedo by a factor uniform in [0.6, 1.4] from that numpy seed (an
+    appearance change a view); ``n_extra_learnable_dims`` is written as
+    the key of that name. Returns the two json paths."""
     import json
     import os
 
@@ -155,23 +225,47 @@ def write_sphere_capture(out_dir: str, res: int = 800, device="cpu") -> tuple[st
     cx, cy = 0.515 * res, 0.489 * res
     offset = np.full(3, 0.5, np.float32)
     meta = {"fl_x": focal[0], "fl_y": focal[1], "cx": cx, "cy": cy, "w": res, "h": res,
-            **distortion, "aabb_scale": 2}
+            **distortion, "aabb_scale": aabb_scale}
+    if depth:
+        meta["integer_depth_scale"] = CAPTURE_DEPTH_SCALE
+    os.makedirs(out_dir, exist_ok=True)
+    if envmap:
+        meta["envmap"] = "envmap.png"
+        rgba = np.clip(envmap_image(*CAPTURE_ENVMAP_RES) * 255.0 + 0.5, 0, 255)
+        write_png(os.path.join(out_dir, "envmap.png"), rgba.astype(np.uint8))
+    if n_extra_learnable_dims:
+        meta["n_extra_learnable_dims"] = int(n_extra_learnable_dims)
     sets = {
-        "train": _capture_eyes(CAPTURE_TRAIN_VIEWS, (0.35, -0.15), 1.2, 0.0),
-        "test": _capture_eyes(CAPTURE_TEST_VIEWS, (0.1,), 1.2,
+        "train": _capture_eyes(CAPTURE_TRAIN_VIEWS, (0.35, -0.15), distance, 0.0),
+        "test": _capture_eyes(CAPTURE_TEST_VIEWS, (0.1,), distance,
                               0.5 * CAPTURE_TEST_VIEWS / CAPTURE_TRAIN_VIEWS),
     }
+    rng = np.random.default_rng(brightness_seed) if brightness_seed is not None else None
     paths = []
     for split, eyes in sets.items():
         os.makedirs(os.path.join(out_dir, split), exist_ok=True)
         frames = []
         for i, eye in enumerate(eyes):
             xf = _capture_lookat(eye)
-            img = _render_capture_view(xf, res, focal, (cx / res, cy / res), lens, device)
-            write_png(os.path.join(out_dir, split, f"r_{i}.png"), img)
+            bright = float(rng.uniform(0.6, 1.4)) if rng is not None else 1.0
+            view = capture_view(xf, res, focal, (cx / res, cy / res), lens, device, sky=sky,
+                                brightness=bright)
+            write_png(os.path.join(out_dir, split, f"r_{i}.png"), view["rgba"])
             m = np.eye(4)
             m[:3] = ngp_matrix_to_nerf(xf, NERF_SCALE, offset)
-            frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": m.tolist()})
+            frame = {"file_path": f"./{split}/r_{i}", "transform_matrix": m.tolist()}
+            if depth:
+                units = view["z"] / (CAPTURE_DEPTH_SCALE * NERF_SCALE)
+                write_png(os.path.join(out_dir, split, f"depth_{i}.png"),
+                          np.clip(np.round(units), 0, 65535).astype(np.uint16))
+                frame["depth_path"] = f"./{split}/depth_{i}.png"
+            if rays:
+                # nerf_ray_to_ngp inverted: (o_ngp[[2, 0, 1]] − offset)/scale
+                o = (view["origins"][..., [2, 0, 1]] - offset) / NERF_SCALE
+                d = view["dirs"][..., [2, 0, 1]]
+                np.concatenate([o, d], -1).astype(np.float32).tofile(
+                    os.path.join(out_dir, split, f"rays_r_{i}.dat"))
+            frames.append(frame)
         path = os.path.join(out_dir, f"transforms_{split}.json")
         with open(path, "w") as f:
             json.dump({**meta, "frames": frames}, f, indent=1)

@@ -24,7 +24,21 @@ colour. The camera group takes its own decayed Adam with L2
 (``optim.CameraOptimizerConfig``). One deliberate difference from the
 JAX engine: under a rolling shutter the refined ray starts from the pose
 the batch was marched with, where the JAX engine rebuilds it from the
-start pose (ROADMAP C.ref 10). The loop interleaves occupancy updates on the reference's
+start pose (ROADMAP C.ref 10).
+
+Supervision and background options: per-image latent codes
+(``n_extra_learnable_dims`` > 0; the camera group's ``latents``, trained
+by its Adam, fed to the network's direction input); a lat-long
+environment map (``ops/envmap.py``) mixed into the background of rays
+that leave the scene, trained with ``train_envmap`` (Adam,
+``optim.EnvmapOptimizerConfig``) or, a dataset's, held fixed; depth
+supervision (``depth_supervision_lambda`` > 0 on a dataset with depth
+maps: λ·|composited depth − z·|dir_cam||); and datasets with supplied
+per-pixel rays (``rays_<name>.dat``), whose rays replace the camera
+model's, with no frustum culling and no near-distance penalty. Supplied
+rays with extrinsic, focal or distortion refinement raise: the JAX
+engine rebuilds those rays from the poses and drops the supplied ones
+(ROADMAP C.ref 11). The loop interleaves occupancy updates on the reference's
 cadence (all cells while warming up, then stride residues) and adapts the
 (rays × samples) batch geometry from the measured samples per ray.
 
@@ -53,11 +67,9 @@ a marching-cubes mesh of the density field
 (``compute_marching_cubes_mesh``). Training keeps loss and throughput
 meters (``self.meters``), optionally logged as JSONL.
 
-Not yet ported, and refused when asked for: trainable envmap, depth
-supervision, latent codes in training, supplied per-pixel rays, a
-dataset's envmap background, the render crop box (``render_aabb``),
-overlays, the decoupled occupancy schedule, probe-sampled grid updates and
-mesh vertex optimisation.
+Not yet ported, and refused when asked for: the render crop box
+(``render_aabb``) and overlays; not yet ported: the decoupled occupancy
+schedule, probe-sampled grid updates and mesh vertex optimisation.
 """
 
 from __future__ import annotations
@@ -83,6 +95,7 @@ from ngp_tpu_torch.geometry.camera import (
 )
 from ngp_tpu_torch.interop import (
     export_camera_params,
+    export_envmap_params,
     export_jax_params,
     export_jax_train_state,
     load_jax_params,
@@ -97,6 +110,7 @@ from ngp_tpu_torch.ops.compaction import (
     compaction_plan,
     expand_rows,
 )
+from ngp_tpu_torch.ops.envmap import read_envmap
 from ngp_tpu_torch.ops.composite import (
     composite,
     density_activation,
@@ -112,8 +126,19 @@ from ngp_tpu_torch.ops.marching import (
     warp_direction,
 )
 from ngp_tpu_torch.ops.tonemap import linear_to_srgb, srgb_to_linear
-from ngp_tpu_torch.optim import CameraOptimizerConfig, OptimizerConfig, camera_schedule
-from ngp_tpu_torch.train import CameraParams, TrainState, apply_grads, parameters_frozen
+from ngp_tpu_torch.optim import (
+    CameraOptimizerConfig,
+    EnvmapOptimizerConfig,
+    OptimizerConfig,
+    camera_schedule,
+)
+from ngp_tpu_torch.train import (
+    CameraParams,
+    EnvmapParams,
+    TrainState,
+    apply_grads,
+    parameters_frozen,
+)
 from ngp_tpu_torch.utils import metrics
 from ngp_tpu_torch.utils.meters import MetricsLogger, TrainMeters
 
@@ -142,8 +167,11 @@ class RayBatch(NamedTuple):
     img: torch.Tensor  # (N,) source image index
     uv: torch.Tensor  # (N, 2) pixel uv
     # (N, 3, 4) each ray's camera pose (lerped to its shutter time under a
-    # rolling shutter); None: the start pose of its image
+    # rolling shutter); None: the start pose of its image (or supplied rays)
     xforms: torch.Tensor | None = None
+    # (N,) the ground-truth distance along the ray (z·|dir_cam|, 0 where the
+    # pixel has no depth) under depth supervision; None otherwise
+    target_depth: torch.Tensor | None = None
 
 
 def _mat_to_quat(m: torch.Tensor) -> torch.Tensor:
@@ -284,23 +312,24 @@ class NerfEngine:
     # Accepted and ignored, as the JAX engine does: the camera group's L2 is
     # extrinsic_l2_reg on every leaf, exposure included.
     exposure_l2_reg: float = 0.0
-    # Options of the JAX engine that are not yet ported: setting any of
-    # them raises.
-    train_envmap: bool = False
+    # Depth supervision: λ·L1(ground-truth ray distance, composited depth)
+    # a ray with a depth (testbed_nerf.cu:1848-1856; off by default, as
+    # the reference's depth_supervision_lambda, testbed.h:745).
     depth_supervision_lambda: float = 0.0
+    # A trainable lat-long background (envmap.cuh, the envmap trainer,
+    # testbed.cu:4101-4110), started from the dataset's envmap where it has
+    # one, else 1e-4 at envmap_resolution (H, W); a dataset's envmap is a
+    # fixed background unless train_envmap.
+    train_envmap: bool = False
+    envmap_resolution: tuple = (256, 512)
+    # a uniform random training background a ray; else background_color
+    train_with_random_bg: bool = True
     device: str = "cuda"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.config = copy.deepcopy(self.config)
-        for name in ("train_envmap", "depth_supervision_lambda"):
-            if getattr(self, name):
-                raise ValueError(f"{name} is not yet ported")
         ds = self.dataset
-        if ds.rays is not None:
-            raise ValueError("datasets with supplied per-pixel rays are not yet ported")
-        if ds.envmap is not None:
-            raise ValueError("a dataset's envmap background is not yet ported")
         if ds.render_aabb is not None:
             raise ValueError("the render crop box (render_aabb) is not yet ported")
         aabb_scale = min(int(ds.aabb_scale), 1 << (occ.NERF_CASCADES - 1))
@@ -337,8 +366,15 @@ class NerfEngine:
         # the network sees rays rebuilt from refined intrinsics or poses
         self._refined_rays = (self.optimize_extrinsics or self.optimize_focal_length
                               or self.optimize_distortion)
+        if ds.rays is not None and self._refined_rays:
+            # the JAX engine rebuilds refined rays from the poses and so
+            # drops the supplied ones (ROADMAP C.ref 11)
+            raise ValueError(
+                "supplied per-pixel rays (rays_*.dat) cannot be combined with "
+                "optimize_extrinsics, optimize_focal_length or optimize_distortion: the "
+                "refined rays are rebuilt from the camera poses (ROADMAP C.ref 11)")
         self.camera_opt = None  # the camera group's rule; None: frozen
-        if self._refined_rays or self.optimize_exposure:
+        if self._refined_rays or self.optimize_exposure or self.n_extra_dims > 0:
             self.camera_opt = CameraOptimizerConfig(
                 float(self.extrinsic_l2_reg),
                 camera_schedule(self.extrinsic_learning_rate, self.opt_cfg.schedule))
@@ -355,6 +391,24 @@ class NerfEngine:
         self.focals = torch.as_tensor(np.asarray(ds.focal_lengths), **f32)
         self.pps = torch.as_tensor(np.asarray(ds.principal_points), **f32)
         self.images = torch.as_tensor(np.asarray(ds.images), device=self.device)
+        # the depth maps only where they supervise; the supplied rays (no
+        # camera origin for the near-distance penalty, testbed_nerf.cu:3053)
+        self.depths = None
+        if ds.depths is not None and self.depth_supervision_lambda > 0.0:
+            self.depths = torch.as_tensor(np.asarray(ds.depths), **f32)
+        self.rays = None
+        if ds.rays is not None:
+            self.rays = torch.as_tensor(np.asarray(ds.rays), **f32)
+            self.near_distance = 0.0
+        # the envmap's shape (a dataset's wins), None without one; its rule
+        # while it trains, None while it is held fixed
+        self._envmap_shape = None
+        if ds.envmap is not None:
+            self._envmap_shape = tuple(np.shape(ds.envmap))
+        elif self.train_envmap:
+            self._envmap_shape = (*self.envmap_resolution, 4)
+        self.envmap_opt = (EnvmapOptimizerConfig.from_config(self.config)
+                           if self.train_envmap else None)
         self.lens = ds.lens
         self.resolution = ds.resolution  # (W, H)
         self.last_render_samples = 0  # network rows of the last render_rays
@@ -438,23 +492,52 @@ class NerfEngine:
         return CameraParams(self.images.shape[0], tuple(self.distortion_resolution),
                             max(self.n_extra_dims, 1), self.device)
 
+    def _initial_groups(self) -> tuple[CameraParams, EnvmapParams | None]:
+        """The camera group and envmap of step 0: the group zero but for
+        the latents of a network with extra dims, 0.1·normal from a CPU
+        ``torch.Generator`` seeded with ``self.seed + 1`` (the JAX engine
+        draws them from ``fold_in(PRNGKey(seed), 1)``); the envmap the
+        dataset's image, else 1e-4 everywhere at ``envmap_resolution``, or
+        None without an envmap."""
+        camera = self._new_camera()
+        if self.n_extra_dims > 0:
+            gen = torch.Generator().manual_seed(self.seed + 1)
+            with torch.no_grad():
+                camera.latents.copy_(0.1 * torch.randn(camera.latents.shape, generator=gen))
+        envmap = None
+        if self._envmap_shape is not None:
+            if self.dataset.envmap is not None:
+                image = torch.as_tensor(np.asarray(self.dataset.envmap, np.float32))
+            else:
+                image = torch.full(self._envmap_shape, 1e-4)
+            envmap = EnvmapParams(image.to(self.device))
+        return camera, envmap
+
     # -- model and grid state
 
     def init_state(self) -> TrainState:
         """Step 0: a model with parameters drawn from a CPU
-        ``torch.Generator`` seeded with ``self.seed``, a zero camera group,
-        zero Adam moments."""
+        ``torch.Generator`` seeded with ``self.seed``, the camera group and
+        envmap of :meth:`_initial_groups`, zero Adam moments."""
         net = self._new_network()
         net.reset_parameters(torch.Generator().manual_seed(self.seed))
-        state = TrainState.create(net, camera=self._new_camera())
-        state.camera_still = True  # zero, as its EMA will start
+        camera, envmap = self._initial_groups()
+        state = TrainState.create(net, camera=camera, envmap=envmap)
+        state.camera_still = self.n_extra_dims == 0  # zero, as its EMA will start
         return state
 
     def init_grid(self) -> occ.OccupancyGridState:
         """Camera-frustum culling: cells no training camera sees are −1
-        forever, visible cells start at 0 (upstream instant-ngp)."""
-        density = occ.mark_untrained_cells(
-            self.grid_cfg, self.xforms, self.focals, self.pps, self.resolution)
+        forever, visible cells start at 0 (upstream instant-ngp). With
+        supplied rays the cameras say nothing of what is seen: every cell
+        starts at 0 (testbed_nerf.cu:3448-3452)."""
+        if self.rays is not None:
+            G = self.grid_size
+            density = torch.zeros((self.grid_cfg.n_cascades, G, G, G), dtype=torch.float32,
+                                  device=self.device)
+        else:
+            density = occ.mark_untrained_cells(
+                self.grid_cfg, self.xforms, self.focals, self.pps, self.resolution)
         return self.grid_from_density(density)
 
     def inference_params(self, state: TrainState) -> NerfNetwork:
@@ -487,8 +570,10 @@ class NerfEngine:
         density = ingp_snapshot.density_grid_from_reference(
             snap["density_grid_binary"], self.grid_cfg.n_cascades, self.grid_size
         )
-        state = TrainState.create(net, int(snap.get("training_step", 0)),
-                                  camera=self._new_camera())
+        camera, envmap = self._initial_groups()
+        state = TrainState.create(net, int(snap.get("training_step", 0)), camera=camera,
+                                  envmap=envmap)
+        state.camera_still = self.n_extra_dims == 0
         return state, self.grid_from_density(torch.from_numpy(density))
 
     def save_reference_snapshot(self, path: str, state: TrainState,
@@ -517,10 +602,11 @@ class NerfEngine:
 
     # -- native snapshots (the JAX package's format)
 
-    def _jax_param_tree(self, model: NerfNetwork, camera: CameraParams) -> dict:
-        """The JAX engine's parameter tree of ``model`` and ``camera`` (its
-        ``latents`` zero): keys sorted, as the JAX package's tree maps leave
-        them."""
+    def _jax_param_tree(self, model: NerfNetwork, camera: CameraParams,
+                        envmap: EnvmapParams | None) -> dict:
+        """The JAX engine's parameter tree of ``model``, ``camera`` and
+        ``envmap`` (where there is one): keys sorted, as the JAX package's
+        tree maps leave them."""
         def ordered(tree):
             if isinstance(tree, dict):
                 return {k: ordered(tree[k]) for k in sorted(tree)}
@@ -528,18 +614,10 @@ class NerfEngine:
                 return [ordered(v) for v in tree]
             return tree
 
-        group = {**export_camera_params(camera),
-                 "latents": camera.latents.cpu().numpy().copy()}
-        return ordered({"camera": group, "model": export_jax_params(model)})
-
-    def _check_camera(self, params: dict) -> None:
-        if "envmap" in params:
-            raise ValueError("a trainable envmap is not yet ported (ROADMAP A5c)")
-        latents = params.get("camera", {}).get("latents")
-        if self.n_extra_dims > 0 and latents is not None and np.any(np.asarray(latents) != 0):
-            # unused without extra dims, where the JAX engine draws them
-            raise ValueError("training latent codes is not yet ported (ROADMAP A5c): "
-                             "the snapshot's camera.latents is not zero")
+        tree = {"camera": export_camera_params(camera), "model": export_jax_params(model)}
+        if envmap is not None:
+            tree["envmap"] = export_envmap_params(envmap)
+        return ordered(tree)
 
     def save_snapshot(self, path: str, state: TrainState, grid: occ.OccupancyGridState,
                       include_optimizer: bool = False) -> None:
@@ -554,9 +632,10 @@ class NerfEngine:
 
         snap = {
             "training_step": np.asarray(state.step, np.int32),
-            "params": self._jax_param_tree(state.model, state.camera),
+            "params": self._jax_param_tree(state.model, state.camera, state.envmap),
             "ema_params": self._jax_param_tree(state.inference_model(),
-                                               state.inference_camera()),
+                                               state.inference_camera(),
+                                               state.inference_envmap()),
             "density_grid": grid.density.cpu().numpy().astype(np.float16),
             "density_grid_mean": np.asarray(grid.mean_density.cpu().numpy(), np.float32),
             "aabb_scale": self.aabb_scale,
@@ -575,32 +654,36 @@ class NerfEngine:
         restored where the snapshot holds them in the port's layout; else
         (none, or the JAX package's optax tree) they start at zero, as the
         JAX package's ``load_snapshot`` starts them. The camera group and
-        its EMA come from the snapshot's ``camera`` trees; their latents
-        stay zero (a snapshot whose latents are not zero while the network
-        has extra dims is refused: training latents is not yet ported, nor
-        is an envmap)."""
+        its EMA come from the snapshot's ``camera`` trees, latents
+        included, and the state has the snapshot's envmap and its EMA where
+        it holds one, as the JAX engine's state has its parameter tree (it
+        trains with ``train_envmap``, else it is a fixed background)."""
         from ngp_tpu_torch.utils.snapshot import load_snapshot
 
         snap = load_snapshot(path)["snapshot"]
-        for tree in ("params", "ema_params"):
-            self._check_camera(snap[tree])
         step = int(snap["training_step"])
         has_ema = self.opt_cfg.ema_decay is not None
         cam = snap["params"]["camera"]
         # the snapshot's shapes, as the JAX engine keeps them (a snapshot of
-        # another view count loads; only refinement indexes the group)
+        # another view count loads; only refinement and latents index it)
         camera = CameraParams(np.shape(cam["pos"])[0], np.shape(cam["distortion"])[:2],
-                              max(self.n_extra_dims, 1), self.device)
+                              np.shape(cam["latents"])[1], self.device)
         tree = {"step": step, "params": snap["params"]["model"],
                 "ema": snap["ema_params"]["model"] if has_ema else None,
                 "camera": cam,
-                "camera_ema": snap["ema_params"]["camera"] if has_ema else None}
+                "camera_ema": snap["ema_params"]["camera"] if has_ema else None,
+                "envmap": snap["params"].get("envmap"),
+                "envmap_ema": snap["ema_params"].get("envmap") if has_ema else None}
+        envmap = None
+        if "envmap" in snap["params"]:
+            envmap = EnvmapParams(torch.zeros(np.shape(snap["params"]["envmap"]["image"]),
+                                              device=self.device))
         opt = snap.get("opt_state")
         # the port's layout; none, or the JAX package's optax tree: zero moments
-        port_layout = isinstance(opt, dict) and set(opt) in ({"dense", "grid"},
-                                                             {"dense", "grid", "camera"})
+        port_layout = isinstance(opt, dict) and {"dense", "grid"} <= set(opt) <= {
+            "dense", "grid", "camera", "envmap"}
         tree["opt"] = opt if port_layout else {}
-        state = load_jax_train_state(self._new_network(), tree, camera=camera)
+        state = load_jax_train_state(self._new_network(), tree, camera=camera, envmap=envmap)
         density = torch.as_tensor(snap["density_grid"].astype(np.float32), device=self.device)
         mean = torch.as_tensor(snap["density_grid_mean"], dtype=torch.float32,
                                device=self.device)
@@ -647,11 +730,11 @@ class NerfEngine:
     def _camera_rays(self, img: torch.Tensor, uv: torch.Tensor,
                      tblur: torch.Tensor | None = None):
         """World rays through ``uv`` (n, 2) of dataset views ``img`` (n,):
-        (origins, unit dirs, poses (n, 3, 4)). Under a rolling shutter or
-        motion blur each ray's pose is lerped from its view's start to its
-        end pose at the shutter time rs0 + rs1·u + rs2·v + rs3·``tblur``
-        (``tblur`` (n,) uniform in [0, 1); the JAX engine's
-        ``_sample_ray_batch``)."""
+        (origins, unit dirs, poses (n, 3, 4), camera-space directions (n,
+        3)). Under a rolling shutter or motion blur each ray's pose is
+        lerped from its view's start to its end pose at the shutter time
+        rs0 + rs1·u + rs2·v + rs3·``tblur`` (``tblur`` (n,) uniform in [0,
+        1); the JAX engine's ``_sample_ray_batch``)."""
         xf = self.xforms[img]
         if self.xforms_end is not None:
             rs = self.rolling_shutter
@@ -661,15 +744,41 @@ class NerfEngine:
                                  self.pps[img])
         d = torch.einsum("nij,nj->ni", xf[:, :, :3], dir_cam)
         d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-        return xf[:, :, 3], d, xf
+        return xf[:, :, 3], d, xf, dir_cam
+
+    def _rays_at(self, img: torch.Tensor, px: torch.Tensor, uv: torch.Tensor,
+                 tblur: torch.Tensor | None = None):
+        """The training rays at pixels ``px`` (n, 2) (x, y) of views ``img``
+        (n,), whose centres are ``uv``: (origins, unit dirs, poses (n, 3,
+        4) or None, the target distance along each ray or None). The
+        dataset's supplied rays where it has them (the pose None), else
+        :meth:`_camera_rays`; under depth supervision the target is the
+        depth map's z times the length of the camera-space (or supplied)
+        direction (testbed_nerf.cu:1848-1851)."""
+        if self.rays is not None:
+            # supplied rays replace the camera model's
+            # (generate_training_samples_nerf, testbed_nerf.cu:1454-1458)
+            r = self.rays[img, px[:, 1], px[:, 0]]
+            o, d, xf, dir_cam = r[:, :3], r[:, 3:], None, r[:, 3:]
+            d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        else:
+            o, d, xf, dir_cam = self._camera_rays(img, uv, tblur)
+        target_depth = None
+        if self.depths is not None:
+            target_depth = (self.depths[img, px[:, 1], px[:, 0]]
+                            * torch.linalg.norm(dir_cam, dim=-1))
+        return o, d, xf, target_depth
 
     def _sample_ray_batch(self, n: int, emap: ErrorMapState | None = None):
         """(RayBatch, background (n, 3)): ``n`` (image, pixel) pairs, from
         the error-map CDFs once they are built, else uniform; world rays
         through the pixel centers (each at its own shutter time under a
-        rolling shutter) and their targets; the jittered march start; a
-        uniform random training background per ray. Draws from
-        ``self.generator``."""
+        rolling shutter), or the dataset's supplied rays at those pixels
+        (directions normalised), and their targets: colour, and under depth
+        supervision the distance along the ray, the depth map's z times the
+        length of the camera-space (or supplied) direction; the jittered
+        march start; a uniform random training background per ray (else
+        ``background_color``). Draws from ``self.generator``."""
         W, H = self.resolution
         gen, dev = self.generator, self.device
         I = self.images.shape[0]
@@ -693,13 +802,17 @@ class NerfEngine:
         if self.images.dtype == torch.uint8:
             rgba = rgba / 255.0
         tblur = None
-        if self.xforms_end is not None:
+        if self.xforms_end is not None and self.rays is None:
             tblur = torch.rand((n,), generator=gen, device=dev)
-        o, d, xf = self._camera_rays(img, uv, tblur)
+        o, d, xf, target_depth = self._rays_at(img, px, uv, tblur)
         tmin, _ = ray_aabb_range(o, d, self.aabb.min, self.aabb.max)
         n0 = self.stepping.to_steps(tmin) + torch.rand((n,), generator=gen, device=dev)
-        bg = torch.rand((n, 3), generator=gen, device=dev)
-        return RayBatch(o, d, rgba, n0, img, uv, xf), bg
+        if self.train_with_random_bg:
+            bg = torch.rand((n, 3), generator=gen, device=dev)
+        else:
+            bg = torch.as_tensor(self.background_color, dtype=torch.float32,
+                                 device=dev).expand(n, 3)
+        return RayBatch(o, d, rgba, n0, img, uv, xf, target_depth), bg
 
     # -- training: the step
 
@@ -748,24 +861,31 @@ class NerfEngine:
 
     def _network_on_samples(self, model: NerfNetwork, origins, dirs,
                             marched: MarchedRays, plan: CompactionPlan,
-                            differentiable_inputs: bool = False):
+                            differentiable_inputs: bool = False,
+                            extra: torch.Tensor | None = None):
         """Raw network output (N, K, 4) at the marched slots: positions laid
         out k-major, compacted to the plan's rows, evaluated in chunks of
         ``NETWORK_CHUNK`` and expanded back (0 at slots not kept).
         ``differentiable_inputs``: gradients reach ``origins`` and ``dirs``
-        through the grid's position gradient and the direction encoding."""
+        through the grid's position gradient and the direction encoding.
+        ``extra`` (N, E): each ray's latent code, for a network with extra
+        dims (zeros where None, as renders give them)."""
         N, K = marched.t.shape
         pos = origins[:, None, :] + dirs[:, None, :] * marched.t[..., None]
         pos_km = self.aabb.relative_pos(pos).transpose(0, 1).reshape(K * N, 3)
         pos_c = compact_rows(pos_km, plan)
-        dir_c = warp_direction(dirs)[plan.cidx % N]  # k-major slot s is ray s % N
+        ray_c = plan.cidx % N  # k-major slot s is ray s % N
+        dir_c = warp_direction(dirs)[ray_c]
+        extra_c = extra[ray_c] if extra is not None else None
         outs = []
         for s in range(0, plan.n_live, NETWORK_CHUNK):
             e = min(s + NETWORK_CHUNK, plan.n_live)
-            extra = None
-            if self.n_extra_dims > 0:
-                extra = torch.zeros((e - s, self.n_extra_dims), device=origins.device)
-            outs.append(model(pos_c[s:e], dir_c[s:e], extra=extra,
+            ex = None
+            if extra_c is not None:
+                ex = extra_c[s:e]
+            elif self.n_extra_dims > 0:
+                ex = torch.zeros((e - s, self.n_extra_dims), device=origins.device)
+            outs.append(model(pos_c[s:e], dir_c[s:e], extra=ex,
                               differentiable_inputs=differentiable_inputs))
         raw = torch.cat(outs) if outs else pos_c.new_zeros((0, 4))
         return expand_rows(raw, plan).reshape(K, N, 4).transpose(0, 1)
@@ -773,21 +893,23 @@ class NerfEngine:
     def batch_loss_and_grads(self, model: NerfNetwork, grid: occ.OccupancyGridState,
                              batch: RayBatch, bg: torch.Tensor, k: int,
                              emap: ErrorMapState | None = None,
-                             camera: CameraParams | None = None):
+                             camera: CameraParams | None = None,
+                             envmap: EnvmapParams | None = None):
         """March ``batch`` with ``k`` samples per ray, run the network on
         the step's sample budget, and backpropagate the training loss into
-        ``model``'s ``.grad`` (cleared first), and into ``camera``'s (the
-        state's camera group, needed while refinement is on) through the
-        refined rays and the exposure of the targets. ``bg`` (N, 3) is the
-        training background. Returns (loss, metrics, emap with this batch's
-        per-ray losses deposited, or None). Metrics: device tensors
-        ``loss`` (color loss / 3), ``measured_samples`` (samples
-        composited), ``mean_total``, ``seg_total``; host ints ``n_rays``
-        and ``network_samples``."""
-        if self.n_extra_dims > 0:
-            raise ValueError("training latent codes (extra learnable dims) is not yet ported")
+        ``model``'s ``.grad`` (cleared first), into ``camera``'s (the
+        state's camera group, needed while refinement is on or latents
+        train) through the refined rays, the exposure of the targets and
+        the latents, and into ``envmap``'s (the state's envmap, the
+        background of rays that leave the scene; held fixed without
+        ``train_envmap``). ``bg`` (N, 3) is the training background. Returns
+        (loss, metrics, emap with this batch's per-ray colour losses
+        deposited, or None). Metrics: device tensors ``loss`` (color loss /
+        3), ``measured_samples`` (samples composited), ``mean_total``,
+        ``seg_total``; host ints ``n_rays`` and ``network_samples``."""
         if self.camera_opt is not None and camera is None:
-            raise ValueError("camera refinement trains the state's camera group: pass camera=")
+            raise ValueError("camera refinement and latents train the state's camera group: "
+                             "pass camera=")
         n_rays = batch.origins.shape[0]
         gate = occ.build_coarse_gate(grid.bitfield) if self._march_gate_eligible else None
         marched = march_rays(
@@ -804,6 +926,7 @@ class NerfEngine:
         model.zero_grad(set_to_none=True)
         o, d = batch.origins, batch.dirs
         rgb_t = batch.target_rgba[:, :3]
+        extra = None
         if camera is not None:
             camera.zero_grad(set_to_none=True)
             if self._refined_rays:
@@ -812,14 +935,24 @@ class NerfEngine:
                 # the target's linear colour times 2^exposure, re-encoded
                 scale = torch.exp2(camera.exposure[batch.img])
                 rgb_t = linear_to_srgb(srgb_to_linear(rgb_t) * scale)
+            if self.n_extra_dims > 0:
+                extra = camera.latents[batch.img]
+        if envmap is not None:
+            envmap.zero_grad(set_to_none=True)
+            image = envmap.image if self.envmap_opt is not None else envmap.image.detach()
+            # the envmap over the training background (testbed_nerf.cu:
+            # 1787-1791), mixed in linear light for sRGB outputs
+            bg = self._envmap_background(image, d, bg)
         a = batch.target_rgba[:, 3:4]
-        target = rgb_t * a + (1.0 - a) * bg
+        # the target's mix takes no gradient, as the reference's
+        target = rgb_t * a + (1.0 - a) * bg.detach()
         raw = self._network_on_samples(model, o, d, marched, plan,
-                                       differentiable_inputs=self._refined_rays)
+                                       differentiable_inputs=self._refined_rays, extra=extra)
         out = nerf_training_loss(
             raw, marched.dt, marched.t, valid_eff, marched.complete, bg, target,
             self.loss_fn, self.rgb_act, self.density_act, grid.mean_density,
             depth_sample=marched.t, near_distance=self.near_distance,
+            target_depth=batch.target_depth, depth_lambda=self.depth_supervision_lambda,
         )
         if out.loss.requires_grad:  # False when no sample reached the network
             out.loss.backward()
@@ -852,9 +985,11 @@ class NerfEngine:
     def apply_grads(self, state: TrainState) -> None:
         """One optimizer step from the ``.grad`` of ``state.model``: sparse
         Adam on the tables, Adam + L2 on the rest, the camera group's rule
-        while refinement is on (else it stays as it is), then the EMA; in
-        place (``train.apply_grads``, the generic trainer's step)."""
-        apply_grads(state, self.opt_cfg, self.camera_opt)
+        while refinement is on or latents train (else it stays as it is),
+        the envmap's while it trains, then the EMA; in place
+        (``train.apply_grads``, the generic trainer's step)."""
+        envmap_opt = self.envmap_opt if state.envmap is not None else None
+        apply_grads(state, self.opt_cfg, self.camera_opt, envmap_opt)
 
     def train_step(self, state: TrainState, grid: occ.OccupancyGridState,
                    emap: ErrorMapState | None = None):
@@ -863,7 +998,8 @@ class NerfEngine:
         k, n_rays = self._k, self._n_rays
         batch, bg = self._sample_ray_batch(n_rays, emap)
         _, metrics, emap = self.batch_loss_and_grads(state.model, grid, batch, bg, k, emap,
-                                                     camera=state.camera)
+                                                     camera=state.camera,
+                                                     envmap=state.envmap)
         self.apply_grads(state)
         return emap, metrics
 
@@ -1069,14 +1205,29 @@ class NerfEngine:
         sigma = density_activation(self.density_act)(raw[..., 3])
         return rgb, sigma, marched
 
-    def _miss_background(self, dirs: torch.Tensor) -> torch.Tensor:
-        """Per-ray background color (no envmap in the port yet)."""
+    def _envmap_background(self, image: torch.Tensor, dirs: torch.Tensor,
+                           bg: torch.Tensor) -> torch.Tensor:
+        """The envmap ``image`` read along ``dirs`` over the background
+        ``bg`` (N, 3): for sRGB (Logistic) outputs mixed in linear light and
+        re-encoded, for linear (Exponential) outputs mixed as they are."""
+        env = read_envmap(image, dirs)
+        if self.rgb_act == "Logistic":
+            mixed = env[:, :3] + srgb_to_linear(bg) * (1.0 - env[:, 3:4])
+            return linear_to_srgb(torch.clamp_min(mixed, 0.0))
+        return env[:, :3] + bg * (1.0 - env[:, 3:4])
+
+    def _miss_background(self, dirs: torch.Tensor,
+                         envmap: torch.Tensor | None = None) -> torch.Tensor:
+        """Per-ray background color: the render background, with the envmap
+        image ``envmap`` over it where given (the render tracer's envmap
+        path, testbed_nerf.cu:2317-2318)."""
         bg = torch.as_tensor(self.background_color, dtype=torch.float32,
-                             device=dirs.device)
-        return bg.expand(dirs.shape[0], 3)
+                             device=dirs.device).expand(dirs.shape[0], 3)
+        return bg if envmap is None else self._envmap_background(envmap, dirs, bg)
 
     def _finish_shade(self, dirs, marched: MarchedRays, rgb, sigma,
-                      mode: str, min_transmittance: float | None = None):
+                      mode: str, min_transmittance: float | None = None,
+                      envmap: torch.Tensor | None = None):
         if min_transmittance is None:
             min_transmittance = self.min_transmittance_render
         comp = composite(rgb, sigma, marched.dt, marched.t, marched.valid,
@@ -1085,12 +1236,14 @@ class NerfEngine:
             return comp.depth[:, None].expand(-1, 3), comp.depth, comp.opacity
         if mode == "ao":
             return comp.opacity[:, None].expand(-1, 3), comp.depth, comp.opacity
-        out_rgb = comp.rgb + comp.transmittance[:, None] * self._miss_background(dirs)
+        out_rgb = comp.rgb + comp.transmittance[:, None] * self._miss_background(dirs, envmap)
         return out_rgb, comp.depth, comp.opacity
 
     def _render_chunk(self, model: NerfNetwork, bitfield, origins, dirs,
-                      mode: str = "shade", min_transmittance: float | None = None):
-        """One chunk of rays → (rgb, depth, opacity)."""
+                      mode: str = "shade", min_transmittance: float | None = None,
+                      envmap: torch.Tensor | None = None):
+        """One chunk of rays → (rgb, depth, opacity), over the envmap image
+        ``envmap`` where given."""
         tmin, tmax = ray_aabb_range(origins, dirs, self.aabb.min, self.aabb.max)
         n0 = self.stepping.to_steps(tmin + 1e-4)
         marched = march_rays(
@@ -1103,7 +1256,8 @@ class NerfEngine:
             rgb, sigma, marched = self._eval_marched(
                 model, origins, dirs, marched, self.render_compaction_frac
             )
-            return self._finish_shade(dirs, marched, rgb, sigma, mode, min_transmittance)
+            return self._finish_shade(dirs, marched, rgb, sigma, mode, min_transmittance,
+                                      envmap)
         # The debug modes evaluate every valid sample (the JAX package runs
         # them uncompacted, so no budget drops one).
         rgb, sigma, marched = self._eval_marched(model, origins, dirs, marched, 1.0)
@@ -1124,7 +1278,8 @@ class NerfEngine:
             colors = (self._density_normals(model, pos_w[valid]) + 1.0) * 0.5
         rgb = torch.zeros_like(pos_w)
         rgb[valid] = colors
-        return self._finish_shade(dirs, marched, rgb, sigma, "shade", min_transmittance)
+        return self._finish_shade(dirs, marched, rgb, sigma, "shade", min_transmittance,
+                                  envmap)
 
     def _density_normals(self, model: NerfNetwork, pos_w: torch.Tensor) -> torch.Tensor:
         """−∇σ/|∇σ| (n, 3) at warped positions ``pos_w`` (n, 3), σ the
@@ -1158,17 +1313,20 @@ class NerfEngine:
         composited like color over the background; ``cost`` (march steps
         / 128 as grey). ``min_transmittance`` overrides
         ``min_transmittance_render`` for this call (the reference's eval
-        uses 1e-4)."""
+        uses 1e-4). Rays see the served (EMA) envmap behind the scene where
+        the state has one, and zero latents."""
         if mode not in RENDER_MODES:
             raise ValueError(f"unknown render mode {mode!r} ({' | '.join(RENDER_MODES)})")
         chunk = chunk or self.ray_chunk
         model = self.inference_params(state)
+        envmap = state.inference_envmap()
+        envmap = envmap.image.detach() if envmap is not None else None
         origins = origins.to(self.device, torch.float32)
         dirs = dirs.to(self.device, torch.float32)
         self.last_render_samples = 0
         outs = [
             self._render_chunk(model, grid.bitfield, origins[s:s + chunk],
-                               dirs[s:s + chunk], mode, min_transmittance)
+                               dirs[s:s + chunk], mode, min_transmittance, envmap)
             for s in range(0, origins.shape[0], chunk)
         ]
         return tuple(torch.cat([o[i] for o in outs], 0) for i in range(3))
@@ -1356,8 +1514,9 @@ def losses_on_one_batch(runs) -> list[float]:
     losses = []
     for engine, state, grid in runs:
         loss = engine.batch_loss_and_grads(state.model, grid, batch, bg, k,
-                                           camera=state.camera)[0]
+                                           camera=state.camera, envmap=state.envmap)[0]
         losses.append(float(loss))
-        state.model.zero_grad(set_to_none=True)
-        state.camera.zero_grad(set_to_none=True)
+        for group in (state.model, state.camera, state.envmap):
+            if group is not None:
+                group.zero_grad(set_to_none=True)
     return losses

@@ -32,10 +32,12 @@ A NeRF state's camera group adds::
      "opt": {..., "camera": {"count": int, "mu": <camera tree>,
                              "nu": <camera tree>}}
 
-where a camera tree is the JAX engine's ``params["camera"]`` without its
-``latents`` (``{"distortion", "exposure", "focal", "pos", "rot"}``), and
+where a camera tree is the JAX engine's ``params["camera"]``
+(``{"distortion", "exposure", "focal", "latents", "pos", "rot"}``), and
 the count is the camera Adam's and its schedule's (the JAX engine steps
-both once an update).
+both once an update). Its environment map adds, in the same way,
+``"envmap"``, ``"envmap_ema"`` and ``opt["envmap"]``, each an envmap tree
+``{"image": (H, W, 4)}`` (the JAX engine's ``params["envmap"]``).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from ngp_tpu_torch.models.encodings import CompositeEncoding, GridEncoding
 from ngp_tpu_torch.models.factory import NetworkWithInputEncoding
 from ngp_tpu_torch.models.mlp import MLP
 from ngp_tpu_torch.optim import GROUPS, AdamState, adam_init, param_groups
-from ngp_tpu_torch.train import CameraParams, TrainState
+from ngp_tpu_torch.train import CameraParams, EnvmapParams, TrainState
 
 
 def _copy(param: torch.Tensor, value, name: str):
@@ -156,8 +158,7 @@ def _tensor_like(param: torch.Tensor, value, name: str) -> torch.Tensor:
 
 
 def load_camera_params(camera: CameraParams, tree: dict) -> CameraParams:
-    """Fill ``camera`` from a camera tree (its ``latents``, if any, are
-    left out: the port holds them at zero). Returns ``camera``."""
+    """Fill ``camera`` from a camera tree. Returns ``camera``."""
     for name in CameraParams.NAMES:
         _copy(getattr(camera, name), tree[name], f"camera.{name}")
     return camera
@@ -169,15 +170,16 @@ def export_camera_params(camera: CameraParams) -> dict:
             for name in CameraParams.NAMES}
 
 
-def load_jax_train_state(network, tree: dict,
-                         camera: CameraParams | None = None) -> TrainState:
+def load_jax_train_state(network, tree: dict, camera: CameraParams | None = None,
+                         envmap: EnvmapParams | None = None) -> TrainState:
     """A ``TrainState`` of ``network`` (a port network, filled
     in place) from a training-state tree (module docstring); a group the
     tree's ``opt`` lacks starts with zero moments. With
     ``camera`` (filled in place) the state has a camera group: the tree's
-    camera parameters, EMA and Adam state where it holds them, else zero
-    parameters and moments, and an EMA copy of the parameters beside the
-    model's."""
+    camera parameters, EMA and Adam state where it holds them, else
+    ``camera``'s parameters and zero moments, and an EMA copy of the
+    parameters beside the model's. With ``envmap`` the same for its
+    environment map."""
     load_jax_params(network, tree["params"])
     groups = param_groups(network)
     opt = {}
@@ -197,6 +199,16 @@ def load_jax_train_state(network, tree: dict,
             state.camera_ema = copy.deepcopy(camera).requires_grad_(False)
             if tree.get("camera_ema") is not None:
                 load_camera_params(state.camera_ema, tree["camera_ema"])
+    if envmap is not None:
+        if tree.get("envmap") is not None:
+            _copy(envmap.image, tree["envmap"]["image"], "envmap.image")
+        opt["envmap"] = _adam_state(tree["opt"].get("envmap"), [("image", envmap.image)],
+                                    "opt.envmap")
+        state.envmap = envmap
+        if ema is not None:
+            state.envmap_ema = copy.deepcopy(envmap).requires_grad_(False)
+            if tree.get("envmap_ema") is not None:
+                _copy(state.envmap_ema.image, tree["envmap_ema"]["image"], "envmap_ema.image")
     return state
 
 
@@ -230,7 +242,16 @@ def export_jax_train_state(state: TrainState) -> dict:
         opt["camera"] = _export_adam(state.opt_state["camera"], names)
         tree["camera"] = export_camera_params(state.camera)
         tree["camera_ema"] = export_camera_params(state.inference_camera())
+    if state.envmap is not None:
+        opt["envmap"] = _export_adam(state.opt_state["envmap"], [("image", state.envmap.image)])
+        tree["envmap"] = export_envmap_params(state.envmap)
+        tree["envmap_ema"] = export_envmap_params(state.inference_envmap())
     return tree
+
+
+def export_envmap_params(envmap: EnvmapParams) -> dict:
+    """The envmap tree of ``envmap`` (numpy float32)."""
+    return {"image": envmap.image.detach().cpu().numpy().copy()}
 
 
 def _export_adam(st: AdamState, named_params) -> dict:

@@ -14,6 +14,9 @@ The NeRF engine's camera group (``train.CameraParams``) has a rule of
 its own, the JAX engine's ``camera_tx``: ``scale_by_adam(0.9, 0.99,
 1e-8)``, then ``add_decayed_weights(extrinsic_l2_reg)``, then the
 learning rate of :func:`camera_schedule` (:class:`CameraOptimizerConfig`).
+Its environment map takes the JAX engine's ``envmap_tx``: Adam from the
+config's ``envmap.optimizer`` block at a constant learning rate, no weight
+decay (:class:`EnvmapOptimizerConfig`).
 
 Scalars that depend on the step (bias corrections, learning rate, EMA
 decay) are rounded to float32 as the JAX package computes them.
@@ -116,6 +119,33 @@ class CameraOptimizerConfig:
     b1: ClassVar[float] = 0.9
     b2: ClassVar[float] = 0.99
     eps: ClassVar[float] = 1e-8
+
+
+@dataclass(frozen=True)
+class EnvmapOptimizerConfig:
+    """The envmap's rule (the reference's envmap trainer,
+    ``src/testbed.cu:4101-4110``, as the JAX engine builds it): optax
+    ``scale_by_adam(b1, b2, eps)`` then a constant ``learning_rate``."""
+
+    b1: float = 0.9
+    b2: float = 0.99
+    eps: float = 1e-8
+    learning_rate: float = 1e-2
+
+    @staticmethod
+    def from_config(config: dict) -> "EnvmapOptimizerConfig":
+        """The rule of a network config's ``envmap.optimizer`` block, its
+        ``Ema`` and ``ExponentialDecay`` wrappers peeled (their decay and
+        schedule are not applied, as in the JAX engine); the defaults where
+        there is none."""
+        cfg = config.get("envmap", {}).get("optimizer", {})
+        if cfg.get("otype", "").lower() == "ema":
+            cfg = cfg["nested"]
+        while cfg.get("otype", "").lower() == "exponentialdecay":
+            cfg = cfg["nested"]
+        return EnvmapOptimizerConfig(float(cfg.get("beta1", 0.9)), float(cfg.get("beta2", 0.99)),
+                                     float(cfg.get("epsilon", 1e-8)),
+                                     float(cfg.get("learning_rate", 1e-2)))
 
 
 @dataclass

@@ -18,11 +18,16 @@ trains, renders and saves and loads snapshots through
 ``engines/volume.py:VolumeEngine``. All run on the card unless built with
 ``device="cpu"``.
 
+NeRF options go to the engine as keywords (``Testbed(scene,
+train_envmap=True, depth_supervision_lambda=0.5, optimize_exposure=True,
+...)``); a capture's depth maps, envmap, supplied rays and
+``n_extra_learnable_dims`` come with it.
+
 Not yet ported, and refused: JPEG images
 (A2), ``frame()`` (the viewer's heartbeat, A11), the render crop box
-(``render_aabb``, A6), depth maps in ``set_image`` (A5) and a scene's
-geometry prior (a ``<name>.obj`` or ``<name>.xyz`` beside the capture,
-which the JAX package seeds the density grid from; A5).
+(``render_aabb``, A6) and a scene's geometry prior (a ``<name>.obj`` or
+``<name>.xyz`` beside the capture, which the JAX package seeds the density
+grid from; A5).
 """
 
 from __future__ import annotations
@@ -325,9 +330,9 @@ class Testbed:
 
     def set_image(self, frame_idx: int, img: np.ndarray, depth: np.ndarray | None = None) -> None:
         """Replace one training image ((H, W, 3 | 4), float in [0, 1] or
-        uint8). Depth maps are not yet ported (depth supervision, A5)."""
-        if depth is not None:
-            raise not_ported("depth supervision", "A5")
+        uint8) and, where the engine holds depth maps (depth supervision
+        on a capture with depths), its depth map ((H, W) NGP-scale
+        z-depths); elsewhere ``depth`` is ignored, as in the JAX package."""
         images = self.engine.images
         img = np.asarray(img)
         if img.shape[-1] == 3:
@@ -336,6 +341,10 @@ class Testbed:
         if images.dtype == torch.uint8 and img.dtype != np.uint8:
             img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
         images[frame_idx] = torch.as_tensor(img, device=images.device).to(images.dtype)
+        depths = self.engine.depths
+        if depth is not None and depths is not None:
+            depths[frame_idx] = torch.as_tensor(np.asarray(depth), device=depths.device,
+                                                dtype=depths.dtype)
 
     # -- rendering
 

@@ -17,6 +17,7 @@ from ngp_tpu_torch.optim import (
     GROUPS,
     AdamState,
     CameraOptimizerConfig,
+    EnvmapOptimizerConfig,
     OptimizerConfig,
     adam_init,
     adam_skip_zero_step,
@@ -32,28 +33,40 @@ class CameraParams(nn.Module):
     (I, 3) applied to the dataset's poses, per-image exposures ``exposure``
     (I, 3) in stops, a log-scale focal multiplier ``focal`` (2,) and a
     lens-distortion grid ``distortion`` (H, W, 2) of camera-space direction
-    offsets; all zero at the start. ``latents`` (I, E) is a buffer held at
-    zero: training latent codes is not yet ported (ROADMAP A5c)."""
+    offsets, and per-image latent codes ``latents`` (I, max(E, 1)) that the
+    network reads as its extra inputs where it has E > 0 of them; all zero
+    here (the NeRF engine draws the latents of a network with extra dims).
+    ``NAMES`` is the registration order, the JAX tree's sorted keys."""
 
-    NAMES = ("distortion", "exposure", "focal", "pos", "rot")
+    NAMES = ("distortion", "exposure", "focal", "latents", "pos", "rot")
 
     def __init__(self, n_images: int, distortion_resolution=(32, 32),
                  n_latents: int = 1, device="cuda"):
         super().__init__()
         f32 = dict(dtype=torch.float32, device=device)
         shapes = {"distortion": (*distortion_resolution, 2), "exposure": (n_images, 3),
-                  "focal": (2,), "pos": (n_images, 3), "rot": (n_images, 3)}
+                  "focal": (2,), "latents": (n_images, n_latents), "pos": (n_images, 3),
+                  "rot": (n_images, 3)}
         for name in self.NAMES:
             setattr(self, name, nn.Parameter(torch.zeros(shapes[name], **f32)))
-        self.register_buffer("latents", torch.zeros((n_images, n_latents), **f32))
+
+
+class EnvmapParams(nn.Module):
+    """The NeRF engine's environment map, the JAX engine's
+    ``params["envmap"]``: a lat-long ``image`` (H, W, 4) of linear HDR
+    colour and alpha (``ops/envmap.py``)."""
+
+    def __init__(self, image: torch.Tensor):
+        super().__init__()
+        self.image = nn.Parameter(image.to(torch.float32).clone())
 
 
 @dataclass
 class TrainState:
     """The training step, the model (parameters being trained), the Adam
     state of each group (``"dense"``, ``"grid"``; see ``optim.py``; and
-    ``"camera"`` where there is a camera group) and the EMA copy of the
-    model served for inference. The engine updates all of them in place;
+    ``"camera"`` where there is a camera group, ``"envmap"`` where there is
+    an environment map) and the EMA copy of the model served for inference. The engine updates all of them in place;
     ``step`` counts the updates applied.
 
     ``ema`` is None until the first update copies the model into it (the
@@ -67,7 +80,12 @@ class TrainState:
     ``camera_still`` is set where the camera group is frozen and it and its
     EMA are zero, so that the EMA update cannot move them and is skipped;
     a step of the camera group clears it, as must any other write to
-    either."""
+    either.
+
+    ``envmap`` is the NeRF engine's :class:`EnvmapParams` where it has an
+    environment map (trained, or a dataset's held fixed) and
+    ``envmap_ema`` its EMA copy, which the EMA covers as it covers the
+    camera group."""
 
     step: int
     model: nn.Module
@@ -76,23 +94,29 @@ class TrainState:
     camera: nn.Module | None = None
     camera_ema: nn.Module | None = None
     camera_still: bool = False
+    envmap: nn.Module | None = None
+    envmap_ema: nn.Module | None = None
 
     @staticmethod
-    def create(model: nn.Module, step: int = 0,
-               camera: nn.Module | None = None) -> "TrainState":
+    def create(model: nn.Module, step: int = 0, camera: nn.Module | None = None,
+               envmap: nn.Module | None = None) -> "TrainState":
         """Zero moments and no EMA copy yet."""
         groups = param_groups(model)
         opt = {g: adam_init([p for _, p in groups[g]]) for g in GROUPS}
         if camera is not None:
             opt["camera"] = adam_init(list(camera.parameters()))
-        return TrainState(step, model, opt, None, camera)
+        if envmap is not None:
+            opt["envmap"] = adam_init(list(envmap.parameters()))
+        return TrainState(step, model, opt, None, camera, envmap=envmap)
 
     def start_ema(self):
-        """Copy the model (and the camera group) into the EMA (before the
-        first update)."""
+        """Copy the model (and the camera group and the envmap) into the
+        EMA (before the first update)."""
         self.ema = copy.deepcopy(self.model).requires_grad_(False)
         if self.camera is not None:
             self.camera_ema = copy.deepcopy(self.camera).requires_grad_(False)
+        if self.envmap is not None:
+            self.envmap_ema = copy.deepcopy(self.envmap).requires_grad_(False)
 
     def inference_model(self) -> nn.Module:
         """The EMA-averaged model where there is one, else the model."""
@@ -102,6 +126,10 @@ class TrainState:
         """The EMA-averaged camera group where there is one, else the
         camera group."""
         return self.camera_ema if self.camera_ema is not None else self.camera
+
+    def inference_envmap(self) -> nn.Module | None:
+        """The EMA-averaged envmap where there is one, else the envmap."""
+        return self.envmap_ema if self.envmap_ema is not None else self.envmap
 
 
 class Trainer:
@@ -141,14 +169,16 @@ class Trainer:
 
 
 def apply_grads(state: TrainState, cfg: OptimizerConfig,
-                camera_cfg: CameraOptimizerConfig | None = None) -> None:
+                camera_cfg: CameraOptimizerConfig | None = None,
+                envmap_cfg: EnvmapOptimizerConfig | None = None) -> None:
     """One step of ``cfg``'s optimizer stack from the ``.grad`` of
     ``state.model``: sparse Adam on the tables, Adam + L2 on the rest, then
     the EMA; in place. The step of every engine (``Trainer``, the NeRF
     engine). With ``camera_cfg`` the camera group takes its own step too
-    (the NeRF engine while refinement is on); a camera group without one
-    stays as it is. The EMA covers the camera group where there is one,
-    unless ``state.camera_still``."""
+    (the NeRF engine while refinement is on or latents train), and with
+    ``envmap_cfg`` the envmap; a group without its rule stays as it is. The
+    EMA covers the camera group where there is one, unless
+    ``state.camera_still``, and the envmap where there is one."""
     if cfg.ema_decay is not None and state.ema is None:
         state.start_ema()
     groups = param_groups(state.model)
@@ -166,11 +196,18 @@ def apply_grads(state: TrainState, cfg: OptimizerConfig,
         adam_step(params, _grads(params), opt, camera_cfg.schedule(opt.count), camera_cfg.b1,
                   camera_cfg.b2, camera_cfg.eps, camera_cfg.l2_reg)
         state.camera_still = False
+    if envmap_cfg is not None:
+        params = list(state.envmap.parameters())
+        adam_step(params, _grads(params), state.opt_state["envmap"], envmap_cfg.learning_rate,
+                  envmap_cfg.b1, envmap_cfg.b2, envmap_cfg.eps)
     if state.ema is not None:
         ema_update(list(state.ema.parameters()), list(state.model.parameters()),
                    cfg.ema_decay, state.step)
         if state.camera_ema is not None and not state.camera_still:
             ema_update(list(state.camera_ema.parameters()), list(state.camera.parameters()),
+                       cfg.ema_decay, state.step)
+        if state.envmap_ema is not None:
+            ema_update(list(state.envmap_ema.parameters()), list(state.envmap.parameters()),
                        cfg.ema_decay, state.step)
     state.step += 1
 

@@ -335,7 +335,7 @@ def test_motion_blur_step_matches_jax_on_an_injected_batch(warm, rolling_shutter
     key = jax.random.PRNGKey(11)
     jbatch = jeng._sample_ray_batch(key, jeng.data, jeng._n_rays, jeng.init_error_map())
     tblur = jax.random.uniform(jax.random.fold_in(key, 9), (jeng._n_rays,))
-    o, d, xf = peng._camera_rays(_t(jbatch.img).long(), _t(jbatch.uv), _t(tblur))
+    o, d, xf, _ = peng._camera_rays(_t(jbatch.img).long(), _t(jbatch.uv), _t(tblur))
     np.testing.assert_allclose(o.numpy(), np.asarray(jbatch.origins), rtol=0, atol=1e-6)
     np.testing.assert_allclose(d.numpy(), np.asarray(jbatch.dirs), rtol=0, atol=1e-6)
     moved = np.abs(xf.numpy() - np.asarray(jeng.data.xforms)[np.asarray(jbatch.img)]).max()

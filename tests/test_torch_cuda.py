@@ -1250,3 +1250,123 @@ def test_volume_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         volume_render_walk(walk, pos, dirs, alive, 1, True, draws=object())
     empty = volume_train_walk_cuda(walk, 1, 0, 0.95, 0.0, _ENVMAP)
     assert [t.shape[0] for t in empty] == [0] * 3
+
+
+@pytest.mark.cuda
+def test_envmap_read_on_card_matches_cpu(cuda):
+    """``ops/envmap.read_envmap`` (plain PyTorch, no kernel) on the card
+    against the same read on the CPU. The card's arccos and atan2 round
+    otherwise: its (theta, phi) within 3e-7 of the CPU's (a few float32
+    ulps of [0, 1]), which moves each bilinear weight by at most m =
+    (W−1)·max|Δphi| + (H−1)·max|Δtheta|. So the read is held within
+    (W−1)·|Δphi|·(largest step between x neighbours) + (H−1)·|Δtheta|·
+    (largest between y neighbours) + 1e-6 a ray, and the 4-corner deposit
+    of its gradient within m·Σ|g| over the rays whose corners touch the
+    texel on either device, plus 2e-6 of the texel's deposited mass
+    Σ|w·g| (the card sums a texel's deposits with atomics, in no fixed
+    order), plus 1e-7."""
+    from ngp_tpu_torch.ops.envmap import dir_to_latlong_uv, read_envmap
+
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(1 << 14, 3))
+    d = np.concatenate([[[0, 1, 0], [0, -1, 0], [1e-7, 0.3, -1], [-1e-7, 0.3, -1]], d])
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32))
+    H, W = 64, 128
+    img = torch.from_numpy(rng.uniform(-0.2, 1.5, (H, W, 4)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(d.shape[0], 4)).astype(np.float32))
+    uv = [tuple(t.cpu() for t in dir_to_latlong_uv(d.to(dev))) for dev in ("cpu", "cuda")]
+    d_theta, d_phi = (uv[1][0] - uv[0][0]).abs(), (uv[1][1] - uv[0][1]).abs()
+    assert float(d_theta.max()) <= 3e-7 and float(d_phi.max()) <= 3e-7
+    out, grads = [], []
+    for dev in ("cpu", "cuda"):
+        image = img.to(dev).clone().requires_grad_(True)
+        got = read_envmap(image, d.to(dev))
+        (got * w.to(dev)).sum().backward()
+        out.append(got.detach().cpu())
+        grads.append(image.grad.cpu())
+    step_x = float((img.roll(-1, 1) - img).abs().max())
+    step_y = float((img[1:] - img[:-1]).abs().max())
+    delta = (W - 1) * d_phi * step_x + (H - 1) * d_theta * step_y + 1e-6
+    assert ((out[1] - out[0]).abs() <= delta[:, None]).all()
+    image = img.clone().requires_grad_(True)
+    (read_envmap(image, d) * w.abs()).sum().backward()
+    mass = image.grad
+    touch = torch.zeros((H, W, 4))  # Σ|g| of the rays whose corners touch a texel
+    for theta, phi in uv:
+        fx, fy = phi * (W - 1), theta * (H - 1)
+        x0, y0 = torch.floor(fx).long(), torch.floor(fy).long()
+        for dx in (0, 1):
+            for dy in (0, 1):
+                touch.index_put_((torch.clamp(y0 + dy, 0, H - 1), (x0 + dx) % W), w.abs(),
+                                 accumulate=True)
+    m = (W - 1) * float(d_phi.max()) + (H - 1) * float(d_theta.max())
+    err = (grads[1] - grads[0]).abs()
+    bound = m * touch + 2e-6 * mass + 1e-7
+    assert (err <= bound).all(), float((err / bound).max())
+
+
+@pytest.mark.cuda
+def test_supervised_step_on_card_matches_cpu(cuda):
+    """One step with every A5c option (latents E = 4, a trained envmap over
+    the dataset's, depth supervision on supplied rays) at a small size (a
+    4-level 2^12 grid, 32-wide MLPs) from the same state on the same batch,
+    on the card and on the CPU: the card launches B1 and the fused grid
+    backward; the loss within 1e-4 relative; the MLP gradients within 2e-2
+    of each matrix's largest entry, the table's 2^-6 of each level's
+    largest, the latents' 2e-2 and the envmap's 1e-3 of their largest (the
+    tolerances of ``tests/test_torch_supervision.py``)."""
+    from ngp_tpu_torch.config import default_config
+    from ngp_tpu_torch.data.synthetic import tiny_sphere_dataset
+    from ngp_tpu_torch.engines.nerf import NerfEngine
+    from ngp_tpu_torch.interop import export_jax_train_state, load_jax_train_state
+    from ngp_tpu_torch.ops.cuda_build import reset_launches
+
+    cfg = default_config("tpu")
+    cfg["encoding"].update(n_levels=4, log2_hashmap_size=12)
+    cfg["network"]["n_neurons"] = cfg["rgb_network"]["n_neurons"] = 32
+    ds = tiny_sphere_dataset(4, 32)
+    rng = np.random.default_rng(1)
+    ds.n_extra_learnable_dims = 4
+    ds.envmap = rng.uniform(0, 1, (16, 32, 4)).astype(np.float32)
+    ds.depths = np.where(rng.uniform(size=(4, 32, 32)) < 0.25, 0.0,
+                         rng.uniform(0.3, 1.2, (4, 32, 32))).astype(np.float32)
+    probe = NerfEngine(cfg, ds, device="cpu", grid_size=32)
+    ds.rays = np.stack([torch.cat(probe.view_rays(i)[:2], -1).reshape(32, 32, 6).numpy()
+                        for i in range(4)])
+    kw = dict(batch_size=1 << 14, grid_size=32, train_envmap=True,
+              depth_supervision_lambda=0.5)
+    engines = {dev: NerfEngine(cfg, ds, device=dev, **kw) for dev in ("cpu", "cuda")}
+    cpu = engines["cpu"]
+    state = cpu.init_state()
+    r = (torch.arange(32) + 0.5) / 32 - 0.5
+    ball = (r[:, None, None] ** 2 + r[None, :, None] ** 2 + r[None, None, :] ** 2
+            <= 0.08).float()
+    batch, bg = cpu._sample_ray_batch(1 << 10)
+    tree = export_jax_train_state(state)
+    results = {}
+    for dev, eng in engines.items():
+        camera, envmap = eng._initial_groups()
+        st = load_jax_train_state(eng._new_network(), tree, camera=camera, envmap=envmap)
+        grid = eng.grid_from_density(ball[None])
+        b = type(batch)(*[t.to(dev) if t is not None else None for t in batch])
+        reset_launches()
+        loss, _, _ = eng.batch_loss_and_grads(st.model, grid, b, bg.to(dev), 64,
+                                              camera=st.camera, envmap=st.envmap)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = launch_counts()
+            assert launched["hashgrid_encode"] > 0 and launched["hashgrid_backward"] > 0
+        grads = {n: p.grad.cpu() for n, p in st.model.named_parameters()}
+        grads["latents"] = st.camera.latents.grad.cpu()
+        grads["envmap"] = st.envmap.image.grad.cpu()
+        results[dev] = (float(loss), grads)
+    assert results["cuda"][0] == pytest.approx(results["cpu"][0], rel=1e-4)
+    for name, want in results["cpu"][1].items():
+        got = results["cuda"][1][name]
+        assert float(want.abs().max()) > 0, name
+        if name.endswith("table"):
+            err = (got - want).abs().amax(dim=(1, 2))
+            assert (err <= 2.0 ** -6 * want.abs().amax(dim=(1, 2))).all(), name
+        else:
+            tol = 1e-3 if name == "envmap" else 2e-2
+            assert float((got - want).abs().max()) <= tol * float(want.abs().max()), name

@@ -137,23 +137,33 @@ def test_eval_test_transforms_matches_jax(golden_engines, tmp_path, lens):
 
 
 def test_engine_refuses_what_a_capture_may_carry_but_the_port_does_not_run():
+    """The render crop box is refused (ROADMAP A6). A capture's envmap and
+    supplied rays, once refused, are now taken: the envmap as the state's
+    fixed background, the rays in place of the camera model's (no
+    near-distance penalty, no frustum culling). Depth maps are carried and,
+    with depth supervision off, ignored as in the JAX package."""
     from test_nerf_engine import CONFIG, _make_dataset
 
     jd = _make_dataset(2)
     base = dict(images=jd.images, xforms=jd.xforms, focal_lengths=jd.focal_lengths,
                 principal_points=jd.principal_points, lens=Lens(),
                 resolution=jd.resolution)
-    for extra, what in (
-        ({"envmap": np.zeros((4, 8, 4), np.float32)}, "envmap"),
-        ({"render_aabb": (np.zeros(3), np.ones(3))}, "render_aabb"),
-        ({"rays": np.zeros((2, 48, 48, 6), np.float32)}, "rays"),
-    ):
-        with pytest.raises(ValueError, match=what):
-            NerfEngine(dict(CONFIG), NerfDataset(**{**base, **extra}), device="cpu")
-    # depth maps are carried and, with depth supervision off, ignored as in
-    # the JAX package
+    with pytest.raises(ValueError, match="render_aabb"):
+        NerfEngine(dict(CONFIG), NerfDataset(**base, render_aabb=(np.zeros(3), np.ones(3))),
+                   device="cpu")
+    envmap = np.random.default_rng(0).uniform(size=(4, 8, 4)).astype(np.float32)
+    eng = NerfEngine(dict(CONFIG), NerfDataset(**base, envmap=envmap), device="cpu")
+    state = eng.init_state()
+    np.testing.assert_array_equal(state.envmap.image.detach().numpy(), envmap)
+    assert eng.envmap_opt is None  # held fixed without train_envmap
+    rays = np.zeros((2, 48, 48, 6), np.float32)
+    rays[..., 3:] = (0.0, 0.0, 1.0)
+    eng = NerfEngine(dict(CONFIG), NerfDataset(**base, rays=rays), device="cpu")
+    assert eng.rays is not None and eng.near_distance == 0.0
+    assert not (eng.init_grid().density < 0).any()
     depths = np.ones((2, 48, 48), np.float32)
-    NerfEngine(dict(CONFIG), NerfDataset(**base, depths=depths), device="cpu")
+    eng = NerfEngine(dict(CONFIG), NerfDataset(**base, depths=depths), device="cpu")
+    assert eng.depths is None
 
 
 @pytest.mark.parametrize("shutter", ["motion_blur", "rolling"])

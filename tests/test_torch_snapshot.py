@@ -25,6 +25,7 @@ from ngp_tpu.utils import snapshot as jsnapshot
 from ngp_tpu_torch.data import ingp_snapshot as pingp
 from ngp_tpu_torch.data import msgpack_lite
 from ngp_tpu_torch.interop import export_jax_params, load_jax_params
+from ngp_tpu_torch.train import CameraParams
 from ngp_tpu_torch.utils import snapshot as psnapshot
 
 # One intra-op thread: with two, torch's CPU sqrt (MKL's vsSqrt, split across
@@ -314,10 +315,13 @@ def _round_trip_with_optimizer(tmp_path, capsys, refined: bool):
     assert state.opt_state["camera"].count == (40 if refined else 0)
     for g in state.opt_state:
         assert state2.opt_state[g].count == state.opt_state[g].count
-        for m, n in zip(state.opt_state[g].mu + state.opt_state[g].nu,
-                        state2.opt_state[g].mu + state2.opt_state[g].nu):
-            # the frozen camera group's moments stay zero
-            assert torch.equal(m, n) and bool(m.any()) == (refined or g != "camera")
+        names = CameraParams.NAMES if g == "camera" else [None] * len(state.opt_state[g].mu)
+        for name, m, n in zip(names * 2, state.opt_state[g].mu + state.opt_state[g].nu,
+                              state2.opt_state[g].mu + state2.opt_state[g].nu):
+            # the frozen camera group's moments stay zero, and the latents'
+            # (no extra dims: their gradient is zero)
+            moved = refined if g == "camera" and name != "latents" else g != "camera"
+            assert torch.equal(m, n) and bool(m.any()) == moved
     assert torch.equal(grid2.density, grid.density.half().float())
     assert torch.equal(grid2.mean_density, grid.mean_density)
     assert eng.meters.loss_ema == loss_ema > 0
@@ -386,10 +390,13 @@ def test_snapshot_with_camera_parameters_crosses(refining, tmp_path, name):
 
 @pytest.mark.parametrize("name", ["envmap"])
 def test_snapshot_with_camera_parameters_is_refused(golden, tmp_path, name):
-    """A snapshot that carries an envmap is refused: the trainable envmap
-    is not yet ported (ROADMAP A5c). Latents that are not zero are
-    accepted while the network has no extra dims, and a camera group that
-    is not zero crosses (:func:`test_snapshot_with_camera_parameters_crosses`)."""
+    """Once refused (the trainable envmap was not yet ported), now loaded:
+    a snapshot that carries an envmap (one image in the parameters, another
+    in the EMA) and latents that are not zero loads with both, array for
+    array, though the engine neither trains an envmap nor has extra dims,
+    as the JAX engine's state keeps its whole parameter tree; rays that
+    leave the scene render the EMA envmap; a second save writes the same
+    trees."""
     peng, pstate, pgrid = golden[:3]
     path = str(tmp_path / "s.msgpack")
     peng.save_snapshot(path, pstate, pgrid)
@@ -397,10 +404,26 @@ def test_snapshot_with_camera_parameters_is_refused(golden, tmp_path, name):
     del doc["version"]
     doc["snapshot"]["params"]["camera"]["latents"] += 0.5
     doc["snapshot"]["params"]["camera"]["pos"].flat[0] = 1e-3
-    peng.load_snapshot(_write(path, doc))  # latents and a pose offset: accepted
-    doc["snapshot"]["ema_params"][name] = {"image": np.ones((4, 8, 3), np.float32)}
-    with pytest.raises(ValueError, match="envmap is not yet ported"):
-        peng.load_snapshot(_write(path, doc))
+    rng = np.random.default_rng(4)
+    images = {tree: rng.uniform(0, 1, (4, 8, 4)).astype(np.float32)
+              for tree in ("params", "ema_params")}
+    for tree, image in images.items():
+        doc["snapshot"][tree][name] = {"image": image}
+    state, grid = peng.load_snapshot(_write(path, doc))
+    np.testing.assert_array_equal(state.camera.latents.detach().numpy(),
+                                  doc["snapshot"]["params"]["camera"]["latents"])
+    np.testing.assert_array_equal(state.envmap.image.detach().numpy(), images["params"])
+    np.testing.assert_array_equal(state.envmap_ema.image.numpy(), images["ema_params"])
+    d = torch.nn.functional.normalize(torch.tensor([[1.0, 0.2, 0.1], [0.8, -0.3, 0.4]]), dim=-1)
+    o = torch.tensor([[3.0, 0.5, 0.5]]).expand(2, 3)
+    rgb, _, opacity = peng.render_rays(state, grid, o, d)
+    assert not opacity.any()
+    torch.testing.assert_close(rgb, peng._miss_background(d, state.envmap_ema.image))
+    again = str(tmp_path / "again.msgpack")
+    peng.save_snapshot(again, state, grid)
+    a, b = doc["snapshot"], psnapshot.load_snapshot(again)["snapshot"]
+    for tree in ("params", "ema_params"):
+        _assert_trees_equal(b[tree], {k: a[tree][k] for k in sorted(a[tree])})
 
 
 def _write(path, doc):

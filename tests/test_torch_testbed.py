@@ -438,8 +438,13 @@ def test_refusals(scene, testbeds, tmp_path, capsys, small_engines):
         ptb.render_aabb
     with pytest.raises(NotImplementedError, match="A6"):
         ptb.render_aabb = (np.zeros(3), np.ones(3))
-    with pytest.raises(NotImplementedError, match="A5"):
-        ptb.set_image(0, np.zeros((32, 32, 3), np.float32), depth=np.zeros((32, 32)))
+    # depth maps in set_image (A5c) are ported: without depth supervision
+    # the engine holds none and the map is ignored, as in the JAX package
+    # (tests/test_torch_supervision.py holds both cases to it)
+    frame0 = ptb.engine.images[0].clone()
+    ptb.set_image(0, np.zeros((32, 32, 3), np.float32), depth=np.zeros((32, 32)))
+    assert ptb.engine.depths is None and not ptb.engine.images[0, ..., :3].any()
+    ptb.engine.images[0] = frame0
     # a geometry prior beside the capture
     prior = tmp_path / "prior"
     shutil.copytree(os.path.dirname(scene["train"]), prior)

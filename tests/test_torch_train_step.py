@@ -292,13 +292,25 @@ def test_decay_grid_matches_jax(engines):
 
 
 def test_not_yet_ported_options_raise():
-    """The trainable envmap and depth supervision (ROADMAP A5c); camera
-    refinement is ported (``tests/test_torch_camera.py``)."""
+    """Once refused (ROADMAP A5c), now taken: the trainable envmap and
+    depth supervision construct an engine that holds an envmap group of
+    ``envmap_resolution`` and the dataset's depth maps, and one step of
+    each steps the envmap's Adam and keeps a finite loss (their parity with
+    the JAX engine: ``tests/test_torch_supervision.py``)."""
     ds = _port_dataset(_make_dataset(n_views=2))
-    with pytest.raises(ValueError, match="not yet ported"):
-        NerfEngine(copy.deepcopy(SMALL), ds, device="cpu", train_envmap=True)
-    with pytest.raises(ValueError, match="not yet ported"):
-        NerfEngine(copy.deepcopy(SMALL), ds, device="cpu", depth_supervision_lambda=0.1)
+    eng = NerfEngine(copy.deepcopy(SMALL), ds, device="cpu", train_envmap=True,
+                     envmap_resolution=(4, 8), **ENGINE)
+    state, grid = eng.init_state(), eng.init_grid()
+    assert state.envmap.image.shape == (4, 8, 4) and eng.envmap_opt is not None
+    state, grid, m = eng.train(state, grid, 1)
+    assert math.isfinite(float(m["loss"])) and state.opt_state["envmap"].count == 1
+    assert state.envmap_ema is not None
+    ds.depths = np.full((2, *ds.images.shape[1:3]), 0.6, np.float32)
+    eng = NerfEngine(copy.deepcopy(SMALL), ds, device="cpu", depth_supervision_lambda=0.1,
+                     **ENGINE)
+    assert eng.depths is not None and eng.depths.shape == (2, *ds.images.shape[1:3])
+    state, grid, m = eng.train(eng.init_state(), eng.init_grid(), 1)
+    assert math.isfinite(float(m["loss"]))
 
 
 def test_training_loop_runs_and_keeps_its_step(engines):
