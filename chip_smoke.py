@@ -73,7 +73,7 @@ Phases, each printing one JSON line:
    principal point, aabb_scale 2) as 24 train and 4 held-out 800×800 RGBA
    PNG frames into ``build/capture_smoke/``; loads both files with
    ``load_nerf`` (the port's own PNG decoder); trains the full-width "tpu"
-   tier (2^18 sample slots per step) for 1,000 steps; scores the held-out
+   tier (2^18 sample slots per step) for 600 steps; scores the held-out
    views with ``eval_test_transforms``, whose mean PSNR must reach
    ``CAPTURE_PSNR_MIN``; then holds B1 against its twin, bit for bit, on
    the positions of the eval's largest launch (phase
@@ -81,7 +81,7 @@ Phases, each printing one JSON line:
 12. cli: the port's entry point as a user runs it, ``python -m
    ngp_tpu_torch.run``, in subprocesses on the capture of phase 11, with
    ``Testbed``'s default config (instant-ngp's ``base.json``: L=16, F=2,
-   T=2^19, XOR hash, float32 table reads). Run 1 trains 1,000 steps, scores
+   T=2^19, XOR hash, float32 table reads). Run 1 trains 600 steps, scores
    the held-out views (gate ``CLI_PSNR_MIN``), saves a snapshot and a
    screenshot; run 2 loads the snapshot, scores the held-out views again
    (within ``CLI_RELOAD_DB`` of run 1), writes a normals-mode screenshot
@@ -107,9 +107,9 @@ Phases, each printing one JSON line:
    primitive at instant-ngp's configs/image/base.json width (``Testbed``'s
    default: D=2, L=16, F=2, T=2^24, XOR hash; levels 0-8 dense, level 8 of
    exactly 2^24 rows), fitting the 104.9 MP procedural image of
-   ``scripts/bench_gigapixel.py`` made on the card in float16: 1,024 steps
+   ``scripts/bench_gigapixel.py`` made on the card in float16: 512 steps
    of 2^18 Stratified positions through ``ImageEngine.train`` in calls of
-   128; ms a step (median after step 512), samples/s, peak memory, the
+   128; ms a step (median after step 256), samples/s, peak memory, the
    PSNR of the stride-16 texel subsample (gate ``IMAGE_PSNR_MIN``), the
    full-image MSE and a 1920×1080 render. Then (phase ``image_kernels``)
    B1 bit for bit and the fused backward within the float32 order bound
@@ -210,6 +210,28 @@ Phases, each printing one JSON line:
    the float32 order bound on one every-option step's own (x, g), and
    (``supervision_profile``) two windows of 8 such steps under
    ``torch.profiler``, the envmap's read and deposit a stage of their own.
+21. nerf_surface: in a fresh process (``chip_smoke.py nerf_surface``, which
+   also runs alone), ROADMAP A5d and A6 through ``Testbed`` at its NeRF
+   config on phase capture's 800×800 capture (written again when absent),
+   250 steps a run. Phase ``prior``: the default cadence; the decoupled
+   schedule with probe-sampled updates; the capture with the sphere's
+   ``.obj`` and with its ``.xyz`` beside it (``build/nerf_surface_smoke/``);
+   each run's ms a step, held-out PSNR, trainable and occupied shares at
+   step 0 and at the end and occupancy passes by kind (gates: culled cells
+   stay −1, the passes equal the schedule's formula, the cloud prior at most
+   1 dB below the default run, the decoupled and mesh runs 10 dB above
+   their untrained models; the mesh prior keeps ~85% of the sphere's
+   surface cells, ROADMAP C.ref 13).
+   Phase ``render_surface`` on the default run's model: a 960×540 frame
+   uncropped, with the crop box at the scene box (the same bits) and at a
+   half box (the background exactly where rays miss it, fewer samples);
+   the "gt" and "error" overlays; a 256² density slice (equal to
+   ``chunked_density``); a foveated frame (mean error < 0.08 at the
+   centre); ``optimize_mesh_vertices`` on the 128³ mesh, 10 steps (the mean
+   |σ(v) − 2.5| falls); each render's ms. Phase ``nerf_surface_kernels``:
+   B1 on the slice's positions, the fused backward on a probe-sampled
+   step's (x, g) and the position gradient on the mesh's vertices, against
+   their twins.
 Then the ``kernels`` line, the card's ``name, power.limit``, and last the
 ``{"ok": true, ...}`` line. ``python3 chip_smoke.py profiler_probe`` runs
 no phase above: it counts how :func:`device_ms`'s profiler windows lose
@@ -297,11 +319,11 @@ INPUT_GRAD_2D_LOG2 = 18
 # phase capture: nerf_synthetic's frame size, the steps, and the gate on the
 # held-out views' mean PSNR, fixed before the first card run
 CAPTURE_RES = 800
-CAPTURE_STEPS = 1000
+CAPTURE_STEPS = 600  # 1,000 before the nerf_surface phase took the time
 CAPTURE_PSNR_MIN = 30.0
 # phase cli: the capture phase's gate on the CLI's held-out PSNR, the reload's
 # agreement, the mesh lattice and the camera-path video (frames at 320×180)
-CLI_STEPS = 1000
+CLI_STEPS = 600  # 1,000 before the nerf_surface phase took the time
 CLI_PSNR_MIN = CAPTURE_PSNR_MIN
 CLI_RELOAD_DB = 0.05
 CLI_MESH_RES = 128
@@ -312,12 +334,14 @@ CLI_VIDEO = {"w": 320, "h": 180, "fps": 8, "seconds": 1}
 CLI_SETTLE_STEPS = 48
 CLI_KEPT_STEPS = 16
 # phase image: the gigapixel image's side (104.9 MP), the steps in calls of
-# 128 (ms a step: the median of the calls after the first 512 steps), the
+# 128 (ms a step: the median of the calls after the first 256 steps), the
 # profiled steps, the stride of the PSNR's texel subsample and its gate
 IMAGE_SIDE = 10240
-IMAGE_STEPS = 1024  # 2,048 before the supervision phase took the time
+# 2,048 before the supervision phase took the time, 1,024 before the
+# nerf_surface phase did
+IMAGE_STEPS = 512
 IMAGE_CALL_STEPS = 128
-IMAGE_TIMED_FROM = 512
+IMAGE_TIMED_FROM = 256
 IMAGE_PROFILE_STEPS = 16
 IMAGE_PSNR_STRIDE = 16
 IMAGE_PSNR_MIN = 25.0
@@ -4207,6 +4231,490 @@ def phase_supervision_all():
                       "supervision_profile": t3 - t2}})
 
 
+# phase nerf_surface: the decoupled occupancy schedule and geometry-seeded
+# priors (ROADMAP A5d) and the rest of the NeRF render surface (A6) through
+# Testbed at its NeRF config (instant-ngp's base.json) on phase capture's
+# 800×800 sphere
+SURFACE_STEPS = 250
+SURFACE_TIMED = (100, 250)  # steps of the runs' timing window (median ms)
+SURFACE_PRIOR_DB = 1.0  # the cloud prior's held-out PSNR at most this below the plain run's
+SURFACE_TRAINED_DB = 10.0  # the decoupled and mesh runs' gain over the untrained model
+SURFACE_FRAME = (960, 540)
+SURFACE_FRAME_FOCAL = 1100.0  # pixels: the sphere ~460 pixels across at 1.2 units
+# the lower half of a box about the sphere (z up): the frame's edges miss it
+SURFACE_HALF_BOX = ((0.2, 0.2, 0.2), (0.8, 0.8, 0.5))
+SURFACE_SLICE_RES = 256
+SURFACE_FOVEA = (0.5, 0.5, 0.15)  # steepness (= the buffer scale), centre, radius
+SURFACE_FOVEA_ERR_MAX = 0.08  # tests/test_foveation.py:73
+SURFACE_FOVEA_WINDOW = 80  # pixels a side of the central window
+SURFACE_MESH_RES = 128
+SURFACE_MESH_STEPS = 10
+SURFACE_MESH_THRESH = 2.5
+
+
+def _surface_captures() -> dict:
+    """Phase capture's 800×800 capture (written again where absent) and two
+    copies of its json beside links to its frames, each with the sphere's
+    surface as a prior (``write_sphere_prior``): ``mesh/mesh.obj`` (an
+    icosphere of 20,480 triangles) and ``cloud/cloud.xyz`` (20,000
+    points). Returns {name: (train json, test json)}."""
+    import shutil
+
+    from ngp_tpu_torch.data.synthetic import write_sphere_prior
+
+    train_json, test_json = _capture_jsons()
+    src = os.path.dirname(train_json)
+    root = os.path.join(ROOT, "build", "nerf_surface_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"plain": (train_json, test_json)}
+    for name, fmt in (("mesh", "obj"), ("cloud", "xyz")):
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        for split in ("train", "test"):
+            os.symlink(os.path.join(src, split), os.path.join(d, split))
+            shutil.copy(os.path.join(src, f"transforms_{split}.json"), d)
+        write_sphere_prior(d, fmt, subdivisions=5)
+        out[name] = tuple(os.path.join(d, f"transforms_{s}.json") for s in ("train", "test"))
+    return out
+
+
+def _surface_cells_kept(grid_density) -> dict:
+    """Of the cascade-0 cells whose cube the capture sphere's surface
+    crosses (the cells an exact voxelisation marks, as the reference's
+    box–triangle test does), how many the grid keeps trainable (not −1)."""
+    import numpy as np
+
+    from ngp_tpu_torch.data.synthetic import CAPTURE_CENTER, CAPTURE_RADIUS
+
+    G = grid_density.shape[1]
+    edges = np.arange(G + 1) / G
+
+    def span(c):  # nearest and farthest distance from c over each cell, per axis
+        lo, hi = edges[:-1] - c, edges[1:] - c
+        near = np.where((lo <= 0) & (hi >= 0), 0.0, np.minimum(abs(lo), abs(hi)))
+        return near, np.maximum(abs(lo), abs(hi))
+
+    (nx, fx), (ny, fy), (nz, fz) = (span(c) for c in CAPTURE_CENTER)
+    dmin = np.sqrt(nx[:, None, None] ** 2 + ny[None, :, None] ** 2 + nz[None, None, :] ** 2)
+    dmax = np.sqrt(fx[:, None, None] ** 2 + fy[None, :, None] ** 2 + fz[None, None, :] ** 2)
+    cross = (dmin <= CAPTURE_RADIUS) & (dmax >= CAPTURE_RADIUS)
+    kept = grid_density[0].cpu().numpy() >= 0
+    return {"surface_cells": int(cross.sum()), "kept": int((cross & kept).sum()),
+            "kept_share": float((cross & kept).sum() / cross.sum())}
+
+
+def _grid_events(n_steps: int, reference: bool) -> dict:
+    """The occupancy passes of steps 0..n_steps−1 by the schedule's formula
+    (JAX ``engines/nerf.py:1285-1297`` at the default intervals): under the
+    reference cadence an update every clamp(step/16, 1, 16) steps, all
+    cells before 256; decoupled an update every 16 steps, all cells before
+    32, else a decay every 4."""
+    n = {"warmup": 0, "update": 0, "decay": 0}
+    for s in range(n_steps):
+        if reference:
+            if s % min(max(s // 16, 1), 16) == 0:
+                n["warmup" if s < 256 else "update"] += 1
+        elif s % 16 == 0:
+            n["warmup" if s < 32 else "update"] += 1
+        elif s % 4 == 0:
+            n["decay"] += 1
+    return n
+
+
+def _counted_grid_passes(eng) -> dict:
+    """Count ``eng``'s occupancy passes by kind (the instance's
+    ``update_grid`` and ``decay_grid`` wrapped)."""
+    counts = {"warmup": 0, "update": 0, "decay": 0}
+    update, decay = eng.update_grid, eng.decay_grid
+
+    def counted_update(state, grid, warmup, **kw):
+        counts["warmup" if warmup else "update"] += 1
+        return update(state, grid, warmup, **kw)
+
+    def counted_decay(grid):
+        counts["decay"] += 1
+        return decay(grid)
+
+    eng.update_grid, eng.decay_grid = counted_update, counted_decay
+    return counts
+
+
+def _surface_run(json_path: str, test, untrained: bool = False, **flags):
+    """``Testbed`` on ``json_path`` with engine keywords ``flags``,
+    ``SURFACE_STEPS`` steps (:func:`_camera_run`), scored on ``test``;
+    returns (Testbed, record). The record holds the shares of cells not
+    culled and occupied at step 0 and at the end, the passes counted by
+    kind, and whether every cell culled at step 0 is −1 at the end
+    (``culled_kept``)."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.testbed import Testbed
+
+    t0 = time.perf_counter()
+    tb = Testbed(scene=json_path, device="cuda", **flags)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    eng = tb.engine
+    culled0 = tb.grid.density < 0
+    share = lambda grid: {"trainable": float((grid.density >= 0).float().mean()),  # noqa: E731
+                          "occupied": float(grid.bitfield.float().mean())}
+    run = {"load_s": load_s, "cells_at_step_0": share(tb.grid),
+           "sphere_surface_cells_at_step_0": _surface_cells_kept(tb.grid.density)}
+    if untrained:
+        run["untrained_psnr"] = eng.eval_test_transforms(tb.state, tb.grid, test)["psnr"]
+    counts = _counted_grid_passes(eng)
+    step_ms, losses = _camera_run(tb, SURFACE_STEPS)
+    lo, hi = SURFACE_TIMED
+    scores = eng.eval_test_transforms(tb.state, tb.grid, test)
+    run.update(steps=SURFACE_STEPS, median_ms_per_step_timed=float(np.median(step_ms[lo:hi])),
+               timed_steps=[lo, hi], final_loss=losses[-1],
+               losses_finite=bool(np.isfinite(losses).all()),
+               psnr=scores["psnr"], per_view_psnr=[v["psnr"] for v in scores["per_view"]],
+               cells_at_end=share(tb.grid), grid_passes=dict(counts),
+               culled_kept=bool((tb.grid.density[culled0] == -1.0).all()),
+               culled_cells=int(culled0.sum()), k_and_rays=list(eng.batch_geometry))
+    del eng.update_grid, eng.decay_grid
+    return tb, run
+
+
+def phase_nerf_surface_prior():
+    """Phase ``prior``: four runs of ``SURFACE_STEPS`` steps through
+    ``Testbed`` at its NeRF config (instant-ngp's base.json: L=16, F=2,
+    T=2^19, XOR hash; 2^18 sample slots a step) on the 800×800 capture: the
+    default cadence; ``reference_prep_cadence=False,
+    grid_stride_update=False`` (the decoupled schedule with probe-sampled
+    updates); the capture with the sphere's ``.obj`` beside it; with its
+    ``.xyz``. Each: ms a step (median over ``SURFACE_TIMED``), the held-out
+    PSNR, the shares of cells trainable (not culled) and occupied at step 0
+    and at the end, the share of the sphere's surface cells kept
+    (:func:`_surface_cells_kept`), the passes by kind. Gates: every cell
+    culled at step 0 still −1 at the end; the passes equal
+    :func:`_grid_events`; the cloud prior's PSNR at most
+    ``SURFACE_PRIOR_DB`` below the default run's (a prior that trains the
+    scene better than the frustum alone passes); the decoupled and mesh
+    runs' at least ``SURFACE_TRAINED_DB`` above their untrained models';
+    a prior culls more than the frustum. The mesh prior is not held within
+    ``SURFACE_PRIOR_DB`` of the default run: the JAX package's
+    ``seed_grid_from_mesh``, which the port copies cell for cell, samples
+    each triangle at half-voxel spacing and leaves about 15% of the
+    sphere's surface cells culled for good (ROADMAP C.ref 13; the
+    record's ``psnr_minus_default_db`` shows the cost). Returns (the
+    default run's Testbed, the decoupled run's Testbed, the capture's test
+    set)."""
+    from ngp_tpu_torch.data.nerf_loader import load_nerf
+
+    t0 = time.perf_counter()
+    caps = _surface_captures()
+    seconds = {"captures": time.perf_counter() - t0}
+    test = load_nerf(caps["plain"][1])
+    runs, kept = {}, {}
+    for name, path, flags in (
+            ("default", caps["plain"][0], {}),
+            ("decoupled_probe", caps["plain"][0],
+             dict(reference_prep_cadence=False, grid_stride_update=False)),
+            ("mesh_prior", caps["mesh"][0], {}), ("cloud_prior", caps["cloud"][0], {})):
+        t = time.perf_counter()
+        tb, run = _surface_run(path, test, untrained=name in ("decoupled_probe", "mesh_prior"),
+                               **flags)
+        run["expected_grid_passes"] = _grid_events(SURFACE_STEPS, not flags)
+        runs[name] = run
+        if name in ("default", "decoupled_probe"):
+            kept[name] = tb
+        del tb
+        seconds[name] = time.perf_counter() - t
+    base = runs["default"]
+    gates = {
+        "culled_kept": all(r["culled_kept"] for r in runs.values()),
+        "grid_passes": all(r["grid_passes"] == r["expected_grid_passes"]
+                           for r in runs.values()),
+        "cloud_prior_psnr": runs["cloud_prior"]["psnr"] >= base["psnr"] - SURFACE_PRIOR_DB,
+        "prior_culls": all(runs[n]["culled_cells"] > base["culled_cells"]
+                           for n in ("mesh_prior", "cloud_prior")),
+        "decoupled_and_mesh_trained": all(
+            runs[n]["psnr"] >= runs[n]["untrained_psnr"] + SURFACE_TRAINED_DB
+            for n in ("decoupled_probe", "mesh_prior")),
+        "losses_finite": all(r["losses_finite"] for r in runs.values()),
+    }
+    for n in ("mesh_prior", "cloud_prior"):
+        runs[n]["psnr_minus_default_db"] = runs[n]["psnr"] - base["psnr"]
+    emit({"phase": "prior", "res": CAPTURE_RES, "config": "Testbed nerf default (base.json)",
+          "runs": runs, "gates": {"prior_db": SURFACE_PRIOR_DB,
+                                  "trained_db": SURFACE_TRAINED_DB, "passed": gates},
+          "seconds": seconds})
+    for name, ok in gates.items():
+        if not ok:
+            raise AssertionError(f"prior: gate {name} failed")
+    return kept["default"], kept["decoupled_probe"], test
+
+
+def _timed(fn):
+    """(fn's result, its wall ms with the card synchronised)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_nerf_surface_render(tb, test):
+    """Phase ``render_surface`` on the default run's model: a
+    ``SURFACE_FRAME`` frame from held-out view 0's pose (pinhole,
+    ``SURFACE_FRAME_FOCAL``) uncropped, with the crop box at the scene box
+    (gate: the same bits) and at ``SURFACE_HALF_BOX`` (gates: the
+    background exactly at the rays that miss it, fewer marched samples);
+    training view 0 with the "gt" (gate: its left half the ground truth
+    exactly) and "error" overlays (finite, in [0, 1]); a
+    ``SURFACE_SLICE_RES``² density slice (gate: equal to
+    ``chunked_density`` at its positions, activated); a foveated frame at
+    buffer scale ``SURFACE_FOVEA[0]`` (gate: mean |difference| from the
+    full frame in the central ``SURFACE_FOVEA_WINDOW``² window below
+    ``SURFACE_FOVEA_ERR_MAX``); ``optimize_mesh_vertices`` on the
+    ``SURFACE_MESH_RES``³ mesh, ``SURFACE_MESH_STEPS`` steps (gate: the
+    mean |σ(v) − thresh| over the vertices falls). The ms of each render
+    beside the full frame's. Returns the mesh (vertices, faces)."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.geometry.camera import Lens
+    from ngp_tpu_torch.geometry.foveation import Foveation
+    from ngp_tpu_torch.ops.composite import density_activation
+
+    eng, state, grid = tb.engine, tb.state, tb.grid
+    W, H = SURFACE_FRAME
+    xf = test.xforms[0, 0]
+    focal = (SURFACE_FRAME_FOCAL, SURFACE_FRAME_FOCAL)
+    gates, out = {}, {}
+
+    def frame():
+        return eng.render_view(state, grid, xf, focal, width=W, height=H, lens=Lens())
+
+    (full, _, _), out["frame_ms"] = _timed(frame)
+    full_samples = eng.last_render_samples
+    aabb = (eng.aabb.min.cpu().numpy(), eng.aabb.max.cpu().numpy())
+    tb.render_aabb = aabb
+    (same, _, _), out["crop_scene_box_ms"] = _timed(frame)
+    gates["crop_at_scene_box_bit_exact"] = torch.equal(same, full)
+    tb.render_aabb = SURFACE_HALF_BOX
+    (half, _, _), out["crop_half_box_ms"] = _timed(frame)
+    half_samples = eng.last_render_samples
+    tb.render_aabb = None
+    o = torch.as_tensor(np.asarray(xf, np.float32)[:, 3], device="cuda")
+    u = (torch.arange(W, device="cuda") + 0.5 - 0.5 * W) / focal[0]
+    v = (torch.arange(H, device="cuda") + 0.5 - 0.5 * H) / focal[1]
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    d = torch.stack([uu, vv, torch.ones_like(uu)], -1).reshape(-1, 3) @ torch.as_tensor(
+        np.asarray(xf, np.float32)[:, :3], device="cuda").T
+    box = [torch.tensor(b, dtype=torch.float32, device="cuda") for b in SURFACE_HALF_BOX]
+    t0 = (box[0] - o) / d
+    t1 = (box[1] - o) / d
+    miss = (torch.clamp_min(torch.minimum(t0, t1).amax(-1), 0.0)
+            > torch.maximum(t0, t1).amin(-1)).reshape(H, W)
+    bg = torch.as_tensor(eng.background_color, dtype=torch.float32, device="cuda")
+    gates["crop_half_box_background"] = bool(miss.any()) and bool((half[miss] == bg).all())
+    gates["crop_half_box_fewer_samples"] = half_samples < full_samples
+    out.update(full_samples=full_samples, half_box_samples=half_samples,
+               half_box_miss_pixels=int(miss.sum()))
+
+    gt_img, out["overlay_gt_ms"] = _timed(
+        lambda: eng.render_image(state, grid, 0, overlay="gt"))
+    err_img, out["overlay_error_ms"] = _timed(
+        lambda: eng.render_image(state, grid, 0, overlay="error"))
+    _, out["view_0_ms"] = _timed(lambda: eng.render_image(state, grid, 0))
+    gt = eng.images[0, ..., :3].to(torch.float32) / 255.0
+    half_w = gt_img.shape[1] // 2
+    gates["overlay_gt_left_half"] = torch.equal(gt_img[:, :half_w], gt[:, :half_w])
+    gates["overlay_error_in_range"] = bool(torch.isfinite(err_img).all()) and bool(
+        (err_img >= 0).all() and (err_img <= 1).all())
+
+    res = SURFACE_SLICE_RES
+    sl, out["density_slice_ms"] = _timed(lambda: eng.render_density_slice(state, 0.5, res))
+    xs = (np.arange(res) + 0.5) / res
+    px, py = np.meshgrid(xs, xs)
+    pos = torch.as_tensor(np.stack([px, np.full_like(px, 0.5), py], -1).reshape(-1, 3),
+                          dtype=torch.float32, device="cuda")
+    want = density_activation(eng.density_act)(
+        eng.chunked_density(eng.inference_params(state), pos)).cpu().numpy()
+    gates["density_slice_equal"] = bool(np.array_equal(sl.reshape(-1), want))
+    out["density_slice_range"] = [float(sl.min()), float(sl.max())]
+
+    fov = Foveation.make(*SURFACE_FOVEA)
+    (fov_img, buf), out["foveated_ms"] = _timed(lambda: eng.render_view_foveated(
+        state, grid, xf, focal, fov, width=W, height=H, buffer_scale=SURFACE_FOVEA[0]))
+    h, w, k = H // 2, W // 2, SURFACE_FOVEA_WINDOW // 2
+    fovea_err = float((fov_img[h - k:h + k, w - k:w + k] - full[h - k:h + k, w - k:w + k]
+                       ).abs().mean())
+    gates["foveated_centre"] = fovea_err < SURFACE_FOVEA_ERR_MAX
+    out.update(foveated_buffer=list(buf), foveated_centre_mean_abs_err=fovea_err,
+               foveated_whole_mean_abs_err=float((fov_img - full).abs().mean()))
+
+    (verts, faces), mesh_ms = _timed(lambda: eng.compute_marching_cubes_mesh(
+        state, SURFACE_MESH_RES, SURFACE_MESH_THRESH))
+    verts, faces = np.ascontiguousarray(verts), np.ascontiguousarray(faces)
+    if len(faces) == 0:
+        raise AssertionError(f"render_surface: the {SURFACE_MESH_RES}³ mesh at "
+                             f"{SURFACE_MESH_THRESH} is empty")
+    model = eng.inference_params(state)
+
+    def off_surface(v):
+        raw = eng.chunked_density(model, eng.aabb.relative_pos(torch.as_tensor(v).cuda()))
+        return float((raw - SURFACE_MESH_THRESH).abs().mean())
+
+    before = off_surface(verts)
+    opt, opt_ms = _timed(lambda: eng.optimize_mesh_vertices(
+        state, verts, faces, SURFACE_MESH_STEPS, SURFACE_MESH_THRESH))
+    after = off_surface(opt)
+    gates["mesh_off_surface_falls"] = after < before
+    out.update(mesh_vertices=len(verts), mesh_faces=len(faces), mesh_s=mesh_ms / 1e3,
+               mesh_opt_s=opt_ms / 1e3, mesh_opt_steps=SURFACE_MESH_STEPS,
+               mesh_mean_abs_sigma_minus_thresh=[before, after],
+               mesh_max_moved=float((opt.cpu() - torch.from_numpy(verts)).abs().max()))
+    emit({"phase": "render_surface", "frame": [W, H], "half_box": SURFACE_HALF_BOX,
+          **out, "gates": {"fovea_err_max": SURFACE_FOVEA_ERR_MAX, "passed": gates}})
+    for name, ok in gates.items():
+        if not ok:
+            raise AssertionError(f"render_surface: gate {name} failed")
+    return verts, faces
+
+
+def _distinct_rows(x, geo) -> int:
+    """The distinct table rows the positions ``x`` read over every level."""
+    import torch
+
+    from ngp_tpu_torch.ops.hashgrid import _level_corners, _levels
+
+    rows = 0
+    for lg in _levels(*geo[:4]):
+        rows += int(torch.unique(torch.cat(
+            [i for i, _ in _level_corners(x, *lg, geo[4] == "additive")])).numel())
+    return rows
+
+
+def phase_nerf_surface_kernels(tb, probe_tb, verts, faces):
+    """Phase ``nerf_surface_kernels``: B1 on the density slice's own
+    ``SURFACE_SLICE_RES``² positions (the served table, as the slice reads
+    it; bit for bit), the fused grid backward on one probe-sampled run's
+    step's own (x, g) (within the float32 order bound), and the position
+    gradient on the mesh's own vertices (one vertex step's call; bit for
+    bit), each against its twin with its times and bound."""
+    import torch
+
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
+
+    eng = tb.engine
+    kept = []
+    encode = _keep_largest(hashgrid_ops, "hashgrid_encode_cuda", kept)
+    try:
+        eng.render_density_slice(tb.state, 0.5, SURFACE_SLICE_RES)
+        torch.cuda.synchronize()
+    finally:
+        hashgrid_ops.hashgrid_encode_cuda = encode
+    x, table, *geo = kept[0]
+    geo = tuple(geo[:5])
+    enc = eng.inference_params(tb.state).pos_encoding
+    dtype = torch.bfloat16 if enc.bf16_reads else torch.float32
+    row = _kernel_case("base.json", dtype, torch.Generator().manual_seed(19), x=x.detach(),
+                       enc=enc, rows_read=_distinct_rows(x, geo))
+    got = hashgrid_ops.hashgrid_encode_cuda(x, table, *geo)
+    if not torch.equal(got, hashgrid_ops.hashgrid_encode_reference(x, table, *geo)):
+        raise AssertionError("nerf_surface_kernels: B1 differs from its twin on the "
+                             "slice's served table")
+    emit({"phase": "nerf_surface_kernels", "kernel": "hashgrid_encode",
+          "shape": "density_slice_positions", **row})
+
+    kept = []
+    backward = _keep_largest(hashgrid_ops, "hashgrid_backward_cuda", kept)
+    try:
+        probe_tb.train(1)
+        torch.cuda.synchronize()
+    finally:
+        hashgrid_ops.hashgrid_backward_cuda = backward
+    x, g, scale, res, size, hashed, variant, _, n_rows = kept[0][:9]
+    payload = kept[0][9] if len(kept[0]) > 9 else "bfloat16"
+    geo = (scale, res, size, hashed, variant)
+    keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
+    emit({"phase": "nerf_surface_kernels", "kernel": "hashgrid_backward", "payload": payload,
+          "shape": "probe_sampled_step", "N": x.shape[0], "L": scale.shape[0], "T": n_rows,
+          "F": vals.shape[2], "hash": variant,
+          **_backward_row(x, g, geo, n_rows, keys, vals, payload)})
+    del keys, vals, kept
+
+    kept = []
+    input_grad = _keep_largest(hashgrid_ops, "hashgrid_input_grad_cuda", kept)
+    try:
+        eng.optimize_mesh_vertices(tb.state, verts, faces, 1, SURFACE_MESH_THRESH)
+        torch.cuda.synchronize()
+    finally:
+        hashgrid_ops.hashgrid_input_grad_cuda = input_grad
+    x, g, table, *geo = kept[0]
+    row = _input_grad_row(x.detach(), g, table.detach(), tuple(geo[:5]))
+    emit({"phase": "nerf_surface_kernels", "kernel": "hashgrid_input_grad",
+          "shape": "mesh_vertices", **row})
+    _library_shares(probe_tb, tb, verts, faces)
+
+
+def _library_shares(probe_tb, tb, verts, faces):
+    """The two library calls of this slice's paths against the device time
+    of the pass that makes them: the atomic max-splat (``scatter_reduce_``)
+    of a probe-sampled update on its own cells and densities against the
+    update's busy ms, and the 1-ring and normal sums (``index_add_``) on the
+    mesh against one vertex step's busy ms (ROADMAP A12 queues a kernel
+    for either above a few per cent)."""
+    import torch
+
+    from ngp_tpu_torch.ops import occupancy as occ
+    from ngp_tpu_torch.ops.composite import density_activation
+    from ngp_tpu_torch.ops.mesh_opt import vertex_ring_and_normals
+
+    eng, cfg = probe_tb.engine, probe_tb.engine.grid_cfg
+    n_part = cfg.n_cells // eng.grid_sample_divisor * cfg.n_cascades
+    idx, pos = occ.sample_update_cells(cfg, probe_tb.grid.density, n_part, n_part,
+                                       generator=eng.generator)
+    sigma = density_activation(eng.density_act)(
+        eng.chunked_density(probe_tb.state.model, eng.aabb.relative_pos(pos)))
+    thick = sigma * occ.MIN_CONE_STEPSIZE
+    splat_ms = device_ms(lambda: occ.splat_max(cfg, idx, thick))
+    update_ms = _frame_device_ms(lambda: eng.update_grid(probe_tb.state, probe_tb.grid, False))
+    v = torch.from_numpy(verts).cuda()
+    f = torch.from_numpy(faces).cuda().long()
+    ring_ms = device_ms(lambda: vertex_ring_and_normals(v, f))
+    step_ms = _frame_device_ms(lambda: tb.engine.optimize_mesh_vertices(
+        tb.state, verts, faces, 1, SURFACE_MESH_THRESH))
+    emit({"phase": "nerf_surface_kernels", "library": "splat_max (scatter_reduce_ amax)",
+          "samples": int(idx.numel()), "ms": splat_ms, "update_busy_ms": update_ms,
+          "share": splat_ms / update_ms})
+    emit({"phase": "nerf_surface_kernels", "library": "1-ring and normal sums (index_add_)",
+          "faces": int(f.shape[0]), "ms": ring_ms, "vertex_step_busy_ms": step_ms,
+          "share": ring_ms / step_ms})
+
+
+def phase_nerf_surface_all():
+    """``chip_smoke.py nerf_surface``: phases prior, render_surface and
+    nerf_surface_kernels; then the launches of the first two (counted from
+    zero) on one line. The phases launched B1, the fused backward and the
+    position gradient."""
+    from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
+
+    t0 = time.perf_counter()
+    reset_launches()
+    tb, probe_tb, test = phase_nerf_surface_prior()
+    t1 = time.perf_counter()
+    verts, faces = phase_nerf_surface_render(tb, test)
+    launches = launch_counts()
+    t2 = time.perf_counter()
+    phase_nerf_surface_kernels(tb, probe_tb, verts, faces)
+    t3 = time.perf_counter()
+    emit({"phase": "nerf_surface_launches", "launches": launches,
+          "seconds": {"prior": t1 - t0, "render_surface": t2 - t1,
+                      "nerf_surface_kernels": t3 - t2}})
+    for name in ("hashgrid_encode", "hashgrid_backward", "hashgrid_input_grad"):
+        if launches[name] == 0:
+            raise AssertionError(f"nerf_surface: the phases launched {name} no time")
+
+
 PROBE_WINDOWS = 80
 
 
@@ -4314,9 +4822,11 @@ def main():
                            if line.get("phase") == "camera_launches")["launches"]
     supervision_launches = next(line for line in _child("supervision")
                                 if line.get("phase") == "supervision_launches")["launches"]
+    surface_launches = next(line for line in _child("nerf_surface")
+                            if line.get("phase") == "nerf_surface_launches")["launches"]
     later = {k: cli_launches[k] + image_launches[k] + image_cli_launches[k] + sdf_launches[k]
              + volume_launches[k] + camera_launches[k] + supervision_launches[k]
-             for k in cli_launches}
+             + surface_launches[k] for k in cli_launches}
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4412,6 +4922,8 @@ if __name__ == "__main__":
         phase_camera_all()
     elif sys.argv[1:] == ["supervision"]:
         phase_supervision_all()
+    elif sys.argv[1:] == ["nerf_surface"]:
+        phase_nerf_surface_all()
     elif sys.argv[1:] == ["profiler_probe"]:
         phase_env()
         phase_profiler_probe()

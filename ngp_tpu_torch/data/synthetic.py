@@ -358,3 +358,42 @@ def write_bumpy_sphere_mesh(path: str, subdivisions: int = 7) -> str:
         out.write("".join("v %.9g %.9g %.9g\n" % tuple(p) for p in v.tolist()))
         out.write("".join("f %d %d %d\n" % tuple(t) for t in (f + 1).tolist()))
     return path
+
+
+def write_sphere_prior(out_dir: str, fmt: str, subdivisions: int = 4, n_points: int = 20000,
+                       seed: int = 0) -> str:
+    """Write the capture sphere's surface (``CAPTURE_CENTER``,
+    ``CAPTURE_RADIUS``) as the geometry prior ``Testbed`` seeds the density
+    grid from: ``<out_dir>/<name>.obj`` (``fmt`` "obj": an icosphere of
+    ``subdivisions``) or ``<out_dir>/<name>.xyz`` ("xyz": ``n_points``
+    points uniform on the surface from a numpy ``seed``), ``<name>`` the
+    directory's own name, in the capture's raw (NeRF) coordinates at
+    scale 0.33 and offset 0.5: the inverse of the fork's transforms, the
+    mesh's (x, y, z) → (−z, y, x) cycle then scale and offset, the points'
+    scale and offset then columns [1, 2, 0]. Returns the path."""
+    import os
+
+    from ngp_tpu_torch.data.nerf_loader import NERF_SCALE
+
+    name = os.path.basename(os.path.normpath(out_dir))
+    center = np.asarray(CAPTURE_CENTER, np.float64)
+    offset = np.full(3, 0.5)
+    if fmt == "obj":
+        unit, faces = icosphere(subdivisions)
+        w = (center + CAPTURE_RADIUS * unit - offset) / NERF_SCALE  # (−z, y, x) of raw
+        raw = np.stack([w[:, 2], w[:, 1], -w[:, 0]], -1)
+        path = os.path.join(out_dir, name + ".obj")
+        with open(path, "w") as out:
+            out.write("".join("v %.9g %.9g %.9g\n" % tuple(p) for p in raw.tolist()))
+            out.write("".join("f %d %d %d\n" % tuple(t) for t in (faces + 1).tolist()))
+        return path
+    if fmt != "xyz":
+        raise ValueError(f"unknown prior format {fmt!r} (obj | xyz)")
+    d = np.random.default_rng(seed).normal(size=(n_points, 3))
+    ngp = center + CAPTURE_RADIUS * d / np.linalg.norm(d, axis=1, keepdims=True)
+    raw = (ngp[:, [2, 0, 1]] - offset) / NERF_SCALE
+    path = os.path.join(out_dir, name + ".xyz")
+    with open(path, "w") as out:
+        out.write("# the capture sphere's surface, raw coordinates\n")
+        out.write("".join("%.9g %.9g %.9g\n" % tuple(p) for p in raw.tolist()))
+    return path

@@ -1,6 +1,6 @@
 """Triangle-mesh loading and normalization for SDF mode, the port's copy
-of ``ngp_tpu/geometry/mesh.py`` (numpy only; ``load_xyz`` is not yet
-ported, ROADMAP A5).
+of ``ngp_tpu/geometry/mesh.py`` (numpy only), with the ``.xyz`` point
+cloud reader of the NeRF geometry priors.
 
 Counterpart of the reference's ``load_mesh`` (``src/testbed_sdf.cu:1100-1185``)
 and the obj/stl readers (``tinyobj_loader_wrapper.cpp``, ``stl_reader``):
@@ -137,3 +137,21 @@ def sample_surface(mesh: Mesh, u: np.ndarray, cdf: np.ndarray | None = None) -> 
         tri[:, 0] * (1.0 - su) + tri[:, 1] * (su * (1.0 - v)) + tri[:, 2] * (su * v)
     ).astype(np.float32)
 
+
+def load_xyz(path: str) -> np.ndarray:
+    """A ``.xyz`` point cloud (one ``x y z [extras]`` line a point; the
+    fork's ``XYZLoader`` input, testbed_nerf.cu:3396-3407): lines with
+    fewer than three columns or a non-number among the first three
+    (headers, comments) are skipped. Returns (N, 3) float32 raw
+    coordinates; the caller applies the dataset's scale, offset and axis
+    cycle."""
+    pts = []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 3:
+                try:
+                    pts.append([float(parts[0]), float(parts[1]), float(parts[2])])
+                except ValueError:
+                    continue
+    return np.asarray(pts, np.float32).reshape(-1, 3)

@@ -1,6 +1,8 @@
 """Cascaded occupancy grid, the port of ``ngp_tpu/ops/occupancy.py``
 (render lookups and the training-time maintenance: frustum culling,
-all-cells and stride-residue refresh positions, EMA update, coarse gate).
+all-cells and stride-residue refresh positions, the reference's
+probe-sampled refresh with its max-splat, EMA update, coarse gate, and the
+geometry-seeded priors of a mesh or a point cloud).
 
 The grid is a dense ``(C, G, G, G)`` float32 tensor in row-major (x, y, z)
 order and the bitfield a uint8 0/1 tensor of the same shape. Cascade ``c``
@@ -18,6 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as tnf
 
@@ -184,6 +187,57 @@ def place_stride(cfg: OccupancyGridConfig, values: torch.Tensor, phase: int,
     return full.reshape(C, G, G, G)
 
 
+def splat_max(cfg: OccupancyGridConfig, flat_idx: torch.Tensor,
+              values: torch.Tensor) -> torch.Tensor:
+    """Max-splat of sampled optical thicknesses into a zeroed (C, G, G, G)
+    grid (``splat_grid_samples_nerf_max_nearest_neighbor``,
+    testbed_nerf.cu:678-707): an atomic max, exact in any order."""
+    G, C = cfg.grid_size, cfg.n_cascades
+    tmp = torch.zeros(C * G * G * G, dtype=torch.float32, device=values.device)
+    tmp.scatter_reduce_(0, flat_idx.long(), values.to(torch.float32), "amax")
+    return tmp.reshape(C, G, G, G)
+
+
+N_PROBES = 10
+
+
+def sample_update_cells(cfg: OccupancyGridConfig, density: torch.Tensor, n_uniform: int,
+                        n_nonuniform: int, mip: torch.Tensor | None = None,
+                        probes: torch.Tensor | None = None,
+                        jitter: torch.Tensor | None = None,
+                        generator: torch.Generator | None = None):
+    """The cells a probe-sampled update re-queries
+    (``generate_grid_samples_nerf_nonuniform``, testbed_nerf.cu:635-676):
+    each of ``n_uniform + n_nonuniform`` samples picks a cascade and tries
+    ``N_PROBES`` cells of it, taking the first whose density passes its
+    threshold (−0.01 for the uniform ones: any cell not culled;
+    ``NERF_MIN_OPTICAL_THICKNESS`` for the rest), else the last. The draws
+    (``mip`` (n,) in [0, C), ``probes`` (n, 10) in [0, G³), ``jitter`` (n, 3)
+    in [0, 1)) are drawn from ``generator`` where not given. Returns
+    (flat cell index (n,) int64, jittered scene positions (n, 3))."""
+    G, C = cfg.grid_size, cfg.n_cascades
+    n_cells = G * G * G
+    n = n_uniform + n_nonuniform
+    dev = density.device
+    if mip is None:
+        mip = torch.randint(0, C, (n,), generator=generator, device=dev)
+    if probes is None:
+        probes = torch.randint(0, n_cells, (n, N_PROBES), generator=generator, device=dev)
+    if jitter is None:
+        jitter = torch.rand((n, 3), generator=generator, device=dev)
+    mip, probes = mip.to(dev, torch.int64), probes.to(dev, torch.int64)
+    vals = density.reshape(-1)[mip[:, None] * n_cells + probes]
+    thresh = torch.full((n, 1), NERF_MIN_OPTICAL_THICKNESS, dtype=torch.float32, device=dev)
+    thresh[:n_uniform] = -0.01
+    ok = vals > thresh
+    first = torch.argmax(ok.to(torch.uint8), dim=1)
+    pick = torch.where(ok.any(dim=1), first, N_PROBES - 1)
+    cell_flat = torch.gather(probes, 1, pick[:, None])[:, 0]
+    pos = density_grid_cell_positions(cfg, _cell_xyz(cell_flat, G), mip,
+                                      jitter.to(dev, torch.float32))
+    return mip * n_cells + cell_flat, pos
+
+
 def ema_update_density(density: torch.Tensor, splat: torch.Tensor,
                        decay: float) -> torch.Tensor:
     """``max(density·decay, splat)``, keeping the −1 culled marker."""
@@ -202,11 +256,27 @@ def update_grid_state_dense(cfg: OccupancyGridConfig, state: OccupancyGridState,
                               state.ema_step + 1)
 
 
+def update_grid_state(cfg: OccupancyGridConfig, state: OccupancyGridState,
+                      flat_idx: torch.Tensor, sampled_density: torch.Tensor
+                      ) -> OccupancyGridState:
+    """Merge activated densities at the cells ``flat_idx`` into the grid
+    (``update_density_grid_nerf``'s tail and
+    ``update_density_grid_mean_and_bitfield``, testbed_nerf.cu:3500-3567):
+    optical thickness at the finest step, :func:`splat_max`, the EMA, then
+    the mean and the bitfield."""
+    tmp = splat_max(cfg, flat_idx, sampled_density * MIN_CONE_STEPSIZE)
+    density = ema_update_density(state.density, tmp, cfg.decay)
+    mean = torch.clamp_min(density[0], 0.0).mean()
+    return OccupancyGridState(density, build_bitfield(density, mean), mean,
+                              state.ema_step + 1)
+
+
 def mark_untrained_cells(cfg: OccupancyGridConfig, xforms: torch.Tensor,
                          focal_lengths: torch.Tensor,
                          principal_points: torch.Tensor, resolution: tuple,
-                         chunk: int = 1 << 18) -> torch.Tensor:
-    """(C, G, G, G) density: 0 at cells some training camera sees, −1
+                         chunk: int = 1 << 18, visible_init: float = 0.0) -> torch.Tensor:
+    """(C, G, G, G) density: ``visible_init`` at cells some training camera
+    sees (0, upstream instant-ngp; the fork starts them at 1.0), −1
     elsewhere (``mark_untrained_density_grid``). As in the JAX
     package, each camera is five frustum half-spaces and a cell counts as
     seen when its center lies inside all five of one camera's, with the
@@ -241,7 +311,75 @@ def mark_untrained_cells(cfg: OccupancyGridConfig, xforms: torch.Tensor,
         inside = (d > -margin[:, None]).reshape(-1, n_images, 5)
         vis.append(inside.all(dim=2).any(dim=1))
     vis = torch.cat(vis).reshape(C, G, G, G)
-    return torch.where(vis, 0.0, -1.0)
+    return torch.where(vis, float(visible_init), -1.0)
+
+
+# -- geometry-seeded priors (the fork's, host-side, once per scene)
+
+
+def seed_grid_from_mesh(cfg: OccupancyGridConfig, triangles: np.ndarray) -> np.ndarray:
+    """A (C, G, G, G) float32 host prior from a mesh (``(T, 3, 3)`` NGP-space
+    triangles; ``Testbed::load_mesh_for_density_grid``,
+    testbed_nerf.cu:3176-3300): −1 everywhere but at the cells a triangle
+    passes through, which are 0 (trainable). Each triangle is sampled on a
+    barycentric lattice at half the finest voxel (``n_sub`` steps along
+    its longest edge, 1–256), and every sample marks its cell at each
+    cascade. Float32 numpy in the JAX package's order, so that cells on a
+    boundary fall as they do there. Pass it to
+    ``NerfEngine.init_grid(precomputed_density=...)``."""
+    G = cfg.grid_size
+    tris = np.asarray(triangles, np.float32)
+    density = np.full((cfg.n_cascades, G, G, G), -1.0, np.float32)
+    spacing = 0.5 / G
+    e1 = tris[:, 1] - tris[:, 0]
+    e2 = tris[:, 2] - tris[:, 0]
+    longest = np.maximum(np.linalg.norm(e1, axis=-1),
+                         np.maximum(np.linalg.norm(e2, axis=-1),
+                                    np.linalg.norm(e2 - e1, axis=-1)))
+    n_sub = np.clip(np.ceil(longest / spacing).astype(np.int64), 1, 256)
+    for n in np.unique(n_sub):
+        sel = tris[n_sub == n]
+        a, b = np.meshgrid(np.arange(n + 1), np.arange(n + 1))
+        keep = (a + b) <= n
+        u = (a[keep] / max(n, 1)).astype(np.float32)
+        v = (b[keep] / max(n, 1)).astype(np.float32)
+        pts = (sel[:, None, 0]
+               + u[None, :, None] * (sel[:, None, 1] - sel[:, None, 0])
+               + v[None, :, None] * (sel[:, None, 2] - sel[:, None, 0])).reshape(-1, 3)
+        for c in range(cfg.n_cascades):
+            cell = np.floor(((pts - 0.5) * (2.0 ** -c) + 0.5) * G).astype(np.int64)
+            cell = cell[np.all((cell >= 0) & (cell < G), axis=-1)]
+            density[c, cell[:, 0], cell[:, 1], cell[:, 2]] = 0.0
+    return density
+
+
+def seed_grid_from_point_cloud(cfg: OccupancyGridConfig, points: np.ndarray,
+                               dilation: int = 1, mark_ground_sky: bool = True) -> np.ndarray:
+    """A (C, G, G, G) float32 host prior from ``(N, 3)`` NGP-space points
+    (``Testbed::build_density_grid_from_point_cloud``,
+    testbed_nerf.cu:3302-3407): at each cascade the cells within
+    ``dilation`` cells (a (2r+1)³ box) of a point's cell are 0, the rest
+    −1; with ``mark_ground_sky`` the last cascade's boundary planes x = 0,
+    x = G−1, z = 0 and z = G−1 are 0 as well."""
+    G = cfg.grid_size
+    pts = np.asarray(points, np.float32)
+    density = np.full((cfg.n_cascades, G, G, G), -1.0, np.float32)
+    r = int(dilation)
+    offs = np.stack(np.meshgrid(*([np.arange(-r, r + 1)] * 3), indexing="ij"),
+                    -1).reshape(-1, 3)
+    for c in range(cfg.n_cascades):
+        cell = np.floor(((pts - 0.5) * (2.0 ** -c) + 0.5) * G).astype(np.int64)
+        ok = np.all((cell >= 0) & (cell < G), axis=-1)
+        cell = (cell[ok, None, :] + offs[None, :, :]).reshape(-1, 3)
+        cell = cell[np.all((cell >= 0) & (cell < G), axis=-1)]
+        density[c, cell[:, 0], cell[:, 1], cell[:, 2]] = 0.0
+    if mark_ground_sky:
+        last = cfg.n_cascades - 1
+        density[last, :, :, 0] = 0.0
+        density[last, 0, :, :] = 0.0
+        density[last, :, :, G - 1] = 0.0
+        density[last, G - 1, :, :] = 0.0
+    return density
 
 
 def build_coarse_gate(bitfield: torch.Tensor, pool: int = 4) -> torch.Tensor:

@@ -1370,3 +1370,121 @@ def test_supervised_step_on_card_matches_cpu(cuda):
         else:
             tol = 1e-3 if name == "envmap" else 2e-2
             assert float((got - want).abs().max()) <= tol * float(want.abs().max()), name
+
+
+def _small_nerf_engines(**kw):
+    """The supervised step's small size (a 4-level 2^12 "tpu"-tier grid,
+    32-wide MLPs, grid 32) on the sphere views, on the CPU and the card,
+    and one state for both, its table scaled to U(±0.3) so that the
+    density field varies."""
+    from ngp_tpu_torch.config import default_config
+    from ngp_tpu_torch.data.synthetic import tiny_sphere_dataset
+    from ngp_tpu_torch.engines.nerf import NerfEngine
+    from ngp_tpu_torch.interop import export_jax_train_state
+
+    cfg = default_config("tpu")
+    cfg["encoding"].update(n_levels=4, log2_hashmap_size=12)
+    cfg["network"]["n_neurons"] = cfg["rgb_network"]["n_neurons"] = 32
+    ds = tiny_sphere_dataset(4, 32)
+    engines = {dev: NerfEngine(cfg, ds, device=dev, batch_size=1 << 14, grid_size=32, **kw)
+               for dev in ("cpu", "cuda")}
+    state = engines["cpu"].init_state()
+    with torch.no_grad():
+        state.model.pos_encoding.table.mul_(3e3)
+    return engines, export_jax_train_state(state)
+
+
+@pytest.mark.cuda
+def test_probe_sampled_update_on_card_matches_cpu(cuda):
+    """One probe-sampled occupancy update (``grid_stride_update=False``, the
+    reference cadence's G³/4 cells of each kind) from the same state, grid
+    and draws on the card and on the CPU: B1 launched on the card; the
+    cells chosen and every culled cell exactly; the densities within 1e-4
+    relative (the MLPs' float32 sums in another order, then exp) and 1e-9
+    absolute; the max-splat is exact in any order, so no more."""
+    from ngp_tpu_torch.interop import load_jax_train_state
+    from ngp_tpu_torch.ops import occupancy as occ
+    from ngp_tpu_torch.ops.cuda_build import reset_launches
+
+    engines, tree = _small_nerf_engines(grid_stride_update=False)
+    cpu = engines["cpu"]
+    grid0 = cpu.init_grid()
+    rng = np.random.default_rng(2)
+    density = torch.where(grid0.density < 0, -1.0, torch.from_numpy(
+        rng.uniform(0, 0.02, grid0.density.shape).astype(np.float32)))
+    cfg = cpu.grid_cfg
+    n = 2 * (cfg.n_cells // 4 * cfg.n_cascades)
+    gen = torch.Generator().manual_seed(5)
+    draws = dict(mip=torch.randint(0, cfg.n_cascades, (n,), generator=gen),
+                 probes=torch.randint(0, cfg.n_cells, (n, 10), generator=gen),
+                 jitter=torch.rand((n, 3), generator=gen))
+    out = {}
+    for dev, eng in engines.items():
+        st = load_jax_train_state(eng._new_network(), tree)
+        grid = eng.grid_from_density(density)
+        reset_launches()
+        out[dev] = eng.update_grid(st, grid, False, **{k: v.to(dev) for k, v in draws.items()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert launch_counts()["hashgrid_encode"] > 0
+    got, want = out["cuda"].density.cpu(), out["cpu"].density
+    assert torch.equal(got[density < 0], want[density < 0])
+    idx, _ = occ.sample_update_cells(cfg, density, n // 2, n // 2, **draws)
+    idx_cuda, _ = occ.sample_update_cells(cfg, density.cuda(), n // 2, n // 2,
+                                          **{k: v.cuda() for k, v in draws.items()})
+    assert torch.equal(idx_cuda.cpu(), idx)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-9)
+    assert out["cuda"].ema_step == out["cpu"].ema_step == 1
+
+
+@pytest.mark.cuda
+def test_mesh_vertex_step_on_card_matches_cpu(cuda):
+    """One ``optimize_mesh_vertices`` step on a 32³ marching-cubes mesh of
+    the same field on the card and on the CPU: the card launches the
+    position gradient and no table gradient; σ and ∇σ at the vertices
+    within 1e-4 relative; Adam's first step moves each coordinate by lr
+    times the sign of its gradient, so the vertices are equal within 1e-6
+    wherever every gradient component on the CPU exceeds 1e-3 of the
+    largest (elsewhere the card's atomic 1-ring sums, in another order,
+    may flip the sign)."""
+    from ngp_tpu_torch.interop import load_jax_train_state
+    from ngp_tpu_torch.ops import mesh_opt
+    from ngp_tpu_torch.ops.cuda_build import reset_launches
+
+    engines, tree = _small_nerf_engines()
+    cpu = engines["cpu"]
+    st = load_jax_train_state(cpu._new_network(), tree)
+    a = np.linspace(0, 1, 16, dtype=np.float32)
+    lattice = torch.from_numpy(np.stack(np.meshgrid(a, a, a, indexing="ij"), -1).reshape(-1, 3))
+    thresh = float(cpu.chunked_density(st.model, cpu.aabb.relative_pos(lattice)).median())
+    verts, faces = cpu.compute_marching_cubes_mesh(st, 32, thresh)
+    verts, faces = np.ascontiguousarray(verts), np.ascontiguousarray(faces)
+    assert len(faces) > 1000
+    out, fields = {}, {}
+    for dev, eng in engines.items():
+        s = load_jax_train_state(eng._new_network(), tree)
+        model = s.inference_model()
+        with torch.enable_grad():
+            v = torch.from_numpy(verts).to(dev).requires_grad_(True)
+            raw = model.density(eng.aabb.relative_pos(v), differentiable_inputs=True)[:, 0]
+            fields[dev] = (raw.detach().cpu(), torch.autograd.grad(raw.sum(), v)[0].cpu())
+        for p in model.parameters():
+            p.grad = None
+        reset_launches()
+        out[dev] = eng.optimize_mesh_vertices(s, verts, faces, n_steps=1,
+                                              density_thresh=thresh).cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = launch_counts()
+            assert launched["hashgrid_input_grad"] > 0 and launched["hashgrid_backward"] == 0
+            assert all(p.grad is None for p in s.model.parameters())
+    cpu_grad = mesh_opt.mesh_opt_gradient(torch.from_numpy(verts), torch.from_numpy(faces),
+                                          *fields["cpu"], thresh)
+    for i in range(2):
+        torch.testing.assert_close(fields["cuda"][i], fields["cpu"][i], rtol=1e-4,
+                                   atol=1e-4 * float(fields["cpu"][i].abs().max()))
+    clear = (cpu_grad.abs() > 1e-3 * float(cpu_grad.abs().max())).all(dim=1)
+    assert clear.float().mean() > 0.95
+    torch.testing.assert_close(out["cuda"][clear], out["cpu"][clear], rtol=0, atol=1e-6)
+    moved = (out["cpu"] - torch.from_numpy(verts)).abs()
+    assert float(moved.max()) == pytest.approx(1e-4, rel=1e-3)

@@ -137,20 +137,34 @@ def test_eval_test_transforms_matches_jax(golden_engines, tmp_path, lens):
 
 
 def test_engine_refuses_what_a_capture_may_carry_but_the_port_does_not_run():
-    """The render crop box is refused (ROADMAP A6). A capture's envmap and
-    supplied rays, once refused, are now taken: the envmap as the state's
-    fixed background, the rays in place of the camera model's (no
-    near-distance penalty, no frustum culling). Depth maps are carried and,
-    with depth supervision off, ignored as in the JAX package."""
+    """What a capture may carry, once refused, is now taken: its render
+    crop box (ROADMAP A6) as the engine's ``render_aabb``, which a render
+    marches inside (rays that miss it see the background); its envmap as
+    the state's fixed background; its supplied rays in place of the camera
+    model's (no near-distance penalty, no frustum culling). Depth maps are
+    carried and, with depth supervision off, ignored as in the JAX
+    package."""
     from test_nerf_engine import CONFIG, _make_dataset
 
     jd = _make_dataset(2)
     base = dict(images=jd.images, xforms=jd.xforms, focal_lengths=jd.focal_lengths,
                 principal_points=jd.principal_points, lens=Lens(),
                 resolution=jd.resolution)
-    with pytest.raises(ValueError, match="render_aabb"):
-        NerfEngine(dict(CONFIG), NerfDataset(**base, render_aabb=(np.zeros(3), np.ones(3))),
-                   device="cpu")
+    box = (np.full(3, 0.4, np.float32), np.full(3, 0.6, np.float32))
+    eng = NerfEngine(dict(CONFIG), NerfDataset(**base, render_aabb=box), device="cpu")
+    assert eng.render_aabb is box
+    from ngp_tpu_torch.ops.marching import ray_aabb_range
+
+    # every cell occupied, so that rays inside the box composite the model
+    state, grid = eng.init_state(), eng.grid_from_density(torch.ones_like(eng.init_grid().density))
+    cropped = eng.render_image(state, grid, 0, stride=8)
+    eng.render_aabb = None
+    full = eng.render_image(state, grid, 0, stride=8)
+    assert cropped.shape == full.shape == (6, 6, 3) and bool(torch.isfinite(cropped).all())
+    o, d, _ = eng.view_rays(0, stride=8)
+    tmin, tmax = ray_aabb_range(o, d, torch.from_numpy(box[0]), torch.from_numpy(box[1]))
+    miss = (tmin > tmax).reshape(6, 6)
+    assert miss.any() and not cropped[miss].any() and full[miss].any()
     envmap = np.random.default_rng(0).uniform(size=(4, 8, 4)).astype(np.float32)
     eng = NerfEngine(dict(CONFIG), NerfDataset(**base, envmap=envmap), device="cpu")
     state = eng.init_state()

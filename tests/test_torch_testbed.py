@@ -434,10 +434,16 @@ def test_refusals(scene, testbeds, tmp_path, capsys, small_engines):
         Testbed(scene=str(tmp_path / "volume.nvdb"), device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         ptb.frame()
-    with pytest.raises(NotImplementedError, match="A6"):
-        ptb.render_aabb
-    with pytest.raises(NotImplementedError, match="A6"):
-        ptb.render_aabb = (np.zeros(3), np.ones(3))
+    # the render crop box (A6) is ported: it round trips through the
+    # engine as float32 arrays (tests/test_torch_render_surface.py holds
+    # its frames to the JAX package's)
+    assert ptb.render_aabb is None
+    ptb.render_aabb = (np.zeros(3), np.ones(3))
+    lo, hi = ptb.render_aabb
+    assert lo.dtype == hi.dtype == np.float32 and (lo == 0).all() and (hi == 1).all()
+    assert ptb.engine.render_aabb is ptb.render_aabb
+    ptb.render_aabb = None
+    assert ptb.engine.render_aabb is None
     # depth maps in set_image (A5c) are ported: without depth supervision
     # the engine holds none and the map is ignored, as in the JAX package
     # (tests/test_torch_supervision.py holds both cases to it)
@@ -445,16 +451,24 @@ def test_refusals(scene, testbeds, tmp_path, capsys, small_engines):
     ptb.set_image(0, np.zeros((32, 32, 3), np.float32), depth=np.zeros((32, 32)))
     assert ptb.engine.depths is None and not ptb.engine.images[0, ..., :3].any()
     ptb.engine.images[0] = frame0
-    # a geometry prior beside the capture
+    # a geometry prior beside the capture (A5d) is ported: it seeds the
+    # grid (tests/test_torch_occupancy_schedule.py holds it to the JAX
+    # Testbed's); one triangle leaves trainable only the cells it crosses
     prior = tmp_path / "prior"
     shutil.copytree(os.path.dirname(scene["train"]), prior)
     (prior / "prior.obj").write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
-    with pytest.raises(NotImplementedError, match="prior.obj is not yet ported \\(ROADMAP A5\\)"):
-        Testbed(scene=str(prior / "transforms_train.json"), device="cpu")
+    seeded = Testbed(scene=str(prior / "transforms_train.json"), config=scene["network"],
+                     device="cpu", grid_size=GRID, batch_size=1 << 12)
+    plain = seeded.engine.init_grid()
+    assert (seeded.grid.density < 0).sum() > (plain.density < 0).sum()
+    assert (seeded.grid.density[plain.density < 0] == -1).all()
+    assert 0 < int((seeded.grid.density == 0).sum()) < int((plain.density == 0).sum())
     with pytest.raises(ValueError, match=".png and .exr"):
         run.write_image(str(tmp_path / "x.jpg"), np.zeros((4, 4, 3)))
-    with pytest.raises(NotImplementedError, match="A6"):
-        ptb.engine.render_image(ptb.state, ptb.grid, 0, stride=8, overlay="gt")
+    # overlays (A6) are ported: the left half is the ground truth
+    over = ptb.engine.render_image(ptb.state, ptb.grid, 0, stride=8, overlay="gt")
+    gt = ptb.engine.images[0, ::8, ::8, :3].to(torch.float32) / 255.0
+    assert torch.equal(over[:, :2], gt[:, :2])
     # the normals mode is ported: the CLI writes its screenshot
     from ngp_tpu_torch.data.png import read_png
 
