@@ -3,7 +3,7 @@
 in turns, so that a change to a kernel is measured against its parent on
 the same card in the same run:
 
-    python3 chip_kernel_ab.py BEFORE AFTER [--kernels b1 b5 segsum bwd b3 bvh igrad walk]
+    python3 chip_kernel_ab.py BEFORE AFTER [--kernels regs b1 b5 segsum bwd b3 bvh igrad walk]
 
 BEFORE and AFTER are repository roots, for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory, and ``.``. Each
@@ -14,6 +14,9 @@ then the card's ``name, power.limit``. Device ms are ``device_ms`` of this
 script's ``chip_smoke.py`` (the profiler's device time per call, output
 allocation included). Kernels:
 
+- ``regs``: ptxas's registers a thread of every Linear instantiation of
+  the three grid kernels (forward, fused backward, position gradient)
+  from each checkout's build log (:func:`grid_registers`).
 - ``b1``: ``hashgrid_encode_cuda`` on a bf16 table: the "tpu" tier at
   aabb_scale 4 on ``--b1-samples`` uniform positions and on the positions
   of a rendered frame's largest launch (captured once, by a first process
@@ -307,9 +310,25 @@ def igrad_sass(helpers) -> list[dict]:
         rows.append({"kernel": "igrad_sass", "D": int(shape.group(1)) if shape else None,
                      "F": int(shape.group(2)) if shape else None,
                      "additive": shape.group(3) if shape else None,
+                     "simplex": "Lb1EE" in name,
                      "instructions": len(code), "loops": loops,
                      "ptxas_registers": registers.get(name)})
     return rows
+
+
+def grid_registers(helpers) -> dict:
+    """ptxas's registers a thread of the imported checkout's Linear
+    instantiations of the three grid kernels (``chip_smoke._registers``),
+    keyed ``kernel<D, F, last template argument>``: the forward's table
+    type, the backward's bf16 rounding, the position gradient's hash."""
+    from ngp_tpu_torch.ops.hashgrid import HASHGRID_ENCODE
+
+    HASHGRID_ENCODE.library()
+    last = {"hashgrid_encode_kernel": ("f", "13__nv_bfloat16"),
+            "hashgrid_backward_kernel": ("Lb0E", "Lb1E"),
+            "hashgrid_input_grad_kernel": ("Li0E", "Li1E")}
+    return {f"{k}<{D},{F},{a}>": helpers._registers(k, f"Li{D}ELi{F}E{a}")
+            for k, args in last.items() for D in (2, 3) for F in (1, 2, 4, 8) for a in args}
 
 
 def igrad_times(helpers) -> list[dict]:
@@ -622,6 +641,8 @@ def turn(root: str, label: str, kernels: list[str], b1_samples: int,
     from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
 
     base = {"turn": label, "root": root}
+    if "regs" in kernels:
+        helpers.emit({**base, "kernel": "regs", "registers": grid_registers(helpers)})
     if "b1" in kernels:
         x = torch.rand((b1_samples, 3), generator=torch.Generator().manual_seed(1)).cuda()
         helpers.emit({**base, "kernel": "b1", "positions": "uniform", **b1_times(helpers, x)})
@@ -864,7 +885,8 @@ def main():
     ap.add_argument("before")
     ap.add_argument("after")
     ap.add_argument("--kernels", nargs="+", default=["b1", "b5"],
-                    choices=["b1", "b5", "segsum", "bwd", "b3", "bvh", "igrad", "walk"])
+                    choices=["regs", "b1", "b5", "segsum", "bwd", "b3", "bvh", "igrad",
+                             "walk"])
     ap.add_argument("--b1-samples", type=int, default=470671,
                     help="uniform positions for b1 (the serve path's mean launch)")
     ap.add_argument("--samples", type=int, nargs="+", default=[78827, 163840],

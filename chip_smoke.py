@@ -5,7 +5,12 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line. After phase 11 the script runs two
+lanes at once: phases 12-18 in the main process and its children, and
+the fresh processes of phases 19-22 one after another beside them
+(:class:`ChildLane`; the NeRF children are host-bound and leave the card
+mostly idle). A child's times are then taken beside the other lane's
+work; ``chip_smoke.py <child>`` run alone times it alone.
 
 1. env: the card (``nvidia-smi`` name and power limit), torch, CUDA, nvcc.
 2. build: compiles every CUDA source of ``ngp_tpu_torch/csrc`` (one nvcc
@@ -73,7 +78,7 @@ Phases, each printing one JSON line:
    principal point, aabb_scale 2) as 24 train and 4 held-out 800×800 RGBA
    PNG frames into ``build/capture_smoke/``; loads both files with
    ``load_nerf`` (the port's own PNG decoder); trains the full-width "tpu"
-   tier (2^18 sample slots per step) for 600 steps; scores the held-out
+   tier (2^18 sample slots per step) for 400 steps; scores the held-out
    views with ``eval_test_transforms``, whose mean PSNR must reach
    ``CAPTURE_PSNR_MIN``; then holds B1 against its twin, bit for bit, on
    the positions of the eval's largest launch (phase
@@ -81,7 +86,7 @@ Phases, each printing one JSON line:
 12. cli: the port's entry point as a user runs it, ``python -m
    ngp_tpu_torch.run``, in subprocesses on the capture of phase 11, with
    ``Testbed``'s default config (instant-ngp's ``base.json``: L=16, F=2,
-   T=2^19, XOR hash, float32 table reads). Run 1 trains 600 steps, scores
+   T=2^19, XOR hash, float32 table reads). Run 1 trains 400 steps, scores
    the held-out views (gate ``CLI_PSNR_MIN``), saves a snapshot and a
    screenshot; run 2 loads the snapshot, scores the held-out views again
    (within ``CLI_RELOAD_DB`` of run 1), writes a normals-mode screenshot
@@ -107,7 +112,7 @@ Phases, each printing one JSON line:
    primitive at instant-ngp's configs/image/base.json width (``Testbed``'s
    default: D=2, L=16, F=2, T=2^24, XOR hash; levels 0-8 dense, level 8 of
    exactly 2^24 rows), fitting the 104.9 MP procedural image of
-   ``scripts/bench_gigapixel.py`` made on the card in float16: 512 steps
+   ``scripts/bench_gigapixel.py`` made on the card in float16: 384 steps
    of 2^18 Stratified positions through ``ImageEngine.train`` in calls of
    128; ms a step (median after step 256), samples/s, peak memory, the
    PSNR of the stride-16 texel subsample (gate ``IMAGE_PSNR_MIN``), the
@@ -118,7 +123,7 @@ Phases, each printing one JSON line:
    by stage (positions and targets, forward, backward, grid backward,
    optimizer).
 14. image_cli: ``python -m ngp_tpu_torch.run`` in subprocesses on a
-   written 2048² ``.bin`` image: the default config 500 steps with a
+   written 2048² ``.bin`` image: the default config 300 steps with a
    screenshot (gate ``IMAGE_CLI_PSNR_MIN`` on the printed PSNR), then a
    T=2^18 ``--network`` file trained, saved, and loaded in a new process,
    whose MSE line must equal the saved run's.
@@ -128,7 +133,7 @@ Phases, each printing one JSON line:
    64-wide MLP of 2 hidden layers, MAPE, 2^18 samples a step) on a
    327,680-triangle bumpy sphere written as an OBJ into
    ``build/sdf_smoke/`` and loaded through ``Testbed`` (the BVH build's
-   seconds): 1,000 steps (ms a step, samples/s), the IoU over 2^18
+   seconds): 500 steps (ms a step, samples/s), the IoU over 2^18
    uniform points (gate ``SDF_IOU_MIN``), 960×540 frames of the shade,
    shade with shadows and normals modes (wall and device ms, launches), a
    ground-truth frame of the BVH's distances and the IoU of the two hit
@@ -189,7 +194,7 @@ Phases, each printing one JSON line:
    the still render bit for bit. Then (``camera_kernels``) the position
    gradient bit for bit and the float32-addend backward within the float32
    order bound on one refined step's own (x, g), beside the bf16-addend
-   backward on the same (x, g), and (``camera_profile``) two windows of 8
+   backward on the same (x, g), and (``camera_profile``) two windows of 4
    refined steps under ``torch.profiler``: the busy share and device ms by
    stage.
 20. supervision: in a fresh process (``chip_smoke.py supervision``, which
@@ -197,7 +202,7 @@ Phases, each printing one JSON line:
    config on four 800×800 captures of the sphere written into
    ``build/supervision_smoke/`` (depth maps and supplied rays; an opaque
    sky; an envmap behind a transparent background; per-view brightness
-   with 8 extra dims), 250 steps a run: depth supervision (gate: the
+   with 8 extra dims), 200 steps a run: depth supervision (gate: the
    held-out median depth error below 0.05 NGP units, beside the
    unsupervised run's), supplied rays (gates: the held-out PSNR within 1
    dB of the camera rays', no culled cell), a trained envmap on the sky
@@ -208,12 +213,12 @@ Phases, each printing one JSON line:
    every option at once, timed against the plain run. Then
    (``supervision_kernels``) B1 bit for bit and the fused backward within
    the float32 order bound on one every-option step's own (x, g), and
-   (``supervision_profile``) two windows of 8 such steps under
+   (``supervision_profile``) two windows of 4 such steps under
    ``torch.profiler``, the envmap's read and deposit a stage of their own.
 21. nerf_surface: in a fresh process (``chip_smoke.py nerf_surface``, which
    also runs alone), ROADMAP A5d and A6 through ``Testbed`` at its NeRF
    config on phase capture's 800×800 capture (written again when absent),
-   250 steps a run. Phase ``prior``: the default cadence; the decoupled
+   200 steps a run. Phase ``prior``: the default cadence; the decoupled
    schedule with probe-sampled updates; the capture with the sphere's
    ``.obj`` and with its ``.xyz`` beside it (``build/nerf_surface_smoke/``);
    each run's ms a step, held-out PSNR, trainable and occupied shares at
@@ -232,8 +237,31 @@ Phases, each printing one JSON line:
    B1 on the slice's positions, the fused backward on a probe-sampled
    step's (x, g) and the position gradient on the mesh's vertices, against
    their twins.
-Then the ``kernels`` line, the card's ``name, power.limit``, and last the
-``{"ok": true, ...}`` line. ``python3 chip_smoke.py profiler_probe`` runs
+22. encodings: in a fresh process (``chip_smoke.py encodings``, which also
+   runs alone), ROADMAP A7a at full width through ``Testbed``: base.json
+   with Simplex interpolation and as a TiledGrid on phase capture's
+   800×800 capture, 200 steps each (gate: the held-out PSNR 10 dB over
+   the untrained model's), a 960×540 frame and a normals frame (gates: the
+   position gradient launched, no table gradient, the median cosine with
+   the sphere's normal), a reference ``.ingp`` saved and loaded (gate: the
+   held-out PSNR within 0.05 dB); the image config (D = 2, 16 × 2^24 rows)
+   with Simplex, 200 steps (gate: 5 dB over the untrained model); the sdf
+   config's MLP on the bumpy sphere with the Frequency, TriangleWave and
+   OneBlob encodings and a Simplex hash grid, 300 steps each (gates: the
+   IoU above the untrained model's; the grid's loss halves; a table-free
+   encoding's loss falls by 3% and its IoU reaches 0.3, which its run on
+   shuffled targets, ``chip_smoke.py encodings_control``, does not), and a
+   Simplex normals frame; the launches of these runs. Then phase
+   ``encodings_kernels``: the three grid kernels' new instantiations (D =
+   2 and 3, Tiled and Simplex) on those runs' own positions and
+   cotangents against their twins (forward and position gradient bit for
+   bit, the backward within the float32 order bound) with registers,
+   times, bounds and the forward's ``embedding_bag`` yardstick.
+   ``chip_kernel_ab.py --kernels regs`` sets the Linear instantiations'
+   registers beside a parent checkout's.
+Then the main process's wall seconds by phase (phase ``seconds``, the
+children's under their names), the ``kernels`` line, the card's ``name,
+power.limit``, and last the ``{"ok": true, ...}`` line. ``python3 chip_smoke.py profiler_probe`` runs
 no phase above: it counts how :func:`device_ms`'s profiler windows lose
 records (:func:`phase_profiler_probe`).
 
@@ -271,6 +299,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -319,11 +348,15 @@ INPUT_GRAD_2D_LOG2 = 18
 # phase capture: nerf_synthetic's frame size, the steps, and the gate on the
 # held-out views' mean PSNR, fixed before the first card run
 CAPTURE_RES = 800
-CAPTURE_STEPS = 600  # 1,000 before the nerf_surface phase took the time
+# 1,000 before the nerf_surface phase took the time, 600 before the
+# encodings phase did
+CAPTURE_STEPS = 400
 CAPTURE_PSNR_MIN = 30.0
 # phase cli: the capture phase's gate on the CLI's held-out PSNR, the reload's
 # agreement, the mesh lattice and the camera-path video (frames at 320×180)
-CLI_STEPS = 600  # 1,000 before the nerf_surface phase took the time
+# 1,000 before the nerf_surface phase took the time, 600 before the
+# encodings phase did
+CLI_STEPS = 400
 CLI_PSNR_MIN = CAPTURE_PSNR_MIN
 CLI_RELOAD_DB = 0.05
 CLI_MESH_RES = 128
@@ -338,8 +371,8 @@ CLI_KEPT_STEPS = 16
 # profiled steps, the stride of the PSNR's texel subsample and its gate
 IMAGE_SIDE = 10240
 # 2,048 before the supervision phase took the time, 1,024 before the
-# nerf_surface phase did
-IMAGE_STEPS = 512
+# nerf_surface phase did, 512 before the encodings phase did
+IMAGE_STEPS = 384
 IMAGE_CALL_STEPS = 128
 IMAGE_TIMED_FROM = 256
 IMAGE_PROFILE_STEPS = 16
@@ -348,7 +381,9 @@ IMAGE_PSNR_MIN = 25.0
 # phase image_cli: the written .bin image's side, the default config's
 # steps and gate; the snapshot round trip's table size and steps
 IMAGE_CLI_SIDE = 2048
-IMAGE_CLI_STEPS = 500  # 1,000 before the supervision phase took the time
+# 1,000 before the supervision phase took the time, 500 before the
+# encodings phase did
+IMAGE_CLI_STEPS = 300
 IMAGE_CLI_PSNR_MIN = 25.0
 IMAGE_SNAPSHOT_LOG2 = 18
 IMAGE_SNAPSHOT_STEPS = 200
@@ -358,7 +393,7 @@ IMAGE_SNAPSHOT_STEPS = 200
 # the ground truth's hit masks, the mesh lattice, the CLI's steps; all fixed
 # before the first card run
 SDF_SUBDIVISIONS = 7
-SDF_STEPS = 1000
+SDF_STEPS = 500  # 1,000 before the encodings phase took the time
 SDF_CALL_STEPS = 100
 SDF_PROFILE_STEPS = 16
 SDF_IOU_SAMPLES = 1 << 18
@@ -415,8 +450,12 @@ def _sourced(obj):
     return obj
 
 
+PRINT_LOCK = threading.Lock()  # the lane of children prints beside the main process
+
+
 def emit(obj):
-    print(json.dumps(_sourced(obj)), flush=True)
+    with PRINT_LOCK:
+        print(json.dumps(_sourced(obj)), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -758,13 +797,8 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL, x=None,
     ``plain_ms``): no ``ms``, ``cast_ms`` or library yardstick. The bound
     reads ``rows_read`` table rows (default: every live row)."""
     import torch
-    import torch.nn.functional as tnf
 
-    from ngp_tpu_torch.ops.hashgrid import (
-        HASH_PRIMES,
-        hashgrid_encode_cuda,
-        hashgrid_encode_reference,
-    )
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_encode_cuda, hashgrid_encode_reference
 
     enc = enc if enc is not None else _encoding(tier, aabb_scale)
     L, T, F = enc.table.shape
@@ -808,40 +842,36 @@ def _kernel_case(tier: str, table_dtype, gen, n: int = N_KERNEL, x=None,
         return row
     cast = ({"cast_ms": device_ms(lambda: master.to(torch.bfloat16))}
             if table_dtype == torch.bfloat16 else {})
+    return {**row, "ms": ms, "library_ms": _embedding_bag_ms(x, table, geo, ref), **cast}
 
-    # Yardstick: the gather and weighted sum as one library call
-    # (embedding_bag, mode "sum", per-corner weights), given corner rows and
-    # weights computed beforehand with the twin's arithmetic (excluded).
-    scales, ress, _, hashed = (t.tolist() for t in geo[:4])
-    additive = enc.hash_variant == "additive"
+
+def _embedding_bag_ms(x, table, geo, ref, interp: str = "Linear") -> float:
+    """The forward's yardstick: the gather and weighted sum as one library
+    call (embedding_bag, mode "sum", per-corner weights), given corner rows
+    and weights computed beforehand with the twin's arithmetic (excluded);
+    its device ms. It must agree with the twin's output ``ref``."""
+    import torch
+    import torch.nn.functional as tnf
+
+    from ngp_tpu_torch.ops.hashgrid import _level_corners, _levels, n_corners
+
+    n, D = x.shape
+    L, T, F = table.shape
+    C = n_corners(D, interp)
     idx = torch.empty((n, L, C), dtype=torch.int64, device="cuda")
     wts = torch.empty((n, L, C), dtype=torch.float32, device="cuda")
-    for l in range(L):
-        p = x * scales[l] + 0.5
-        p0 = torch.floor(p)
-        frac, p0 = p - p0, p0.long()
-        for c in range(C):
-            w, h, lin, stride = 1.0, 0, 0, 1
-            for d in range(D):
-                b = (c >> d) & 1
-                w = w * (frac[:, d] if b else 1.0 - frac[:, d])
-                cd = p0[:, d] + b
-                term = (cd * HASH_PRIMES[d]) & 0xFFFFFFFF
-                h = (h + term) & 0xFFFFFFFF if additive else h ^ term
-                lin = lin + cd.clamp(0, ress[l] - 1) * stride
-                stride *= ress[l]
-            idx[:, l, c] = l * T + (h & (sizes[l] - 1) if hashed[l] else lin)
+    for l, lg in enumerate(_levels(*geo[:4])):
+        for c, (i, w) in enumerate(_level_corners(x, *lg, geo[4] == "additive", interp)):
+            idx[:, l, c] = l * T + i
             wts[:, l, c] = w
     flat = table.float().reshape(L * T, F)
     bags, bag_w = idx.reshape(-1, C), wts.reshape(-1, C)
     lib = tnf.embedding_bag(bags, flat, per_sample_weights=bag_w, mode="sum")
     lib_err = float((lib.reshape(n, L * F) - ref).abs().max())
-    if not lib_err <= 1e-4 * scale:
+    if not lib_err <= 1e-4 * float(ref.abs().max()):
         raise AssertionError(f"yardstick disagrees with the twin: {lib_err}")
-    library_ms = device_ms(lambda: tnf.embedding_bag(
+    return device_ms(lambda: tnf.embedding_bag(
         bags, flat, per_sample_weights=bag_w, mode="sum"), iters=10)
-    del idx, wts, bags, bag_w, lib
-    return {**row, "ms": ms, "library_ms": library_ms, **cast}
 
 
 def phase_kernel():
@@ -1182,7 +1212,8 @@ def backward_levels(x, g, geo, keys, T: int) -> list:
     return out
 
 
-def _backward_row(x, g, geo, T: int, keys, vals, payload: str = "bfloat16") -> dict:
+def _backward_row(x, g, geo, T: int, keys, vals, payload: str = "bfloat16",
+                  interp: str = "Linear") -> dict:
     """The fused grid backward, (x, g) → d(table) with addends rounded to
     ``payload`` (bf16 on the training path, float32 where the positions are
     differentiable) summed in float32, against its twin within the float32
@@ -1191,11 +1222,15 @@ def _backward_row(x, g, geo, T: int, keys, vals, payload: str = "bfloat16") -> d
     import torch
 
     from ngp_tpu_torch.ops import segsum
-    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_cuda, hashgrid_backward_reference
+    from ngp_tpu_torch.ops.hashgrid import (
+        hashgrid_backward_cuda,
+        hashgrid_backward_reference,
+        n_corners,
+    )
 
     (n_samples, D), L, F = x.shape, vals.shape[0], vals.shape[2]
-    C = 1 << D
-    bwd = lambda: hashgrid_backward_cuda(x, g, *geo, None, T, payload)  # noqa: E731
+    C = n_corners(D, interp)
+    bwd = lambda: hashgrid_backward_cuda(x, g, *geo, None, T, payload, interp)  # noqa: E731
     got = bwd()
     torch.cuda.synchronize()
     err = _sum_error("hashgrid_backward", got,
@@ -1204,12 +1239,13 @@ def _backward_row(x, g, geo, T: int, keys, vals, payload: str = "bfloat16") -> d
     del got
     return {
         "max_abs_err": err, "ms": device_ms(bwd), "call_ms": cuda_ms(bwd, iters=20),
-        "plain_ms": cuda_ms(lambda: hashgrid_backward_reference(x, g, *geo, None, T, payload),
+        "plain_ms": cuda_ms(lambda: hashgrid_backward_reference(x, g, *geo, None, T, payload,
+                                                                interp),
                             iters=3, warmup=1),
         "library_ms": None,
         # positions and cotangents read once, d(table) written once;
-        # 3D + 2^D·(D−1) weight products and 2^D·F products and sums per
-        # (sample, level)
+        # 3D + C·(D−1) weight operations and C·F products and sums per
+        # (sample, level), C the corners (2^D, or D + 1 for Simplex)
         **_bound(n_samples * (4 * D + 4 * L * F) + L * T * F * 4,
                  n_samples * L * (3 * D + C * (D - 1) + 2 * C * F)),
     }
@@ -1579,7 +1615,7 @@ def image_geometry_2d_case():
                          enc.level_hashed, "tcnn")
 
 
-def _input_grad_row(x, g, table, geo) -> dict:
+def _input_grad_row(x, g, table, geo, interp: str = "Linear") -> dict:
     """``hashgrid_input_grad_cuda`` on (x, g, table) against its twin on the
     card: it must give the twin's bits (``bit_exact``), and so lie within
     the float32 order bound 2·(n − 1)·2^-24·Σ|term| per component, which is
@@ -1588,22 +1624,20 @@ def _input_grad_row(x, g, table, geo) -> dict:
     import torch
 
     from ngp_tpu_torch.ops.hashgrid import (
-        HASHGRID_ENCODE,
-        _level_corners,
-        _levels,
         hashgrid_input_grad_cuda,
         hashgrid_input_grad_mass,
         hashgrid_input_grad_reference,
+        n_corners,
     )
 
     x = x.detach()  # a render's positions require grad
     (N, D), (L, T, F) = x.shape, table.shape
-    C = 1 << D
-    run = lambda: hashgrid_input_grad_cuda(x, g, table, *geo)  # noqa: E731
+    C = n_corners(D, interp)
+    run = lambda: hashgrid_input_grad_cuda(x, g, table, *geo, None, interp)  # noqa: E731
     got = run()
     torch.cuda.synchronize()
-    want = hashgrid_input_grad_reference(x, g, table, *geo)
-    mass, n = hashgrid_input_grad_mass(x, g, table, *geo)
+    want = hashgrid_input_grad_reference(x, g, table, *geo, None, interp)
+    mass, n = hashgrid_input_grad_mass(x, g, table, *geo, None, interp)
     err = (got - want).abs()
     if bool((err.double() > 2.0 * (n - 1) * 2.0 ** -24 * mass).any()):
         raise AssertionError(f"hashgrid_input_grad: beyond the float32 order bound, "
@@ -1615,21 +1649,18 @@ def _input_grad_row(x, g, table, geo) -> dict:
         raise AssertionError(f"hashgrid_input_grad: not the twin's bits, max abs err "
                              f"{float(err.max())}")
     # the distinct table rows these positions read, each read once
-    additive = geo[4] == "additive"
-    rows = 0
-    for l, lg in enumerate(_levels(*geo[:4])):
-        idx = torch.cat([i for i, _ in _level_corners(x, *lg, additive)])
-        rows += int(torch.unique(idx).numel())
+    rows = _distinct_rows(x, geo, interp)
     del want, mass
-    kernel = f"hashgrid_input_grad_kernelILi{D}ELi{F}ELi{int(additive)}E"
-    registers = [n for name, n in ptxas_registers(HASHGRID_ENCODE).items() if kernel in name]
+    registers = _registers("hashgrid_input_grad_kernel",
+                           f"Li{D}ELi{F}ELi{int(geo[4] == 'additive')}E", interp)
     return {
-        "N": N, "D": D, "L": L, "T": T, "F": F, "hash": geo[4],
+        "N": N, "D": D, "L": L, "T": T, "F": F, "hash": geo[4], "interpolation": interp,
         "max_abs_err": float(err.max()), "max_abs_dx": float(got.abs().max()),
         "bit_exact": bit_exact, "rows_read": rows,
         "registers": registers[0] if registers else None,
         "ms": device_ms(run), "call_ms": cuda_ms(run, iters=20),
-        "plain_ms": cuda_ms(lambda: hashgrid_input_grad_reference(x, g, table, *geo),
+        "plain_ms": cuda_ms(lambda: hashgrid_input_grad_reference(x, g, table, *geo, None,
+                                                                  interp),
                             iters=3, warmup=1),
         "library_ms": None,
         # x and g read and dx written once, each distinct row read once;
@@ -2374,19 +2405,59 @@ def phase_image():
     return result, b1, bwd
 
 
-def _child(phase: str) -> list:
+def _child(phase: str, lane: "ChildLane | None" = None) -> list:
     """Run ``chip_smoke.py phase`` in a fresh process, echo its lines and
     its wall seconds, and return its lines parsed; a non-zero exit fails
-    the run."""
+    the run. ``lane``, where given, holds the process while it runs, so
+    that a failure elsewhere can stop it."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), phase], cwd=ROOT,
-                          stdout=subprocess.PIPE, text=True)
-    for line in proc.stdout.splitlines():
-        print(line, flush=True)
-    emit({"phase": "child_seconds", "child": phase, "seconds": time.perf_counter() - t0})
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), phase], cwd=ROOT,
+                            stdout=subprocess.PIPE, text=True)
+    if lane is not None:
+        lane.proc = proc
+    out, _ = proc.communicate()
+    with PRINT_LOCK:
+        for line in out.splitlines():
+            print(line, flush=True)
+    emit({"phase": "child_seconds", "child": phase, "seconds": time.perf_counter() - t0,
+          "lane": "second" if lane is not None else "main"})
     if proc.returncode != 0:
         raise AssertionError(f"chip_smoke.py {phase} exited {proc.returncode}")
-    return [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+class ChildLane(threading.Thread):
+    """Children run one after another beside the main process's own
+    phases: a second lane, so that the run takes about as long as the
+    longer lane (the NeRF children are host-bound and leave the card
+    mostly idle).
+    Their times are then taken beside the other lane's work; a child run
+    alone (``chip_smoke.py camera``) times it alone. ``lines`` holds each
+    child's parsed lines, ``error`` the first failure; :meth:`stop` ends a
+    child still running."""
+
+    def __init__(self, phases: tuple):
+        super().__init__(daemon=True)
+        self.phases, self.lines = phases, {}
+        self.error, self.proc, self.stopped = None, None, False
+        self.seconds = 0.0
+
+    def run(self):
+        t0 = time.perf_counter()
+        try:
+            for phase in self.phases:
+                if self.stopped:
+                    break
+                self.lines[phase] = _child(phase, lane=self)
+        except BaseException as err:  # reported by the main thread
+            self.error = err
+        self.seconds = time.perf_counter() - t0
+
+    def stop(self):
+        self.stopped = True
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+        self.join()
 
 
 def phase_image_cli():
@@ -3351,17 +3422,18 @@ def phase_volume_all():
 # phase camera: camera refinement on the capture of phase capture at the
 # Testbed's NeRF config (instant-ngp's base.json), as the JAX package's
 # test_camera_refinement_recovers_pose_noise gates it (after 250 steps).
-# 300 steps a run (1,000 took 40 and 75 ms a step, and the phase 276 s
-# alone, on an H100; 500 until the supervision phase took the time)
-CAMERA_STEPS = 300
-CAMERA_TIMED = (200, 300)  # steps of the runs' timing window (median ms)
+# 250 steps a run (1,000 took 40 and 75 ms a step, and the phase 276 s
+# alone, on an H100; 500 until the supervision phase took the time, 300
+# until the encodings phase did)
+CAMERA_STEPS = 250
+CAMERA_TIMED = (150, 250)  # steps of the runs' timing window (median ms)
 CAMERA_EXPOSURE_STEPS = 150  # a timing run with exposure refinement alone,
 CAMERA_EXPOSURE_TIMED = (100, 150)  # timed against the frozen run's same steps
 CAMERA_POS_SIGMA = 0.01  # NGP units
 CAMERA_ROT_SIGMA_DEG = 0.2
 CAMERA_MOVED_MIN = 1e-4
 CAMERA_LOSS_RATIO_MAX = 1.2
-CAMERA_PROFILE_STEPS = 8
+CAMERA_PROFILE_STEPS = 4  # 8 before the encodings phase took the time
 CAMERA_BLUR_STEPS = 100
 CAMERA_BLUR_RAD = 0.02
 CAMERA_BLUR_WINDOW = 20  # steps averaged at each end of the blur run
@@ -3747,8 +3819,10 @@ def phase_camera_all():
 # phase supervision: latents, environment maps, depth supervision and
 # supplied rays (ROADMAP A5c) through Testbed at its NeRF config
 # (instant-ngp's base.json) on 800×800 captures of phase capture's sphere
-SUPERVISION_STEPS = 250  # as the JAX package's depth test trains
-SUPERVISION_TIMED = (100, 250)  # steps of the runs' timing window (median ms)
+# 250, as the JAX package's depth test trains, before the encodings phase
+# took the time
+SUPERVISION_STEPS = 200
+SUPERVISION_TIMED = (100, 200)  # steps of the runs' timing window (median ms)
 SUPERVISION_ALL_STEPS = 150  # a run with every option on, timed against the
 SUPERVISION_ALL_TIMED = (100, 150)  # plain run's same steps
 SUPERVISION_DEPTH_LAMBDA = 0.5
@@ -3761,7 +3835,7 @@ SUPERVISION_SKY_ENVMAP = (32, 64)  # (H, W), as the JAX package's test trains it
 SUPERVISION_MISS_TOL = 1e-3
 SUPERVISION_LATENTS = 8
 SUPERVISION_MOVED_MIN = 1e-5  # tests/test_nerf_engine.py:224
-SUPERVISION_PROFILE_STEPS = 8
+SUPERVISION_PROFILE_STEPS = 4  # 8 before the encodings phase took the time
 SUPERVISION_FRAME = (320, 180)
 
 
@@ -4235,8 +4309,8 @@ def phase_supervision_all():
 # priors (ROADMAP A5d) and the rest of the NeRF render surface (A6) through
 # Testbed at its NeRF config (instant-ngp's base.json) on phase capture's
 # 800×800 sphere
-SURFACE_STEPS = 250
-SURFACE_TIMED = (100, 250)  # steps of the runs' timing window (median ms)
+SURFACE_STEPS = 200  # 250 before the encodings phase took the time
+SURFACE_TIMED = (100, 200)  # steps of the runs' timing window (median ms)
 SURFACE_PRIOR_DB = 1.0  # the cloud prior's held-out PSNR at most this below the plain run's
 SURFACE_TRAINED_DB = 10.0  # the decoupled and mesh runs' gain over the untrained model
 SURFACE_FRAME = (960, 540)
@@ -4579,7 +4653,7 @@ def phase_nerf_surface_render(tb, test):
     return verts, faces
 
 
-def _distinct_rows(x, geo) -> int:
+def _distinct_rows(x, geo, interp: str = "Linear") -> int:
     """The distinct table rows the positions ``x`` read over every level."""
     import torch
 
@@ -4588,8 +4662,24 @@ def _distinct_rows(x, geo) -> int:
     rows = 0
     for lg in _levels(*geo[:4]):
         rows += int(torch.unique(torch.cat(
-            [i for i, _ in _level_corners(x, *lg, geo[4] == "additive")])).numel())
+            [i for i, _ in _level_corners(x, *lg, geo[4] == "additive", interp)])).numel())
     return rows
+
+
+def _registers(kernel: str, args: str, interp: str = "Linear") -> list:
+    """ptxas's registers a thread of ``kernel``'s instantiations whose
+    template arguments (as mangled) are ``args`` and then the interpolation
+    flag (``Lb0E`` Linear, ``Lb1E`` Simplex); a build from before Simplex
+    has no flag, and its instantiations count as Linear."""
+    from ngp_tpu_torch.ops.hashgrid import HASHGRID_ENCODE
+
+    flags = ("Lb1E",) if interp == "Simplex" else ("Lb0E", "")
+    found = []
+    for name, n in ptxas_registers(HASHGRID_ENCODE).items():
+        m = re.search(kernel + r"I(\w*?)EEv", name)
+        if m and m.group(1).startswith(args) and m.group(1)[len(args):] in flags:
+            found.append(n)
+    return found
 
 
 def phase_nerf_surface_kernels(tb, probe_tb, verts, faces):
@@ -4715,6 +4805,427 @@ def phase_nerf_surface_all():
             raise AssertionError(f"nerf_surface: the phases launched {name} no time")
 
 
+ENC_NERF_STEPS = 200
+ENC_NERF_TRAINED_DB = 10.0  # held-out PSNR over the untrained model's
+ENC_RELOAD_DB = 0.05  # the .ingp round trip's held-out PSNR, as CLI_RELOAD_DB
+ENC_FRAME = (960, 540)
+ENC_IMAGE_STEPS = 200
+ENC_IMAGE_TRAINED_DB = 5.0
+ENC_SDF_STEPS = 300
+ENC_SDF_LOSS_RATIO = 0.5  # the hash grid's last loss below half of step 0's
+ENC_SDF_WINDOW = 10  # steps averaged at each end of a table-free encoding's run
+# a table-free encoding's gates, set between what its sound runs read and
+# what its run with shuffled targets reads (``chip_smoke.py
+# encodings_control``): the loss's window mean falls by at least this share,
+# and the trained IoU reaches this
+ENC_SDF_FREE_DROP = 0.03
+ENC_SDF_FREE_IOU = 0.33
+ENC_SDF_FREE = ({"otype": "Frequency"}, {"otype": "TriangleWave"}, {"otype": "OneBlob"})
+ENC_SDF_ENCODINGS = ENC_SDF_FREE + ({"otype": "HashGrid", "interpolation": "Simplex"},)
+ENC_KERNELS = ("hashgrid_encode", "hashgrid_backward", "hashgrid_input_grad")
+
+
+def _enc_name(cfg: dict) -> str:
+    return cfg.get("interpolation") or cfg["otype"]
+
+
+def _variant_rows(shape: str, kernels: tuple, x, g, table, geo, interp: str) -> list:
+    """Phase ``encodings_kernels``: of the three grid kernels, ``kernels``,
+    in the instantiation of ``geo``'s grid (Tiled levels need no flag: the
+    geometry's masks make them) and ``interp``, on one path's own positions
+    ``x``, cotangents ``g`` and table: B1 bit for bit against its twin with
+    ``embedding_bag`` as yardstick, the fused backward (bf16 addends) within
+    the float32 order bound, the position gradient bit for bit; each with
+    ptxas's registers, times and bound. A Simplex sample reads D + 1 rows
+    where a Linear one reads 2^D. Emits the rows and returns them."""
+    import torch
+
+    from ngp_tpu_torch.ops.hashgrid import (
+        hashgrid_backward_addends_reference,
+        hashgrid_encode_cuda,
+        hashgrid_encode_reference,
+        n_corners,
+    )
+
+    x, table = x.detach(), table.detach()
+    (N, D), (L, T, F) = x.shape, table.shape
+    C = n_corners(D, interp)
+    base = {"phase": "encodings_kernels", "shape": shape, "N": N, "D": D, "L": L, "T": T,
+            "F": F, "hash": geo[4], "interpolation": interp,
+            "wrapping_levels": sum(1 for r, s, h in zip(*(t.tolist() for t in geo[1:4]))
+                                   if not h and r ** D > s)}
+    rows = []
+    if "hashgrid_encode" in kernels:
+        fwd = lambda: hashgrid_encode_cuda(x, table, *geo, None, interp)  # noqa: E731
+        got = fwd()
+        torch.cuda.synchronize()
+        ref = hashgrid_encode_reference(x, table, *geo, None, interp)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"encodings_kernels {shape}: B1 differs from its twin, max "
+                                 f"abs err {float((got - ref).abs().max())}")
+        n_rows = _distinct_rows(x, geo, interp)
+        rows.append({
+            **base, "kernel": "hashgrid_encode", "max_abs_err": 0.0, "rows_read": n_rows,
+            "registers": _registers("hashgrid_encode_kernel", f"Li{D}ELi{F}Ef", interp),
+            "ms": device_ms(fwd), "call_ms": cuda_ms(fwd, iters=20),
+            "plain_ms": cuda_ms(lambda: hashgrid_encode_reference(x, table, *geo, None, interp),
+                                iters=3, warmup=1),
+            "library_ms": _embedding_bag_ms(x, table, geo, ref, interp),
+            # x read and features written once, each distinct row read once;
+            # 3D for the cell, D·D for the ranks and weights or C·(D − 1)
+            # weight products, 2·C·F multiply-adds per (sample, level)
+            **_bound(N * (4 * D + 4 * L * F) + n_rows * F * 4,
+                     N * L * (3 * D + (D * D if interp == "Simplex" else C * (D - 1))
+                              + 2 * C * F)),
+        })
+        del got, ref
+    if "hashgrid_backward" in kernels:
+        keys, vals = hashgrid_backward_addends_reference(x, g, *geo, None, interp)
+        rows.append({**base, "kernel": "hashgrid_backward", "payload": "bfloat16",
+                     "registers": _registers("hashgrid_backward_kernel", f"Li{D}ELi{F}ELb1E",
+                                             interp),
+                     **_backward_row(x, g, geo, T, keys, vals, "bfloat16", interp)})
+        del keys, vals
+    if "hashgrid_input_grad" in kernels:
+        rows.append({**_input_grad_row(x, g, table, geo, interp), **base,
+                     "kernel": "hashgrid_input_grad"})
+    for row in rows:
+        emit(row)
+    return rows
+
+
+def _keep_call(module, name: str, run):
+    """Run ``run()`` with ``module.name`` wrapped so that its largest call's
+    positional arguments are kept; returns them."""
+    import torch
+
+    kept = []
+    original = _keep_largest(module, name, kept)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, original)
+    return kept[0]
+
+
+def _enc_nerf_run(name: str, encoding: dict, caps, test) -> list:
+    """Phase ``encodings_nerf``: ``Testbed`` at its NeRF config (base.json)
+    with ``encoding`` merged into its position encoding, on the 800×800
+    capture: the untrained and trained held-out PSNR over
+    ``ENC_NERF_STEPS`` steps (gate ``ENC_NERF_TRAINED_DB``), a
+    ``ENC_FRAME`` frame, a normals frame of the same camera (gates: the
+    position gradient launched, no table gradient; the median cosine with
+    the capture sphere's outward normal at the opaque pixels reaches
+    ``NORMALS_COS_MIN``), a reference ``.ingp`` saved and loaded (gate: the
+    held-out PSNR within ``ENC_RELOAD_DB``), and one more step. Returns the
+    kernel cases (:func:`_variant_rows`' arguments) on that step's own (x,
+    g) (forward and backward) and on the normals frame's largest position
+    gradient call (the position gradient)."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.data.synthetic import CAPTURE_CENTER
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.ops.cuda_build import launch_counts
+    from ngp_tpu_torch.testbed import Testbed, default_config
+
+    cfg = default_config("nerf")
+    cfg["encoding"].update(encoding)
+    t0 = time.perf_counter()
+    tb = Testbed(scene=caps[0], config=cfg, device="cuda")
+    eng = tb.engine
+    enc = eng.network.pos_encoding
+    run = {"encoding": cfg["encoding"], "grid_type": enc.grid_type,
+           "interpolation": enc.interpolation, "bf16_reads": enc.bf16_reads,
+           "load_s": time.perf_counter() - t0,
+           "untrained_psnr": eng.eval_test_transforms(tb.state, tb.grid, test)["psnr"]}
+    step_ms, losses = _camera_run(tb, ENC_NERF_STEPS)
+    run.update(steps=ENC_NERF_STEPS, median_ms_per_step=float(np.median(step_ms[50:])),
+               final_loss=losses[-1], losses_finite=bool(np.isfinite(losses).all()),
+               psnr=eng.eval_test_transforms(tb.state, tb.grid, test)["psnr"])
+    center = np.asarray(CAPTURE_CENTER, np.float32)
+    eye = center + np.asarray([math.cos(0.4), math.sin(0.4), 0.3], np.float32) * 1.1
+    o, d = _camera_rays(eye, center, ENC_FRAME, 60.0)
+    frames, kept = {}, []
+    for mode in ("shade", "normals"):
+        before = launch_counts()
+        original = _keep_largest(hashgrid_ops, "hashgrid_input_grad_cuda", kept)
+        try:
+            (rgb, depth, opacity), wall_ms = _timed(
+                lambda: eng.render_rays(tb.state, tb.grid, o, d, mode=mode))
+        finally:
+            hashgrid_ops.hashgrid_input_grad_cuda = original
+        frames[mode] = {"wall_ms": wall_ms, "finite": bool(torch.isfinite(rgb).all()),
+                        "launches": {k: v - before[k] for k, v in launch_counts().items()
+                                     if v != before[k]}}
+    hit = opacity > NORMALS_OPACITY
+    p = o[hit] + d[hit] * (depth[hit] / opacity[hit])[:, None]
+    truth = torch.nn.functional.normalize(p - torch.from_numpy(center).cuda(), dim=-1)
+    n = 2.0 * rgb[hit] - 1.0
+    cos = (n * truth).sum(-1) / torch.clamp_min(torch.linalg.norm(n, dim=-1), 1e-12)
+    frames["normals"].update(pixels_gated=int(hit.sum()),
+                             median_cos=float(cos.median()) if cos.numel() else float("nan"))
+    path = os.path.join(ROOT, "build", "encodings_smoke", f"{name}.ingp")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    eng.save_reference_snapshot(path, tb.state, tb.grid)
+    state2, grid2 = eng.load_reference_snapshot(path)
+    run["ingp"] = {"bytes": os.path.getsize(path), "round_trip_s": time.perf_counter() - t0,
+                   "psnr_reloaded": eng.eval_test_transforms(state2, grid2, test)["psnr"]}
+    del state2, grid2
+    run["frames"] = frames
+    emit({"phase": "encodings_nerf", "run": name, "config": "Testbed nerf default (base.json)",
+          "res": CAPTURE_RES, **run})
+    gates = {
+        "trained": run["psnr"] >= run["untrained_psnr"] + ENC_NERF_TRAINED_DB,
+        "losses_finite": run["losses_finite"],
+        "frames_finite": frames["shade"]["finite"] and frames["normals"]["finite"],
+        "normals_launches": (frames["normals"]["launches"].get("hashgrid_input_grad", 0) > 0
+                             and not frames["normals"]["launches"].get("hashgrid_backward")),
+        "normals_cos": frames["normals"]["median_cos"] >= NORMALS_COS_MIN,
+        "ingp_reload": abs(run["ingp"]["psnr_reloaded"] - run["psnr"]) <= ENC_RELOAD_DB,
+    }
+    for gate, ok in gates.items():
+        if not ok:
+            raise AssertionError(f"encodings_nerf {name}: gate {gate} failed")
+
+    interp = enc.interpolation
+    x, g, *geo = _keep_call(hashgrid_ops, "hashgrid_backward_cuda", lambda: tb.train(1))
+    xi, gi, ti, *geo_i = kept[0]
+    return [(f"nerf_{name}_step", ENC_KERNELS[:2], x, g,
+             tb.state.model.pos_encoding.table, tuple(geo[:5]), interp),
+            (f"nerf_{name}_normals_frame", ENC_KERNELS[2:], xi, gi, ti, tuple(geo_i[:5]),
+             interp)]
+
+
+def _enc_image_run() -> list:
+    """Phase ``encodings_image``: ``ImageEngine`` at ``Testbed``'s image
+    config (configs/image/base.json: D = 2, L=16, F=2, T=2^24) with Simplex
+    interpolation on the 104.9 MP procedural image, ``ENC_IMAGE_STEPS``
+    steps (gate: the stride-16 PSNR ``ENC_IMAGE_TRAINED_DB`` above the
+    untrained model's), then one more step. Returns the D = 2 kernel cases
+    on that step's own (x, g): Simplex on the trained table, Tiled on a
+    Tiled grid of the same config (random table), whose levels 12-15
+    wrap."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.data.synthetic import gigapixel_image
+    from ngp_tpu_torch.engines.image import ImageEngine
+    from ngp_tpu_torch.models.factory import create_encoding
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.testbed import default_config
+
+    img = gigapixel_image(IMAGE_SIDE, "cuda", torch.float16)
+    cfg = default_config("image")
+    cfg["encoding"]["interpolation"] = "Simplex"
+    eng = ImageEngine(cfg, img, batch_size=1 << 18)
+    state = eng.init_state()
+    untrained = _image_psnr(eng, state, IMAGE_PSNR_STRIDE)
+    t0 = time.perf_counter()
+    state, losses = eng.train(state, ENC_IMAGE_STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    losses = losses.cpu().numpy()
+    psnr = _image_psnr(eng, state, IMAGE_PSNR_STRIDE)
+    emit({"phase": "encodings_image", "config": "Testbed image default + Simplex",
+          "side": IMAGE_SIDE, "table": list(state.model.encoding.table.shape),
+          "steps": ENC_IMAGE_STEPS, "wall_s": wall_s, "ms_per_step": wall_s * 1e3 / ENC_IMAGE_STEPS,
+          "loss_first_last": [float(losses[0]), float(losses[-1])],
+          "untrained_psnr_subsampled": untrained, "psnr_subsampled": psnr,
+          "gate_db": ENC_IMAGE_TRAINED_DB})
+    if not (np.isfinite(losses).all() and psnr >= untrained + ENC_IMAGE_TRAINED_DB):
+        raise AssertionError(f"encodings_image: PSNR {psnr} dB, untrained {untrained} dB")
+    x, g, *geo = _keep_call(hashgrid_ops, "hashgrid_backward_cuda",
+                            lambda: eng.train(state, 1))
+    tcfg = dict(cfg["encoding"], otype="TiledGrid", interpolation="Linear")
+    tiled = create_encoding(2, tcfg, "cuda")
+    tiled.reset_parameters(torch.Generator().manual_seed(20))
+    tgeo = (tiled.level_scale, tiled.level_res, tiled.level_size, tiled.level_hashed,
+            tiled.hash_variant)
+    return [("image_simplex_step", ENC_KERNELS, x, g, state.model.encoding.table,
+             tuple(geo[:5]), "Simplex"),
+            ("image_step_on_a_tiled_grid", ENC_KERNELS, x, g, tiled.table, tgeo, "Linear")]
+
+
+def _enc_sdf_mesh() -> str:
+    """The 327,680-triangle bumpy sphere's OBJ, written once into
+    ``build/encodings_smoke/`` (not phase sdf's copy, which the other lane
+    may be writing)."""
+    from ngp_tpu_torch.data.synthetic import write_bumpy_sphere_mesh
+
+    out = os.path.join(ROOT, "build", "encodings_smoke")
+    os.makedirs(out, exist_ok=True)
+    mesh = os.path.join(out, "bumpy_sphere.obj")
+    if not os.path.exists(mesh):
+        write_bumpy_sphere_mesh(mesh, SDF_SUBDIVISIONS)
+    return mesh
+
+
+def _enc_sdf_run(tb, encoding: dict, shuffled: bool = False) -> tuple:
+    """``Testbed`` on the bumpy sphere with the sdf config's network and
+    ``encoding`` (tcnn's defaults) in place of its hash grid: made anew where
+    ``tb`` is None, else ``tb`` reloaded (``reload_network_from_json``);
+    untrained IoU over 2^18 points, ``ENC_SDF_STEPS`` steps, trained IoU.
+    With ``shuffled`` the steps train on one batch whose distances are
+    permuted across its points (a broken input: the encoding of each point
+    meets another point's target). Returns (the Testbed, the run's
+    readings, the losses)."""
+    import torch
+
+    from ngp_tpu_torch.testbed import Testbed, default_config
+
+    cfg = default_config("sdf")
+    cfg["encoding"] = dict(cfg["encoding"], **encoding) if "interpolation" in encoding \
+        else dict(encoding)
+    t0 = time.perf_counter()
+    if tb is None:
+        tb = Testbed(scene=_enc_sdf_mesh(), config=cfg)
+    else:
+        tb.reload_network_from_json(cfg)
+    eng = tb.engine
+    load_s = time.perf_counter() - t0
+    if shuffled:
+        pos, dist = eng.training_batch(0)
+        perm = torch.randperm(dist.shape[0], generator=torch.Generator().manual_seed(7))
+        eng.override_training_data = (pos, dist[perm.to(dist.device)])
+    untrained = eng.calculate_iou(tb.state, SDF_IOU_SAMPLES)
+    t0 = time.perf_counter()
+    tb.state, losses = eng.train(tb.state, ENC_SDF_STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    losses = losses.cpu().numpy()
+    w = ENC_SDF_WINDOW
+    return tb, {"encoding": cfg["encoding"], "shuffled_targets": shuffled,
+                "n_output_dims": tb.state.model.encoding.n_output_dims, "load_s": load_s,
+                "steps": ENC_SDF_STEPS, "ms_per_step": wall_s * 1e3 / ENC_SDF_STEPS,
+                "loss_step0_last": [float(losses[0]), float(losses[-1])],
+                "loss_window_means": [float(losses[:w].mean()), float(losses[-w:].mean())],
+                "loss_window_drop": float(1.0 - losses[-w:].mean() / losses[:w].mean()),
+                "untrained_iou": untrained,
+                "iou": eng.calculate_iou(tb.state, SDF_IOU_SAMPLES)}, losses
+
+
+def _enc_sdf_runs() -> list:
+    """Phase ``encodings_sdf``: ``Testbed`` on the 327,680-triangle bumpy
+    sphere at its sdf config's MLP (64 wide, 2 hidden layers, MAPE, 2^18
+    samples a step) with each of ``ENC_SDF_ENCODINGS``
+    (:func:`_enc_sdf_run`: the first built with it, the others through
+    ``reload_network_from_json``). Gates: finite losses; the IoU above the
+    untrained network's; the Simplex hash grid's last loss below
+    ``ENC_SDF_LOSS_RATIO`` of step 0's; the table-free encodings', whose MLP
+    alone learns at the config's Adam of 1e-4, the mean of the last
+    ``ENC_SDF_WINDOW`` steps at least ``ENC_SDF_FREE_DROP`` below the
+    first's and the IoU at least ``ENC_SDF_FREE_IOU``, both above what the
+    run reads with shuffled targets (``chip_smoke.py encodings_control``).
+    For the Simplex hash grid a 960×540 normals frame (the D = 3 Simplex
+    position gradient; gate: launched). Returns the kernel case on that
+    frame's largest position gradient call."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.ops.cuda_build import launch_counts
+    from ngp_tpu_torch.testbed import SDF_EYE, SDF_FOV_DEG, SDF_LOOKAT
+
+    tb, runs, case = None, {}, None
+    for encoding in ENC_SDF_ENCODINGS:
+        name = _enc_name(encoding)
+        tb, run, losses = _enc_sdf_run(tb, encoding)
+        runs[name] = run
+        ok = np.isfinite(losses).all() and run["iou"] > run["untrained_iou"]
+        if name == "Simplex":
+            eng = tb.engine
+            o, d = (torch.from_numpy(a).cuda() for a in
+                    eng.camera_rays(SDF_EYE, SDF_LOOKAT, SDF_FRAME, SDF_FOV_DEG))
+            before = launch_counts()
+            kept = []
+            original = _keep_largest(hashgrid_ops, "hashgrid_input_grad_cuda", kept)
+            try:
+                (rgb, _, hit), wall_ms = _timed(
+                    lambda: eng.render_rays(tb.state, o, d, False, mode="normals"))
+            finally:
+                hashgrid_ops.hashgrid_input_grad_cuda = original
+            run["normals_frame"] = {
+                "wall_ms": wall_ms, "finite": bool(torch.isfinite(rgb).all()),
+                "hit_share": float(hit.float().mean()),
+                "launches": {k: v - before[k] for k, v in launch_counts().items()
+                             if v != before[k]}}
+            x, g, table, *geo = kept[0]
+            case = ("sdf_simplex_normals_frame", ENC_KERNELS[2:], x, g, table, tuple(geo[:5]),
+                    "Simplex")
+            ok = (ok and losses[-1] < ENC_SDF_LOSS_RATIO * losses[0]
+                  and run["normals_frame"]["finite"]
+                  and run["normals_frame"]["launches"].get("hashgrid_input_grad", 0) > 0)
+        else:
+            ok = (ok and run["loss_window_drop"] >= ENC_SDF_FREE_DROP
+                  and run["iou"] >= ENC_SDF_FREE_IOU)
+        if not ok:
+            emit({"phase": "encodings_sdf", "runs": runs})
+            raise AssertionError(f"encodings_sdf {name}: a gate failed")
+    emit({"phase": "encodings_sdf", "config": "Testbed sdf default, encodings replaced",
+          "triangles": tb.engine.mesh.n_triangles, "runs": runs,
+          "gates": {"simplex_loss_ratio": ENC_SDF_LOSS_RATIO, "window": ENC_SDF_WINDOW,
+                    "free_drop": ENC_SDF_FREE_DROP, "free_iou": ENC_SDF_FREE_IOU}})
+    return [case]
+
+
+def phase_encodings_control():
+    """``chip_smoke.py encodings_control`` (not part of the smoke run): the
+    table-free SDF encodings' runs of :func:`_enc_sdf_runs` with shuffled
+    targets, the broken input that the gates ``ENC_SDF_FREE_DROP`` and
+    ``ENC_SDF_FREE_IOU`` must tell from a sound run; one line, no gate."""
+    phase_env()
+    tb, runs = None, {}
+    for encoding in ENC_SDF_FREE:
+        tb, runs[_enc_name(encoding)], _ = _enc_sdf_run(tb, encoding, shuffled=True)
+    emit({"phase": "encodings_control", "config": "Testbed sdf default, encodings replaced",
+          "runs": runs})
+
+
+def phase_encodings_all():
+    """``chip_smoke.py encodings``: ROADMAP A7a at full width through
+    ``Testbed``: a Simplex and a TiledGrid NeRF (base.json) on the 800×800
+    capture (:func:`_enc_nerf_run`), a Simplex image fit at the image config
+    (:func:`_enc_image_run`) and four SDF encodings on the bumpy sphere
+    (:func:`_enc_sdf_runs`), their launches counted from zero to the end of
+    the runs; then phase ``encodings_kernels`` on the runs' own inputs
+    (:func:`_variant_rows`: the three grid kernels at D = 2 and 3, Tiled and
+    Simplex), the launches and seconds on one line, and a summary of the
+    kernel rows."""
+    from ngp_tpu_torch.data.nerf_loader import load_nerf
+    from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
+
+    caps = _capture_jsons()
+    test = load_nerf(caps[1])
+    seconds, cases = {}, []
+    reset_launches()
+    for name, encoding in (("simplex", {"interpolation": "Simplex"}),
+                           ("tiled", {"otype": "TiledGrid"})):
+        t0 = time.perf_counter()
+        cases += _enc_nerf_run(name, encoding, caps, test)
+        seconds[f"nerf_{name}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cases += _enc_image_run()
+    seconds["image"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cases += _enc_sdf_runs()
+    seconds["sdf"] = time.perf_counter() - t0
+    launches = launch_counts()
+    t0 = time.perf_counter()
+    rows = [row for case in cases for row in _variant_rows(*case)]
+    seconds["encodings_kernels"] = time.perf_counter() - t0
+    emit({"phase": "encodings_launches", "launches": launches, "seconds": seconds})
+    keys = ("kernel", "shape", "D", "interpolation", "wrapping_levels", "N", "max_abs_err",
+            "registers", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"phase": "encodings_kernel_rows",
+          "rows": [{k: r.get(k) for k in keys} for r in rows]})
+    for name in ENC_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"encodings: the runs launched {name} no time")
+
+
 PROBE_WINDOWS = 80
 
 
@@ -4770,14 +5281,25 @@ def phase_profiler_probe():
 
 
 def main():
+    seconds, lap_t0 = {}, [time.perf_counter()]
+
+    def lap(name: str):
+        """The wall seconds since the last lap, under ``name``."""
+        now = time.perf_counter()
+        seconds[name] = now - lap_t0[0]
+        lap_t0[0] = now
+
     phase_env()
     import torch
 
     phase_build()
+    lap("env_build")
     phase_kernel()
     sort_row = phase_kernel_sort()
     phase_golden()
+    lap("kernel_sort_golden")
     frames, launches, x_serve = phase_serve()
+    lap("serve")
 
     # B1 at the serve path's shape: "tpu" tier, bf16 table reads, as many
     # uniform samples as the path's launches averaged; then on the positions
@@ -4790,8 +5312,10 @@ def main():
           **_kernel_case("tpu", torch.bfloat16, torch.Generator().manual_seed(1),
                          x=x_serve)})
     del x_serve
+    lap("kernel_serve")
 
     eng, state, grid, train_launches, train, step_inputs = phase_train()
+    lap("train")
     # the kernels at the path's mean network samples per step on uniform
     # positions (the kernels line), at the step's full sample budget, and on
     # the kept step's own positions and cotangents
@@ -4800,33 +5324,60 @@ def main():
     phase_kernel_train("full_budget", *train_inputs(eng.samples_per_step))
     phase_kernel_train("captured_step", *step_inputs)
     del step_inputs
+    lap("kernel_train")
     # before train_profile, after whose windows the profiler loses records
     normals_launches, input_grad_row = phase_normals(eng, state, grid)
+    lap("normals")
     phase_train_profile(eng, state, grid, train["median_ms_per_step"])
+    lap("train_profile")
     del eng, state, grid
     capture_launches = phase_capture()
-    cli_launches = phase_cli()
-    image_launches = next(line for line in _child("image")
-                          if line.get("phase") == "image")["launches"]
-    image_cli_launches = phase_image_cli()
-    sdf_lines = _child("sdf")
+    lap("capture")
+    # the NeRF children (host-bound, the card mostly idle) in a second lane
+    # beside the main lane's CLI, image, sdf and volume paths; about as
+    # long as it
+    torch.cuda.empty_cache()  # the lanes' processes share the card's memory
+    lane = ChildLane(("supervision", "camera", "nerf_surface", "encodings"))
+    lane.start()
+    try:
+        cli_launches = phase_cli()
+        lap("cli")
+        image_launches = next(line for line in _child("image")
+                              if line.get("phase") == "image")["launches"]
+        lap("image")
+        image_cli_launches = phase_image_cli()
+        lap("image_cli")
+        sdf_lines = _child("sdf")
+        lap("sdf")
+        volume_lines = _child("volume")
+        lap("volume")
+        lane.join()
+        lap("second_lane_wait")
+    finally:
+        lane.stop()
+    if lane.error is not None:
+        raise lane.error
+    seconds["second_lane"] = lane.seconds
     sdf_rows = {line["kernel"]: line for line in sdf_lines if line.get("phase") == "sdf_kernels"}
     sdf_launches = next(line for line in sdf_lines
                         if line.get("phase") == "sdf_launches")["launches"]
-    volume_lines = _child("volume")
     volume_rows = {(line["kernel"], line["shape"]): line for line in volume_lines
                    if line.get("phase") == "volume_kernels"}
     volume_launches = next(line for line in volume_lines
                            if line.get("phase") == "volume_launches")["launches"]
-    camera_launches = next(line for line in _child("camera")
-                           if line.get("phase") == "camera_launches")["launches"]
-    supervision_launches = next(line for line in _child("supervision")
-                                if line.get("phase") == "supervision_launches")["launches"]
-    surface_launches = next(line for line in _child("nerf_surface")
-                            if line.get("phase") == "nerf_surface_launches")["launches"]
+
+    def lane_launches(child: str, phase: str) -> dict:
+        return next(line for line in lane.lines[child] if line.get("phase") == phase)["launches"]
+
+    camera_launches = lane_launches("camera", "camera_launches")
+    supervision_launches = lane_launches("supervision", "supervision_launches")
+    surface_launches = lane_launches("nerf_surface", "nerf_surface_launches")
+    encodings_launches = lane_launches("encodings", "encodings_launches")
+    emit({"phase": "seconds", "main": seconds,
+          "total": sum(v for k, v in seconds.items() if k != "second_lane")})
     later = {k: cli_launches[k] + image_launches[k] + image_cli_launches[k] + sdf_launches[k]
              + volume_launches[k] + camera_launches[k] + supervision_launches[k]
-             + surface_launches[k] for k in cli_launches}
+             + surface_launches[k] + encodings_launches[k] for k in cli_launches}
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4924,6 +5475,10 @@ if __name__ == "__main__":
         phase_supervision_all()
     elif sys.argv[1:] == ["nerf_surface"]:
         phase_nerf_surface_all()
+    elif sys.argv[1:] == ["encodings"]:
+        phase_encodings_all()
+    elif sys.argv[1:] == ["encodings_control"]:
+        phase_encodings_control()
     elif sys.argv[1:] == ["profiler_probe"]:
         phase_env()
         phase_profiler_probe()

@@ -14,7 +14,17 @@
 //   hashed levels: idx_c = (c0 * 1 (^|+) c1 * 2654435761 (^|+) c2 * 805459861)
 //                          & (size - 1), in uint32 arithmetic (negative
 //                          corner coordinates wrap as int32 -> uint32);
-//   dense levels:  idx_c = sum_d clip(c_d, 0, res - 1) * res^d.
+//   dense levels:  idx_c = sum_d clip(c_d, 0, res - 1) * res^d, stride and
+//                          sum in uint32, then & (size - 1) on a Tiled
+//                          level whose res^D exceeds its size (it wraps
+//                          modulo the size, a power of two, as the JAX
+//                          package's `lin % size` does after the clip).
+// With Simplex interpolation (the JAX package's _simplex_corners_weights,
+// not tcnn's) a sample reads the D + 1 corners of the simplex of the cell's
+// Kuhn triangulation that holds it, with barycentric weights (cell_corners);
+// the JAX package computes it with the XLA gather grid_gather_blend, and
+// the port with these kernels as a compile-time variant: a Simplex sample
+// reads D + 1 rows where a Linear one reads 2^D.
 // Levels above max_level are written as zeros. The output is (N, L, F)
 // float32, i.e. (N, L*F) level-major. The table is (L, T, F), float32 or
 // bf16; bf16 entries are widened to float32 before the blend. (Rounding a
@@ -186,19 +196,21 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 struct Geometry {
   float scale[kMaxLevels];
   int32_t res[kMaxLevels];
-  uint32_t mask[kMaxLevels];  // size - 1; used on hashed levels
+  uint32_t mask[kMaxLevels];  // ends every row index of the level (corner_row)
   int32_t hashed[kMaxLevels];
 };
 
-// Table rows and multilinear weights of the 2^D corners of one sample's
-// cell at level l, and the cell fractions: the index math shared by the
-// forward, the backward and the input gradient, so they cannot drift apart.
+// Corners a sample reads at a level: the 2^D of its cell (Linear), or the
+// D + 1 of the simplex of the cell's Kuhn triangulation that holds it
+// (Simplex).
+template <int D, bool Simplex>
+constexpr int kCorners = Simplex ? D + 1 : 1 << D;
+
+// Cell base and fractions of one sample at a level: p = x * scale + 0.5,
+// rounded after the product and after the sum, p0 = floor(p), frac = p - p0.
 template <int D>
-__device__ __forceinline__ void cell_corners(
-    const float* __restrict__ xs, float scale, int res, bool hashed,
-    uint32_t mask, int additive, uint32_t (&idx)[1 << D], float (&w)[1 << D],
-    float (&frac)[D]) {
-  int p0[D];
+__device__ __forceinline__ void cell_fraction(const float* __restrict__ xs, float scale,
+                                              int (&p0)[D], float (&frac)[D]) {
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     const float p = __fadd_rn(__fmul_rn(xs[d], scale), 0.5f);
@@ -206,49 +218,119 @@ __device__ __forceinline__ void cell_corners(
     frac[d] = __fsub_rn(p, fl);
     p0[d] = static_cast<int>(fl);
   }
-#pragma unroll
-  for (int c = 0; c < (1 << D); ++c) {
-    float wc = 1.0f;
-    int cc[D];
+}
+
+// Table row of one corner at a level, in uint32 arithmetic: the spatial
+// hash of its coordinates on hashed levels (negative coordinates wrap as
+// int32 -> uint32), else the linear index sum_d clip(c_d, 0, res - 1) *
+// res^d with the stride and the sum wrapping modulo 2^32. Either ends in &
+// mask: size - 1 where the level's size is a power of two (every hashed
+// level, and a Tiled level whose res^D exceeds its rows, which wraps), all
+// ones elsewhere (a dense index never reaches such a level's size).
+template <int D>
+__device__ __forceinline__ uint32_t corner_row(const int (&cc)[D], bool hashed, int res,
+                                               uint32_t mask, int additive) {
+  uint32_t h;
+  if (hashed) {
+    h = static_cast<uint32_t>(cc[0]);
+    const uint32_t t1 = static_cast<uint32_t>(cc[1]) * kPrime1;
+    h = additive ? h + t1 : h ^ t1;
+    if (D == 3) {
+      const uint32_t t2 = static_cast<uint32_t>(cc[D - 1]) * kPrime2;
+      h = additive ? h + t2 : h ^ t2;
+    }
+  } else {
+    h = 0;
+    uint32_t stride = 1;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      const int bit = (c >> d) & 1;
-      wc = __fmul_rn(wc, bit ? frac[d] : __fsub_rn(1.0f, frac[d]));
-      cc[d] = p0[d] + bit;
+      const int v = min(max(cc[d], 0), res - 1);
+      h += static_cast<uint32_t>(v) * stride;
+      stride *= static_cast<uint32_t>(res);
     }
-    uint32_t h;
-    if (hashed) {
-      h = static_cast<uint32_t>(cc[0]);
-      const uint32_t t1 = static_cast<uint32_t>(cc[1]) * kPrime1;
-      h = additive ? h + t1 : h ^ t1;
-      if (D == 3) {
-        const uint32_t t2 = static_cast<uint32_t>(cc[D - 1]) * kPrime2;
-        h = additive ? h + t2 : h ^ t2;
-      }
-      h &= mask;
-    } else {
-      h = 0;
-      uint32_t stride = 1;
+  }
+  return h & mask;
+}
+
+// Ranks of the fractions, 0 for the largest; a tie ranks the lower
+// dimension first: rank_d = #{e < d : f_e >= f_d} + #{e > d : f_e > f_d},
+// the order of the JAX package's stable descending sort.
+template <int D>
+__device__ __forceinline__ void simplex_ranks(const float (&frac)[D], int (&rank)[D]) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const int v = min(max(cc[d], 0), res - 1);
-        h += static_cast<uint32_t>(v) * stride;
-        stride *= static_cast<uint32_t>(res);
-      }
+  for (int d = 0; d < D; ++d) {
+    int r = 0;
+#pragma unroll
+    for (int e = 0; e < D; ++e) {
+      if (e < d) r += frac[e] >= frac[d];
+      if (e > d) r += frac[e] > frac[d];
     }
-    idx[c] = h;
-    w[c] = wc;
+    rank[d] = r;
   }
 }
 
-// acc += sum over the 2^D corners of w_c * table[level + idx_c], corner by
-// corner, each row one vector load.
-template <int D, int F, typename T>
-__device__ __forceinline__ void blend(const T* __restrict__ table, int64_t level,
-                                      const uint32_t (&idx)[1 << D],
-                                      const float (&w)[1 << D], float (&acc)[F]) {
+// Table rows and weights of the corners of one sample at level l, and the
+// cell fractions: the index math shared by the forward, the backward and
+// the input gradient, so they cannot drift apart.
+//   Linear: the 2^D cell corners in bit order (bit d of c: +1 along d),
+//     w_c the product over d of f_d or 1 - f_d, in dimension order.
+//   Simplex (the JAX package's _simplex_corners_weights): corner k
+//     (k = 0..D) is p0 plus e_d for every d with rank_d < k; with g the
+//     fractions sorted in descending order (g_j = f_d of rank j), the
+//     weights are [1 - g_0, g_0 - g_1, ..., g_{D-2} - g_{D-1}, g_{D-1}].
+template <int D, bool Simplex>
+__device__ __forceinline__ void cell_corners(
+    const float* __restrict__ xs, float scale, int res, bool hashed,
+    uint32_t mask, int additive, uint32_t (&idx)[kCorners<D, Simplex>],
+    float (&w)[kCorners<D, Simplex>], float (&frac)[D]) {
+  int p0[D];
+  cell_fraction<D>(xs, scale, p0, frac);
+  if constexpr (Simplex) {
+    int rank[D];
+    simplex_ranks<D>(frac, rank);
+    float g[D];
 #pragma unroll
-  for (int c = 0; c < (1 << D); ++c) {
+    for (int j = 0; j < D; ++j) {
+      g[j] = frac[D - 1];
+#pragma unroll
+      for (int d = D - 2; d >= 0; --d) g[j] = rank[d] == j ? frac[d] : g[j];
+    }
+    w[0] = __fsub_rn(1.0f, g[0]);
+#pragma unroll
+    for (int k = 1; k < D; ++k) w[k] = __fsub_rn(g[k - 1], g[k]);
+    w[D] = g[D - 1];
+#pragma unroll
+    for (int k = 0; k <= D; ++k) {
+      int cc[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) cc[d] = p0[d] + (rank[d] < k ? 1 : 0);
+      idx[k] = corner_row<D>(cc, hashed, res, mask, additive);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < (1 << D); ++c) {
+      float wc = 1.0f;
+      int cc[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const int bit = (c >> d) & 1;
+        wc = __fmul_rn(wc, bit ? frac[d] : __fsub_rn(1.0f, frac[d]));
+        cc[d] = p0[d] + bit;
+      }
+      idx[c] = corner_row<D>(cc, hashed, res, mask, additive);
+      w[c] = wc;
+    }
+  }
+}
+
+// acc += sum over the C corners of w_c * table[level + idx_c], corner by
+// corner, each row one vector load.
+template <int C, int F, typename T>
+__device__ __forceinline__ void blend(const T* __restrict__ table, int64_t level,
+                                      const uint32_t (&idx)[C],
+                                      const float (&w)[C], float (&acc)[F]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
     const Row<T, F> row =
         *reinterpret_cast<const Row<T, F>*>(table + (level + idx[c]) * F);
 #pragma unroll
@@ -270,7 +352,7 @@ __host__ __device__ constexpr int warp_stage_floats(int levels) {
 // (32, levels, F) outputs in its own shared memory and writes each
 // sample's run of levels with 16-byte stores. Warps never wait for one
 // another.
-template <int D, int F, typename T>
+template <int D, int F, typename T, bool Simplex>
 __global__ void __launch_bounds__(kMaxBlockWarps * 32)
 hashgrid_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
                        const __grid_constant__ Geometry geo,
@@ -297,11 +379,12 @@ hashgrid_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[f] = 0.0f;
     if (live && l <= max_level) {
-      uint32_t idx[1 << D];
-      float w[1 << D], frac[D];
-      cell_corners<D>(xs, geo.scale[l], geo.res[l], geo.hashed[l] != 0,
-                      geo.mask[l], additive, idx, w, frac);
-      blend<D, F, T>(table, l * table_rows, idx, w, acc);
+      constexpr int C = kCorners<D, Simplex>;
+      uint32_t idx[C];
+      float w[C], frac[D];
+      cell_corners<D, Simplex>(xs, geo.scale[l], geo.res[l], geo.hashed[l] != 0,
+                               geo.mask[l], additive, idx, w, frac);
+      blend<C, F, T>(table, l * table_rows, idx, w, acc);
     }
 #pragma unroll
     for (int f = 0; f < F; ++f) os[(l - l0) * kLevelStride + lane * F + f] = acc[f];
@@ -336,14 +419,17 @@ hashgrid_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
 // Backward: warp w of the grid takes samples 32 * (w / levels) onwards at
 // level w % levels (levels = min(L, max_level + 1)), one sample a lane, and
 // adds each corner's w_c * g[s, l, :], bf16-rounded where Round, to its row
-// of out.
-template <int D, int F, bool Round>
+// of out. Simplex corners go one atomic each: their count D + 1 is odd at
+// D = 2, and corners k and k + 1 differ along the dimension of rank k, not
+// along x, so the pairing below (corners c and c + 1, rows 2r and 2r + 1)
+// does not apply.
+template <int D, int F, bool Round, bool Simplex>
 __global__ void __launch_bounds__(kThreads)
 hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
                          const __grid_constant__ Geometry geo,
                          float* __restrict__ out, int64_t n, int n_levels,
                          int levels, int64_t table_rows, int additive) {
-  constexpr int C = 1 << D;
+  constexpr int C = kCorners<D, Simplex>;
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int l = static_cast<int>(warp % levels);
@@ -352,34 +438,47 @@ hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
 
   uint32_t idx[C];
   float w[C], frac[D];
-  cell_corners<D>(x + s * D, geo.scale[l], geo.res[l], geo.hashed[l] != 0,
-                  geo.mask[l], additive, idx, w, frac);
+  cell_corners<D, Simplex>(x + s * D, geo.scale[l], geo.res[l], geo.hashed[l] != 0,
+                           geo.mask[l], additive, idx, w, frac);
   const Row<float, F> gl =
       *reinterpret_cast<const Row<float, F>*>(g + (s * n_levels + l) * F);
   float* o = out + l * table_rows * F;
-  const bool pair = (l * table_rows) % 2 == 0;  // o on a vector boundary
+  if constexpr (Simplex) {
 #pragma unroll
-  for (int c = 0; c < C; c += 2) {
-    Row<float, F> a0, a1;
+    for (int c = 0; c < C; ++c) {
+      Row<float, F> a;
 #pragma unroll
-    for (int f = 0; f < F; ++f) {
-      a0.v[f] = __fmul_rn(w[c], gl.v[f]);
-      a1.v[f] = __fmul_rn(w[c + 1], gl.v[f]);
-      if constexpr (Round) {
-        a0.v[f] = round_bf16(a0.v[f]);
-        a1.v[f] = round_bf16(a1.v[f]);
+      for (int f = 0; f < F; ++f) {
+        a.v[f] = __fmul_rn(w[c], gl.v[f]);
+        if constexpr (Round) a.v[f] = round_bf16(a.v[f]);
       }
+      add_to_device<F>(o + static_cast<int64_t>(idx[c]) * F, a);
     }
-    const int32_t k0 = static_cast<int32_t>(idx[c]);
-    const int32_t k1 = static_cast<int32_t>(idx[c + 1]);
-    if constexpr (F <= 2) {
-      if (pair && rows_pair(k0, k1)) {
-        add_pair<F>(o, k0, a0, k1, a1);
-        continue;
+  } else {
+    const bool pair = (l * table_rows) % 2 == 0;  // o on a vector boundary
+#pragma unroll
+    for (int c = 0; c < C; c += 2) {
+      Row<float, F> a0, a1;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        a0.v[f] = __fmul_rn(w[c], gl.v[f]);
+        a1.v[f] = __fmul_rn(w[c + 1], gl.v[f]);
+        if constexpr (Round) {
+          a0.v[f] = round_bf16(a0.v[f]);
+          a1.v[f] = round_bf16(a1.v[f]);
+        }
       }
+      const int32_t k0 = static_cast<int32_t>(idx[c]);
+      const int32_t k1 = static_cast<int32_t>(idx[c + 1]);
+      if constexpr (F <= 2) {
+        if (pair && rows_pair(k0, k1)) {
+          add_pair<F>(o, k0, a0, k1, a1);
+          continue;
+        }
+      }
+      add_to_device<F>(o + static_cast<int64_t>(k0) * F, a0);
+      add_to_device<F>(o + static_cast<int64_t>(k1) * F, a1);
     }
-    add_to_device<F>(o + static_cast<int64_t>(k0) * F, a0);
-    add_to_device<F>(o + static_cast<int64_t>(k1) * F, a1);
   }
 }
 
@@ -390,19 +489,49 @@ hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
 // g_0 * row_0 where the twin starts from 0.0 + g_0 * row_0: the two differ at
 // most in the sign of a zero, which no dfrac keeps (dfrac starts at +0.0,
 // and +0.0 plus or minus a zero is +0.0), so the bits are the twin's.
-template <int D, int F, int Add, bool Hashed>
+//
+// Simplex: out = sum_k w_k a_k with a_k = sum_f g_f * row_k,f and w the
+// differences of the sorted fractions g, so d(out)/d(g_j) = a_{j+1} - a_j,
+// and the fraction of rank j takes it: dfrac[d] = a_{rank_d + 1} -
+// a_{rank_d} (the JAX package's autodiff through its sort). There a zero's
+// sign can reach dfrac (-0.0 - +0.0), but not dx: the level sum starts at
+// +0.0 and adding a zero of either sign to it, or to any nonzero sum,
+// leaves it as it is.
+template <int D, int F, int Add, bool Hashed, bool Simplex>
 __device__ __forceinline__ void input_grad_level_as(const float (&xs)[D], const float (&gl)[F],
                                                     const float* __restrict__ table,
                                                     const Geometry& geo, int l,
                                                     int64_t table_rows, float (&t)[D]) {
-  constexpr int C = 1 << D;
+  constexpr int C = kCorners<D, Simplex>;
   uint32_t idx[C];
   float w[C], frac[D];
-  cell_corners<D>(xs, geo.scale[l], geo.res[l], Hashed, geo.mask[l], Add, idx, w, frac);
+  cell_corners<D, Simplex>(xs, geo.scale[l], geo.res[l], Hashed, geo.mask[l], Add, idx, w,
+                           frac);
+  const float* rows = table + l * table_rows * F;
+  if constexpr (Simplex) {
+    float a[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const Row<float, F> r = *reinterpret_cast<const Row<float, F>*>(
+          rows + static_cast<size_t>(idx[c]) * F);
+      a[c] = __fmul_rn(gl[0], r.v[0]);
+#pragma unroll
+      for (int f = 1; f < F; ++f) a[c] = __fadd_rn(a[c], __fmul_rn(gl[f], r.v[f]));
+    }
+    int rank[D];
+    simplex_ranks<D>(frac, rank);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      float dg = __fsub_rn(a[D], a[D - 1]);
+#pragma unroll
+      for (int j = D - 2; j >= 0; --j) dg = rank[d] == j ? __fsub_rn(a[j + 1], a[j]) : dg;
+      t[d] = __fmul_rn(dg, geo.scale[l]);
+    }
+    return;
+  }
   float dfrac[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) dfrac[d] = 0.0f;
-  const float* rows = table + l * table_rows * F;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const Row<float, F> r = *reinterpret_cast<const Row<float, F>*>(
@@ -425,15 +554,15 @@ __device__ __forceinline__ void input_grad_level_as(const float (&xs)[D], const 
   for (int d = 0; d < D; ++d) t[d] = __fmul_rn(dfrac[d], geo.scale[l]);
 }
 
-template <int D, int F, int Add>
+template <int D, int F, int Add, bool Simplex>
 __device__ __forceinline__ void input_grad_level(const float (&xs)[D], const float (&gl)[F],
                                                  const float* __restrict__ table,
                                                  const Geometry& geo, int l,
                                                  int64_t table_rows, float (&t)[D]) {
   if (geo.hashed[l]) {
-    input_grad_level_as<D, F, Add, true>(xs, gl, table, geo, l, table_rows, t);
+    input_grad_level_as<D, F, Add, true, Simplex>(xs, gl, table, geo, l, table_rows, t);
   } else {
-    input_grad_level_as<D, F, Add, false>(xs, gl, table, geo, l, table_rows, t);
+    input_grad_level_as<D, F, Add, false, Simplex>(xs, gl, table, geo, l, table_rows, t);
   }
 }
 
@@ -447,7 +576,7 @@ __device__ __forceinline__ void input_grad_level(const float (&xs)[D], const flo
 // barrier, in place of a strided load a lane a level; the tile of one
 // stage keeps the block's shared memory small enough not to cut the
 // number of blocks an SM holds.
-template <int D, int F, int Add>
+template <int D, int F, int Add, bool Simplex>
 __global__ void __launch_bounds__(kGradThreads)
 hashgrid_input_grad_kernel(const float* __restrict__ x, const float* __restrict__ g,
                            const float* __restrict__ table,
@@ -499,7 +628,7 @@ hashgrid_input_grad_kernel(const float* __restrict__ x, const float* __restrict_
       float gl[F], t[D];
 #pragma unroll
       for (int f = 0; f < F; ++f) gl[f] = gs[(l - l0) * F + f];
-      input_grad_level<D, F, Add>(xs, gl, table, geo, l, table_rows, t);
+      input_grad_level<D, F, Add, Simplex>(xs, gl, table, geo, l, table_rows, t);
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] = __fadd_rn(acc[d], t[d]);
     }
@@ -521,7 +650,7 @@ struct Forward {
   int max_level;
 };
 
-template <int D, int F, typename T>
+template <int D, int F, typename T, bool Simplex>
 int launch(const Forward& a, cudaStream_t stream) {
   // as many warps a block as keep its staging within 48 KB
   const int warp_bytes =
@@ -532,7 +661,7 @@ int launch(const Forward& a, cudaStream_t stream) {
   const int64_t groups = (a.n + kWarpSamples - 1) / kWarpSamples;
   const dim3 blocks(static_cast<unsigned>((groups + warps - 1) / warps),
                     (a.n_levels + kWarpLevels - 1) / kWarpLevels);
-  hashgrid_encode_kernel<D, F, T>
+  hashgrid_encode_kernel<D, F, T, Simplex>
       <<<blocks, warps * 32,
          static_cast<size_t>(warps) * warp_bytes, stream>>>(
           a.x, static_cast<const T*>(a.table), *a.geo, a.out, a.n, a.n_levels,
@@ -540,20 +669,20 @@ int launch(const Forward& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int F>
+template <int D, int F, bool Simplex>
 int dispatch_table(int table_bf16, const Forward& a, cudaStream_t stream) {
-  return table_bf16 ? launch<D, F, __nv_bfloat16>(a, stream)
-                    : launch<D, F, float>(a, stream);
+  return table_bf16 ? launch<D, F, __nv_bfloat16, Simplex>(a, stream)
+                    : launch<D, F, float, Simplex>(a, stream);
 }
 
-template <int D>
+template <int D, bool Simplex>
 int dispatch_features(int n_features, int table_bf16, const Forward& a,
                       cudaStream_t stream) {
   switch (n_features) {
-    case 1: return dispatch_table<D, 1>(table_bf16, a, stream);
-    case 2: return dispatch_table<D, 2>(table_bf16, a, stream);
-    case 4: return dispatch_table<D, 4>(table_bf16, a, stream);
-    case 8: return dispatch_table<D, 8>(table_bf16, a, stream);
+    case 1: return dispatch_table<D, 1, Simplex>(table_bf16, a, stream);
+    case 2: return dispatch_table<D, 2, Simplex>(table_bf16, a, stream);
+    case 4: return dispatch_table<D, 4, Simplex>(table_bf16, a, stream);
+    case 8: return dispatch_table<D, 8, Simplex>(table_bf16, a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -570,73 +699,109 @@ struct Backward {
   int additive;
 };
 
-template <int D, int F>
+template <int D, int F, bool Simplex>
 int launch_backward(const Backward& a, int round_addends, cudaStream_t stream) {
   const int64_t warps = (a.n + kWarpSamples - 1) / kWarpSamples * a.levels;
   const unsigned blocks =
       static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads);
   if (round_addends) {
-    hashgrid_backward_kernel<D, F, true><<<blocks, kThreads, 0, stream>>>(
+    hashgrid_backward_kernel<D, F, true, Simplex><<<blocks, kThreads, 0, stream>>>(
         a.x, a.g, *a.geo, a.out, a.n, a.n_levels, a.levels, a.table_rows, a.additive);
   } else {
-    hashgrid_backward_kernel<D, F, false><<<blocks, kThreads, 0, stream>>>(
+    hashgrid_backward_kernel<D, F, false, Simplex><<<blocks, kThreads, 0, stream>>>(
         a.x, a.g, *a.geo, a.out, a.n, a.n_levels, a.levels, a.table_rows, a.additive);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool Simplex>
 int dispatch_backward(int n_features, const Backward& a, int round_addends,
                       cudaStream_t stream) {
   switch (n_features) {
-    case 1: return launch_backward<D, 1>(a, round_addends, stream);
-    case 2: return launch_backward<D, 2>(a, round_addends, stream);
-    case 4: return launch_backward<D, 4>(a, round_addends, stream);
-    case 8: return launch_backward<D, 8>(a, round_addends, stream);
+    case 1: return launch_backward<D, 1, Simplex>(a, round_addends, stream);
+    case 2: return launch_backward<D, 2, Simplex>(a, round_addends, stream);
+    case 4: return launch_backward<D, 4, Simplex>(a, round_addends, stream);
+    case 8: return launch_backward<D, 8, Simplex>(a, round_addends, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The input gradient's launch: Backward's fields, `out` being dx and
 // `table` the float32 table.
-template <int D, int F, int Add>
+template <int D, int F, int Add, bool Simplex>
 int launch_input_grad(const Backward& a, const float* table, cudaStream_t stream) {
   const unsigned blocks =
       static_cast<unsigned>((a.n + kGradThreads - 1) / kGradThreads);
-  hashgrid_input_grad_kernel<D, F, Add><<<blocks, kGradThreads, 0, stream>>>(
+  hashgrid_input_grad_kernel<D, F, Add, Simplex><<<blocks, kGradThreads, 0, stream>>>(
       a.x, a.g, table, *a.geo, a.out, a.n, a.n_levels, a.levels, a.table_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int F>
+template <int D, int F, bool Simplex>
 int dispatch_hash(const Backward& a, const float* table, cudaStream_t stream) {
-  return a.additive ? launch_input_grad<D, F, 1>(a, table, stream)
-                    : launch_input_grad<D, F, 0>(a, table, stream);
+  return a.additive ? launch_input_grad<D, F, 1, Simplex>(a, table, stream)
+                    : launch_input_grad<D, F, 0, Simplex>(a, table, stream);
 }
 
-template <int D>
+template <int D, bool Simplex>
 int dispatch_input_grad(int n_features, const Backward& a, const float* table,
                         cudaStream_t stream) {
   switch (n_features) {
-    case 1: return dispatch_hash<D, 1>(a, table, stream);
-    case 2: return dispatch_hash<D, 2>(a, table, stream);
-    case 4: return dispatch_hash<D, 4>(a, table, stream);
-    case 8: return dispatch_hash<D, 8>(a, table, stream);
+    case 1: return dispatch_hash<D, 1, Simplex>(a, table, stream);
+    case 2: return dispatch_hash<D, 2, Simplex>(a, table, stream);
+    case 4: return dispatch_hash<D, 4, Simplex>(a, table, stream);
+    case 8: return dispatch_hash<D, 8, Simplex>(a, table, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// The instantiation of (n_dims, simplex): fn<D, Simplex>(args...), or
+// cudaErrorInvalidValue for a D the kernels do not take.
+template <template <int, bool> class Fn, typename... Args>
+int dispatch_dims(int n_dims, int simplex, Args... args) {
+  switch (n_dims * 2 + (simplex ? 1 : 0)) {
+    case 4: return Fn<2, false>::run(args...);
+    case 5: return Fn<2, true>::run(args...);
+    case 6: return Fn<3, false>::run(args...);
+    case 7: return Fn<3, true>::run(args...);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int D, bool Simplex>
+struct ForwardFn {
+  static int run(int n_features, int table_bf16, Forward a, cudaStream_t s) {
+    return dispatch_features<D, Simplex>(n_features, table_bf16, a, s);
+  }
+};
+
+template <int D, bool Simplex>
+struct BackwardFn {
+  static int run(int n_features, Backward a, int round_addends, cudaStream_t s) {
+    return dispatch_backward<D, Simplex>(n_features, a, round_addends, s);
+  }
+};
+
+template <int D, bool Simplex>
+struct InputGradFn {
+  static int run(int n_features, Backward a, const float* table, cudaStream_t s) {
+    return dispatch_input_grad<D, Simplex>(n_features, a, table, s);
+  }
+};
 
 }  // namespace
 
 // C interface, bound with ctypes by ngp_tpu_torch/ops/hashgrid.py. Pointers
 // are device pointers of contiguous tensors, except `geometry`, a host
 // pointer to the per-level Geometry (copied into the launch's arguments).
-// Returns cudaGetLastError() after the launch (0 on success).
+// `simplex` picks the interpolation: 0 Linear (2^D cell corners), 1 Simplex
+// (D + 1 corners). Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int hashgrid_encode(const void* x, const void* table,
                                const void* geometry, void* out, long long n,
                                int n_levels, long long table_rows,
                                int n_features, int n_dims, int table_bf16,
-                               int additive, int max_level, void* stream) {
+                               int additive, int max_level, int simplex, void* stream) {
   if (n <= 0) return 0;
   if (n_levels < 1 || n_levels > kMaxLevels) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -645,12 +810,8 @@ extern "C" int hashgrid_encode(const void* x, const void* table,
                   static_cast<const Geometry*>(geometry), static_cast<float*>(out),
                   static_cast<int64_t>(n), n_levels,
                   static_cast<int64_t>(table_rows), additive, max_level};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_dims) {
-    case 2: return dispatch_features<2>(n_features, table_bf16, a, s);
-    case 3: return dispatch_features<3>(n_features, table_bf16, a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_dims<ForwardFn>(n_dims, simplex, n_features, table_bf16, a,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // d(table) (L, table_rows, F) float32 of hashgrid_encode with respect to its
@@ -661,7 +822,8 @@ extern "C" int hashgrid_backward(const void* x, const void* g,
                                  const void* geometry, void* out, long long n,
                                  int n_levels, long long table_rows,
                                  int n_features, int n_dims, int additive,
-                                 int max_level, int round_addends, void* stream) {
+                                 int max_level, int round_addends, int simplex,
+                                 void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -671,12 +833,8 @@ extern "C" int hashgrid_backward(const void* x, const void* g,
                    static_cast<const Geometry*>(geometry), static_cast<float*>(out),
                    static_cast<int64_t>(n), n_levels, levels,
                    static_cast<int64_t>(table_rows), additive};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_dims) {
-    case 2: return dispatch_backward<2>(n_features, a, round_addends, s);
-    case 3: return dispatch_backward<3>(n_features, a, round_addends, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_dims<BackwardFn>(n_dims, simplex, n_features, a, round_addends,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // dx (N, D) float32, the gradient of sum(g * hashgrid_encode(x, table)) with
@@ -686,7 +844,7 @@ extern "C" int hashgrid_input_grad(const void* x, const void* g, const void* tab
                                    const void* geometry, void* dx, long long n,
                                    int n_levels, long long table_rows,
                                    int n_features, int n_dims, int additive,
-                                   int max_level, void* stream) {
+                                   int max_level, int simplex, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -696,13 +854,9 @@ extern "C" int hashgrid_input_grad(const void* x, const void* g, const void* tab
                    static_cast<const Geometry*>(geometry), static_cast<float*>(dx),
                    static_cast<int64_t>(n), n_levels, levels < 0 ? 0 : levels,
                    static_cast<int64_t>(table_rows), additive};
-  const float* t = static_cast<const float*>(table);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_dims) {
-    case 2: return dispatch_input_grad<2>(n_features, a, t, s);
-    case 3: return dispatch_input_grad<3>(n_features, a, t, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_dims<InputGradFn>(n_dims, simplex, n_features, a,
+                                    static_cast<const float*>(table),
+                                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* hashgrid_encode_error_string(int code) {

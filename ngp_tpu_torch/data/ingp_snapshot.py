@@ -7,7 +7,8 @@ zlib-wrapped for ``.ingp``. Inside it:
 
 - ``params_binary``: tcnn's flat parameter buffer (``params_type``
   ``"__half"`` or float), in the order density MLP, rgb MLP, position grid
-  encoding. Each MLP stores its matrices layer by layer, row-major
+  encoding (nothing for a position encoding without parameters, such as
+  Frequency). Each MLP stores its matrices layer by layer, row-major
   ``[n_out, n_in]``, the last output width padded to 16; grid levels are
   consecutive ``(rows_in_level, F)`` blocks.
 - ``density_grid_binary``: a float16 occupancy grid of ``G³`` cells per
@@ -95,6 +96,8 @@ def _mlp_to_flat(params: dict, mlp, dtype) -> list[np.ndarray]:
 
 
 def _grid_from_flat(flat: np.ndarray, off: int, enc) -> tuple[dict, int]:
+    if not hasattr(enc, "level_geometry"):  # Frequency, OneBlob, ...: no parameters
+        return {}, off
     _, _, sizes, _ = enc.level_geometry()
     F = enc.n_features_per_level
     table = np.zeros((enc.n_levels, enc.max_table_rows, F), np.float32)
@@ -106,7 +109,10 @@ def _grid_from_flat(flat: np.ndarray, off: int, enc) -> tuple[dict, int]:
 
 
 def _grid_to_flat(params: dict, enc, dtype) -> list[np.ndarray]:
-    """The grid table's live rows, level after level."""
+    """The grid table's live rows, level after level (none for a position
+    encoding without parameters)."""
+    if not hasattr(enc, "level_geometry"):
+        return []
     _, _, sizes, _ = enc.level_geometry()
     table = np.asarray(params["table"], np.float32)
     return [table[l, : int(size)].astype(dtype).reshape(-1)

@@ -1,14 +1,16 @@
-"""Input encodings as ``nn.Module``s: the main-path subset of
-``ngp_tpu/models/encodings.py``.
+"""Input encodings as ``nn.Module``s: the port of
+``ngp_tpu/models/encodings.py`` (all but Takikawa).
 
-``GridEncoding`` (Hash and Dense grids, Linear interpolation, XOR or
-additive hash) runs through :func:`ngp_tpu_torch.ops.hashgrid.hashgrid_encode`
-forward, :func:`~ngp_tpu_torch.ops.hashgrid.hashgrid_backward` for
-d(table) and, with ``differentiable_inputs=True``,
+``GridEncoding`` (Hash, Dense and Tiled grids, Linear and Simplex
+interpolation, XOR or additive hash) runs through
+:func:`ngp_tpu_torch.ops.hashgrid.hashgrid_encode` forward,
+:func:`~ngp_tpu_torch.ops.hashgrid.hashgrid_backward` for d(table) and,
+with ``differentiable_inputs=True``,
 :func:`~ngp_tpu_torch.ops.hashgrid.hashgrid_input_grad` for d(positions):
 CUDA kernels on the card, their plain twins on the CPU. Spherical
-harmonics (degree ≤ 4), Identity and Composite are plain tensor code.
-Tiled grids and Simplex interpolation are not yet ported and raise.
+harmonics (degree ≤ 4), Identity, Frequency, TriangleWave, OneBlob and
+Composite are plain tensor code without parameters; autograd gives their
+input gradients.
 
 Every module maps ``(N, n_input_dims)`` float32 in the encoding's domain
 ([0, 1] for grids and SH) to ``(N, n_output_dims)`` float32.
@@ -49,6 +51,7 @@ class _GridEncode(torch.autograd.Function):
         return hashgrid_encode(
             x, read.contiguous(), enc.level_scale, enc.level_res,
             enc.level_size, enc.level_hashed, enc.hash_variant, max_level,
+            enc.interpolation,
         )
 
     @staticmethod
@@ -58,7 +61,7 @@ class _GridEncode(torch.autograd.Function):
         dtable = hashgrid_backward(
             x, g.contiguous(), enc.level_scale, enc.level_res, enc.level_size,
             enc.level_hashed, enc.hash_variant, ctx.max_level,
-            ctx.table_shape[1],
+            ctx.table_shape[1], interpolation=enc.interpolation,
         )
         return dtable, None, None, None
 
@@ -80,7 +83,7 @@ class _GridEncodeInputs(torch.autograd.Function):
         ctx.enc, ctx.max_level = enc, max_level
         return hashgrid_encode(
             x, table, enc.level_scale, enc.level_res, enc.level_size,
-            enc.level_hashed, enc.hash_variant, max_level,
+            enc.level_hashed, enc.hash_variant, max_level, enc.interpolation,
         )
 
     @staticmethod
@@ -92,25 +95,32 @@ class _GridEncodeInputs(torch.autograd.Function):
         g = g.contiguous()
         dtable = dx = None
         if ctx.needs_input_grad[1]:
-            dx = hashgrid_input_grad(x, g, table, *geo, ctx.max_level)
+            dx = hashgrid_input_grad(x, g, table, *geo, ctx.max_level, enc.interpolation)
         if ctx.needs_input_grad[0]:
             dtable = hashgrid_backward(x, g, *geo, ctx.max_level, table.shape[1],
-                                       payload_dtype="float32")
+                                       payload_dtype="float32",
+                                       interpolation=enc.interpolation)
         return dtable, dx, None, None
 
 
 class GridEncoding(nn.Module):
-    """Multiresolution hash or dense grid (tcnn convention, as the JAX
-    package): ``scale_l = 2^(l·log2(b))·N_min − 1``, ``res_l = ceil(scale_l)
-    + 1``; a level stores ``min(next_multiple(res^D, 8), 2^log2_hashmap_size)``
-    rows and hashes when ``res^D`` does not fit. Parameters: one ``(L, T, F)``
-    float32 ``table``.
+    """Multiresolution hash, dense or tiled grid (tcnn convention, as the
+    JAX package): ``scale_l = 2^(l·log2(b))·N_min − 1``, ``res_l =
+    ceil(scale_l) + 1``; a level stores ``min(next_multiple(res^D, 8),
+    2^log2_hashmap_size)`` rows; a Hash grid hashes a level whose ``res^D``
+    does not fit, a Tiled grid wraps its clipped linear index (uint32)
+    modulo the level's rows, a Dense grid stores ``res^D`` rows. Parameters:
+    one ``(L, T, F)`` float32 ``table``. ``interpolation`` "Linear" blends
+    the 2^D cell corners, "Simplex" the D + 1 corners of the JAX package's
+    Kuhn simplex (not tcnn's).
 
-    Table reads follow the JAX package's dtypes: with the additive hash the
-    JAX package reads ``dup_gather_dtype`` rows, by default bf16-rounded
-    ("packed_bf16", F even); with the XOR hash it reads ``gather_dtype``
-    rows, float32 by default. The blend itself is float32 either way.
-    With ``differentiable_inputs=True`` rows are read in float32.
+    Table reads follow the JAX package's dtypes: where it takes its
+    corner-duplicated fast path (Linear, the additive hash, a Hash or Dense
+    grid) it reads ``dup_gather_dtype`` rows, by default bf16-rounded
+    ("packed_bf16", F even); elsewhere (the XOR hash, Tiled grids, Simplex)
+    it reads ``gather_dtype`` rows, float32 by default. The blend itself is
+    float32 either way. With ``differentiable_inputs=True`` rows are read
+    in float32.
 
     d(table) sums per-corner addends rounded to bf16 in float32; with
     ``differentiable_inputs=True`` the addends are float32."""
@@ -124,12 +134,12 @@ class GridEncoding(nn.Module):
         super().__init__()
         if n_input_dims not in (2, 3):
             raise ValueError(f"grid encoding supports 2D/3D, got {n_input_dims}")
-        if grid_type not in ("Hash", "Dense"):
-            raise ValueError(f"grid_type {grid_type!r} is not yet ported "
-                             "(Hash | Dense)")
-        if interpolation != "Linear":
-            raise ValueError(f"interpolation {interpolation!r} is not yet "
-                             "ported (Linear)")
+        if grid_type not in ("Hash", "Dense", "Tiled"):
+            raise ValueError(f"unsupported grid_type {grid_type!r} "
+                             "(Hash | Dense | Tiled)")
+        if interpolation not in ("Linear", "Simplex"):
+            raise ValueError(f"unsupported interpolation {interpolation!r} "
+                             "(Linear | Simplex)")
         if hash_variant not in ("tcnn", "additive"):
             raise ValueError(f"unsupported hash_variant {hash_variant!r} "
                              "(tcnn | additive)")
@@ -177,7 +187,8 @@ class GridEncoding(nn.Module):
                 size, h = dense, False
             else:
                 size = min(_next_multiple(dense, 8), self.table_size)
-                h = dense > size
+                # Tiled wraps its linear index; Hash switches to the hash
+                h = self.grid_type == "Hash" and dense > size
             scales.append(s)
             res.append(r)
             sizes.append(size)
@@ -204,7 +215,8 @@ class GridEncoding(nn.Module):
     @property
     def bf16_reads(self) -> bool:
         """Whether table rows are read rounded to bf16 (see class doc)."""
-        if self.hash_variant == "additive":
+        if (self.interpolation == "Linear" and self.hash_variant == "additive"
+                and self.grid_type != "Tiled"):  # the JAX pairs_eligible
             return (self.dup_gather_dtype == "packed_bf16"
                     and self.n_features_per_level % 2 == 0)
         return self.gather_dtype == "bfloat16"
@@ -293,6 +305,71 @@ class IdentityEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.scale + self.offset
+
+
+class FrequencyEncoding(nn.Module):
+    """NeRF's frequency encoding: per dimension d and frequency f, (sin,
+    cos) of ``x_d · 2^f · π``, laid out (d, f, sin|cos)."""
+
+    n_params = 0
+
+    def __init__(self, n_input_dims: int = 3, n_frequencies: int = 12):
+        super().__init__()
+        self.n_input_dims = n_input_dims
+        self.n_frequencies = n_frequencies
+
+    @property
+    def n_output_dims(self) -> int:
+        return self.n_input_dims * self.n_frequencies * 2
+
+    def _freqs(self, x):
+        return torch.tensor([2.0 ** f for f in range(self.n_frequencies)],
+                            dtype=torch.float32, device=x.device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ang = x[:, :, None] * self._freqs(x) * math.pi  # (N, D, F)
+        return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
+            x.shape[0], self.n_output_dims)
+
+
+class TriangleWaveEncoding(FrequencyEncoding):
+    """tcnn's triangle wave, a cheap stand-in for Frequency: per dimension d
+    and frequency f, ``|2·frac(x_d · 2^f / 2) − 1| · 2 − 1``. The absolute
+    value is a select, so that its gradient at 0 is 1 as JAX's ``abs``
+    differentiates (``torch.abs`` gives 0 there)."""
+
+    @property
+    def n_output_dims(self) -> int:
+        return self.n_input_dims * self.n_frequencies
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        v = x[:, :, None] * self._freqs(x) / 2.0
+        u = (v - torch.floor(v)) * 2.0 - 1.0
+        return (torch.where(u >= 0.0, u, -u) * 2.0 - 1.0).reshape(x.shape[0], self.n_output_dims)
+
+
+class OneBlobEncoding(nn.Module):
+    """OneBlob (Müller et al., Neural Importance Sampling): each input in
+    [0, 1] splatted as a quartic kernel of radius 2 bins, integrated over
+    ``n_bins`` uniform bins (the kernel's CDF at the bin edges)."""
+
+    n_params = 0
+
+    def __init__(self, n_input_dims: int = 3, n_bins: int = 16):
+        super().__init__()
+        self.n_input_dims = n_input_dims
+        self.n_bins = n_bins
+
+    @property
+    def n_output_dims(self) -> int:
+        return self.n_input_dims * self.n_bins
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = self.n_bins
+        edges = torch.arange(n + 1, dtype=torch.float32, device=x.device) / n
+        u = torch.clamp((edges - x[:, :, None]) * (n / 2.0), -1.0, 1.0)
+        c = 0.5 + u * (15.0 / 16.0 + u * u * (-10.0 / 16.0 + u * u * 3.0 / 16.0))
+        return (c[:, :, 1:] - c[:, :, :-1]).reshape(x.shape[0], self.n_output_dims)
 
 
 class CompositeEncoding(nn.Module):

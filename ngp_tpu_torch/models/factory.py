@@ -9,23 +9,27 @@ from torch import nn
 
 from ngp_tpu_torch.models.encodings import (
     CompositeEncoding,
+    FrequencyEncoding,
     GridEncoding,
     IdentityEncoding,
+    OneBlobEncoding,
     SphericalHarmonicsEncoding,
+    TriangleWaveEncoding,
 )
 from ngp_tpu_torch.models.mlp import MLP
 from ngp_tpu_torch.models.nerf_network import NerfNetwork
 from ngp_tpu_torch.ops.losses import get_loss
 
-_NOT_YET_PORTED = ("tiledgrid", "frequency", "trianglewave", "oneblob", "takikawa")
+_NOT_YET_PORTED = ("takikawa",)
 
 
 def create_encoding(n_input_dims: int, cfg: dict, device="cuda"):
     otype = cfg.get("otype", "Identity").lower()
     if otype in _NOT_YET_PORTED:
-        raise ValueError(f"encoding otype {cfg.get('otype')!r} is not yet ported")
-    if otype in ("hashgrid", "densegrid", "grid"):
-        grid_type = {"hashgrid": "Hash", "densegrid": "Dense"}.get(
+        raise ValueError(f"encoding otype {cfg.get('otype')!r} is not yet ported "
+                         "(ROADMAP A7)")
+    if otype in ("hashgrid", "densegrid", "tiledgrid", "grid"):
+        grid_type = {"hashgrid": "Hash", "densegrid": "Dense", "tiledgrid": "Tiled"}.get(
             otype, cfg.get("type", "Hash")
         )
         return GridEncoding(
@@ -48,6 +52,12 @@ def create_encoding(n_input_dims: int, cfg: dict, device="cuda"):
         return IdentityEncoding(
             n_input_dims, cfg.get("scale", 1.0), cfg.get("offset", 0.0)
         )
+    if otype == "frequency":
+        return FrequencyEncoding(n_input_dims, cfg.get("n_frequencies", 12))
+    if otype == "trianglewave":
+        return TriangleWaveEncoding(n_input_dims, cfg.get("n_frequencies", 12))
+    if otype == "oneblob":
+        return OneBlobEncoding(n_input_dims, cfg.get("n_bins", 16))
     if otype == "composite":
         nested_cfgs = cfg["nested"]
         nested, remaining = [], n_input_dims

@@ -253,6 +253,71 @@ def test_input_grad_matches_twin(cuda, variant, f, d, positions):
         _assert_within_order_bound(got, want, keys, vals, T, "float32")
 
 
+def _grid_case(kind, d, f, variant, seed, n=1 << 14, per_level_scale=2.0):
+    """A Tiled or Simplex grid's positions, table and geometry on the card:
+    L=4, base resolution 8, T=2^10 (3D) or 2^8 (2D), so that a Tiled grid
+    wraps levels 1-3 (3D) or 2-3 (2D) and a Hash grid hashes them; with
+    per_level_scale 40 the strides r^d wrap modulo 2^32. Positions: uniform
+    in [-0.2, 1.2], the first 2,048 with every coordinate equal (tied
+    fractions at every level) and the next 2,048 on the corners of the
+    unit cube (the dense top plane)."""
+    grid_type = "Hash" if kind == "simplex" else "Tiled"
+    interpolation = "Linear" if kind == "tiled" else "Simplex"
+    enc = GridEncoding(n_input_dims=d, n_levels=4, n_features_per_level=f,
+                       log2_hashmap_size=10 if d == 3 else 8, base_resolution=8,
+                       per_level_scale=per_level_scale, grid_type=grid_type,
+                       interpolation=interpolation, hash_variant=variant, device="cuda")
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.2, 1.2, (n, d)).astype(np.float32)
+    x[:2048, 1:] = x[:2048, :1]
+    x[2048:4096] = rng.integers(0, 2, (2048, d))
+    table = rng.uniform(-1, 1, tuple(enc.table.shape)).astype(np.float32)
+    geo = (enc.level_scale, enc.level_res, enc.level_size, enc.level_hashed, variant)
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(table).cuda(), geo, interpolation)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tiled", "simplex", "tiled_simplex", "tiled_wide_strides"])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("f", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", ["tcnn", "additive"])
+def test_tiled_and_simplex_kernels_match_twins(cuda, variant, f, d, kind):
+    """The three grid kernels' Tiled and Simplex instantiations against their
+    twins, with and without max_level: the forward (float32 and bf16
+    tables) and the position gradient bit for bit, the fused backward (bf16
+    and float32 addends, into the levels' rows and an odd row count) within
+    the float32 order bound; one launch counted a call."""
+    wide = kind == "tiled_wide_strides"
+    x, table, geo, interp = _grid_case("tiled" if wide else kind, d, f, variant,
+                                       300 + 10 * f + d, per_level_scale=40.0 if wide else 2.0)
+    L, T = table.shape[:2]
+    g = torch.randn((x.shape[0], L * f), generator=torch.Generator().manual_seed(d)).cuda()
+    for max_level in (None, 1):
+        for tab in (table, table.to(torch.bfloat16)):
+            before = HASHGRID_ENCODE.launches["hashgrid_encode"]
+            got = hashgrid_encode(x, tab, *geo, max_level, interp)
+            assert HASHGRID_ENCODE.launches["hashgrid_encode"] == before + 1
+            want = hashgrid_encode_reference(x, tab, *geo, max_level, interp)
+            assert torch.equal(got, want), float((got - want).abs().max())
+        for payload in ("bfloat16", "float32"):
+            keys, vals = hashgrid_backward_addends_reference(x, g, *geo, max_level, interp)
+            for n_rows in sorted({T, T | 1}):
+                before = HASHGRID_ENCODE.launches["hashgrid_backward"]
+                got = hashgrid_backward(x, g, *geo, max_level, n_rows, payload, interp)
+                torch.cuda.synchronize()
+                assert HASHGRID_ENCODE.launches["hashgrid_backward"] == before + 1
+                want = hashgrid_backward_reference(x, g, *geo, max_level, n_rows, payload,
+                                                   interp)
+                _assert_within_order_bound(got, want, keys, vals, n_rows, payload)
+        before = HASHGRID_ENCODE.launches["hashgrid_input_grad"]
+        got = hashgrid_input_grad(x, g, table, *geo, max_level, interp)
+        torch.cuda.synchronize()
+        assert HASHGRID_ENCODE.launches["hashgrid_input_grad"] == before + 1
+        want = hashgrid_input_grad_reference(x, g, table, *geo, max_level, interp)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            float((got - want).abs().max())
+
+
 def _assert_input_grad_is_the_twins(x, g, table, geo, max_level):
     """One wrapper call, one launch counted, with the twin's bits and so
     within the order bound."""

@@ -157,13 +157,6 @@ def test_wrapper_uses_twin_only_for_cpu_tensors():
                              penc.level_hashed, "tcnn")
 
 
-def test_not_yet_ported_grid_options_raise():
-    with pytest.raises(ValueError, match="not yet ported"):
-        GridEncoding(grid_type="Tiled", device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        GridEncoding(interpolation="Simplex", device="cpu")
-
-
 def test_host_geometry_is_read_once_per_tensor_set():
     """The forward kernel takes the level geometry by value: the wrapper
     reads the four tensors to the host once, keeps the struct on ``scale``,

@@ -185,6 +185,61 @@ def test_reference_snapshot_crosses_packages(golden, tmp_path):
     assert open(again, "rb").read() == open(pfile, "rb").read()
 
 
+@pytest.mark.parametrize("encoding", [{"otype": "HashGrid", "interpolation": "Simplex"},
+                                      {"otype": "TiledGrid"}], ids=["simplex", "tiled"])
+def test_reference_snapshot_of_a_simplex_or_tiled_nerf_crosses_packages(encoding, tmp_path):
+    """A Simplex or Tiled NeRF (the golden fixture's config with that
+    position encoding, weights drawn from a numpy seed): the port's
+    ``.ingp`` equals the JAX package's file of the same parameters and
+    grid byte for byte; each package loads the other's file to the same
+    parameters and grid, and renders it within the golden bound of the
+    other; a second save of a loaded file is byte-identical."""
+    from ngp_tpu.engines.nerf import NerfEngine as JaxNerfEngine
+    from ngp_tpu_torch.data.nerf_loader import NerfDataset
+    from ngp_tpu_torch.engines.nerf import NerfEngine
+    from ngp_tpu_torch.train import TrainState
+    from test_nerf_engine import CONFIG, _make_dataset
+
+    cfg = dict(CONFIG, encoding={**CONFIG["encoding"], **encoding})
+    jd = _make_dataset(6)
+    kw = dict(grid_size=16, n_steps_per_unit=128, seed=11)
+    jeng = JaxNerfEngine(dict(cfg), jd, batch_size=1 << 12, **kw)
+    peng = NerfEngine(dict(cfg), NerfDataset(
+        images=jd.images, xforms=jd.xforms, focal_lengths=jd.focal_lengths,
+        principal_points=jd.principal_points, lens=jd.lens, resolution=jd.resolution,
+        aabb_scale=jd.aabb_scale), device="cpu", **kw)
+    penc, jenc = peng.network.pos_encoding, jeng.network.pos_encoding
+    assert (penc.grid_type, penc.interpolation) == (jenc.grid_type, jenc.interpolation)
+    rng = np.random.default_rng(3)
+    jstate, jgrid = jeng.init_state(), jeng.init_grid()
+    tree = jax.tree.map(lambda a: rng.normal(0, 0.3, np.shape(a)).astype(np.float32),
+                        jax.tree.map(np.asarray, jstate.params["model"]))
+    params = {**jstate.params, "model": tree}
+    jstate = jstate._replace(params=params, ema=jstate.ema._replace(params=params))
+    density = rng.normal(0, 3, np.shape(jgrid.density)).astype(np.float32)
+    jgrid = jgrid._replace(density=jax.numpy.asarray(density))
+    pstate = TrainState.create(load_jax_params(peng._new_network(), tree))
+    pgrid = peng.grid_from_density(torch.from_numpy(density))
+    pfile, jfile = str(tmp_path / "port.ingp"), str(tmp_path / "jax.ingp")
+    peng.save_reference_snapshot(pfile, pstate, pgrid)
+    jeng.save_reference_snapshot(jfile, jstate, jgrid)
+    assert open(pfile, "rb").read() == open(jfile, "rb").read()
+
+    jstate2, jgrid2 = jeng.load_reference_snapshot(pfile)
+    pstate2, pgrid2 = peng.load_reference_snapshot(jfile)
+    for k in ("pos_encoding", "density_mlp", "rgb_mlp"):
+        for a, b in zip(jax.tree.leaves(export_jax_params(pstate2.model)[k]),
+                        jax.tree.leaves(jstate2.params["model"][k])):
+            np.testing.assert_array_equal(a, np.asarray(b))
+    np.testing.assert_array_equal(pgrid2.density.numpy(), np.asarray(jgrid2.density))
+    np.testing.assert_allclose(peng.render_image(pstate2, pgrid2, 0, stride=4).numpy(),
+                               np.asarray(jeng.render_image(jstate2, jgrid2, 0, stride=4)),
+                               rtol=GOLDEN_TOL, atol=GOLDEN_TOL)
+    again = str(tmp_path / "again.ingp")
+    peng.save_reference_snapshot(again, pstate2, pgrid2)
+    assert open(again, "rb").read() == open(pfile, "rb").read()
+
+
 # -- native snapshots
 
 
