@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases, each printing one JSON line. After phase 11 the script runs two
-lanes at once: phases 12-18 in the main process and its children, and
+lanes at once: phases 12-18b in the main process and its children, and
 the fresh processes of phases 19-22 one after another beside them
 (:class:`ChildLane`; the NeRF children are host-bound and leave the card
 mostly idle). A child's times are then taken beside the other lane's
@@ -178,6 +178,35 @@ work; ``chip_smoke.py <child>`` run alone times it alone.
 18. volume_cli: ``python -m ngp_tpu_torch.run`` on the written cloud, 300
    steps with a snapshot and a screenshot, then the snapshot loaded in a
    new process with another screenshot, which must be the same pixels.
+18b. octree: in a fresh process (``chip_smoke.py octree``, which also
+   runs alone), ROADMAP A7b and A7c on phase sdf's 327,680-triangle bumpy
+   sphere (its own copy in ``build/octree_smoke/``). Phase
+   ``octree_build``: the BVH by the C++ host builder and by numpy, and the
+   octree at depth ``OCTREE_DEPTH`` both ways, array for array (gates:
+   equal), their seconds, each octree's voxels a level, vertices and
+   distance-field depth; the C++ octree at ``OCTREE_DEEP`` alone. Phase
+   ``octree_sdf``: three runs through ``Testbed`` at the sdf config's width
+   (64-wide MLP, MAPE, Adam 1e-4, 2^18 samples a step), ``OCTREE_STEPS``
+   steps each: the Takikawa encoding (the schema of
+   ``tests/test_octree_takikawa.py:237-243``) over the depth-10 octree, the
+   config's hash grid with ``use_octree``, the plain hash grid; ms a step,
+   samples/s, load and build seconds, the IoU (gate: above the untrained
+   model's), the loss (gate: falls), a 960×540 shade frame (wall and device
+   ms, tracer iterations) and its hit mask against the same tracer's
+   ground-truth frame (gate ``SDF_HIT_IOU_MIN``), a snapshot reloaded to
+   the same IoU (gate); the Takikawa run launches ``segment_sum`` (B2)
+   once a step. Phase ``octree_frame_readers``, after the path's
+   launches are read: the plain run's frame device ms from the raw
+   records and from the profiler's event tree (gate: within 1e-3). Phase
+   ``octree_kernels``: B2 on a Takikawa step's own keys
+   and addends within the float32 order bound of its twin, with the
+   ``index_add_`` yardstick and the keys' contention; B1 and the fused
+   backward on an octree hash step's own (x, g). Phase ``octree_profile``:
+   two windows of ``OCTREE_PROFILE_STEPS`` Takikawa steps, the busy share
+   and device ms by stage. Phase ``octree_cli``: the CLI with a written
+   Takikawa ``--network`` file, ``OCTREE_CLI_STEPS`` steps and a
+   snapshot, then a reload in a new process printing the same ``IoU:``
+   line. B2's row in the ``kernels`` line is phase ``octree_kernels``'.
 19. camera: in a fresh process (``chip_smoke.py camera``, which also runs
    alone), camera refinement through ``Testbed`` at its NeRF config
    (instant-ngp's base.json: L=16, F=2, T=2^19, XOR hash, 64-wide MLPs,
@@ -1568,10 +1597,33 @@ def _camera_rays(eye, center, res, hfov_deg: float):
     return xf[:, 3].expand(d.shape[0], 3).contiguous(), d
 
 
-def _frame_device_ms(fn) -> float:
+def _busy_ms_raw(prof) -> float:
+    """The device's busy ms of a profiler window (union of its kernel and
+    copy intervals outside the :func:`_lead_in` range) read from the
+    window's raw records: :func:`_profile_summary`'s ``device_busy_ms``
+    without building its event tree, which takes over a minute for a
+    frame of ~10^5 operations."""
+    from torch.autograd import DeviceType
+
+    records = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    lead = [(e.start_ns(), e.end_ns()) for e in records
+            if e.is_user_annotation() and e.name() == PROFILER_LEAD]
+    ops = sorted((e.start_ns(), e.end_ns()) for e in records if not e.is_user_annotation()
+                 and not any(s <= e.start_ns() and e.end_ns() <= t for s, t in lead))
+    busy_ns, end = 0, float("-inf")
+    for a, b in ops:
+        busy_ns += max(0, b - max(a, end))
+        end = max(end, b)
+    return busy_ns / 1e6
+
+
+def _frame_device_ms(fn, event_tree: bool = False):
     """The device's busy ms (union of kernel and copy intervals) over one
     call of ``fn`` under torch.profiler, padded as in :func:`device_ms`,
-    after a :func:`_lead_in`."""
+    after a :func:`_lead_in`, from the window's raw records
+    (:func:`_busy_ms_raw`); with ``event_tree`` also as
+    :func:`_profile_summary` counts it, (raw, event tree)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1581,7 +1633,10 @@ def _frame_device_ms(fn) -> float:
         fn()
         torch.cuda.synchronize()
         time.sleep(PROFILER_PAD_S)
-    return _profile_summary(prof, (), "frame", "frame")["device_busy_ms"]
+    raw = _busy_ms_raw(prof)
+    if event_tree:
+        return raw, _profile_summary(prof, (), "frame", "frame")["device_busy_ms"]
+    return raw
 
 
 def normals_rays():
@@ -2598,9 +2653,11 @@ def _bvh_row(name: str, run, twin, tree, n_queries: int, query_bytes: int, out_b
                          triangle_ops)}
 
 
-def _sdf_frame(eng, state, o, d, mode: str, shadow: bool = False, gt_bvh: bool = False):
+def _sdf_frame(eng, state, o, d, mode: str, shadow: bool = False, gt_bvh: bool = False,
+               profiled: bool = True):
     """One frame through ``render_rays``: its hit mask, wall and device ms
-    and the launches it added."""
+    (with ``profiled``: the frame again under the profiler) and the
+    launches it added."""
     import torch
 
     from ngp_tpu_torch.ops.cuda_build import launch_counts
@@ -2613,9 +2670,9 @@ def _sdf_frame(eng, state, o, d, mode: str, shadow: bool = False, gt_bvh: bool =
     launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
     if not bool(torch.isfinite(rgb).all()):
         raise AssertionError(f"sdf {mode} frame: non-finite values")
-    return hit, {"wall_ms": wall_ms, "launches": launches,
-                 "device_ms": _frame_device_ms(lambda: eng.render_rays(
-                     state, o, d, gt_bvh, mode=mode, shadow=shadow)),
+    device = ({"device_ms": _frame_device_ms(lambda: eng.render_rays(
+        state, o, d, gt_bvh, mode=mode, shadow=shadow))} if profiled else {})
+    return hit, {"wall_ms": wall_ms, "launches": launches, **device,
                  "hit_share": float(hit.float().mean()),
                  "mean_rgb": float(rgb.mean())}
 
@@ -5226,6 +5283,459 @@ def phase_encodings_all():
             raise AssertionError(f"encodings: the runs launched {name} no time")
 
 
+# the octree phases (ROADMAP A7b, A7c): the triangle octree, the Takikawa
+# encoding and the native host builders on phase sdf's 327,680-triangle
+# bumpy sphere at the sdf config's width
+OCTREE_DEPTH = 10  # the octree of the runs; 8 Takikawa output levels from level 2
+OCTREE_DEEP = 11  # the deepest octree allowed, built natively only
+OCTREE_STEPS = 500
+OCTREE_CALL_STEPS = 100
+OCTREE_PROFILE_STEPS = 4
+OCTREE_CLI_STEPS = 100
+# the schema of tests/test_octree_takikawa.py:237-243 (the reference's
+# configs/sdf/takikawa.json is not in the repository), its depth set by
+# octree_depth (the CLI's file: n_levels = OCTREE_DEPTH)
+OCTREE_TAKIKAWA = {"otype": "Takikawa", "n_levels": 5, "starting_level": 2,
+                   "n_features_per_level": 2}
+OCTREE_RUNS = (("takikawa", OCTREE_TAKIKAWA, {"octree_depth": OCTREE_DEPTH}),
+               ("hash_octree", None, {"use_octree": True, "octree_depth": OCTREE_DEPTH}),
+               ("hash_plain", None, {}))
+
+
+def _octree_mesh() -> str:
+    """The 327,680-triangle bumpy sphere's OBJ: phase sdf's, which the
+    main lane wrote before this child, else written once into
+    ``build/octree_smoke/``."""
+    from ngp_tpu_torch.data.synthetic import write_bumpy_sphere_mesh
+
+    os.makedirs(os.path.join(ROOT, "build", "octree_smoke"), exist_ok=True)
+    for mesh in (os.path.join(ROOT, "build", "sdf_smoke", "bumpy_sphere.obj"),
+                 os.path.join(ROOT, "build", "octree_smoke", "bumpy_sphere.obj")):
+        if os.path.exists(mesh):
+            return mesh
+    return write_bumpy_sphere_mesh(mesh, SDF_SUBDIVISIONS)
+
+
+def _octree_stats(a: dict) -> dict:
+    return {"nodes_per_level": [len(c) for c in a["codes"]], "vertices": a["n_vertices"],
+            "dt_depth": a["dt_depth"]}
+
+
+def phase_octree_build(mesh_path: str) -> None:
+    """The host builders on the bumpy sphere: the BVH by the C++ builder
+    and by numpy, and the octree at ``OCTREE_DEPTH`` both ways, each pair
+    array for array (gates: equal), with their seconds; the C++ octree at
+    ``OCTREE_DEEP`` alone (the numpy build's candidate list would take
+    gigabytes there). Each build runs alone in this process, before the
+    timed runs."""
+    import numpy as np
+
+    from ngp_tpu_torch.geometry import triangle_bvh as bvh
+    from ngp_tpu_torch.geometry import triangle_octree as octree
+    from ngp_tpu_torch.geometry.mesh import load_mesh
+    from ngp_tpu_torch.ops import host_build
+
+    t0 = time.perf_counter()
+    tris = load_mesh(mesh_path).triangles
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_build.library()
+    compile_s = time.perf_counter() - t0
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+
+    def equal(a: dict, b: dict) -> bool:
+        for key, x in a.items():
+            y = b[key]
+            if isinstance(x, list):
+                if len(x) != len(y) or not all(np.array_equal(u, v) and u.dtype == v.dtype
+                                               for u, v in zip(x, y)):
+                    return False
+            elif not np.array_equal(np.asarray(x), np.asarray(y)):
+                return False
+        return True
+
+    native_bvh, native_bvh_s = timed(bvh.build_bvh_arrays_native, tris)
+    numpy_bvh, numpy_bvh_s = timed(bvh.build_bvh_arrays, tris)
+    native_oct, native_oct_s = timed(octree.octree_arrays, tris, OCTREE_DEPTH)
+    numpy_oct, numpy_oct_s = timed(octree.octree_arrays_numpy, tris, OCTREE_DEPTH)
+    deep, deep_s = timed(octree.octree_arrays, tris, OCTREE_DEEP)
+    result = {
+        "phase": "octree_build", "triangles": int(tris.shape[0]), "mesh_load_s": load_s,
+        "host_library_compile_s": compile_s, "host_threads": os.cpu_count(),
+        "bvh": {"native_s": native_bvh_s, "numpy_s": numpy_bvh_s,
+                "equal": equal(native_bvh, numpy_bvh),
+                "nodes": len(native_bvh["node_a"]), "depth": native_bvh["depth"]},
+        "octree": {"depth": OCTREE_DEPTH, "native_s": native_oct_s, "numpy_s": numpy_oct_s,
+                   "equal": equal(native_oct, numpy_oct), **_octree_stats(native_oct)},
+        "octree_deep": {"depth": OCTREE_DEEP, "native_s": deep_s, **_octree_stats(deep)},
+    }
+    emit(result)
+    if not result["bvh"]["equal"]:
+        raise AssertionError("the native and numpy BVH builds differ")
+    if not result["octree"]["equal"]:
+        raise AssertionError(f"the native and numpy octree builds differ at depth "
+                             f"{OCTREE_DEPTH}")
+
+
+def _octree_config(encoding: dict | None) -> dict:
+    from ngp_tpu_torch.testbed import default_config
+
+    cfg = default_config("sdf")
+    if encoding is not None:
+        cfg["encoding"] = dict(encoding)
+    return cfg
+
+
+def _octree_run(mesh_path: str, name: str, encoding: dict | None, kw: dict):
+    """One run of phase ``octree_sdf``: ``Testbed`` on the mesh (its load,
+    BVH and octree build seconds), the untrained IoU, ``OCTREE_STEPS``
+    steps in calls of ``OCTREE_CALL_STEPS`` (ms a step, samples/s, losses),
+    the IoU over 2^18 points, a 960×540 shade frame (wall and device ms,
+    launches, the tracer's iterations: the longest ray's and the mean), the
+    ground-truth frame of the same tracer (wall ms) and the two hit masks'
+    IoU, and a snapshot reloaded to the same IoU; the seconds of each part.
+    Returns (the Testbed, the run's readings, its gates' verdicts)."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.ops.cuda_build import launch_counts
+    from ngp_tpu_torch.testbed import SDF_EYE, SDF_FOV_DEG, SDF_LOOKAT, Testbed
+
+    seconds, t0 = {}, [time.perf_counter()]
+
+    def lap(part: str):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[part] = now - t0[0]
+        t0[0] = now
+
+    tb = Testbed(scene=mesh_path, config=_octree_config(encoding), **kw)
+    lap("load")
+    eng = tb.engine
+    untrained = eng.calculate_iou(tb.state, SDF_IOU_SAMPLES)
+    lap("untrained_iou")
+    before = launch_counts()
+    step_ms, losses = [], []
+    for _ in range(OCTREE_STEPS // OCTREE_CALL_STEPS):
+        t1 = time.perf_counter()
+        tb.state, loss = eng.train(tb.state, OCTREE_CALL_STEPS)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3 / OCTREE_CALL_STEPS)
+        losses.append(loss)
+    train_launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    losses = torch.cat(losses).cpu().numpy()
+    median_ms = float(np.median(step_ms[1:]))
+    lap("train")
+    state = tb.state
+    iou = eng.calculate_iou(state, SDF_IOU_SAMPLES)
+    lap("iou")
+
+    o, d = (torch.from_numpy(a).cuda() for a in
+            eng.camera_rays(SDF_EYE, SDF_LOOKAT, SDF_FRAME, SDF_FOV_DEG))
+    trace, steps = eng._trace, []
+
+    def keep_steps(*args, **kwargs):
+        out = trace(*args, **kwargs)
+        steps.append(out[2])
+        return out
+
+    eng._trace = keep_steps
+    try:
+        hit, frame = _sdf_frame(eng, state, o, d, "shade")
+    finally:
+        del eng._trace
+    frame["tracer_iterations"] = {"longest_ray": int(steps[0].max()),
+                                  "mean": float(steps[0].float().mean())}
+    gt_hit, gt_frame = _sdf_frame(eng, state, o, d, "shade", gt_bvh=True, profiled=False)
+    hit_iou = float((hit & gt_hit).sum()) / max(float((hit | gt_hit).sum()), 1.0)
+    lap("frames")
+
+    snapshot = os.path.join(ROOT, "build", "octree_smoke", f"{name}.msgpack")
+    t1 = time.perf_counter()
+    tb.save_snapshot(snapshot)
+    tb.load_snapshot(snapshot)
+    snapshot_s = time.perf_counter() - t1
+    iou_reloaded = eng.calculate_iou(tb.state, SDF_IOU_SAMPLES)
+    lap("snapshot_and_iou")
+    w = ENC_SDF_WINDOW
+    oc = eng.octree
+    run = {
+        "config": tb.network_config["encoding"], **kw, "testbed_load_s": seconds["load"],
+        "bvh_build_s": eng.bvh_build_s, "octree_build_s": eng.octree_build_s,
+        "octree": None if oc is None else {"depth": oc.max_depth, "nodes": oc.n_nodes,
+                                           "vertices": oc.n_vertices},
+        "table": list(state.model.encoding.table.shape),
+        "n_output_dims": state.model.encoding.n_output_dims,
+        "steps": OCTREE_STEPS, "ms_per_step_by_call": step_ms,
+        "median_ms_per_step": median_ms,
+        "samples_per_s": eng.batch_size / (median_ms / 1e3),
+        "loss_step0_last": [float(losses[0]), float(losses[-1])],
+        "loss_window_means": [float(losses[:w].mean()), float(losses[-w:].mean())],
+        "untrained_iou": untrained, "iou": iou, "iou_reloaded": iou_reloaded,
+        "snapshot_s": snapshot_s, "frame": frame, "gt_frame": gt_frame,
+        "model_gt_hit_iou": hit_iou, "train_launches": train_launches, "seconds": seconds,
+    }
+    gates = {
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "loss_falls": run["loss_window_means"][1] < run["loss_window_means"][0],
+        "iou_over_untrained": iou > untrained,
+        "hit_iou": hit_iou >= SDF_HIT_IOU_MIN,
+        "reload_same_iou": iou_reloaded == iou,
+    }
+    return tb, run, gates
+
+
+def phase_octree_sdf(mesh_path: str):
+    """The three runs of :data:`OCTREE_RUNS` through ``Testbed`` at the
+    sdf config's width (its 64-wide MLP of 2 hidden layers, MAPE, the
+    optimizer stack at Adam 1e-4, 2^18 samples a step): the Takikawa
+    encoding over the octree at ``OCTREE_DEPTH``, the config's hash grid
+    with ``use_octree`` at that depth, and the plain hash grid
+    (:func:`_octree_run`). Gates for each: finite losses that fall (the
+    last ``ENC_SDF_WINDOW`` steps' mean below the first's), the IoU above
+    the untrained model's, the shade frame's hit mask within
+    ``SDF_HIT_IOU_MIN`` IoU of the ground truth's, the reloaded snapshot's
+    IoU the same; the Takikawa run launches ``segment_sum`` a step and the
+    hash runs none. Returns the three Testbeds by name and the Takikawa
+    run's median ms a step."""
+    runs, kept = {}, {}
+    failed = []
+    for name, encoding, kw in OCTREE_RUNS:
+        tb, run, gates = _octree_run(mesh_path, name, encoding, kw)
+        runs[name] = {**run, "gates": gates}
+        failed += [f"{name}: {gate}" for gate, ok in gates.items() if not ok]
+        b2 = run["train_launches"].get("segment_sum", 0)
+        if b2 != (OCTREE_STEPS if name == "takikawa" else 0):
+            failed.append(f"{name}: segment_sum launched {b2} times in {OCTREE_STEPS} steps")
+        kept[name] = tb
+        del tb
+    emit({"phase": "octree_sdf", "config": "Testbed sdf default; takikawa: the schema of "
+          "tests/test_octree_takikawa.py:237-243", "runs": runs})
+    if failed:
+        raise AssertionError(f"octree_sdf gates failed: {failed}")
+    return kept, runs["takikawa"]["median_ms_per_step"]
+
+
+def _octree_frame_readers(tb) -> None:
+    """The plain hash run's shade frame under one profiler window, its
+    device ms read from the raw records (:func:`_busy_ms_raw`, which every
+    child's frame ms uses) and from :func:`_profile_summary`'s event tree
+    (gate: within 1e-3 of each other). Run after the path's launches are
+    read."""
+    import torch
+
+    from ngp_tpu_torch.testbed import SDF_EYE, SDF_FOV_DEG, SDF_LOOKAT
+
+    eng = tb.engine
+    o, d = (torch.from_numpy(a).cuda() for a in
+            eng.camera_rays(SDF_EYE, SDF_LOOKAT, SDF_FRAME, SDF_FOV_DEG))
+    raw, tree = _frame_device_ms(lambda: eng.render_rays(tb.state, o, d, False, mode="shade"),
+                                 event_tree=True)
+    emit({"phase": "octree_frame_readers", "frame": "hash_plain shade",
+          "device_ms_raw": raw, "device_ms_event_tree": tree})
+    if abs(raw - tree) > 1e-3 * tree:
+        raise AssertionError(f"frame device ms: raw records {raw}, event tree {tree}")
+
+
+def phase_octree_kernels(taki_tb, hash_tb) -> None:
+    """B2 (``segment_sum_cuda``) on one Takikawa step's own keys (1,
+    levels·N·8) and addends against its twin within the float32 order
+    bound, with its times, its bound (keys and addends read and the table
+    written once at the card's rate), the ``index_add_`` yardstick on the
+    same bf16-rounded addends and the keys' contention (the most addends
+    on one row, the share on the coarsest level's rows); then B1 and the
+    fused backward on one octree hash-grid step's own (x, g) against their
+    twins (:func:`_kernel_case`, :func:`_backward_row`). Returns B2's row."""
+    import torch
+
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.ops import segsum
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
+
+    eng = taki_tb.engine
+    keys, vals, T = _keep_call(segsum, "segment_sum_cuda",
+                               lambda: eng.train(taki_tb.state, 1))[:3]
+    enc = taki_tb.state.model.encoding
+    L, M, F = vals.shape
+    got = segsum.segment_sum_cuda(keys, vals, T)
+    torch.cuda.synchronize()
+    err = _sum_error("segment_sum", got, segsum.segment_sum_reference(keys, vals, T),
+                     keys, vals, T)
+    del got
+    counts = torch.bincount(keys[0].long(), minlength=T)
+    coarsest = enc.octree.verts[enc.starting_level]
+    k_long, rounded = keys[0].long(), vals[0].to(torch.bfloat16).float()
+    b2 = lambda: segsum.segment_sum_cuda(keys, vals, T)  # noqa: E731
+    row = {
+        "N": M // (8 * enc.n_levels), "levels": enc.n_levels, "L": L, "M": M, "T": T, "F": F,
+        "max_abs_err": err, "ms": device_ms(b2), "call_ms": cuda_ms(b2, iters=20),
+        "plain_ms": cuda_ms(lambda: segsum.segment_sum_reference(keys, vals, T),
+                            iters=3, warmup=1),
+        "library_ms": device_ms(
+            lambda: torch.zeros((T, F), device="cuda").index_add_(0, k_long, rounded)),
+        "rows_touched": int((counts > 0).sum()), "max_row_addends": int(counts.max()),
+        "coarsest_level_rows": int(coarsest.max() - coarsest.min() + 1),
+        "coarsest_level_addend_share": float(
+            counts[int(coarsest.min()):int(coarsest.max()) + 1].sum()) / M,
+        # keys and addends read once, the dense table written once
+        **_bound(L * M * (4 + 4 * F) + L * T * F * 4, L * M * F),
+    }
+    emit({"phase": "octree_kernels", "kernel": "segment_sum", "shape": "takikawa_step", **row})
+    del keys, vals, k_long, rounded
+
+    heng = hash_tb.engine
+    x, g, scale, res, size, hashed, variant, _, n_rows = _keep_call(
+        hashgrid_ops, "hashgrid_backward_cuda", lambda: heng.train(hash_tb.state, 1))[:9]
+    geo = (scale, res, size, hashed, variant)
+    henc = hash_tb.state.model.encoding
+    hkeys, hvals = hashgrid_backward_addends_reference(x, g, *geo)
+    HL = scale.shape[0]
+    rows_read = int(torch.unique(hkeys.long() + torch.arange(HL, device="cuda")[:, None]
+                                 * n_rows).numel())
+    emit({"phase": "octree_kernels", "kernel": "hashgrid_encode", "shape": "octree_step",
+          **_kernel_case("sdf", torch.float32, torch.Generator().manual_seed(13), x=x,
+                         enc=henc, rows_read=rows_read)})
+    emit({"phase": "octree_kernels", "kernel": "hashgrid_backward", "shape": "octree_step",
+          "N": x.shape[0], **_backward_row(x, g, geo, n_rows, hkeys, hvals)})
+    return row
+
+
+def phase_octree_profile(tb, median_ms: float) -> None:
+    """Two windows of ``OCTREE_PROFILE_STEPS`` Takikawa steps under
+    torch.profiler, the backward on the calling thread: the device's busy
+    share of a step and its device ms by stage (the data refresh, the
+    octree lookups and weights, the blend, the MLP forward, the backward's
+    MLP and the rest, the table gradient's addends, the segment sum, the
+    optimizer)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ngp_tpu_torch.models import takikawa
+
+    eng, trainer = tb.engine, tb.engine.trainer
+    model = tb.state.model
+    eng.training_batch = _ranged("refresh", eng.training_batch)
+    trainer.loss = _ranged("forward", trainer.loss)
+    trainer.apply_grads = _ranged("optimizer", trainer.apply_grads)
+    model.encoding.gather_plan = _ranged("lookup", model.encoding.gather_plan)
+    model.network.forward = _ranged("mlp_forward", model.network.forward)
+    blend, segment_sum = takikawa._blend, takikawa.batched_segment_sum
+    takikawa._blend = _ranged("blend", blend)
+    takikawa.batched_segment_sum = _ranged("segment_sum", segment_sum)
+    table_bwd = takikawa._GatherBlend.backward
+    takikawa._GatherBlend.backward = staticmethod(_ranged("table_backward", table_bwd))
+    tensor_backward = torch.Tensor.backward
+    torch.Tensor.backward = _ranged("backward", tensor_backward)
+    n = OCTREE_PROFILE_STEPS
+    try:
+        for window in range(2):
+            first = tb.state.step
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                    torch.autograd.set_multithreading_enabled(False):
+                _lead_in()
+                t0 = time.perf_counter()
+                with record_function("steps"):
+                    tb.state, _ = eng.train(tb.state, n)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            summary = _profile_summary(
+                prof, ("refresh", "forward", "lookup", "blend", "mlp_forward", "backward",
+                       "table_backward", "segment_sum", "optimizer"), "steps",
+                "permute_and_other")
+            busy_ms = summary["device_busy_ms"] / n
+            emit({"phase": "octree_profile", "window": window,
+                  "steps": [first, tb.state.step - 1],
+                  "wall_ms_per_step": wall_ms / n, "device_busy_ms_per_step": busy_ms,
+                  "busy_share_of_profiled_wall": busy_ms / (wall_ms / n),
+                  "busy_share_of_unprofiled_median": busy_ms / median_ms,
+                  "device_ops_per_step": summary["device_ops"] / n,
+                  "stage_device_ms_per_step": {k: v / n for k, v in
+                                               summary["stage_device_ms"].items()},
+                  "top_device_ms": summary["top_device_ms"]})
+    finally:
+        torch.Tensor.backward = tensor_backward
+        takikawa._GatherBlend.backward = staticmethod(table_bwd)
+        takikawa._blend, takikawa.batched_segment_sum = blend, segment_sum
+        del eng.training_batch, trainer.loss, trainer.apply_grads
+        del model.encoding.gather_plan, model.network.forward
+
+
+def phase_octree_cli(mesh_path: str) -> dict:
+    """``python -m ngp_tpu_torch.run`` on the mesh with a written Takikawa
+    ``--network`` file (the sdf config with :data:`OCTREE_TAKIKAWA` at
+    ``n_levels`` = ``OCTREE_DEPTH``) in fresh processes:
+    ``OCTREE_CLI_STEPS`` steps with a snapshot, which must print ``IoU:``,
+    then the snapshot loaded with no steps, which must print the same IoU
+    line. Returns the two runs' kernel launches, summed."""
+    out = os.path.join(ROOT, "build", "octree_smoke")
+    network = os.path.join(out, "takikawa.json")
+    with open(network, "w") as f:
+        json.dump(_octree_config(dict(OCTREE_TAKIKAWA, n_levels=OCTREE_DEPTH)), f)
+    snapshot = os.path.join(out, "cli.msgpack")
+    run1 = _cli([mesh_path, "--mode", "sdf", "--network", network, "--n_steps",
+                 str(OCTREE_CLI_STEPS), "--save_snapshot", snapshot])
+    run2 = _cli([mesh_path, "--mode", "sdf", "--network", network, "--n_steps", "0",
+                 "--load_snapshot", snapshot])
+    iou1, iou2 = _cli_line(run1, "IoU:")[1], _cli_line(run2, "IoU:")[1]
+    runs = (run1, run2)
+    result = {
+        "phase": "octree_cli", "steps": OCTREE_CLI_STEPS, "network": network,
+        "trained": _cli_line(run1, "trained ")[1], "iou_line": iou1,
+        "reloaded_iou_line": iou2, "run_s": [r[-1][0] for r in runs],
+        "launches": {k: sum(_cli_launches(r)[k] for r in runs) for k in _cli_launches(run1)},
+    }
+    emit(result)
+    if iou2 != iou1:
+        raise AssertionError(f"reloaded {iou2!r}, saved {iou1!r}")
+    if _cli_launches(run1)["segment_sum"] != OCTREE_CLI_STEPS:
+        raise AssertionError(f"the Takikawa CLI launched segment_sum "
+                             f"{_cli_launches(run1)['segment_sum']} times")
+    return result["launches"]
+
+
+def phase_octree_all():
+    """``chip_smoke.py octree``: phases octree_build, octree_sdf (its
+    launches counted from zero), octree_frame_readers, octree_kernels,
+    octree_profile and octree_cli; then the path's
+    launches (the runs and the CLI) and the phases' seconds on one line.
+    The kernels' libraries are the main process's (phase build), or built
+    at first use when the child runs alone."""
+    from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
+
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name: str):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    phase_env()
+    mesh_path = _octree_mesh()
+    lap("env_mesh")
+    phase_octree_build(mesh_path)
+    lap("octree_build")
+    reset_launches()
+    tbs, median_ms = phase_octree_sdf(mesh_path)
+    launches = launch_counts()
+    lap("octree_sdf")
+    _octree_frame_readers(tbs.pop("hash_plain"))
+    lap("octree_frame_readers")
+    taki_tb = tbs.pop("takikawa")
+    phase_octree_kernels(taki_tb, tbs.pop("hash_octree"))
+    lap("octree_kernels")
+    phase_octree_profile(taki_tb, median_ms)
+    del taki_tb
+    lap("octree_profile")
+    cli = phase_octree_cli(mesh_path)
+    lap("octree_cli")
+    emit({"phase": "octree_launches", "launches": {k: launches[k] + cli[k] for k in launches},
+          "seconds": seconds})
+
+
 PROBE_WINDOWS = 80
 
 
@@ -5351,6 +5861,8 @@ def main():
         lap("sdf")
         volume_lines = _child("volume")
         lap("volume")
+        octree_lines = _child("octree")
+        lap("octree")
         lane.join()
         lap("second_lane_wait")
     finally:
@@ -5365,6 +5877,12 @@ def main():
                    if line.get("phase") == "volume_kernels"}
     volume_launches = next(line for line in volume_lines
                            if line.get("phase") == "volume_launches")["launches"]
+    octree_launches = next(line for line in octree_lines
+                           if line.get("phase") == "octree_launches")["launches"]
+    # B2's row: on its path's own input, a Takikawa step's keys and addends
+    train_rows["segment_sum"] = next(
+        line for line in octree_lines
+        if line.get("phase") == "octree_kernels" and line["kernel"] == "segment_sum")
 
     def lane_launches(child: str, phase: str) -> dict:
         return next(line for line in lane.lines[child] if line.get("phase") == phase)["launches"]
@@ -5377,7 +5895,8 @@ def main():
           "total": sum(v for k, v in seconds.items() if k != "second_lane")})
     later = {k: cli_launches[k] + image_launches[k] + image_cli_launches[k] + sdf_launches[k]
              + volume_launches[k] + camera_launches[k] + supervision_launches[k]
-             + surface_launches[k] + encodings_launches[k] for k in cli_launches}
+             + surface_launches[k] + encodings_launches[k] + octree_launches[k]
+             for k in cli_launches}
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -5399,8 +5918,8 @@ def main():
     for name, source, replaces, launched in (
         ("hashgrid_backward", "hashgrid_encode.cu",
          "ngp_tpu/models/encodings.py:378", train_launches["hashgrid_backward"]),
-        # B2's work on the path is done by the fused backward; its launches
-        # there are counted all the same
+        # B2: the Takikawa table gradient (phase octree); on the grid paths
+        # the fused backward does its work
         ("segment_sum", "segment_sum.cu", "ngp_tpu/ops/pallas/segsum_sorted.py:67",
          train_launches["segment_sum"]),
         ("segment_count", "segment_sum.cu", "ngp_tpu/ops/pallas/segsum.py:135",
@@ -5477,6 +5996,8 @@ if __name__ == "__main__":
         phase_nerf_surface_all()
     elif sys.argv[1:] == ["encodings"]:
         phase_encodings_all()
+    elif sys.argv[1:] == ["octree"]:
+        phase_octree_all()
     elif sys.argv[1:] == ["encodings_control"]:
         phase_encodings_control()
     elif sys.argv[1:] == ["profiler_probe"]:

@@ -21,8 +21,15 @@ behind a function that takes its uniforms or permutation as arguments
 (``generate_training_samples(uniforms=...)``, ``training_batch``,
 ``step_permutation``), which a comparison with the JAX package can feed.
 
-Not yet ported, and refused: the triangle octree (``use_octree``) and the
-Takikawa encoding that needs it (ROADMAP A7).
+With ``use_octree`` (forced on by a Takikawa encoding) the engine builds
+the triangle octree of the mesh (``geometry/triangle_octree.py``, depth
+``octree_depth``, or the encoding's ``n_levels`` where that is 0, as the
+JAX engine takes it): the uniform share of a batch is drawn in random
+finest-depth voxels, the IoU counts the model right outside them, and the
+tracers step at least the octree's empty-space skip distance. The BVH and
+the octree are built on the host by the C++ builders of
+``hostsrc/ngp_host.cpp``, their seconds in ``bvh_build_s`` and
+``octree_build_s``.
 """
 
 from __future__ import annotations
@@ -45,7 +52,9 @@ from ngp_tpu_torch.geometry.triangle_bvh import (
     signed_distance_watertight,
     signed_distance_winding,
 )
+from ngp_tpu_torch.geometry.triangle_octree import TriangleOctree
 from ngp_tpu_torch.models.encodings import GridEncoding
+from ngp_tpu_torch.models.takikawa import TakikawaEncoding
 from ngp_tpu_torch.models.factory import (
     NetworkWithInputEncoding,
     create_loss,
@@ -100,15 +109,20 @@ class SdfEngine:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.config = copy.deepcopy(self.config)
-        if (self.use_octree
-                or self.config.get("encoding", {}).get("otype", "").lower() == "takikawa"):
-            raise ValueError("the triangle octree (use_octree, the Takikawa encoding) is "
-                             "not yet ported (ROADMAP A7)")
         if self.sign_mode not in SIGN_MODES:
             raise ValueError(f"unknown sign_mode {self.sign_mode!r} ({' | '.join(SIGN_MODES)})")
+        dev = self.device
+        enc_cfg = self.config.get("encoding", {})
+        self.octree: TriangleOctree | None = None
+        self.octree_build_s = 0.0
+        if self.use_octree or enc_cfg.get("otype", "").lower() == "takikawa":
+            depth = self.octree_depth or int(enc_cfg.get("n_levels", 8))
+            t0 = time.perf_counter()
+            self.octree = TriangleOctree.build(self.mesh.triangles, depth, device=dev)
+            self.octree_build_s = time.perf_counter() - t0
+            self.use_octree = True
         self.trainer = Trainer(create_loss(self.config.get("loss", {"otype": "MAPE"})),
                                self.config["optimizer"])
-        dev = self.device
         t0 = time.perf_counter()
         self.bvh = build_bvh(self.mesh.triangles, dev)
         self.bvh_build_s = time.perf_counter() - t0
@@ -129,7 +143,8 @@ class SdfEngine:
         return cls(config, load_mesh(path), **kw)
 
     def _new_network(self) -> NetworkWithInputEncoding:
-        return create_network_with_input_encoding(3, 1, self.config, self.device)
+        return create_network_with_input_encoding(3, 1, self.config, self.device,
+                                                  self.octree)
 
     def init_state(self) -> TrainState:
         """Step 0: a model with parameters drawn from a CPU
@@ -165,13 +180,18 @@ class SdfEngine:
                       uniform_only: bool = False):
         """The uniforms a batch of ``n`` consumes, the JAX engine's three
         draws: (surface (n_surface + n_offset, 3) in [0, 1), offset
-        (n_offset, 3) in [1e-6, 1 − 1e-6), box (n_uniform, 3) in [0, 1))."""
+        (n_offset, 3) in [1e-6, 1 − 1e-6), box (n_uniform, 3) in [0, 1));
+        with an octree the third is the leaf draws (pick, u) of
+        ``TriangleOctree.draw_uniform``."""
         n_exact, n_offset, n_uniform = self.sample_counts(n, uniform_only)
 
         def rand(rows):
             return torch.rand((rows, 3), generator=generator, device=self.device)
 
-        return rand(n_exact + n_offset), 1e-6 + rand(n_offset) * (1.0 - 2e-6), rand(n_uniform)
+        surface, offset = rand(n_exact + n_offset), 1e-6 + rand(n_offset) * (1.0 - 2e-6)
+        if self.octree is not None:
+            return surface, offset, self.octree.draw_uniform(n_uniform, generator)
+        return surface, offset, rand(n_uniform)
 
     def generate_training_samples(self, n: int, generator: torch.Generator | None = None,
                                   uniform_only: bool = False, uniforms=None):
@@ -193,9 +213,15 @@ class SdfEngine:
         std = self.bounding_radius / 1024.0 * self.surface_offset_scale
         s = std * math.sqrt(3.0) / math.pi
         offset_pos = surf[n_exact:] + s * torch.log(uu / (1.0 - uu))
-        lo = self.aabb_min - self.zero_offset
-        hi = self.aabb_max + self.zero_offset
-        query = torch.cat([offset_pos, lo + ub * (hi - lo)])
+        if self.octree is not None:
+            # uniform in random octree leaves (uniform_octree_sample_kernel,
+            # testbed_sdf.cu:436-471)
+            uni = self.octree.sample_uniform(*ub)
+        else:
+            lo = self.aabb_min - self.zero_offset
+            hi = self.aabb_max + self.zero_offset
+            uni = lo + ub * (hi - lo)
+        query = torch.cat([offset_pos, uni])
         sd = self.signed_distance(query)
         positions = torch.cat([surf[:n_exact], query])
         distances = torch.cat([torch.zeros((n_exact,), dtype=sd.dtype, device=sd.device), sd])
@@ -253,12 +279,16 @@ class SdfEngine:
                       generator: torch.Generator | None = None, uniforms=None) -> float:
         """Intersection over union of the inside sets (signed distance
         below 0) of the served model and the BVH over ``n_samples``
-        uniform points in the mesh's box."""
+        uniform points in the mesh's box (with an octree: in its leaves,
+        and the model counted right outside them, as
+        ``compare_signs_kernel``, ``testbed_sdf.cu:474-483``)."""
         if uniforms is None and generator is None:
             generator = self._generator(_IOU_SEED, 0)
         pos, gt = self.generate_training_samples(n_samples, generator, True, uniforms)
         pred = self._model_sdf(state.inference_model(), pos)
         inside_gt, inside_pred = gt < 0, pred < 0
+        if self.octree is not None:
+            inside_pred = torch.where(self.octree.contains(pos), inside_pred, inside_gt)
         inter = torch.sum(inside_gt & inside_pred)
         union = torch.sum(inside_gt | inside_pred)
         return float(inter) / max(float(union), 1.0)
@@ -279,7 +309,11 @@ class SdfEngine:
         iteration's scaled distance before ``alive`` changes. Every
         ``TRACE_CHECK_EVERY`` iterations the alive rays are gathered and
         only those are evaluated until the next gather: a ray's path
-        depends on nothing but the ray. Returns (positions, hit)."""
+        depends on nothing but the ray. With an octree a step is at least
+        its skip distance (``TriangleOctree.skip_distance``; the JAX
+        engine's stand-in for the reference's ``ray_intersect`` re-entry,
+        ``advance_pos_kernel_sdf``, ``testbed_sdf.cu:183-186``). Returns
+        (positions, hit)."""
         pos = pos.clone()
         alive = torch.ones(pos.shape[:1], dtype=torch.bool, device=pos.device)
         hit = torch.zeros_like(alive)
@@ -292,6 +326,8 @@ class SdfEngine:
             c = {k: v[idx] for k, v in carry.items()}
             for _ in range(min(TRACE_CHECK_EVERY, MARCH_ITER - it)):
                 dist = (sdf(p) - self.zero_offset) * self.distance_scale
+                if self.octree is not None:
+                    dist = torch.maximum(dist, self.octree.skip_distance(p))
                 newp = p + dist[:, None] * d
                 update(c, dist, a)
                 converged = a & (torch.abs(dist) < self.maximum_distance)
@@ -352,10 +388,13 @@ class SdfEngine:
         return torch.where(hit_again, 0.0, torch.clamp(carry["min_vis"], 0.0, 1.0))
 
     def _normals(self, model, pos, gt_bvh: bool) -> torch.Tensor:
-        """Unit normals at ``pos``: the model's position gradient (the
-        grid's float32 ``differentiable_inputs`` path, parameters frozen
-        so that no table gradient runs), or central differences of the
-        BVH's distances 1e-3 apart."""
+        """Unit normals at ``pos``: the model's position gradient (a grid's
+        or the Takikawa encoding's float32 ``differentiable_inputs`` path,
+        parameters frozen so that no table gradient runs), or central
+        differences of the BVH's distances 1e-3 apart. (The JAX engine
+        differentiates a Takikawa encoding through ``grid_gather_blend``,
+        whose VJP gives the positions none: its normals are 0 there,
+        ROADMAP C.ref 15.)"""
         if gt_bvh:
             eps = 1e-3
             offsets = torch.eye(3, device=pos.device) * eps
@@ -365,7 +404,7 @@ class SdfEngine:
             n = (plus - minus).T
         else:
             enc_kw = ({"differentiable_inputs": True}
-                      if isinstance(model.encoding, GridEncoding) else {})
+                      if isinstance(model.encoding, (GridEncoding, TakikawaEncoding)) else {})
             grads = []
             with torch.enable_grad(), parameters_frozen(model):
                 for p in pos.split(CHUNK):

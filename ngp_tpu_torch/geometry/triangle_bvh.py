@@ -1,11 +1,14 @@
-"""Triangle BVH: the numpy median-split build and the queries, the port of
+"""Triangle BVH: the median-split build and the queries, the port of
 ``ngp_tpu/geometry/triangle_bvh.py`` (the reference's ``TriangleBvh``,
 ``src/triangle_bvh.cu``).
 
 The build makes the tree of the JAX package's numpy build (binary, median
 split on the longest centroid axis, leaves padded to exactly ``LEAF_SIZE``
 triangles at 1e10), a level at a time, and its arrays equal that
-build's exactly. Beside those arrays the tree carries the traversal
+build's exactly. :func:`build_bvh` runs the C++ builder of
+``hostsrc/ngp_host.cpp`` (:func:`build_bvh_arrays_native`), which gives
+the same arrays; the numpy build :func:`build_bvh_arrays` is its
+reference. Beside those arrays the tree carries the traversal
 kernels' packed records (:func:`pack_bvh_records`). The tree lives on the
 engine's device. ``closest_point`` and ``ray_intersect`` run the traversal
 kernels of ``ops/bvh.py`` on the card and their twins on the CPU; the sign
@@ -209,10 +212,38 @@ def pack_bvh_records(arrays: dict) -> tuple[np.ndarray, int]:
     return records, int(ref(np.zeros(1, np.int64))[0])
 
 
+def tree_depth(node_a: np.ndarray, node_b: np.ndarray, node_leaf: np.ndarray) -> int:
+    """Nodes on the longest root-to-leaf path of a tree's arrays."""
+    depth, level = 0, np.zeros(1, np.int64)
+    while len(level):
+        depth += 1
+        inner = level[~node_leaf[level]]
+        level = np.concatenate([node_a[inner], node_b[inner]]).astype(np.int64)
+    return depth
+
+
+def build_bvh_arrays_native(triangles: np.ndarray, n_threads: int = 0) -> dict:
+    """:func:`build_bvh_arrays` by the C++ builder of ``hostsrc/ngp_host.cpp``
+    (``ops/host_build.bvh_build``; ``n_threads`` 0 uses one a hardware
+    thread): the same arrays and depth, and the same refusal of a tree as
+    deep as the stack."""
+    from ngp_tpu_torch.ops.host_build import bvh_build
+
+    names = ("node_min", "node_max", "node_a", "node_b", "node_leaf", "triangles",
+             "normals", "tri_index")
+    arrays = dict(zip(names, bvh_build(triangles, LEAF_SIZE, n_threads)))
+    depth = tree_depth(arrays["node_a"], arrays["node_b"], arrays["node_leaf"])
+    if depth >= STACK_DEPTH:
+        raise ValueError(f"BVH depth {depth} of {len(triangles)} triangles reaches the "
+                         f"traversal stack's {STACK_DEPTH} entries")
+    return {**arrays, "depth": depth}
+
+
 def build_bvh(triangles: np.ndarray, device="cpu") -> TriangleBvh:
-    """Build on the host (:func:`build_bvh_arrays`, :func:`pack_bvh_records`),
-    keep on ``device``."""
-    arrays = build_bvh_arrays(triangles)
+    """Build on the host by the C++ builder (:func:`build_bvh_arrays_native`;
+    :func:`build_bvh_arrays` is its numpy reference), pack the records
+    (:func:`pack_bvh_records`), keep on ``device``."""
+    arrays = build_bvh_arrays_native(triangles)
     records, root = pack_bvh_records(arrays)
     depth = arrays.pop("depth")
     return TriangleBvh(**{k: torch.as_tensor(v, device=device) for k, v in arrays.items()},

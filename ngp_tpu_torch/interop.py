@@ -12,6 +12,8 @@ The tree layouts are the JAX package's::
     {"encoding": {"table": (L, T, F)},       # NetworkWithInputEncoding
      "network": {"weights": [(in, out), ...]}}
 
+where a Takikawa encoding's table is ``{"table": (V, F)}``.
+
 ``data/ingp_snapshot.params_from_reference`` produces the same layout from
 a reference ``.ingp`` snapshot.
 
@@ -50,6 +52,7 @@ import torch
 from ngp_tpu_torch.models.encodings import CompositeEncoding, GridEncoding
 from ngp_tpu_torch.models.factory import NetworkWithInputEncoding
 from ngp_tpu_torch.models.mlp import MLP
+from ngp_tpu_torch.models.takikawa import TakikawaEncoding
 from ngp_tpu_torch.optim import GROUPS, AdamState, adam_init, param_groups
 from ngp_tpu_torch.train import CameraParams, EnvmapParams, TrainState
 
@@ -64,8 +67,11 @@ def _copy(param: torch.Tensor, value, name: str):
         param.copy_(torch.from_numpy(arr))
 
 
+_TABLED = (GridEncoding, TakikawaEncoding)  # encodings whose parameter is one table
+
+
 def _load_encoding(enc, tree: dict, name: str):
-    if isinstance(enc, GridEncoding):
+    if isinstance(enc, _TABLED):
         _copy(enc.table, tree["table"], f"{name}.table")
     elif isinstance(enc, CompositeEncoding):
         for i, sub in enumerate(enc.nested):
@@ -73,7 +79,7 @@ def _load_encoding(enc, tree: dict, name: str):
 
 
 def _export_encoding(enc) -> dict:
-    if isinstance(enc, GridEncoding):
+    if isinstance(enc, _TABLED):
         return {"table": enc.table.detach().cpu().numpy().copy()}
     if isinstance(enc, CompositeEncoding):
         return {f"nested_{i}": _export_encoding(s) for i, s in enumerate(enc.nested)}

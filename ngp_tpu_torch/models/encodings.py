@@ -1,5 +1,6 @@
 """Input encodings as ``nn.Module``s: the port of
-``ngp_tpu/models/encodings.py`` (all but Takikawa).
+``ngp_tpu/models/encodings.py`` (the Takikawa encoding, which needs the
+SDF mesh's octree, is ``models/takikawa.py``).
 
 ``GridEncoding`` (Hash, Dense and Tiled grids, Linear and Simplex
 interpolation, XOR or additive hash) runs through

@@ -20,14 +20,25 @@ from ngp_tpu_torch.models.mlp import MLP
 from ngp_tpu_torch.models.nerf_network import NerfNetwork
 from ngp_tpu_torch.ops.losses import get_loss
 
-_NOT_YET_PORTED = ("takikawa",)
 
-
-def create_encoding(n_input_dims: int, cfg: dict, device="cuda"):
+def create_encoding(n_input_dims: int, cfg: dict, device="cuda", octree=None):
+    """The encoding of a config's ``encoding`` block on ``device``;
+    ``octree`` (a ``geometry/triangle_octree.TriangleOctree``) is the one a
+    Takikawa encoding is built over, which raises without it."""
     otype = cfg.get("otype", "Identity").lower()
-    if otype in _NOT_YET_PORTED:
-        raise ValueError(f"encoding otype {cfg.get('otype')!r} is not yet ported "
-                         "(ROADMAP A7)")
+    if otype == "takikawa":
+        from ngp_tpu_torch.models.takikawa import TakikawaEncoding
+
+        if octree is None:
+            raise ValueError("the Takikawa encoding needs a TriangleOctree (built from "
+                             "the scene mesh, reference testbed.cu:4082-4098)")
+        return TakikawaEncoding(
+            octree,
+            starting_level=cfg.get("starting_level", 0),
+            n_features_per_level=cfg.get("n_features_per_level", 2),
+            sum_instead_of_concat=cfg.get("sum_instead_of_concat", False),
+            device=device,
+        )
     if otype in ("hashgrid", "densegrid", "tiledgrid", "grid"):
         grid_type = {"hashgrid": "Hash", "densegrid": "Dense", "tiledgrid": "Tiled"}.get(
             otype, cfg.get("type", "Hash")
@@ -67,7 +78,7 @@ def create_encoding(n_input_dims: int, cfg: dict, device="cuda"):
                 nd = remaining - sum(
                     s.get("n_dims_to_encode", 0) for s in nested_cfgs[i + 1 :]
                 )
-            nested.append((create_encoding(nd, sub, device), nd))
+            nested.append((create_encoding(nd, sub, device, octree), nd))
             remaining -= nd
         return CompositeEncoding(nested)
     raise ValueError(f"unknown encoding otype {cfg.get('otype')!r}")
@@ -108,8 +119,8 @@ class NetworkWithInputEncoding(nn.Module):
 
     @classmethod
     def from_config(cls, n_input_dims: int, n_output_dims: int, cfg: dict,
-                    device="cuda") -> "NetworkWithInputEncoding":
-        enc = create_encoding(n_input_dims, cfg["encoding"], device)
+                    device="cuda", octree=None) -> "NetworkWithInputEncoding":
+        enc = create_encoding(n_input_dims, cfg["encoding"], device, octree)
         net = create_network(enc.n_output_dims, n_output_dims, cfg["network"], device)
         return cls(enc, net)
 
@@ -130,10 +141,12 @@ class NetworkWithInputEncoding(nn.Module):
 
 
 def create_network_with_input_encoding(n_input_dims: int, n_output_dims: int,
-                                       cfg: dict, device="cuda") -> NetworkWithInputEncoding:
+                                       cfg: dict, device="cuda",
+                                       octree=None) -> NetworkWithInputEncoding:
     """Parameters start at zero; fill them with ``reset_parameters`` or
-    ``interop.load_jax_params``."""
-    return NetworkWithInputEncoding.from_config(n_input_dims, n_output_dims, cfg, device)
+    ``interop.load_jax_params``. ``octree``: as :func:`create_encoding`."""
+    return NetworkWithInputEncoding.from_config(n_input_dims, n_output_dims, cfg, device,
+                                                octree)
 
 
 def create_nerf_network(cfg: dict, n_extra_dims: int = 0,

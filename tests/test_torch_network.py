@@ -101,12 +101,27 @@ def test_sh_and_composite_match_jax():
 
 
 def test_unknown_and_unported_otypes_raise():
+    """Unknown otypes and activations raise; a Takikawa encoding (ported,
+    ROADMAP A7b) builds from its config over an octree, as the JAX
+    factory builds it, and raises without one."""
+    from ngp_tpu_torch.geometry.triangle_octree import TriangleOctree
+    from ngp_tpu_torch.models.takikawa import TakikawaEncoding
+
     with pytest.raises(ValueError, match="unknown encoding otype 'Nope'"):
         create_encoding(3, {"otype": "Nope"}, "cpu")
     with pytest.raises(ValueError, match="unknown network otype 'Nope'"):
         create_network(3, 3, {"otype": "Nope"}, "cpu")
-    with pytest.raises(ValueError, match=r"Takikawa.*not yet ported \(ROADMAP A7\)"):
-        create_encoding(3, {"otype": "Takikawa"}, "cpu")
+    cfg = {"otype": "Takikawa", "starting_level": 1, "n_features_per_level": 4,
+           "sum_instead_of_concat": True}
+    with pytest.raises(ValueError, match="the Takikawa encoding needs a TriangleOctree"):
+        create_encoding(3, cfg, "cpu")
+    tri = np.array([[[0.2, 0.3, 0.4], [0.7, 0.3, 0.5], [0.4, 0.8, 0.6]]], np.float32)
+    octree = TriangleOctree.build(tri, 4)
+    enc = create_encoding(3, cfg, "cpu", octree=octree)
+    assert isinstance(enc, TakikawaEncoding) and enc.octree is octree
+    assert (enc.starting_level, enc.n_levels, enc.n_output_dims) == (1, 3, 4)
+    assert enc.table.shape == (octree.n_vertices, 4) and enc.sum_instead_of_concat
+    assert create_encoding(3, {"otype": "Takikawa"}, "cpu", octree=octree).n_output_dims == 8
     with pytest.raises(ValueError, match="unknown activation"):
         create_network(3, 3, {"activation": "Nope"}, "cpu")
 

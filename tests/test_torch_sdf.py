@@ -514,19 +514,24 @@ def test_cli_sdf_mode(files, capsys):
 
 
 def test_sdf_refusals_and_the_card_default(files):
-    """The octree and the Takikawa encoding wait for ROADMAP A7; an unknown
-    sign mode raises; without a card the entry points raise rather than
-    fall back to the CPU."""
+    """An octree deeper than 11 raises a ``ValueError`` that names the
+    limit: with ``octree_depth`` 0 the depth is the encoding's
+    ``n_levels``, 16 for a 16-level grid, where the JAX engine fails its
+    assertion instead (ROADMAP C.ref 14, a case kept out of parity); an
+    unknown sign mode raises; without a card the entry points raise rather
+    than fall back to the CPU."""
     from ngp_tpu_torch import run
     from ngp_tpu_torch.testbed import Testbed
 
     mesh = Mesh(**_mesh_fields())
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        psdf.SdfEngine(CONFIG, mesh, use_octree=True, device="cpu")
-    taki = copy.deepcopy(CONFIG)
-    taki["encoding"] = {"otype": "Takikawa"}
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        psdf.SdfEngine(taki, mesh, device="cpu")
+    deep = copy.deepcopy(CONFIG)
+    deep["encoding"]["n_levels"] = 16
+    with pytest.raises(ValueError, match=r"octree depth 16 is outside \[2, 11\]"):
+        psdf.SdfEngine(deep, mesh, use_octree=True, device="cpu")
+    with pytest.raises(AssertionError):
+        JaxSdfEngine(deep, JaxMesh(**_mesh_fields()), use_octree=True)
+    with pytest.raises(ValueError, match=r"octree depth 12 is outside \[2, 11\]"):
+        psdf.SdfEngine(CONFIG, mesh, use_octree=True, octree_depth=12, device="cpu")
     with pytest.raises(ValueError, match="unknown sign_mode 'bogus'"):
         psdf.SdfEngine(CONFIG, mesh, sign_mode="bogus", device="cpu")
     if torch.cuda.is_available():
