@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, each printing one JSON line. After phase 11 the script runs two
 lanes at once: phases 12-18b in the main process and its children, and
-the fresh processes of phases 19-22 one after another beside them
+the fresh processes of phases 19-23 one after another beside them
 (:class:`ChildLane`; the NeRF children are host-bound and leave the card
 mostly idle). A child's times are then taken beside the other lane's
 work; ``chip_smoke.py <child>`` run alone times it alone.
@@ -288,6 +288,26 @@ work; ``chip_smoke.py <child>`` run alone times it alone.
    times, bounds and the forward's ``embedding_bag`` yardstick.
    ``chip_kernel_ab.py --kernels regs`` sets the Linear instantiations'
    registers beside a parent checkout's.
+23. jpeg: in a fresh process (``chip_smoke.py jpeg``, which also runs
+   alone), ROADMAP A2 and A15 on the committed JPEG capture
+   ``tests/fixtures/jpeg/capture`` (phase capture's 24 + 4 800×800 views
+   over black, 4:2:0 quality-90 JPEGs written by PIL on a host with PIL):
+   phase ``jpeg_decode`` decodes every fixture with the port's C++ decoder
+   (gate: each RGBA decode's sha256 is PIL's, from the fixtures'
+   ``manifest.json``) and times the decoder on the host, one thread and
+   one a core, beside the PNG reader on phase capture's frames; phase
+   ``jpeg_train`` loads the capture with ``load_nerf``, trains the "tpu"
+   tier 400 steps with 2^18 sample slots against the capture's black
+   background (random training backgrounds off) and scores the held-out views
+   (gates: PSNR ``JPEG_PSNR_MIN``, B1 and the fused backward launched in
+   training, B1 in the eval); phase ``jpeg_convert`` writes a COLMAP
+   text model of the capture's poses, runs ``python -m
+   ngp_tpu_torch.scripts.colmap2nerf --keep_colmap_coords`` with sharpness
+   on (gates: poses within 1e-5, every sharpness the manifest's exactly)
+   and loads its output (gate: the same frames); phase ``jpeg_cli`` runs
+   ``python -m ngp_tpu_torch.run`` (``Testbed``'s base.json) 100 steps on
+   that output and scores the held-out views (gates: B1 and the backward
+   launched, a finite PSNR).
 Then the main process's wall seconds by phase (phase ``seconds``, the
 children's under their names), the ``kernels`` line, the card's ``name,
 power.limit``, and last the ``{"ok": true, ...}`` line. ``python3 chip_smoke.py profiler_probe`` runs
@@ -5736,6 +5756,304 @@ def phase_octree_all():
           "seconds": seconds})
 
 
+# the JPEG phases (ROADMAP A2, A15): the committed JPEG capture of
+# tests/fixtures/jpeg (phase capture's 800×800 frames over black, written
+# by PIL as 4:2:0 quality-90 JPEGs; make_fixtures.py) read by the port's
+# C++ decoder on a host without PIL, trained on, and converted again from
+# a COLMAP text model of its poses
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "jpeg")
+JPEG_STEPS = CAPTURE_STEPS
+# CAPTURE_PSNR_MIN less 5 dB: the frames carry no alpha, and the
+# background is trained as the black it is
+JPEG_PSNR_MIN = CAPTURE_PSNR_MIN - 5.0
+JPEG_DECODE_REPEATS = 5
+JPEG_POSE_TOL = 1e-5
+
+
+def _jpeg_files(manifest: dict, prefix: str = "") -> list:
+    return [os.path.join(JPEG_FIXTURES, rel) for rel in sorted(manifest["rgba_sha256"])
+            if rel.startswith(prefix)]
+
+
+def _host_cpu() -> str:
+    """The host CPU's model name (or its architecture, where /proc/cpuinfo
+    names no model) and the cores this process may use."""
+    import platform
+
+    name = platform.machine() or "unknown"
+    try:
+        with open("/proc/cpuinfo") as f:
+            name = next(line.split(":", 1)[1].strip() for line in f
+                        if line.startswith("model name"))
+    except (OSError, StopIteration):
+        pass
+    return f"{name}, {len(os.sched_getaffinity(0))} cores"
+
+
+def phase_jpeg_decode(manifest: dict) -> None:
+    """Every fixture decoded (RGBA) against the manifest's sha256 of PIL's
+    decode (gate: all equal); then the decoder's rate on the host over the
+    capture's 28 frames, on one thread and on one a core (the files read
+    once, decode only, the median of ``JPEG_DECODE_REPEATS``), and
+    ``read_jpegs_rgba`` with its file reads beside ``read_pngs_rgba`` on
+    phase capture's PNG frames of the same views where they exist."""
+    import hashlib
+
+    import numpy as np
+
+    from ngp_tpu_torch.data.jpeg import read_jpegs_rgba
+    from ngp_tpu_torch.ops import host_build
+
+    t0 = time.perf_counter()
+    host_build.library()
+    build_s = time.perf_counter() - t0
+    paths = _jpeg_files(manifest)
+    got = read_jpegs_rgba(paths)
+    digests = {os.path.relpath(p, JPEG_FIXTURES): hashlib.sha256(img.tobytes()).hexdigest()
+               for p, img in zip(paths, got)}
+    wrong = sorted(rel for rel, d in digests.items() if d != manifest["rgba_sha256"][rel])
+    capture = _jpeg_files(manifest, "capture/")
+    datas = [open(p, "rb").read() for p in capture]
+    pixels = sum(h * w for h, w, _ in (img.shape for img in read_jpegs_rgba(capture)))
+    cores = len(os.sched_getaffinity(0))
+    rates = {}
+    for threads in (1, cores):
+        times = []
+        for _ in range(JPEG_DECODE_REPEATS):
+            t0 = time.perf_counter()
+            host_build.jpeg_decode(datas, rgba=True, n_threads=threads)
+            times.append(time.perf_counter() - t0)
+        rates[threads] = pixels / 1e6 / float(np.median(times))
+    times = []
+    for _ in range(JPEG_DECODE_REPEATS):
+        t0 = time.perf_counter()
+        read_jpegs_rgba(capture)
+        times.append(time.perf_counter() - t0)
+    read_s = float(np.median(times))
+    # phase capture's PNG frames of the same views, where the main process
+    # wrote them (absent when the child runs alone)
+    png_dir = os.path.join(ROOT, "build", "capture_smoke")
+    png = [os.path.join(png_dir, rel[len("capture/"):-len(".jpg")] + ".png")
+           for rel in sorted(manifest["rgba_sha256"]) if rel.startswith("capture/")]
+    png_s = None
+    if all(os.path.exists(p) for p in png):
+        from ngp_tpu_torch.data.png import read_pngs_rgba
+
+        t0 = time.perf_counter()
+        read_pngs_rgba(png)
+        png_s = (time.perf_counter() - t0) / len(png)
+    emit({"phase": "jpeg_decode", "host_cpu": _host_cpu(), "library_build_s": build_s,
+          "files": len(paths), "sha256_equal": len(paths) - len(wrong), "sha256_wrong": wrong,
+          "capture_frames": len(capture), "capture_megapixels": pixels / 1e6,
+          "capture_bytes": sum(len(d) for d in datas),
+          "mp_per_s_1_thread": rates[1], "mp_per_s_all_threads": rates[cores],
+          "threads": cores, "read_jpegs_rgba_s": read_s,
+          "read_s_per_frame": read_s / len(capture), "png_read_s_per_frame": png_s,
+          "timing": "host wall clock, files warm"})
+    if wrong:
+        raise AssertionError(f"jpeg: {len(wrong)} fixtures decode unlike PIL: {wrong[:4]}")
+
+
+def phase_jpeg_train():
+    """``load_nerf`` on the JPEG capture, ``JPEG_STEPS`` steps of the
+    full-width "tpu" tier with 2^18 sample slots, as phase capture trains
+    its PNG capture but against the capture's black background, then the
+    held-out eval (gate: ``JPEG_PSNR_MIN``); B1
+    and the fused backward launched in training and B1 in the eval. Returns
+    the train dataset and the launches."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.config import default_config
+    from ngp_tpu_torch.data.nerf_loader import load_nerf
+    from ngp_tpu_torch.engines.nerf import NerfEngine
+    from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
+
+    cap = os.path.join(JPEG_FIXTURES, "capture")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ds = load_nerf(os.path.join(cap, "transforms_train.json"))
+    test = load_nerf(os.path.join(cap, "transforms_test.json"))
+    load_s = time.perf_counter() - t0
+    if ds.images.shape != (24, CAPTURE_RES, CAPTURE_RES, 4) or test.n_images != 4:
+        raise AssertionError(f"jpeg load_nerf: frames {ds.images.shape}, {test.images.shape}")
+    # the capture's background is opaque black: it trains against that
+    # black (instant-ngp's random training background off), as its users
+    # set it; with random backgrounds the model must fill the box with
+    # black density, and 400 steps read 10.7 dB held out (PERF.md §6)
+    eng = NerfEngine(default_config("tpu"), ds, batch_size=1 << 18,
+                     background_color=(0.0, 0.0, 0.0), train_with_random_bg=False)
+    state, grid = eng.init_state(), eng.init_grid()
+    torch.cuda.synchronize()
+    step_ms = []
+    t_train = time.perf_counter()
+    for _ in range(JPEG_STEPS):
+        t0 = time.perf_counter()
+        state, grid, metrics = eng.train(state, grid, 1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    train_s = time.perf_counter() - t_train
+    train_launches = launch_counts()
+    t0 = time.perf_counter()
+    scores = eng.eval_test_transforms(state, grid, test)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = launch_counts()
+    eval_launches = {k: n - train_launches[k] for k, n in launches.items()}
+    emit({"phase": "jpeg_train", "train_views": ds.n_images, "test_views": test.n_images,
+          "load_s": load_s, "load_s_per_image": load_s / (ds.n_images + test.n_images),
+          "steps": JPEG_STEPS, "train_s": train_s,
+          "median_ms_per_step": float(np.median(step_ms[256:])),
+          "final_loss": float(metrics["loss"]), "psnr": scores["psnr"],
+          "min_psnr": scores["min_psnr"], "ssim": scores["ssim"], "psnr_gate": JPEG_PSNR_MIN,
+          "eval_ms_per_view": eval_s * 1e3 / scores["n_views"],
+          "train_launches": {k: v for k, v in train_launches.items() if v},
+          "eval_launches": {k: v for k, v in eval_launches.items() if v},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not scores["psnr"] >= JPEG_PSNR_MIN:
+        raise AssertionError(f"jpeg: held-out PSNR {scores['psnr']} dB after {JPEG_STEPS} "
+                             f"steps < {JPEG_PSNR_MIN}")
+    for name in ("hashgrid_encode", "hashgrid_backward"):
+        if train_launches[name] == 0:
+            raise AssertionError(f"jpeg: training launched {name} no time")
+    if eval_launches["hashgrid_encode"] == 0:
+        raise AssertionError("jpeg: the held-out eval launched hashgrid_encode no time")
+    return ds, launches
+
+
+def _rotmat_to_qvec(r):
+    """(w, x, y, z) of a rotation matrix, by its largest-diagonal branch."""
+    tr = r[0, 0] + r[1, 1] + r[2, 2]
+    if tr > 0:
+        s = math.sqrt(tr + 1.0) * 2
+        return (s / 4, (r[2, 1] - r[1, 2]) / s, (r[0, 2] - r[2, 0]) / s,
+                (r[1, 0] - r[0, 1]) / s)
+    i = max(range(3), key=lambda a: r[a, a])
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = math.sqrt(max(0.0, 1.0 + r[i, i] - r[j, j] - r[k, k])) * 2
+    q = [(r[k, j] - r[j, k]) / s, 0.0, 0.0, 0.0]
+    q[1 + i], q[1 + j], q[1 + k] = s / 4, (r[j, i] + r[i, j]) / s, (r[k, i] + r[i, k]) / s
+    return tuple(q)
+
+
+def phase_jpeg_convert(manifest: dict, ds) -> None:
+    """A COLMAP text model (OPENCV with the capture's intrinsics; each
+    train frame's pose as COLMAP's world-to-camera quaternion and
+    translation) written from the capture's poses, converted by ``python -m
+    ngp_tpu_torch.scripts.colmap2nerf --keep_colmap_coords`` with
+    sharpness on (gates: every pose within ``JPEG_POSE_TOL`` of the
+    capture's, every sharpness the manifest's exactly), then loaded by
+    ``load_nerf`` (gate: the same frames, poses within the tolerance)."""
+    import shutil
+
+    import numpy as np
+
+    from ngp_tpu_torch.data.nerf_loader import load_nerf
+
+    work = os.path.join(ROOT, "build", "jpeg_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(os.path.join(JPEG_FIXTURES, "capture"), work)
+    meta = json.load(open(os.path.join(work, "transforms_train.json")))
+    os.makedirs(os.path.join(work, "colmap_text"))
+    with open(os.path.join(work, "colmap_text", "cameras.txt"), "w") as f:
+        f.write("# the capture's camera\n1 OPENCV {w} {h} {fl_x!r} {fl_y!r} {cx!r} {cy!r} "
+                "{k1!r} {k2!r} {p1!r} {p2!r}\n".format(**meta))
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    lines, names = ["# the capture's poses"], []
+    for i, fr in enumerate(meta["frames"]):
+        w2c = np.linalg.inv(np.asarray(fr["transform_matrix"]) @ flip)
+        q, t = _rotmat_to_qvec(w2c[:3, :3]), w2c[:3, 3]
+        names.append(os.path.basename(fr["file_path"]))
+        lines += [" ".join([str(i + 1), *map(repr, map(float, q)), *map(repr, map(float, t)),
+                            "1", names[-1]]), "0 0 -1"]
+    with open(os.path.join(work, "colmap_text", "images.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ngp_tpu_torch.scripts.colmap2nerf", "--images", "train",
+         "--text", "colmap_text", "--keep_colmap_coords", "--aabb_scale", "2",
+         "--out", "transforms_colmap.json"],
+        cwd=work, env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True, text=True)
+    convert_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"colmap2nerf exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out = json.load(open(os.path.join(work, "transforms_colmap.json")))
+    pose_err = max(float(np.abs(np.asarray(o["transform_matrix"])
+                                - np.asarray(fr["transform_matrix"])).max())
+                   for o, fr in zip(out["frames"], meta["frames"]))
+    sharp = {f"capture/train/{n}": o.get("sharpness") for n, o in zip(names, out["frames"])}
+    sharp_wrong = sorted(k for k, v in sharp.items() if v != manifest["sharpness"][k])
+    t0 = time.perf_counter()
+    conv = load_nerf(os.path.join(work, "transforms_colmap.json"))
+    load_s = time.perf_counter() - t0
+    same_frames = conv.images.shape == ds.images.shape and np.array_equal(conv.images, ds.images)
+    xform_err = float(np.abs(conv.xforms - ds.xforms).max())
+    emit({"phase": "jpeg_convert", "frames": len(out["frames"]), "convert_s": convert_s,
+          "max_pose_err": pose_err, "pose_tol": JPEG_POSE_TOL,
+          "sharpness_equal": len(sharp) - len(sharp_wrong), "sharpness_wrong": sharp_wrong,
+          "load_s": load_s, "same_frames": bool(same_frames), "max_xform_err": xform_err,
+          "lens": [conv.lens.mode, list(conv.lens.params)]})
+    if len(out["frames"]) != len(meta["frames"]) or not pose_err <= JPEG_POSE_TOL:
+        raise AssertionError(f"colmap2nerf: {len(out['frames'])} frames, pose error {pose_err}")
+    if sharp_wrong:
+        raise AssertionError(f"colmap2nerf: sharpness unlike the manifest's: {sharp_wrong[:4]}")
+    if not same_frames or not xform_err <= JPEG_POSE_TOL:
+        raise AssertionError(f"load_nerf of the conversion: frames equal {same_frames}, "
+                             f"pose error {xform_err}")
+
+
+JPEG_CLI_STEPS = 100
+
+
+def phase_jpeg_cli() -> dict:
+    """``python -m ngp_tpu_torch.run`` (``Testbed``'s default base.json
+    config) on phase ``jpeg_convert``'s COLMAP-converted capture of JPEG
+    frames, ``JPEG_CLI_STEPS`` steps, scored on the capture's held-out
+    views (gates: B1 and the fused backward launched, a finite PSNR; none
+    on its value: the CLI trains on random backgrounds, which this
+    capture's opaque black defeats in few steps). Returns its launches."""
+    work = os.path.join(ROOT, "build", "jpeg_smoke")
+    t0 = time.perf_counter()
+    lines = _cli([os.path.join(work, "transforms_colmap.json"), "--n_steps",
+                  str(JPEG_CLI_STEPS), "--test_transforms",
+                  os.path.join(work, "transforms_test.json")])
+    launches = _cli_launches(lines)
+    scores = _cli_scores(lines)
+    emit({"phase": "jpeg_cli", "steps": JPEG_CLI_STEPS, "seconds": time.perf_counter() - t0,
+          **scores, "launches": {k: v for k, v in launches.items() if v}})
+    for name in ("hashgrid_encode", "hashgrid_backward"):
+        if launches[name] == 0:
+            raise AssertionError(f"jpeg cli: the run launched {name} no time")
+    if not math.isfinite(scores["psnr"]):
+        raise AssertionError(f"jpeg cli: held-out PSNR {scores['psnr']}")
+    return launches
+
+
+def phase_jpeg_all():
+    """``chip_smoke.py jpeg``: ROADMAP A2 and A15 on the committed JPEG
+    capture (:func:`phase_jpeg_decode`, :func:`phase_jpeg_train`,
+    :func:`phase_jpeg_convert`, :func:`phase_jpeg_cli`), the launches
+    counted from zero over the training, the eval and the CLI, and each
+    part's seconds."""
+    manifest = json.load(open(os.path.join(JPEG_FIXTURES, "manifest.json")))
+    seconds = {}
+    t0 = time.perf_counter()
+    phase_jpeg_decode(manifest)
+    seconds["decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds, launches = phase_jpeg_train()
+    seconds["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_jpeg_convert(manifest, ds)
+    seconds["convert"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli = phase_jpeg_cli()
+    seconds["cli"] = time.perf_counter() - t0
+    emit({"phase": "jpeg_launches", "launches": {k: launches[k] + cli[k] for k in launches},
+          "seconds": seconds})
+
+
 PROBE_WINDOWS = 80
 
 
@@ -5847,7 +6165,7 @@ def main():
     # beside the main lane's CLI, image, sdf and volume paths; about as
     # long as it
     torch.cuda.empty_cache()  # the lanes' processes share the card's memory
-    lane = ChildLane(("supervision", "camera", "nerf_surface", "encodings"))
+    lane = ChildLane(("supervision", "camera", "nerf_surface", "encodings", "jpeg"))
     lane.start()
     try:
         cli_launches = phase_cli()
@@ -5891,12 +6209,13 @@ def main():
     supervision_launches = lane_launches("supervision", "supervision_launches")
     surface_launches = lane_launches("nerf_surface", "nerf_surface_launches")
     encodings_launches = lane_launches("encodings", "encodings_launches")
+    jpeg_launches = lane_launches("jpeg", "jpeg_launches")
     emit({"phase": "seconds", "main": seconds,
           "total": sum(v for k, v in seconds.items() if k != "second_lane")})
     later = {k: cli_launches[k] + image_launches[k] + image_cli_launches[k] + sdf_launches[k]
              + volume_launches[k] + camera_launches[k] + supervision_launches[k]
              + surface_launches[k] + encodings_launches[k] + octree_launches[k]
-             for k in cli_launches}
+             + jpeg_launches[k] for k in cli_launches}
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -5998,6 +6317,8 @@ if __name__ == "__main__":
         phase_encodings_all()
     elif sys.argv[1:] == ["octree"]:
         phase_octree_all()
+    elif sys.argv[1:] == ["jpeg"]:
+        phase_jpeg_all()
     elif sys.argv[1:] == ["encodings_control"]:
         phase_encodings_control()
     elif sys.argv[1:] == ["profiler_probe"]:

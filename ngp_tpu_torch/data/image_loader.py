@@ -1,7 +1,7 @@
 """Image loading, the port of ``ngp_tpu/data/image_loader.py``: EXR
-(float, linear colours), PNG through the port's own decoder (sRGB →
-linear), and the raw ``.bin`` gigapixel format (int32 height, int32 width,
-then half RGBA)."""
+(float, linear colours), PNG and JPEG through the port's own decoders
+(sRGB → linear), and the raw ``.bin`` gigapixel format (int32 height,
+int32 width, then half RGBA)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import struct
 import numpy as np
 
 from ngp_tpu_torch.data.exr import read_exr
+from ngp_tpu_torch.data.jpeg import JPEG_SUFFIXES, read_jpeg_rgba
 from ngp_tpu_torch.data.png import read_png_rgba
 
 
@@ -19,19 +20,21 @@ def srgb_to_linear_np(x: np.ndarray) -> np.ndarray:
 
 def load_image(path: str) -> np.ndarray:
     """Returns (H, W, 4) float32 in *linear* color (alpha=1 where missing).
-    Formats: ``.exr``, ``.bin`` and PNG (JPEG is not yet ported)."""
+    Formats: ``.exr``, ``.bin``, PNG and JPEG (other formats PIL reads,
+    such as BMP and TGA, are not yet ported: ROADMAP A2)."""
     p = path.lower()
     if p.endswith(".exr"):
         img = read_exr(path)
     elif p.endswith(".bin"):
         img = load_binary_image(path)
-    elif p.endswith(".png"):
-        arr = read_png_rgba(path).astype(np.float32) / 255.0
+    elif p.endswith((".png", *JPEG_SUFFIXES)):
+        read = read_png_rgba if p.endswith(".png") else read_jpeg_rgba
+        arr = read(path).astype(np.float32) / 255.0
         img = arr.copy()
         img[..., :3] = srgb_to_linear_np(arr[..., :3])
     else:
-        raise NotImplementedError(f"{path}: only PNG, EXR and .bin images are read "
-                                  "(JPEG is not yet ported)")
+        raise NotImplementedError(f"{path}: only PNG, JPEG, EXR and .bin images are read "
+                                  "(ROADMAP A2)")
     if img.shape[-1] == 3:
         img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
     elif img.shape[-1] < 3:

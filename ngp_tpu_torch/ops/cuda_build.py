@@ -22,8 +22,9 @@ from pathlib import Path
 
 import torch
 
+from ngp_tpu_torch.ops.host_build import BUILD_DIR  # shared with the host library
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ngp_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -6,8 +6,8 @@ screenshot, export a marching-cubes mesh, render a camera path as video
 frames, and save and load snapshots. SDF (an ASCII ``.obj`` or binary ``.stl`` mesh): fit it,
 print its IoU, take a screenshot (``--render_mode`` headlight, the
 default, or shade, ao, normals, positions, cost), export the learned
-surface, and save and load snapshots. Image (a ``.png``, ``.exr`` or
-``.bin`` scene): fit it, print its MSE and PSNR over every texel, take a
+surface, and save and load snapshots. Image (a ``.png``, ``.jpg``,
+``.exr`` or ``.bin`` scene): fit it, print its MSE and PSNR over every texel, take a
 screenshot at ``--screenshot_w`` × ``--screenshot_h``, and save and load
 snapshots. Volume (an ``.nvdb`` or ``.npy`` density volume): fit it (no
 score line, as in the JAX CLI), take a screenshot of the learned field

@@ -11,7 +11,7 @@ through ``engines/nerf.py:NerfEngine``;
 in SDF mode it loads an ASCII ``.obj`` or binary ``.stl`` mesh, trains,
 scores the IoU, renders, exports a mesh and saves and loads snapshots
 through ``engines/sdf.py:SdfEngine``; in image mode it loads a ``.png``,
-``.exr`` or ``.bin`` image, trains, renders, scores and saves and loads
+``.jpg``, ``.exr`` or ``.bin`` image, trains, renders, scores and saves and loads
 snapshots through ``engines/image.py:ImageEngine``; in volume mode it
 loads an ``.nvdb`` (uncompressed FloatGrid) or ``.npy`` density volume,
 trains, renders and saves and loads snapshots through
@@ -26,8 +26,7 @@ supplied rays and ``n_extra_learnable_dims`` come with it, and a
 capture's directory) seeds the density grid (the fork's geometry prior).
 ``render_aabb`` gets and sets the engine's render crop box.
 
-Not yet ported, and refused: JPEG images (A2) and ``frame()`` (the
-viewer's heartbeat, A11).
+Not yet ported, and refused: ``frame()`` (the viewer's heartbeat, A11).
 """
 
 from __future__ import annotations

@@ -211,12 +211,14 @@ def test_exr_and_image_loader_match_jax(tmp_path):
                                   jexr.read_exr(str(tmp_path / "j.exr")))
     ldr = rng.integers(0, 256, (18, 22, 3), dtype=np.uint8)
     Image.fromarray(ldr).save(str(tmp_path / "a.png"))
+    Image.fromarray(ldr).save(str(tmp_path / "x.jpg"), quality=90)
     pimage.save_binary_image(str(tmp_path / "b.bin"), hdr)
-    for name in ("a.png", "p.exr", "b.bin"):
+    for name in ("a.png", "p.exr", "b.bin", "x.jpg"):
         p = str(tmp_path / name)
         np.testing.assert_array_equal(pimage.load_image(p), jimage.load_image(p))
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        pimage.load_image(str(tmp_path / "x.jpg"))
+    for load in (pimage.load_image, jimage.load_image):
+        with pytest.raises(FileNotFoundError):
+            load(str(tmp_path / "missing.jpg"))
 
 
 # -- load_nerf
@@ -391,13 +393,19 @@ def test_load_nerf_refuses_what_the_reference_refuses(tmp_path):
             json.dump(meta, f)
         with pytest.raises(ValueError, match="aabb_scale"):
             ploader.load_nerf(os.path.join(path, "transforms_train.json"))
+    # a JPEG frame of the capture's size loads as the JAX loader loads it;
+    # one of another size is refused by both (mixed resolutions)
     Image.fromarray(np.zeros((8, 10, 3), np.uint8)).save(tmp_path / "s" / "train" / "r_0.jpg")
     meta["aabb_scale"] = 1
     meta["frames"][0]["file_path"] = "./train/r_0.jpg"
     with open(os.path.join(path, "transforms_train.json"), "w") as f:
         json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        ploader.load_nerf(os.path.join(path, "transforms_train.json"))
+    train_json = os.path.join(path, "transforms_train.json")
+    _assert_same_dataset(ploader.load_nerf(train_json), jloader.load_nerf(train_json))
+    Image.fromarray(np.zeros((9, 10, 3), np.uint8)).save(tmp_path / "s" / "train" / "r_0.jpg")
+    for load in (ploader.load_nerf, jloader.load_nerf):
+        with pytest.raises(NotImplementedError, match="mixed image resolutions"):
+            load(train_json)
 
 
 # -- lenses

@@ -365,7 +365,7 @@ def test_cli_image_mode_matches_the_jax_cli(files, kind, capsys):
 
 def test_image_mode_refusals(files, tmp_path, capsys):
     """NeRF-only calls and flags raise in image mode, as the JAX package's
-    do; JPEG waits for its decoder (ROADMAP A2) and ``frame()`` for A11."""
+    do; a truncated JPEG raises, and ``frame()`` waits for A11."""
     from ngp_tpu_torch import run
     from ngp_tpu_torch.testbed import Testbed
 
@@ -381,8 +381,9 @@ def test_image_mode_refusals(files, tmp_path, capsys):
         tb.psnr()
     with pytest.raises(NotImplementedError, match="A11"):
         tb.frame()
+    # a JPEG scene loads (tests/test_torch_jpeg.py); a cut-off file raises
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(ValueError, match="truncated"):
         Testbed(scene=str(tmp_path / "x.jpg"), device="cpu")
 
 
