@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, each printing one JSON line. After phase 11 the script runs two
 lanes at once: phases 12-18b in the main process and its children, and
-the fresh processes of phases 19-23 one after another beside them
+the fresh processes of phases 19-24 one after another beside them
 (:class:`ChildLane`; the NeRF children are host-bound and leave the card
 mostly idle). A child's times are then taken beside the other lane's
 work; ``chip_smoke.py <child>`` run alone times it alone.
@@ -93,7 +93,9 @@ work; ``chip_smoke.py <child>`` run alone times it alone.
    (``--render_mode normals``; a view's size, finite, and the run launches
    ``hashgrid_input_grad``), exports a 128³ marching-cubes mesh
    (non-empty, inside the scene's box) and renders a 3-keyframe camera path
-   as 8 PNG frames (decoded by the port's reader). Then, in a fresh process
+   as 8 PNG frames (decoded by the port's reader); run 3 loads the snapshot
+   and writes the normals screenshot as ``.jpg`` (gate: its bytes are
+   ``encode_jpeg`` of run 2's PNG pixels). Then, in a fresh process
    of this script (``chip_smoke.py cli_checks``: its profiler windows are
    whole, which phase 10 leaves them not), phase ``cli_checks``: the
    snapshot loaded again and trained 64 more steps, the last 16 kept for
@@ -308,6 +310,31 @@ work; ``chip_smoke.py <child>`` run alone times it alone.
    ``python -m ngp_tpu_torch.run`` (``Testbed``'s base.json) 100 steps on
    that output and scores the held-out views (gates: B1 and the backward
    launched, a finite PSNR).
+24. street: in a fresh process (``chip_smoke.py street``; ``jpeg_encode``,
+   ``blocknerf`` and ``viewer`` each also run alone), ROADMAP A11a-c. Phase
+   ``jpeg_encode``: the port's JPEG encoder on every RGB fixture's decode
+   and on seeded arrays of odd sizes at qualities 75 and 90 (gate: each
+   file's sha256 is PIL's, from the manifest's ``encode_sha256``), and its
+   MP/s on one host thread at 640×360. Phase ``blocknerf``: a two-block
+   street (``tests/test_blocknerf.py``'s spheres, 24 views a block at
+   128², PNG, into ``build/street_smoke/``) trained by
+   ``train_street_view_nerf`` at ``Testbed``'s NeRF config (base.json)
+   300 steps a block; ``BlockNerfRenderer`` at each block's check pose
+   (gates: that block picked, the dominant channel right, the PSNR against
+   the analytic sphere 5 dB over the untrained model's); 60 playback frames
+   at 640×360 along ``playback_world_poses`` (ms a frame, hot swaps, ms a
+   swap); ``python -m ngp_tpu_torch.scripts.blocknerf --train --render``
+   once; the path's launches; then B1 on a playback frame's largest launch
+   bit for bit and the fused backward on a block step's own (x, g) within
+   the float32 order bound (phase ``kernel_blocknerf``). Phase ``viewer``:
+   ``utils/viewer.make_server`` over a base.json ``Testbed`` on the
+   committed JPEG capture (trained 200 steps against its black background
+   first), 20 polls of ``/frame.jpg`` at 640×360 with
+   training (gates: each body decodes to the resolution ``/state``
+   reports, the step advances by the chunk, the resolution follows
+   ``frame()``'s rule on the reported render ms), a camera post that
+   changes the frame, the crop box, histograms and camera path; poll,
+   render and encode ms; the launches.
 Then the main process's wall seconds by phase (phase ``seconds``, the
 children's under their names), the ``kernels`` line, the card's ``name,
 power.limit``, and last the ``{"ok": true, ...}`` line. ``python3 chip_smoke.py profiler_probe`` runs
@@ -2023,6 +2050,7 @@ def phase_cli():
     the two runs' kernel launches, summed."""
     import numpy as np
 
+    from ngp_tpu_torch.data.jpeg import encode_jpeg
     from ngp_tpu_torch.data.png import read_png
     from ngp_tpu_torch.utils.camera_path import CameraKeyframe, CameraPath
 
@@ -2082,6 +2110,12 @@ def phase_cli():
     decoded = [read_png(os.path.join(frames_dir, name)) for name in frames]
     _, _, normals_s = _cli_line(run2, f"wrote {normals_png}")
     normals_shot = read_png(normals_png)
+    # run 3: the same screenshot as a JPEG: the encoder's bytes of run 2's pixels
+    normals_jpg = os.path.join(out, "normals.jpg")
+    run3 = _cli([train_json, "--load_snapshot", snapshot, "--n_steps", "0",
+                 "--render_mode", "normals", "--screenshot", normals_jpg])
+    jpg_bytes = open(normals_jpg, "rb").read()
+    jpg_equal = jpg_bytes == encode_jpeg(normals_shot)
     n_video = CLI_VIDEO["fps"] * CLI_VIDEO["seconds"]
     with open(train_json) as f:
         half = 0.5 * json.load(f)["aabb_scale"]  # the scene's box around (0.5,)³
@@ -2105,9 +2139,11 @@ def phase_cli():
         "normals_screenshot": list(normals_shot.shape), "normals_s": normals_s,
         "normals_screenshot_mean": float(normals_shot.astype(np.float32).mean()),
         "video_frames": len(frames), "video_s_per_frame": video_s / max(len(frames), 1),
-        "video_line": video_line,
-        "launches": {k: a + b for (k, a), b in zip(_cli_launches(run1).items(),
-                                                    _cli_launches(run2).values())},
+        "video_line": video_line, "run3_s": run3[-1][0], "jpg_screenshot_bytes": len(jpg_bytes),
+        "jpg_screenshot_is_encode_jpeg_of_png": jpg_equal,
+        "launches": {k: a + b + c for (k, a), b, c in zip(
+            _cli_launches(run1).items(), _cli_launches(run2).values(),
+            _cli_launches(run3).values())},
     }
     emit(result)
     if not scores1["psnr"] >= CLI_PSNR_MIN:
@@ -2132,6 +2168,8 @@ def phase_cli():
     if list(normals_shot.shape) != size or not np.isfinite(
             normals_shot.astype(np.float32)).all():
         raise AssertionError(f"normals screenshot {normals_shot.shape}, a view is {size}")
+    if not jpg_equal:
+        raise AssertionError("the CLI's .jpg screenshot is not encode_jpeg of its .png pixels")
 
     _child("cli_checks")  # the in-process checks, in a process of their own
     return result["launches"]
@@ -6054,6 +6092,505 @@ def phase_jpeg_all():
           "seconds": seconds})
 
 
+# -- A11: the JPEG encoder, the Block-NeRF street and the web viewer
+
+JPEG_ENCODE_RES = (640, 360)  # (w, h) of the encoder's timed frame
+JPEG_ENCODE_REPEATS = 20
+STREET_RES = 128
+STREET_VIEWS = 24
+STREET_STEPS = 300
+STREET_FOCAL = 128.0  # pixels: the field of view of tests/test_blocknerf.py's 40 px at 40
+STREET_SPHERE_R = 12.0  # raw world units
+STREET_RING = (40.0, 0.35)  # the cameras' ring: radius and height over it (× radius)
+STREET_BLOCKS = {"b0": ((0.0, 0.0, 0.0), (230, 60, 40)),
+                 "b1": ((200.0, 0.0, 0.0), (40, 70, 230))}
+STREET_CHECK = (40.0, 0.0, 14.0)  # a block's check pose: its centre plus this
+STREET_CHECK_RES = 128
+STREET_TRAINED_DB = 5.0  # the check frames' PSNR over the untrained model's
+PLAYBACK_FRAMES = 60
+PLAYBACK_RES = (640, 360)
+STREET_CLI_STEPS = 50
+STREET_CLI_FRAMES = 8
+VIEWER_POLLS = 20
+VIEWER_RES = (640, 360)
+VIEWER_CHUNK = 8  # training steps a poll
+VIEWER_FPS = 20.0  # Testbed.frame()'s default target
+VIEWER_WARM_STEPS = 200  # trained before serving, so that a frame shows the sphere
+VIEWER_MOVED_SHARE = 0.01  # pixels a camera post must change by over 16 levels
+
+
+def phase_jpeg_encode() -> None:
+    """The encoder (``data/jpeg.encode_jpeg``, host C++) against PIL's bytes
+    on a host with no PIL: at each quality of the fixtures' manifest, every
+    RGB fixture's decode (by the port's decoder) and the seeded odd-size
+    arrays of ``tests/fixtures/jpeg/encode_inputs.py`` hash to the manifest's
+    ``encode_sha256`` (gate: all); then MP/s on one host thread at
+    ``JPEG_ENCODE_RES`` (a capture frame's centre, and noise), the median
+    of ``JPEG_ENCODE_REPEATS``."""
+    import hashlib
+
+    import numpy as np
+
+    from ngp_tpu_torch.data.jpeg import encode_jpeg, read_jpeg
+
+    sys.path.insert(0, JPEG_FIXTURES)
+    try:
+        import encode_inputs
+    finally:
+        sys.path.remove(JPEG_FIXTURES)
+    manifest = json.load(open(os.path.join(JPEG_FIXTURES, "manifest.json")))
+    recorded = manifest["encode_sha256"]
+    inputs = encode_inputs.encode_inputs(JPEG_FIXTURES, read_jpeg)
+    wrong = sorted(f"{name}@{q}" for name, a in inputs.items() for q in recorded[name]
+                   if hashlib.sha256(encode_jpeg(a, int(q))).hexdigest() != recorded[name][q])
+    checked = sum(len(recorded[name]) for name in inputs)
+    w, h = JPEG_ENCODE_RES
+    frame = read_jpeg(os.path.join(JPEG_FIXTURES, "capture", "train", "r_0.jpg"))
+    y0, x0 = (frame.shape[0] - h) // 2, (frame.shape[1] - w) // 2
+    rates = {}
+    for name, a in (("capture_frame", np.ascontiguousarray(frame[y0:y0 + h, x0:x0 + w])),
+                    ("noise", encode_inputs.seeded_pixels(h, w, 7))):
+        times = []
+        for _ in range(JPEG_ENCODE_REPEATS):
+            t0 = time.perf_counter()
+            data = encode_jpeg(a, 90)
+            times.append(time.perf_counter() - t0)
+        rates[name] = {"mp_per_s": w * h / 1e6 / float(np.median(times)),
+                       "ms": float(np.median(times)) * 1e3, "bytes_q90": len(data)}
+    emit({"phase": "jpeg_encode", "host_cpu": _host_cpu(), "inputs": len(inputs),
+          "digests_checked": checked, "digests_equal": checked - len(wrong),
+          "digests_wrong": wrong[:8],
+          "qualities": sorted({q for d in recorded.values() for q in d}),
+          "resolution": [w, h], "one_thread": rates,
+          "timing": "host wall clock, one thread, quality 90"})
+    if wrong or len(inputs) != len(recorded):
+        raise AssertionError(f"jpeg_encode: {len(wrong)} of {checked} files unlike PIL's: "
+                             f"{wrong[:4]}; inputs {len(inputs)} of {len(recorded)}")
+
+
+def _street_lookat(eye, target):
+    """Camera-to-world in ``pose.csv``'s convention (x right, y up, z back)."""
+    import numpy as np
+
+    fwd = np.asarray(target, np.float64) - eye
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, [0.0, 0.0, 1.0])
+    right /= np.linalg.norm(right)
+    m = np.zeros((3, 4), np.float32)
+    m[:, 0], m[:, 1], m[:, 2], m[:, 3] = right, np.cross(right, fwd), -fwd, eye
+    return m
+
+
+def _street_sphere(xform, center, rgb, width: int, height: int, focal: float):
+    """The block's sphere over black, seen by ``pose.csv``'s pinhole (ray
+    R·(x, −y, −1), principal point at the centre): (H, W, 3) float32."""
+    import numpy as np
+
+    x = ((np.arange(width) + 0.5) / width - 0.5) * width / focal
+    y = ((np.arange(height) + 0.5) / height - 0.5) * height / focal
+    xx, yy = np.meshgrid(x, y)
+    d = np.stack([xx, -yy, -np.ones_like(xx)], -1) @ xform[:, :3].T
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    oc = xform[:, 3] - np.asarray(center)
+    b = d @ oc
+    hit = b * b - (oc @ oc - STREET_SPHERE_R ** 2) > 0
+    img = np.zeros((height, width, 3), np.float32)
+    img[hit] = np.asarray(rgb, np.float32) / 255.0
+    return img
+
+
+def _write_street(root: str) -> None:
+    """``tests/test_blocknerf.py``'s two-block street at ``STREET_RES`` with
+    ``STREET_VIEWS`` views a block, PNG frames by the port's writer."""
+    import shutil
+
+    import numpy as np
+
+    from ngp_tpu_torch.data.png import write_png
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "images"))
+    radius, rise = STREET_RING
+    for name, (center, rgb) in STREET_BLOCKS.items():
+        os.makedirs(os.path.join(root, "blocks", name))
+        rows = ["image,fx,fy,cx,cy,m00,m01,m02,m03,m10,m11,m12,m13,m20,m21,m22,m23"]
+        for i in range(STREET_VIEWS):
+            a = 2 * math.pi * i / STREET_VIEWS
+            eye = np.asarray(center) + radius * np.asarray([math.cos(a), math.sin(a), rise])
+            xf = _street_lookat(eye, center)
+            img = _street_sphere(xf, center, rgb, STREET_RES, STREET_RES, STREET_FOCAL)
+            rgba = np.concatenate([img, img.max(-1, keepdims=True) > 0], -1)
+            frame = f"{name}_{i:02d}.png"
+            write_png(os.path.join(root, "images", frame), (rgba * 255).astype(np.uint8))
+            rows.append(",".join([frame, repr(STREET_FOCAL), repr(STREET_FOCAL),
+                                  repr(STREET_RES / 2), repr(STREET_RES / 2),
+                                  *(f"{v:.8f}" for v in xf.reshape(-1))]))
+        with open(os.path.join(root, "blocks", name, "pose.csv"), "w") as f:
+            f.write("\n".join(rows))
+        with open(os.path.join(root, "blocks", name, "setting.json"), "w") as f:
+            json.dump({"scale": 0.005, "aabb_scale": 1, "training_steps": STREET_STEPS}, f)
+
+
+def _street_checks(renderer) -> list:
+    """Each block's check pose through ``render_at``: the block picked, the
+    centre pixel, the PSNR against the analytic sphere at ``render_at``'s
+    own focal (its 50° field of view)."""
+    import numpy as np
+
+    out = []
+    f = 0.5 * STREET_CHECK_RES / math.tan(0.5 * math.radians(50.0))
+    for bi, (center, rgb) in enumerate(STREET_BLOCKS.values()):
+        xf = _street_lookat(np.asarray(center) + np.asarray(STREET_CHECK), center)
+        img, picked = renderer.render_at(xf, STREET_CHECK_RES, STREET_CHECK_RES)
+        gt = _street_sphere(xf, center, rgb, STREET_CHECK_RES, STREET_CHECK_RES, f)
+        mse = float(np.mean((np.clip(img, 0, 1) - gt) ** 2))
+        c = img[STREET_CHECK_RES // 2, STREET_CHECK_RES // 2]
+        out.append({"block": bi, "picked": picked, "centre": [float(v) for v in c],
+                    "dominant_ok": bool(np.argmax(c) == np.argmax(rgb)),
+                    "psnr": -10 * math.log10(max(mse, 1e-12)),
+                    "finite": bool(np.isfinite(img).all())})
+    return out
+
+
+def phase_blocknerf():
+    """ROADMAP A11a: the street (``_write_street``, ``build/street_smoke``)
+    through ``ngp_tpu_torch.blocknerf``: untrained block snapshots scored at
+    the check poses; ``train_street_view_nerf`` at ``Testbed``'s NeRF config
+    (base.json: L=16, T=2^19, 64-wide MLPs, 2^18 slots a step), both blocks
+    ``STREET_STEPS`` steps; ``BlockNerfRenderer`` at each block's check pose
+    (gates: the block picked, the dominant channel, the PSNR
+    ``STREET_TRAINED_DB`` over the untrained model's); ``PLAYBACK_FRAMES``
+    frames at ``PLAYBACK_RES`` along ``playback_world_poses`` (ms a frame,
+    hot swaps, ms a swap; gates: finite frames, both blocks served); then
+    ``python -m ngp_tpu_torch.scripts.blocknerf --train --render`` on a
+    copy (gates: its frames, B1 and the backward launched). The path's
+    launches are read after these; then B1 on a playback frame's largest
+    launch and the fused backward on a block step's own (x, g) against their
+    twins. Returns the launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch import blocknerf
+    from ngp_tpu_torch.data.png import read_png
+    from ngp_tpu_torch.ops import hashgrid as hashgrid_ops
+    from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
+    from ngp_tpu_torch.ops.hashgrid import hashgrid_backward_addends_reference
+    from ngp_tpu_torch.testbed import default_config
+
+    from ngp_tpu_torch.ops.cuda_build import build_all
+
+    root = os.path.join(ROOT, "build", "street_smoke")
+    untrained = os.path.join(ROOT, "build", "street_untrained")
+    t0 = time.perf_counter()
+    build_all()
+    kernel_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _write_street(root)
+    write_s = time.perf_counter() - t0
+    reset_launches()
+    # the untrained model of each block, its snapshot in a copy of the layout
+    shutil.rmtree(untrained, ignore_errors=True)
+    for name in blocknerf.list_blocks(root):
+        ds = blocknerf.load_block_nerf_data(root, name)
+        eng = blocknerf.NerfEngine(default_config("nerf"), ds)
+        os.makedirs(os.path.join(untrained, "blocks", name))
+        blocknerf.save_block_nerf(os.path.join(untrained, "blocks", name, "nerf.ingp"), eng,
+                                  eng.init_state(), eng.init_grid(), ds)
+    del eng
+    before = _street_checks(blocknerf.BlockNerfRenderer(untrained))
+
+    backward = hashgrid_ops.hashgrid_backward_cuda
+    kept, times = [], {}
+
+    def keep_backward(x, g, *rest):
+        kept[:] = [(x, g, *rest)]
+        return backward(x, g, *rest)
+
+    def log(line):
+        times[line] = time.perf_counter()
+
+    hashgrid_ops.hashgrid_backward_cuda = keep_backward
+    try:
+        t0 = time.perf_counter()
+        snaps = blocknerf.train_street_view_nerf(root, log=log)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        hashgrid_ops.hashgrid_backward_cuda = backward
+    lines = list(times)
+    block_s = [times[lines[i + 1]] - times[lines[i]] for i in range(0, len(lines), 2)]
+    train_launches = launch_counts()
+
+    renderer = blocknerf.BlockNerfRenderer(root)
+    after = _street_checks(renderer)
+    # the checks' first swap builds the engine; the playback's only swap
+    swaps_checks, swap_s_checks = renderer.swaps, renderer.swap_s
+    poses = blocknerf.playback_world_poses(root, PLAYBACK_FRAMES)
+    frame_ms, picked, finite = [], [], True
+    largest = []
+    encode = _keep_largest(hashgrid_ops, "hashgrid_encode_cuda", largest)
+    try:
+        for i, xf in enumerate(poses):
+            if i == 1:  # the positions of one frame's largest launch
+                hashgrid_ops.hashgrid_encode_cuda = encode
+            t0 = time.perf_counter()
+            img, idx = renderer.render_at(xf, *PLAYBACK_RES)
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            picked.append(idx)
+            finite &= bool(np.isfinite(img).all()) and img.shape == (PLAYBACK_RES[1],
+                                                                   PLAYBACK_RES[0], 3)
+    finally:
+        hashgrid_ops.hashgrid_encode_cuda = encode
+    swaps = renderer.swaps - swaps_checks
+    hot_swap_ms = (renderer.swap_s - swap_s_checks) / max(swaps, 1) * 1e3
+    render_launches = {k: n - train_launches[k] for k, n in launch_counts().items()}
+
+    cli_root = os.path.join(ROOT, "build", "street_cli")
+    shutil.rmtree(cli_root, ignore_errors=True)
+    shutil.copytree(root, cli_root, ignore=shutil.ignore_patterns("*.ingp"))
+    frames_dir = os.path.join(cli_root, "frames")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-u", "-m", "ngp_tpu_torch.scripts.blocknerf", "--data", cli_root,
+         "--train", "--render", "--n_steps", str(STREET_CLI_STEPS), "--n_frames",
+         str(STREET_CLI_FRAMES), "--out", frames_dir], cwd=ROOT, capture_output=True, text=True)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"blocknerf CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    cli_lines = proc.stdout.splitlines()
+    cli_launches = json.loads(cli_lines[-1].split(":", 1)[1])
+    cli_frames = [read_png(os.path.join(frames_dir, n)) for n in sorted(os.listdir(frames_dir))]
+    launches = {k: train_launches[k] + render_launches[k] + cli_launches[k]
+                for k in train_launches}
+    emit({"phase": "blocknerf", "gpu": nvidia_smi(), "config": "Testbed default (base.json)",
+          "blocks": len(snaps),
+          "views_per_block": STREET_VIEWS, "res": STREET_RES, "steps": STREET_STEPS,
+          "kernel_build_s": kernel_build_s, "write_s": write_s, "train_s": train_s,
+          "block_s": block_s,
+          "block_wall_ms_per_step": [s / STREET_STEPS * 1e3 for s in block_s],
+          "untrained": before, "trained": after,
+          "psnr_gain_db": [a["psnr"] - b["psnr"] for a, b in zip(after, before)],
+          "psnr_gain_gate_db": STREET_TRAINED_DB,
+          "playback_frames": len(frame_ms), "playback_res": list(PLAYBACK_RES),
+          "playback_ms_per_frame_median": float(np.median(frame_ms)),
+          "playback_ms_per_frame_mean": float(np.mean(frame_ms)),
+          "playback_first_frame_ms": frame_ms[0],
+          "playback_blocks": [picked.count(b) for b in (0, 1)],
+          "hot_swaps": swaps, "ms_per_hot_swap": hot_swap_ms,
+          "checks_swap_ms": [swap_s_checks / swaps_checks * 1e3, swaps_checks], "cli_s": cli_s, "cli_lines": cli_lines[-3:],
+          "cli_frames": [list(f.shape) for f in cli_frames[:1]] + [len(cli_frames)],
+          "train_launches": {k: v for k, v in train_launches.items() if v},
+          "render_launches": {k: v for k, v in render_launches.items() if v},
+          "cli_launches": {k: v for k, v in cli_launches.items() if v}})
+    for a, b in zip(after, before):
+        if a["picked"] != a["block"] or not a["dominant_ok"] or not a["finite"]:
+            raise AssertionError(f"blocknerf: check pose of block {a['block']}: {a}")
+        if not a["psnr"] >= b["psnr"] + STREET_TRAINED_DB:
+            raise AssertionError(f"blocknerf: block {a['block']} reads {a['psnr']} dB, the "
+                                 f"untrained model {b['psnr']} dB")
+    if not finite or sorted(set(picked)) != [0, 1] or swaps < 1:
+        raise AssertionError(f"blocknerf playback: finite {finite}, blocks {sorted(set(picked))}, "
+                             f"swaps {swaps}")
+    if len(cli_frames) != STREET_CLI_FRAMES or any(
+            f.shape != (PLAYBACK_RES[1], PLAYBACK_RES[0], 3) for f in cli_frames):
+        raise AssertionError(f"blocknerf CLI frames: {[f.shape for f in cli_frames]}")
+    for name, table in (("hashgrid_encode", launches), ("hashgrid_backward", train_launches),
+                        ("hashgrid_backward", cli_launches)):
+        if table[name] == 0:
+            raise AssertionError(f"blocknerf: a run launched {name} no time")
+
+    # the kernels on the path's own inputs (after the launches are read)
+    emit({"phase": "kernel_blocknerf", "kernel": "hashgrid_encode", "shape": "playback_frame",
+          **_kernel_case("upstream", torch.float32, torch.Generator().manual_seed(9),
+                         x=largest[0][0], aabb_scale=1, profiled=False)})
+    x, g, scale, res, size, hashed, variant, _, n_rows = kept[0][:9]
+    geo = (scale, res, size, hashed, variant)
+    keys, vals = hashgrid_backward_addends_reference(x, g, *geo)
+    emit({"phase": "kernel_blocknerf", "kernel": "hashgrid_backward", "shape": "block_step",
+          "N": x.shape[0], "L": scale.shape[0], "T": n_rows, "F": vals.shape[2], "hash": variant,
+          **_backward_row(x, g, geo, n_rows, keys, vals)})
+    return launches
+
+
+def phase_viewer():
+    """ROADMAP A11b-c: ``utils/viewer.make_server`` over a ``Testbed`` at its
+    NeRF config (base.json) on the committed JPEG capture, trained against
+    its black background ``VIEWER_WARM_STEPS`` steps first, on 127.0.0.1 at
+    port 0. ``VIEWER_POLLS`` polls of ``/frame.jpg`` at ``VIEWER_RES`` with
+    training (gates: each body decodes with the port's decoder to the
+    resolution ``/state`` reports; the step advances by ``VIEWER_CHUNK``
+    each poll; the resolution follows ``Testbed.frame()``'s rule on the
+    render ms ``/state`` reports); a camera post changes the frame (gate:
+    ``VIEWER_MOVED_SHARE`` of its pixels by over 16 levels); the
+    crop box, the histograms (a level's counts sum to its rows), the camera
+    path (two keyframes, played; ``/path.json`` read by ``CameraPath``). Frame
+    ms (the client's), render ms and encode ms; the launches."""
+    import numpy as np
+    import torch
+    import urllib.request
+
+    from ngp_tpu_torch.data.jpeg import decode_jpeg
+    from ngp_tpu_torch.ops.cuda_build import launch_counts, reset_launches
+    from ngp_tpu_torch.testbed import Testbed
+    from ngp_tpu_torch.utils import viewer
+    from ngp_tpu_torch.utils.camera_path import CameraPath
+
+    from ngp_tpu_torch.ops.cuda_build import build_all
+
+    t0 = time.perf_counter()
+    build_all()
+    kernel_build_s = time.perf_counter() - t0
+    # the capture's background is opaque black: trained against that black,
+    # as phase jpeg_train trains it (with random backgrounds the box fills
+    # with black density first, and early frames are uniform)
+    t0 = time.perf_counter()
+    tb = Testbed(scene=os.path.join(JPEG_FIXTURES, "capture", "transforms_train.json"),
+                 train_with_random_bg=False)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tb.train(VIEWER_WARM_STEPS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    encode_ms = []
+    encode = viewer.encode_jpeg
+
+    def timed_encode(img, quality):
+        t0 = time.perf_counter()
+        data = encode(img, quality)
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+        return data
+
+    viewer.encode_jpeg = timed_encode
+    reset_launches()
+    srv = viewer.make_server(tb, port=0, n_train_steps=VIEWER_CHUNK)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % srv.server_address
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=120) as r:
+            return r.read()
+
+    def post(path, doc):
+        req = urllib.request.Request(base + path, data=json.dumps(doc).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read() or b"{}")
+
+    try:
+        polls, log2, step0 = [], 2, tb.training_step
+        budget = 1000.0 / VIEWER_FPS
+        for i in range(VIEWER_POLLS):
+            want = tuple(max(v >> log2, 32) for v in VIEWER_RES)
+            t0 = time.perf_counter()
+            body = get(f"/frame.jpg?w={VIEWER_RES[0]}&h={VIEWER_RES[1]}&train=1")
+            ms = (time.perf_counter() - t0) * 1e3
+            state = json.loads(get("/state"))
+            img = decode_jpeg(body)
+            polls.append({"ms": ms, "render_ms": state["render_ms"], "step": state["step"],
+                          "resolution": state["resolution"], "decoded": list(img.shape),
+                          "want": list(want), "bytes": len(body)})
+            if state["render_ms"] > 2 * budget and (want[0] > 32 or want[1] > 32):
+                log2 += 1
+            elif state["render_ms"] < 0.25 * budget and log2 > 0:
+                log2 -= 1
+        torch.cuda.synchronize()
+        # the camera: two frames without training at one resolution, then moved
+        def still():
+            shapes, img = [], None
+            for _ in range(6):
+                img = decode_jpeg(get("/frame.jpg?w=%d&h=%d&train=0" % VIEWER_RES))
+                shapes.append(img.shape)
+                if len(shapes) > 1 and shapes[-1] == shapes[-2]:
+                    return img
+            return img
+
+        a = still()
+        post("/camera", {"yaw": 1.2, "pitch": 0.5, "radius": 1.1})
+        b = still()
+        moved = (float((np.abs(a.astype(int) - b).max(-1) > 16).mean())
+                 if a.shape == b.shape else None)
+        camera_changed = moved is not None and moved >= VIEWER_MOVED_SHARE
+        crop = {"min": [0.25, 0.25, 0.25], "max": [0.75, 0.75, 0.75]}
+        post("/crop", crop)
+        crop_state = json.loads(get("/state"))["crop"]
+        cropped = decode_jpeg(get("/frame.jpg?w=%d&h=%d&train=0" % VIEWER_RES))
+        tb.render_aabb = None
+        hist = json.loads(get("/histograms"))
+        sizes = tb.engine.network.pos_encoding.level_size.tolist()
+        path_ops = [post("/path", {"op": "add"})]
+        post("/camera", {"yaw": 2.4})
+        path_ops += [post("/path", {"op": "add"}), post("/path", {"op": "play"})]
+        played = decode_jpeg(get("/frame.jpg?w=%d&h=%d&train=0" % VIEWER_RES))
+        path_file = os.path.join(ROOT, "build", "viewer_path.json")
+        with open(path_file, "wb") as f:
+            f.write(get("/path.json"))
+        keyframes = len(CameraPath.load(path_file).keyframes)
+        path_ops.append(post("/path", {"op": "clear"}))
+        page = get("/")
+        launches = launch_counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        viewer.encode_jpeg = encode
+    steps_ok = all(p["step"] == step0 + VIEWER_CHUNK * (i + 1) for i, p in enumerate(polls))
+    res_ok = all(p["resolution"] == p["want"] for p in polls)
+    decoded_ok = all(p["decoded"] == [p["resolution"][1], p["resolution"][0], 3] for p in polls)
+    hist_ok = (len(hist.get("levels", [])) == len(sizes)
+               and all(sum(lev) == s for lev, s in zip(hist["levels"], sizes)))
+    emit({"phase": "viewer", "gpu": nvidia_smi(),
+          "config": "Testbed default (base.json), black background",
+          "kernel_build_s": kernel_build_s, "build_s": build_s,
+          "warm_steps": VIEWER_WARM_STEPS, "warm_s": warm_s,
+          "polls": len(polls), "chunk": VIEWER_CHUNK,
+          "poll_ms_median": float(np.median([p["ms"] for p in polls])),
+          "render_ms_median": float(np.median([p["render_ms"] for p in polls])),
+          "encode_ms_median": float(np.median(encode_ms)), "encodes": len(encode_ms),
+          "resolutions": [p["resolution"] for p in polls],
+          "render_ms": [p["render_ms"] for p in polls],
+          "poll_ms": [p["ms"] for p in polls], "bytes": [p["bytes"] for p in polls],
+          "steps_ok": steps_ok, "resolutions_follow_rule": res_ok, "decoded_ok": decoded_ok,
+          "camera_changed": camera_changed, "camera_moved_share": moved,
+          "crop": crop_state, "cropped": list(cropped.shape),
+          "histogram_levels": len(hist.get("levels", [])), "histograms_ok": hist_ok,
+          "path_ops": path_ops, "path_keyframes": keyframes, "played": list(played.shape),
+          "page_bytes": len(page), "timing": "wall clock around each request",
+          "launches": {k: v for k, v in launches.items() if v}})
+    if not (steps_ok and res_ok and decoded_ok):
+        raise AssertionError(f"viewer polls: steps {steps_ok}, resolutions {res_ok}, "
+                             f"decoded {decoded_ok}: {polls[:3]}")
+    if not camera_changed or crop_state != [crop["min"], crop["max"]] or not hist_ok:
+        raise AssertionError(f"viewer: camera changed {camera_changed}, crop {crop_state}, "
+                             f"histograms {hist_ok}")
+    if (keyframes != 2 or path_ops[2] != {"n_keyframes": 2, "playing": True}
+            or b"canvas" not in page):
+        raise AssertionError(f"viewer path: {path_ops}, keyframes {keyframes}")
+    for name in ("hashgrid_encode", "hashgrid_backward"):
+        if launches[name] == 0:
+            raise AssertionError(f"viewer: the polls launched {name} no time")
+    return launches
+
+
+def phase_street_all():
+    """``chip_smoke.py street``: :func:`phase_jpeg_encode`,
+    :func:`phase_blocknerf` and :func:`phase_viewer` in one process, their
+    launches summed (phase ``street_launches``) and each part's seconds."""
+    seconds = {}
+    t0 = time.perf_counter()
+    phase_jpeg_encode()
+    seconds["jpeg_encode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    block = phase_blocknerf()
+    seconds["blocknerf"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    view = phase_viewer()
+    seconds["viewer"] = time.perf_counter() - t0
+    emit({"phase": "street_launches", "launches": {k: block[k] + view[k] for k in block},
+          "blocknerf": {k: v for k, v in block.items() if v},
+          "viewer": {k: v for k, v in view.items() if v}, "seconds": seconds})
+
+
 PROBE_WINDOWS = 80
 
 
@@ -6165,7 +6702,7 @@ def main():
     # beside the main lane's CLI, image, sdf and volume paths; about as
     # long as it
     torch.cuda.empty_cache()  # the lanes' processes share the card's memory
-    lane = ChildLane(("supervision", "camera", "nerf_surface", "encodings", "jpeg"))
+    lane = ChildLane(("supervision", "camera", "nerf_surface", "encodings", "jpeg", "street"))
     lane.start()
     try:
         cli_launches = phase_cli()
@@ -6210,12 +6747,13 @@ def main():
     surface_launches = lane_launches("nerf_surface", "nerf_surface_launches")
     encodings_launches = lane_launches("encodings", "encodings_launches")
     jpeg_launches = lane_launches("jpeg", "jpeg_launches")
+    street_launches = lane_launches("street", "street_launches")
     emit({"phase": "seconds", "main": seconds,
           "total": sum(v for k, v in seconds.items() if k != "second_lane")})
     later = {k: cli_launches[k] + image_launches[k] + image_cli_launches[k] + sdf_launches[k]
              + volume_launches[k] + camera_launches[k] + supervision_launches[k]
              + surface_launches[k] + encodings_launches[k] + octree_launches[k]
-             + jpeg_launches[k] for k in cli_launches}
+             + jpeg_launches[k] + street_launches[k] for k in cli_launches}
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -6319,6 +6857,14 @@ if __name__ == "__main__":
         phase_octree_all()
     elif sys.argv[1:] == ["jpeg"]:
         phase_jpeg_all()
+    elif sys.argv[1:] == ["street"]:
+        phase_street_all()
+    elif sys.argv[1:] == ["jpeg_encode"]:
+        phase_jpeg_encode()
+    elif sys.argv[1:] == ["blocknerf"]:
+        phase_blocknerf()
+    elif sys.argv[1:] == ["viewer"]:
+        phase_viewer()
     elif sys.argv[1:] == ["encodings_control"]:
         phase_encodings_control()
     elif sys.argv[1:] == ["profiler_probe"]:

@@ -223,6 +223,24 @@ class GridEncoding(nn.Module):
         return self.gather_dtype == "bfloat16"
 
     @torch.no_grad()
+    def level_histograms(self, n_bins: int = 128, vmax: float = 1.0):
+        """Per-level histograms of each live row's largest |feature| over
+        [0, vmax) in ``n_bins`` bins, the last bin taking everything above
+        (``gather_histograms``, ``testbed.cu:4826-4871``; the GUI's hash-level
+        view): (counts (L, n_bins) int32, mean of those values per level
+        (L,) float32), as the JAX package's ``level_histograms``."""
+        L, T, _ = self.table.shape
+        live = torch.arange(T, device=self.table.device)[None, :] < self.level_size[:, None]
+        w = self.table.abs().amax(-1)
+        b = (w / vmax * n_bins).to(torch.int64).clamp(max=n_bins - 1)
+        b = torch.where(live, b, n_bins)  # dead rows in a bin of their own
+        b = b + (n_bins + 1) * torch.arange(L, device=b.device)[:, None]
+        counts = torch.bincount(b.reshape(-1), minlength=L * (n_bins + 1))
+        counts = counts.view(L, n_bins + 1)[:, :n_bins].to(torch.int32)
+        means = torch.where(live, w, 0.0).sum(-1) / self.level_size.clamp_min(1)
+        return counts, means
+
+    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
         """tcnn's init: features ~ U(-1e-4, 1e-4), drawn on the CPU from
         ``generator`` so that every device gets the same table."""

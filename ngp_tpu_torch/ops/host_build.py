@@ -3,9 +3,10 @@ of ``ngp_host.cpp`` (:func:`bvh_build`, :func:`octree_build` and
 :func:`chessboard_dt`, with the numpy signatures of
 ``ngp_tpu/native/__init__.py``, the thread count added; their output equals
 the numpy builders' (``geometry/triangle_bvh.build_bvh_arrays``,
-``geometry/triangle_octree``) array for array), and the JPEG decoder of
-``jpeg_decode.cpp`` (:func:`jpeg_info`, :func:`jpeg_decode`; ``data/jpeg.py``
-wraps them).
+``geometry/triangle_octree``) array for array), the JPEG decoder of
+``jpeg_decode.cpp`` (:func:`jpeg_info`, :func:`jpeg_decode`) and the JPEG
+encoder of ``jpeg_encode.cpp`` (:func:`jpeg_encode`); ``data/jpeg.py``
+wraps the last three.
 
 The library is compiled by ``g++`` at first use into
 ``build/ngp_tpu_torch/`` (git-ignored), named by a hash of the sources and
@@ -29,7 +30,8 @@ import numpy as np
 # the JPEG reader and the converters run without importing torch
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ngp_tpu_torch"
 _HOSTSRC = Path(__file__).resolve().parents[1] / "hostsrc"
-SOURCES = (_HOSTSRC / "ngp_host.cpp", _HOSTSRC / "jpeg_decode.cpp")
+SOURCES = (_HOSTSRC / "ngp_host.cpp", _HOSTSRC / "jpeg_decode.cpp",
+           _HOSTSRC / "jpeg_encode.cpp")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
 _i64, _int, _vp = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
@@ -52,6 +54,7 @@ SIGNATURES = {
     "ngp_chessboard_dt": (None, [_u8p, _int, _i32p]),
     "ngp_jpeg_info": (_int, [ctypes.c_char_p, _i64, _i32p, _u8p, _i64]),
     "ngp_jpeg_decode": (None, [_i64, _vp, _i64p, _vp, _int, _int, _i32p, _u8p, _i64]),
+    "ngp_jpeg_encode": (_i64, [_u8p, _int, _int, _int, _u8p, _i64]),
 }
 # the decoder's statuses: 1 a truncated or corrupt stream, 2 a mode it refuses
 _JPEG_ERRORS = {1: ValueError, 2: NotImplementedError}
@@ -197,3 +200,19 @@ def jpeg_decode(datas: list, rgba: bool, n_threads: int = 0, names=None) -> list
     for i in np.flatnonzero(status):
         raise _jpeg_error(int(status[i]), errs[i * _ERR_LEN:(i + 1) * _ERR_LEN], names[i])
     return outs
+
+
+def jpeg_encode(rgb: np.ndarray, quality: int) -> bytes:
+    """The baseline 4:2:0 JPEG file of the (H, W, 3) uint8 RGB image
+    ``rgb`` at ``quality`` (1-100), as PIL writes it; the caller checks
+    the shape, dtype and quality."""
+    rgb = np.ascontiguousarray(rgb)
+    h, w = rgb.shape[:2]
+    # at most 27 bits a coefficient, every byte stuffed: 432 bytes a block,
+    # 6 blocks an MCU of 16 x 16 pixels, and the headers
+    cap = 1024 + 432 * 6 * ((w + 15) // 16) * ((h + 15) // 16)
+    out = np.empty(cap, np.uint8)
+    n = library().ngp_jpeg_encode(rgb.reshape(-1), w, h, quality, out, cap)
+    if n < 0:
+        raise RuntimeError(f"jpeg_encode: {-n} bytes exceed the bound of {cap}")
+    return out[:n].tobytes()

@@ -67,8 +67,9 @@ def apply_tonemap(img: np.ndarray, curve: str = "identity",
 
 
 def write_image(path: str, img) -> None:
-    """``.exr``: float16 EXR; ``.png``: 8-bit PNG of ``clip(img, 0, 1)·255``
-    truncated, as the JAX package's CLI quantises. Other extensions raise."""
+    """``.exr``: float16 EXR; ``.png``: 8-bit PNG, ``.jpg``/``.jpeg``: JPEG
+    at PIL's default quality 75, each of ``clip(img, 0, 1)·255`` truncated,
+    as the JAX package's CLI quantises. Other extensions raise."""
     img = np.asarray(img)
     ext = os.path.splitext(path)[1].lower()
     if ext == ".exr":
@@ -79,8 +80,12 @@ def write_image(path: str, img) -> None:
         from ngp_tpu_torch.data.png import write_png
 
         write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+    elif ext in (".jpg", ".jpeg"):
+        from ngp_tpu_torch.data.jpeg import write_jpeg
+
+        write_jpeg(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
     else:
-        raise ValueError(f"cannot write {path!r}: the port writes .png and .exr images")
+        raise ValueError(f"cannot write {path!r}: the port writes .png, .jpg and .exr images")
 
 
 def parse_args(argv=None) -> argparse.Namespace:

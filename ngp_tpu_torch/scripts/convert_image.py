@@ -1,9 +1,10 @@
-"""Convert an image to the raw fp16 ``.bin`` gigapixel format, or to EXR or
-PNG (reference ``scripts/convert_image.py``). The ``.bin`` layout is the
+"""Convert an image to the raw fp16 ``.bin`` gigapixel format, or to EXR,
+PNG or JPEG (reference ``scripts/convert_image.py``). The ``.bin`` layout is the
 reference's (int32 h, int32 w, then half RGBA rows,
 ``testbed_image.cu:420-438``). The input is read by
 ``data/image_loader.load_image`` (PNG, JPEG, EXR, ``.bin``), in linear
-colour; a PNG is written as 8-bit sRGB RGB.
+colour; a PNG or JPEG (quality 75, PIL's default) is written as 8-bit sRGB
+RGB.
 
     python -m ngp_tpu_torch.scripts.convert_image --input photo.jpg \\
         --output photo.bin
@@ -17,10 +18,11 @@ import torch
 
 from ngp_tpu_torch.data.exr import write_exr
 from ngp_tpu_torch.data.image_loader import load_image, save_binary_image
+from ngp_tpu_torch.data.jpeg import write_jpeg
 from ngp_tpu_torch.data.png import write_png
 from ngp_tpu_torch.ops.tonemap import linear_to_srgb
 
-OUTPUT_SUFFIXES = (".bin", ".exr", ".png")
+OUTPUT_SUFFIXES = (".bin", ".exr", ".png", ".jpg", ".jpeg")
 
 
 def main(argv=None):
@@ -31,8 +33,8 @@ def main(argv=None):
 
     out = args.output or os.path.splitext(args.input)[0] + ".bin"
     if not out.endswith(OUTPUT_SUFFIXES):
-        raise ValueError(f"cannot write {out!r}: the port writes .bin, .exr and .png images "
-                         "(JPEG encoding is ROADMAP A11)")
+        raise ValueError(f"cannot write {out!r}: the port writes .bin, .exr, .png and .jpg "
+                         "images")
     img = load_image(args.input)  # (H, W, 4) float32 linear
     print(f"{img.shape[1]}x{img.shape[0]} pixels, {img.shape[2]} channels")
     if out.endswith(".bin"):
@@ -41,7 +43,8 @@ def main(argv=None):
         write_exr(out, img)
     else:
         srgb = linear_to_srgb(torch.from_numpy(np.ascontiguousarray(img[..., :3]))).numpy()
-        write_png(out, np.clip(srgb * 255, 0, 255).astype(np.uint8))
+        u8 = np.clip(srgb * 255, 0, 255).astype(np.uint8)
+        (write_png if out.endswith(".png") else write_jpeg)(out, u8)
     print(f"wrote {out}")
 
 

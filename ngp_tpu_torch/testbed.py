@@ -24,9 +24,9 @@ reference_prep_cadence=False, ...)``); a capture's depth maps, envmap,
 supplied rays and ``n_extra_learnable_dims`` come with it, and a
 ``<name>.obj`` mesh or ``<name>.xyz`` point cloud beside it (``<name>`` the
 capture's directory) seeds the density grid (the fork's geometry prior).
-``render_aabb`` gets and sets the engine's render crop box.
-
-Not yet ported, and refused: ``frame()`` (the viewer's heartbeat, A11).
+``render_aabb`` gets and sets the engine's render crop box. ``frame()`` is
+the interactive heartbeat that ``utils/viewer.py`` serves: a training chunk,
+then a render at a dynamic resolution.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import time
 from typing import Any
 
 import numpy as np
@@ -47,6 +48,9 @@ MODES = ("nerf", "sdf", "image", "volume")
 SDF_EYE, SDF_LOOKAT, SDF_FOV_DEG = (0.5, 0.5, 2.0), (0.5, 0.5, 0.5), 50.0
 # the volume camera of render() when no eye or lookat is given
 VOLUME_EYE, VOLUME_LOOKAT = (0.5, 0.5, 2.2), (0.5, 0.5, 0.5)
+# frame()'s dynamic resolution: the first frame renders at 1/2^2 of the
+# asked size (a cold GUI), no side below FRAME_MIN_SIDE
+FRAME_START_LOG2, FRAME_MIN_SIDE = 2, 32
 
 # instant-ngp's configs/nerf/base.json, configs/sdf/base.json and
 # configs/image/base.json, and the volume config, as the JAX package's
@@ -134,10 +138,6 @@ _DEFAULT_CONFIGS = {
 }
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported (ROADMAP {item})")
-
-
 def mode_from_scene(path: str) -> str | None:
     """``mode_from_scene`` (``src/common.cu:144-173``)."""
     if os.path.isdir(path):
@@ -187,6 +187,9 @@ class Testbed:
         self.state = None
         self.grid = None
         self.loss = float("nan")
+        self.shall_train = True  # frame() trains a chunk while set (pyngp's shall_train)
+        self.dyn_res_log2 = FRAME_START_LOG2  # frame()'s scale: 1/2^this of the asked size
+        self.frame_meters: dict | None = None  # frame()'s ms EMAs, from its first call
         self._engine_kwargs = engine_kwargs
         self.network_config: dict | None = None
         if config is not None:
@@ -300,8 +303,57 @@ class Testbed:
         if metrics:
             self.loss = float(metrics["loss"])
 
-    def frame(self, *args, **kwargs) -> dict:
-        raise not_ported("frame() (the viewer's heartbeat)", "A11")
+    # -- the interactive heartbeat (Testbed::frame / train_and_render,
+    #    testbed.cu:3595-3759)
+
+    def frame(self, width: int = 512, height: int = 512, target_fps: float = 20.0,
+              n_train_steps: int = 16, render: bool = True, **render_kw) -> dict:
+        """One heartbeat: ``n_train_steps`` of training (while
+        ``shall_train``), then a render at a dynamic resolution aiming at
+        ``target_fps`` (``m_dynamic_res_target_fps``, ``testbed.h:578``), then
+        the meters. The JAX package's rule, kept exactly: the render is
+        width, height over 2^``dyn_res_log2`` (at least 32 a side), starting
+        at 1/4; a render over twice the frame budget halves the scale and one
+        under a quarter of it doubles the scale, up to full size (the scale
+        steps are 4× in pixels, so the margins keep it from hunting). The
+        render's time is taken after the engine's device finishes. Returns
+        the image (None without ``render``), the resolution (w, h), the ms of
+        the frame, its training and its render, the frame ms EMA, the
+        training step, the loss and the loss EMA."""
+        t0 = time.monotonic()
+        train_ms = render_ms = 0.0
+        if self.shall_train and self.state is not None and n_train_steps > 0:
+            ts = time.monotonic()
+            self.train(n_train_steps)
+            train_ms = (time.monotonic() - ts) * 1e3
+        img, res = None, (0, 0)
+        if render:
+            f = 1 << self.dyn_res_log2
+            w, h = max(width // f, FRAME_MIN_SIDE), max(height // f, FRAME_MIN_SIDE)
+            rs = time.monotonic()
+            img = self.render(w, h, **render_kw)
+            device = torch.device(self.engine.device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            render_ms = (time.monotonic() - rs) * 1e3
+            res = (w, h)
+            budget_ms = 1000.0 / max(target_fps, 1e-3)
+            if render_ms > 2.0 * budget_ms and (w > FRAME_MIN_SIDE or h > FRAME_MIN_SIDE):
+                self.dyn_res_log2 += 1
+            elif render_ms < 0.25 * budget_ms and self.dyn_res_log2 > 0:
+                self.dyn_res_log2 -= 1
+        frame_ms = (time.monotonic() - t0) * 1e3
+        if self.frame_meters is None:
+            from ngp_tpu_torch.utils.meters import Ema
+
+            self.frame_meters = {k: Ema(0.5) for k in ("frame_ms", "train_ms", "render_ms")}
+        for k, v in (("frame_ms", frame_ms), ("train_ms", train_ms), ("render_ms", render_ms)):
+            self.frame_meters[k].update(v)
+        meters = getattr(self.engine, "meters", None)
+        return {"image": img, "resolution": res, "frame_ms": frame_ms, "train_ms": train_ms,
+                "render_ms": render_ms, "frame_ms_ema": self.frame_meters["frame_ms"].value,
+                "training_step": self.training_step, "loss": self.loss,
+                "loss_ema": None if meters is None else meters.loss_ema}
 
     # -- the training set, edited in place (pyngp's nerf.training surface)
 

@@ -133,7 +133,8 @@ class CameraPath:
 
     # -- JSON interop (camera_path.cu:74-139)
 
-    def save(self, path: str) -> None:
+    def to_json(self) -> str:
+        """The path in the reference's JSON dialect, as :meth:`save` writes it."""
         doc = {
             "loop": self.loop,
             "time": 0.0,
@@ -149,8 +150,11 @@ class CameraPath:
                 for k in self.keyframes
             ],
         }
+        return json.dumps(doc, indent=2)
+
+    def save(self, path: str) -> None:
         with open(path, "w") as f:
-            json.dump(doc, f, indent=2)
+            f.write(self.to_json())
 
     @classmethod
     def load(cls, path: str) -> "CameraPath":

@@ -12,11 +12,17 @@ that has none (``chip_smoke.py jpeg`` on the card's machine).
   qualities 1 and 100.
 - ``manifest.json``: the sha256 of PIL's RGBA decode
   (``np.asarray(Image.open(p).convert("RGBA"))``, C order) of every file,
-  the JAX package's ``convert.sharpness`` of each capture frame, and the
-  PIL and libjpeg-turbo versions that wrote them.
+  the JAX package's ``convert.sharpness`` of each capture frame, the PIL
+  and libjpeg-turbo versions that wrote them, and ``encode_sha256``: the
+  sha256 of the JPEG file PIL writes at each quality for each input of
+  ``encode_inputs.py`` (every RGB fixture's decode and seeded arrays of
+  odd sizes), which ``chip_smoke.py jpeg_encode`` holds the port's
+  encoder to.
 
 ``tests/test_torch_jpeg.py`` recomputes the manifest with PIL and holds
-the port's decoder to it. Run from the repository root on the CPU:
+the port's decoder to it; ``tests/test_torch_jpeg_encode.py`` recomputes
+``encode_sha256`` and holds the port's encoder to it. ``python
+tests/fixtures/jpeg/make_fixtures.py --encode`` rewrites that key alone. Run from the repository root on the CPU:
 
     python tests/fixtures/jpeg/make_fixtures.py
 
@@ -38,6 +44,8 @@ import numpy as np
 import PIL
 from PIL import Image, features
 
+from encode_inputs import ENCODE_QUALITIES, encode_inputs
+
 CAPTURE_QUALITY = 90
 CAPTURE_SUBSAMPLING = 2  # 4:2:0
 # name → (height, width, content, grey, PIL save options)
@@ -57,6 +65,28 @@ MODES = {
     "q100.jpg": (7, 5, "noisy", False, {"quality": 100}),
     "q1.jpg": (64, 64, "noisy", False, {"quality": 1}),
 }
+
+
+def pil_rgb(path: str) -> np.ndarray:
+    """PIL's decode: (H, W) for a grey file, (H, W, 3) RGB otherwise."""
+    with Image.open(path) as im:
+        return np.asarray(im if im.mode == "L" else im.convert("RGB"))
+
+
+def encode_digests(root: str) -> dict:
+    """name → {quality: sha256 of PIL's JPEG file} over ``encode_inputs``
+    (``encode_inputs.py``) of PIL's decodes."""
+    import hashlib
+    import io
+
+    out = {}
+    for name, a in encode_inputs(root, pil_rgb).items():
+        out[name] = {}
+        for q in ENCODE_QUALITIES:
+            buf = io.BytesIO()
+            Image.fromarray(a).save(buf, format="JPEG", quality=q)
+            out[name][str(q)] = hashlib.sha256(buf.getvalue()).hexdigest()
+    return out
 
 
 def mode_pixels(h: int, w: int, content: str, seed: int) -> np.ndarray:
@@ -128,12 +158,23 @@ def manifest(root: str, capture_frames: list, modes: list) -> dict:
 
 
 def main():
+    if sys.argv[1:] == ["--encode"]:
+        path = os.path.join(HERE, "manifest.json")
+        m = json.load(open(path))
+        m["encode_sha256"] = encode_digests(HERE)
+        with open(path, "w") as f:
+            json.dump(m, f, indent=1, sort_keys=True)
+        print(f"{len(m['encode_sha256'])} encoder inputs -> {path}")
+        return
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     for sub in ("capture", "modes"):
         shutil.rmtree(os.path.join(HERE, sub), ignore_errors=True)
     frames = write_capture(os.path.join(HERE, "capture"))
     modes = write_modes(os.path.join(HERE, "modes"))
     m = manifest(HERE, frames, modes)
+    with open(os.path.join(HERE, "manifest.json"), "w") as f:
+        json.dump(m, f, indent=1, sort_keys=True)
+    m["encode_sha256"] = encode_digests(HERE)
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
         json.dump(m, f, indent=1, sort_keys=True)
     print(f"{len(frames)} capture frames, {len(modes)} mode files -> {HERE}")

@@ -353,7 +353,8 @@ def test_nsvf2nerf_and_record3d2nerf_entry_points_match_jax(tmp_path):
 def test_convert_image_entry_point_matches_jax(tmp_path):
     """``convert_image`` from a JPEG and a PNG: ``.bin`` and ``.exr`` the
     JAX script's bytes, ``.png`` its pixels within a level; another output
-    type raises ``ValueError`` naming the three."""
+    type raises ``ValueError`` naming the four (``.jpg`` output is held to
+    the JAX script in ``tests/test_torch_jpeg_encode.py``)."""
     rng = np.random.default_rng(8)
     Image.fromarray(np.cumsum(rng.integers(0, 30, (30, 41, 3)), 1).astype(np.uint8)).save(
         tmp_path / "in.jpg", quality=90)
@@ -378,8 +379,8 @@ def test_convert_image_entry_point_matches_jax(tmp_path):
             else:
                 assert outs["port"].read_bytes() == outs["jax"].read_bytes(), (src, ext)
     proc = _run(["-m", "ngp_tpu_torch.scripts.convert_image", "--input", "in.jpg",
-                 "--output", "x.jpg"], tmp_path)
+                 "--output", "x.tga"], tmp_path)
     assert proc.returncode != 0 and "ValueError" in proc.stderr
-    assert ".bin, .exr and .png" in proc.stderr
+    assert ".bin, .exr, .png and .jpg" in proc.stderr
     default = _run(["-m", "ngp_tpu_torch.scripts.convert_image", "--input", "in.jpg"], tmp_path)
     assert default.returncode == 0 and (tmp_path / "in.bin").exists()

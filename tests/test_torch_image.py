@@ -365,7 +365,9 @@ def test_cli_image_mode_matches_the_jax_cli(files, kind, capsys):
 
 def test_image_mode_refusals(files, tmp_path, capsys):
     """NeRF-only calls and flags raise in image mode, as the JAX package's
-    do; a truncated JPEG raises, and ``frame()`` waits for A11."""
+    do; a truncated JPEG raises. ``frame()`` (ported; held to the JAX
+    package in ``tests/test_torch_frame_viewer.py``) renders an image-mode
+    frame at its first scale, a quarter of the asked size."""
     from ngp_tpu_torch import run
     from ngp_tpu_torch.testbed import Testbed
 
@@ -379,8 +381,8 @@ def test_image_mode_refusals(files, tmp_path, capsys):
     tb = Testbed(scene=files["png"], config=files["network"], device="cpu")
     with pytest.raises(ValueError, match="psnr needs nerf mode"):
         tb.psnr()
-    with pytest.raises(NotImplementedError, match="A11"):
-        tb.frame()
+    out = tb.frame(width=256, height=128, n_train_steps=0)
+    assert out["resolution"] == (64, 32) and out["image"].shape == (32, 64, 3)
     # a JPEG scene loads (tests/test_torch_jpeg.py); a cut-off file raises
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff")
     with pytest.raises(ValueError, match="truncated"):

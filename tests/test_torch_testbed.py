@@ -432,8 +432,11 @@ def test_refusals(scene, testbeds, tmp_path, capsys, small_engines):
     assert Testbed(mode="volume").mode == "volume" and default_config("volume")["encoding"]
     with pytest.raises(FileNotFoundError):
         Testbed(scene=str(tmp_path / "volume.nvdb"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        ptb.frame()
+    # frame() is ported (tests/test_torch_frame_viewer.py): a heartbeat
+    # that neither trains nor renders changes nothing but the meters
+    step = ptb.training_step
+    out = ptb.frame(n_train_steps=0, render=False)
+    assert out["image"] is None and out["training_step"] == step and ptb.frame_meters
     # the render crop box (A6) is ported: it round trips through the
     # engine as float32 arrays (tests/test_torch_render_surface.py holds
     # its frames to the JAX package's)
@@ -463,8 +466,10 @@ def test_refusals(scene, testbeds, tmp_path, capsys, small_engines):
     assert (seeded.grid.density < 0).sum() > (plain.density < 0).sum()
     assert (seeded.grid.density[plain.density < 0] == -1).all()
     assert 0 < int((seeded.grid.density == 0).sum()) < int((plain.density == 0).sum())
-    with pytest.raises(ValueError, match=".png and .exr"):
-        run.write_image(str(tmp_path / "x.jpg"), np.zeros((4, 4, 3)))
+    # JPEG screenshots (A11) are ported (tests/test_torch_jpeg_encode.py
+    # holds them to the JAX CLI's bytes); another type raises
+    with pytest.raises(ValueError, match=".png, .jpg and .exr"):
+        run.write_image(str(tmp_path / "x.tga"), np.zeros((4, 4, 3)))
     # overlays (A6) are ported: the left half is the ground truth
     over = ptb.engine.render_image(ptb.state, ptb.grid, 0, stride=8, overlay="gt")
     gt = ptb.engine.images[0, ::8, ::8, :3].to(torch.float32) / 255.0
